@@ -1,0 +1,123 @@
+"""Host-side (NumPy) graph construction: COO → sorted, padded edge lists.
+
+The NumPy counterpart of the JAX package's ``graph_from_edges`` and of the
+four native graph ops it calls (sort, row pointers, degrees, symmetrize).
+Every sort is a stable ``np.lexsort``, which gives the same order as the
+native two-pass counting sort, duplicate edges included.
+
+Padding policy: node/edge counts round up to ``NODE_PAD_MULTIPLE`` /
+``EDGE_PAD_MULTIPLE`` and at least one padding node is always added to
+serve as the target of padding edges.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from mma_tpu_torch.constants import EDGE_PAD_MULTIPLE, NODE_PAD_MULTIPLE
+from mma_tpu_torch.device import DeviceLike, resolve_device
+from mma_tpu_torch.graph.container import Graph
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def sort_edges(src: np.ndarray, dst: np.ndarray
+               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Stable (dst-major, src-minor) sort; returns ``(src, dst, perm)``."""
+    perm = np.lexsort((src, dst)).astype(np.int32)
+    return src[perm], dst[perm], perm
+
+
+def build_row_ptr(dst_sorted: np.ndarray, num_nodes: int) -> np.ndarray:
+    counts = np.bincount(dst_sorted, minlength=num_nodes)
+    row_ptr = np.zeros(num_nodes + 1, np.int32)
+    np.cumsum(counts, out=row_ptr[1:])
+    return row_ptr
+
+
+def degrees(dst: np.ndarray, num_nodes: int) -> np.ndarray:
+    return np.bincount(dst, minlength=num_nodes).astype(np.float32)
+
+
+def symmetrize(src: np.ndarray, dst: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Undirected-graph semantics: both directions, no duplicates or
+    self-loops; returned in (dst, src) order."""
+    src = np.asarray(src, np.int32)
+    dst = np.asarray(dst, np.int32)
+    keep = src != dst
+    pairs = np.concatenate(
+        [np.stack([dst[keep], src[keep]], 1), np.stack([src[keep], dst[keep]], 1)]
+    )
+    pairs = np.unique(pairs, axis=0)
+    return pairs[:, 1].copy(), pairs[:, 0].copy()
+
+
+def graph_from_edges(
+    src: np.ndarray,
+    dst: np.ndarray,
+    num_nodes: int,
+    n_node_pad: Optional[int] = None,
+    n_edge_pad: Optional[int] = None,
+    sort: bool = True,
+    *,
+    device: DeviceLike = None,
+) -> Graph:
+    """Build a padded, dst-sorted :class:`Graph` from COO endpoints.
+
+    Within each destination segment, edges keep ascending source order.
+    ``device=None`` places the graph on the GPU (and raises without one).
+    """
+    dev = resolve_device(device)
+    src = np.asarray(src, dtype=np.int32)
+    dst = np.asarray(dst, dtype=np.int32)
+    if src.shape != dst.shape or src.ndim != 1:
+        raise ValueError(f"src/dst must be 1-D and equal length, got {src.shape} vs {dst.shape}")
+    num_edges = src.shape[0]
+
+    if sort and num_edges > 0:
+        src, dst, _ = sort_edges(src, dst)
+
+    n_node = n_node_pad or _round_up(num_nodes + 1, NODE_PAD_MULTIPLE)
+    n_edge = n_edge_pad or max(_round_up(num_edges, EDGE_PAD_MULTIPLE), EDGE_PAD_MULTIPLE)
+    if n_node <= num_nodes:
+        raise ValueError(f"n_node_pad={n_node} must exceed num_nodes={num_nodes} (padding node needed)")
+    if n_edge < num_edges:
+        raise ValueError(f"n_edge_pad={n_edge} < num_edges={num_edges}")
+
+    pad_e = n_edge - num_edges
+    pad_node = n_node - 1
+    src_p = np.concatenate([src, np.full(pad_e, pad_node, np.int32)])
+    dst_p = np.concatenate([dst, np.full(pad_e, pad_node, np.int32)])
+    edge_mask = np.zeros(n_edge, bool)
+    edge_mask[:num_edges] = True
+    node_mask = np.zeros(n_node, bool)
+    node_mask[:num_nodes] = True
+
+    deg = degrees(dst, n_node)
+    # CSR offsets over the padded edge list: padding edges land on the
+    # padding node's row, which is masked out.
+    row_ptr = build_row_ptr(dst_p, n_node)
+    # Transpose (CSC) order over the padded list.
+    _, src_sorted, src_perm = sort_edges(dst_p, src_p)
+    col_ptr = build_row_ptr(src_sorted, n_node)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return Graph(
+        src=t(src_p),
+        dst=t(dst_p),
+        edge_mask=t(edge_mask),
+        node_mask=t(node_mask),
+        deg=t(deg),
+        row_ptr=t(row_ptr),
+        src_perm=t(src_perm),
+        col_ptr=t(col_ptr),
+        src_csc=t(src_sorted),
+        dst_csc=t(dst_p[src_perm]),
+    )
