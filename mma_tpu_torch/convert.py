@@ -1,12 +1,12 @@
-"""Load parameters of the JAX package's models into the port's modules.
+"""Carry parameters between the JAX package's models and the port's modules.
 
-The JAX parameter tree arrives as nested dicts of numpy arrays (the caller
+The JAX parameter tree is nested dicts of numpy arrays (the caller
 converts with ``np.asarray``), so this module needs no JAX.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -27,6 +27,17 @@ def _load_into(module: torch.nn.Module, params: Mapping[str, np.ndarray], prefix
                     f"{prefix}.{name}: shape {tuple(value.shape)} != {tuple(target.shape)}"
                 )
             target.copy_(value)
+
+
+def node_classifier_to_numpy(model: NodeClassifier) -> Dict[str, Dict[str, np.ndarray]]:
+    """The inverse of :func:`node_classifier_from_jax`: the model's
+    parameters as ``{"gc1": {"w", "b"}, "mma": {"w", "masks", "b"}}`` numpy
+    arrays, in the JAX package's layouts."""
+    return {
+        name: {p: t.detach().cpu().numpy().copy()
+               for p, t in getattr(model, name).named_parameters(recurse=False)}
+        for name in ("gc1", "mma")
+    }
 
 
 def node_classifier_from_jax(params_np: Mapping[str, Mapping[str, np.ndarray]],

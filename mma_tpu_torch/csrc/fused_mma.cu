@@ -1,12 +1,14 @@
-// Hopper (sm_90a) kernels of the MMA node-classification forward.
+// Hopper (sm_90a) kernels of the MMA node-classification forward and
+// backward.
 //
 // Built by nvcc into a shared library with a plain C interface and loaded
 // with ctypes (mma_tpu_torch/ops/cuda/build.py). Each entry point launches
 // on the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so that the Python wrapper raises on a refused
-// launch. Both kernels reduce over the dst-sorted CSR: every output row is
-// written exactly once by the warp that owns it, so there are no atomics
-// and the result is deterministic; rows with no edges get 0.
+// launch. Every kernel reduces over the dst-sorted CSR (or its CSC twin)
+// in a fixed order: each output element is written exactly once, so there
+// are no atomics and the results are deterministic; rows with no edges
+// get 0.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -19,7 +21,9 @@ constexpr int kWarp = 32;
 // Kernel 1: segment_sum_csr
 //
 // Replaces mma_tpu/ops/pallas/fused_mma.py::_sum_kernel (launched by
-// _fused_segment_sum). out[i] = sum_{e in [row_ptr[i], row_ptr[i+1])} data[e].
+// _fused_segment_sum). out[i] = sum_{e in [row_ptr[i], row_ptr[i+1])} data[e],
+// or data[index[e]] when an index is given: the CSC / by-src / gather-VJP
+// uses read their rows through the index instead of a permuted copy.
 //
 // Bound on this card: bytes. Each edge row of `data` is read once and each
 // output row written once, one FLOP per 4 bytes, far below the ridge.
@@ -62,6 +66,7 @@ struct Vec<1> {
 template <int VEC>
 __global__ void segment_sum_csr_kernel(const float* __restrict__ data,
                                        const int32_t* __restrict__ row_ptr,
+                                       const int32_t* __restrict__ index,
                                        float* __restrict__ out, int n_rows,
                                        int n_vec, int lpe) {
   using V = Vec<VEC>;
@@ -84,7 +89,8 @@ __global__ void segment_sum_csr_kernel(const float* __restrict__ data,
     if (cv < n_vec) {
 #pragma unroll 4
       for (int64_t e = start + g; e < end; e += groups) {
-        V::add(acc, __ldg(rows + e * n_vec + cv));
+        const int64_t r = index ? static_cast<int64_t>(__ldg(index + e)) : e;
+        V::add(acc, __ldg(rows + r * n_vec + cv));
       }
     }
     for (int off = lpe; off < kWarp; off <<= 1) {
@@ -132,21 +138,66 @@ __device__ __forceinline__ float sigmoidf(float x) {
 
 // Gathers h[src[e0 + j], ff] for the batch's kEdgeBatch x f values into
 // st (element idx = lane + 32 v is edge j = idx / f, feature ff = idx % f);
-// edges at or past `end` give 0.
-__device__ __forceinline__ void gather_batch(float (&st)[kStageRegs],
+// edges at or past `end` give 0. NREG * 32 must be at least kEdgeBatch * f.
+template <int NREG>
+__device__ __forceinline__ void gather_batch(float (&st)[NREG],
                                              const float* __restrict__ h,
                                              const int32_t* __restrict__ src,
                                              int e0, int end, int f, int lane) {
   int j = 0, ff = lane;
   while (ff >= f) { ff -= f; ++j; }
 #pragma unroll
-  for (int v = 0; v < kStageRegs; ++v) {
+  for (int v = 0; v < NREG; ++v) {
     st[v] = 0.f;
     if (j < kEdgeBatch && e0 + j < end) {
       st[v] = __ldg(h + static_cast<int64_t>(__ldg(src + e0 + j)) * f + ff);
     }
     ff += kWarp;
     while (ff >= f) { ff -= f; ++j; }
+  }
+}
+
+// Stores a gathered batch into the warp's h_s, laid out [f][edge] so that
+// one 16-byte broadcast load gives h[src, ff] for all kEdgeBatch edges.
+template <int NREG>
+__device__ __forceinline__ void stage_batch(float* __restrict__ h_s,
+                                            const float (&st)[NREG], int f,
+                                            int lane) {
+  int j = 0, ff = lane;
+  while (ff >= f) { ff -= f; ++j; }
+#pragma unroll
+  for (int v = 0; v < NREG; ++v) {
+    if (j < kEdgeBatch) h_s[ff * kEdgeBatch + j] = st[v];
+    ff += kWarp;
+    while (ff >= f) { ff -= f; ++j; }
+  }
+}
+
+// Logits of a batch on this thread's 4 lanes:
+// lg[j][q] = c[row, l0 + q] + sum_ff h[src_j, ff] * W_bot[ff, l0 + q].
+// w4 points at this thread's 4 lanes of the shared W_bot tile, hs4 at the
+// warp's staged batch.
+__device__ __forceinline__ void batch_logits(float (&lg)[kEdgeBatch][4],
+                                             const float4 ci,
+                                             const float4* __restrict__ w4,
+                                             const float4* __restrict__ hs4,
+                                             int f) {
+#pragma unroll
+  for (int j = 0; j < kEdgeBatch; ++j) {
+    lg[j][0] = ci.x; lg[j][1] = ci.y; lg[j][2] = ci.z; lg[j][3] = ci.w;
+  }
+#pragma unroll 4
+  for (int ff = 0; ff < f; ++ff) {
+    const float4 wv = w4[ff * (kLaneTile / 4)];
+    const float4 hv = hs4[ff];
+    const float hj[kEdgeBatch] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+    for (int j = 0; j < kEdgeBatch; ++j) {
+      lg[j][0] = fmaf(hj[j], wv.x, lg[j][0]);
+      lg[j][1] = fmaf(hj[j], wv.y, lg[j][1]);
+      lg[j][2] = fmaf(hj[j], wv.z, lg[j][2]);
+      lg[j][3] = fmaf(hj[j], wv.w, lg[j][3]);
+    }
   }
 }
 
@@ -201,39 +252,14 @@ edge_program_lean_fwd_kernel(const float* __restrict__ c,
     for (int e0 = start; e0 < end; e0 += kEdgeBatch) {
       const int nb = min(kEdgeBatch, end - e0);
       __syncwarp();  // the previous batch's reads of h_s are done
-      {
-        int j = 0, ff = lane;
-        while (ff >= f) { ff -= f; ++j; }
-#pragma unroll
-        for (int v = 0; v < kStageRegs; ++v) {
-          if (j < kEdgeBatch) h_s[ff * kEdgeBatch + j] = st[v];
-          ff += kWarp;
-          while (ff >= f) { ff -= f; ++j; }
-        }
-      }
+      stage_batch(h_s, st, f, lane);
       __syncwarp();
       if (e0 + kEdgeBatch < end) {
         gather_batch(st, h, src, e0 + kEdgeBatch, end, f, lane);  // in flight below
       }
 
       float lg[kEdgeBatch][4];
-#pragma unroll
-      for (int j = 0; j < kEdgeBatch; ++j) {
-        lg[j][0] = ci.x; lg[j][1] = ci.y; lg[j][2] = ci.z; lg[j][3] = ci.w;
-      }
-#pragma unroll 4
-      for (int ff = 0; ff < f; ++ff) {
-        const float4 wv = w4[ff * (kLaneTile / 4)];
-        const float4 hv = hs4[ff];
-        const float hj[kEdgeBatch] = {hv.x, hv.y, hv.z, hv.w};
-#pragma unroll
-        for (int j = 0; j < kEdgeBatch; ++j) {
-          lg[j][0] = fmaf(hj[j], wv.x, lg[j][0]);
-          lg[j][1] = fmaf(hj[j], wv.y, lg[j][1]);
-          lg[j][2] = fmaf(hj[j], wv.z, lg[j][2]);
-          lg[j][3] = fmaf(hj[j], wv.w, lg[j][3]);
-        }
-      }
+      batch_logits(lg, ci, w4, hs4, f);
       if (active) {
         // Unrolled with a guard (not a loop to nb) so that lg stays in
         // registers; edges are added in CSR order.
@@ -256,6 +282,317 @@ edge_program_lean_fwd_kernel(const float* __restrict__ c,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Kernel 3: edge_program_lean_bwd
+//
+// Replaces mma_tpu/ops/pallas/fused_mma.py::_program_bwd_lean_kernel
+// (launched by _fused_program_bwd_lean). For each edge e of row i over the
+// CSR, with s = src_e, logits = c[i] + h[s] @ W_bot, sig = sigmoid(logits):
+//   mask = pat ? sig : logits,  dmask = pat ? sig (1 - sig) : 1,
+//   dlog_e = ct[i] * tile(h[s], K) * dmask,
+// and it emits
+//   dc[i]      = sum_{e in row i} dlog_e                     (N, K*F)
+//   dW_bot     = sum_e h[s]^T dlog_e                         (F, K*F)
+//   payload[e] = sum_k (ct[i] * mask_e)_k + dlog_e @ W_bot^T (E, F)
+// Edges outside [row_ptr[0], row_ptr[n_rows]) get payload 0. The caller
+// reduces the payload by source (kernel 1 over the CSC) to form dh.
+//
+// Bound on this card: operations. Per edge it does three (1 x F)(F x K*F)
+// products (the logits again, dlog @ W_bot^T, and the outer product into
+// dW_bot), 6*F*K*F FLOPs against about 4*F gathered bytes.
+// Design: kernel 2's structure (persistent grid, rows dealt round-robin to
+// warps, a 128-lane tile of W_bot in shared memory, batches of 4 edges
+// gathered into shared memory as [f][edge]) plus a W_bot^T tile, so that
+// a lane owning output feature ff reads W_bot^T[l][ff] without bank
+// conflicts for the payload product. ct[i] and c[i] are constant over a
+// row, so a warp loads its 4 lanes of each once per row. dc and payload
+// are written once each, by the warp that owns the row. dW_bot is a sum
+// over every edge and takes no atomics: each block keeps its (F x 128)
+// partial in registers spread over its 256 threads (thread = rows
+// warp + 8 r, lanes lane + 32 q) and, once per step, all warps stage their
+// batch's h[src] and dlog in shared memory and the whole block adds them
+// in a fixed order (warp 0..7, edge 0..3). The block partials go to a
+// (G, F, K*F) buffer that sum_slabs_kernel adds in block order: with the
+// grid size G fixed by the card, dW_bot is bitwise equal run to run. A
+// K*F above 128 takes one block column per lane tile, and the payload
+// partials of the tiles are added by the same fixed-order pass.
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdWarps = 8;
+
+inline size_t bwd_smem_bytes(int f) {
+  return sizeof(float) * (2 * static_cast<size_t>(f) * kLaneTile +
+                          static_cast<size_t>(kBwdWarps) *
+                              (static_cast<size_t>(f) * kEdgeBatch +
+                               2 * kLaneTile * kEdgeBatch)) +
+         sizeof(int) * kBwdWarps;
+}
+
+// FMAX (64 or 128) bounds F; it sizes the per-thread register arrays.
+template <int FMAX>
+__global__ void __launch_bounds__(kBwdWarps * kWarp)
+edge_program_lean_bwd_kernel(const float* __restrict__ c,
+                             const float* __restrict__ h,
+                             const float* __restrict__ w_bot,
+                             const float* __restrict__ pat,
+                             const int32_t* __restrict__ src,
+                             const int32_t* __restrict__ row_ptr,
+                             const float* __restrict__ ct,
+                             float* __restrict__ dc,
+                             float* __restrict__ dw_part,
+                             float* __restrict__ payload_tiles, int n_rows,
+                             int n_edges, int f, int kf) {
+  constexpr int kRows = FMAX / kBwdWarps;  // dW_bot rows per thread
+  constexpr int kOut = FMAX / kWarp;       // payload features per lane
+  constexpr int kRegs = kEdgeBatch * FMAX / kWarp;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* w_s = smem;                       // [f][kLaneTile]
+  float* wt_s = w_s + f * kLaneTile;       // [kLaneTile][f]
+  float* h_all = wt_s + kLaneTile * f;     // per warp [f][edge]
+  float* dl_all = h_all + kBwdWarps * f * kEdgeBatch;           // per warp [l][edge]
+  float* gm_all = dl_all + kBwdWarps * kLaneTile * kEdgeBatch;  // per warp [l][edge]
+  int* nb_s = reinterpret_cast<int*>(gm_all + kBwdWarps * kLaneTile * kEdgeBatch);
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  float* h_s = h_all + warp * f * kEdgeBatch;
+  float* dl_s = dl_all + warp * kLaneTile * kEdgeBatch;
+  float* gm_s = gm_all + warp * kLaneTile * kEdgeBatch;
+
+  const int l_base = blockIdx.y * kLaneTile;
+  const int n_l = min(kLaneTile, kf - l_base);  // lanes of this tile
+  float* payload = payload_tiles + static_cast<int64_t>(blockIdx.y) * n_edges * f;
+
+  // Edges no row covers get payload 0.
+  {
+    const int64_t lo = static_cast<int64_t>(row_ptr[0]) * f;
+    const int64_t hi = static_cast<int64_t>(row_ptr[n_rows]) * f;
+    const int64_t all = static_cast<int64_t>(n_edges) * f;
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+         i < all - hi + lo; i += stride) {
+      payload[i < lo ? i : hi + (i - lo)] = 0.f;
+    }
+  }
+
+  for (int idx = threadIdx.x; idx < f * kLaneTile; idx += blockDim.x) {
+    const int ff = idx / kLaneTile;
+    const int l = idx % kLaneTile;
+    const float v = l < n_l ? w_bot[static_cast<int64_t>(ff) * kf + l_base + l] : 0.f;
+    w_s[idx] = v;
+    wt_s[l * f + ff] = v;
+  }
+  __syncthreads();
+
+  const int l0 = l_base + lane * 4;  // this thread's 4 lanes (logits, dc)
+  const bool active = l0 < kf;      // kf % 4 == 0, so all 4 or none
+  float p[4];
+  int hl[4];  // lane l reads h[src, l mod F]
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    p[q] = active ? pat[l0 + q] : 0.f;
+    hl[q] = (l0 + q) % f;
+  }
+  const float4* w4 = reinterpret_cast<const float4*>(w_s) + lane;
+  const float4* hs4 = reinterpret_cast<const float4*>(h_s);
+
+  float dw[kRows][4];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    dw[r][0] = dw[r][1] = dw[r][2] = dw[r][3] = 0.f;
+  }
+
+  // The warp's current row: edges [e0, end), c and ct on its 4 lanes, and
+  // its dc sums. next_row() writes the sums of a finished row, skips (and
+  // zeroes) empty rows, and loads the next non-empty one.
+  const int n_warps = gridDim.x * kBwdWarps;
+  int row = blockIdx.x * kBwdWarps + warp;
+  int e0 = 0, end = 0;
+  float4 ci = make_float4(0.f, 0.f, 0.f, 0.f), cti = ci;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  auto store_dc = [&](int r) {
+    if (active) {
+      *reinterpret_cast<float4*>(dc + static_cast<int64_t>(r) * kf + l0) =
+          make_float4(acc[0], acc[1], acc[2], acc[3]);
+    }
+  };
+  auto seek_row = [&]() {
+    for (; row < n_rows; row += n_warps) {
+      e0 = row_ptr[row];
+      end = row_ptr[row + 1];
+      acc[0] = acc[1] = acc[2] = acc[3] = 0.f;
+      if (e0 < end) {
+        if (active) {
+          ci = *reinterpret_cast<const float4*>(c + static_cast<int64_t>(row) * kf + l0);
+          cti = *reinterpret_cast<const float4*>(ct + static_cast<int64_t>(row) * kf + l0);
+        }
+        return;
+      }
+      store_dc(row);  // an empty row's sums are 0
+    }
+  };
+  seek_row();
+  bool has = row < n_rows;
+
+  while (__syncthreads_or(has)) {
+    int nb = 0;
+    if (has) {
+      nb = min(kEdgeBatch, end - e0);
+      float st[kRegs];
+      gather_batch(st, h, src, e0, end, f, lane);
+      stage_batch(h_s, st, f, lane);
+      __syncwarp();
+
+      float lg[kEdgeBatch][4];
+      batch_logits(lg, ci, w4, hs4, f);
+      const float cq[4] = {cti.x, cti.y, cti.z, cti.w};
+      float dl[4][kEdgeBatch], gm[4][kEdgeBatch];
+#pragma unroll
+      for (int j = 0; j < kEdgeBatch; ++j) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const bool valid = active && j < nb;
+          const float x = lg[j][q];
+          const float sg = sigmoidf(x);
+          const float m = p[q] != 0.f ? sg : x;
+          const float dm = p[q] != 0.f ? sg * (1.f - sg) : 1.f;
+          const float ht = h_s[hl[q] * kEdgeBatch + j];
+          dl[q][j] = valid ? cq[q] * ht * dm : 0.f;
+          gm[q][j] = valid ? cq[q] * m : 0.f;
+          acc[q] += dl[q][j];  // edges in CSR order
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int l = lane * 4 + q;
+        reinterpret_cast<float4*>(dl_s)[l] = make_float4(dl[q][0], dl[q][1], dl[q][2], dl[q][3]);
+        reinterpret_cast<float4*>(gm_s)[l] = make_float4(gm[q][0], gm[q][1], gm[q][2], gm[q][3]);
+      }
+      __syncwarp();
+
+      // payload[e, ff] for ff = lane + 32 o: the dlog @ W_bot^T product over
+      // the tile's lanes, then the (ct * mask) lanes with l mod F == ff.
+      float pv[kOut][kEdgeBatch];
+#pragma unroll
+      for (int o = 0; o < kOut; ++o) {
+#pragma unroll
+        for (int j = 0; j < kEdgeBatch; ++j) pv[o][j] = 0.f;
+      }
+      const float4* dl4 = reinterpret_cast<const float4*>(dl_s);
+      const float4* gm4 = reinterpret_cast<const float4*>(gm_s);
+#pragma unroll 4
+      for (int l = 0; l < n_l; ++l) {
+        const float4 d = dl4[l];
+#pragma unroll
+        for (int o = 0; o < kOut; ++o) {
+          const int ff = lane + kWarp * o;
+          if (ff < f) {
+            const float wv = wt_s[l * f + ff];
+            pv[o][0] = fmaf(d.x, wv, pv[o][0]);
+            pv[o][1] = fmaf(d.y, wv, pv[o][1]);
+            pv[o][2] = fmaf(d.z, wv, pv[o][2]);
+            pv[o][3] = fmaf(d.w, wv, pv[o][3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int o = 0; o < kOut; ++o) {
+        const int ff = lane + kWarp * o;
+        if (ff < f) {
+          for (int l = ((ff - l_base) % f + f) % f; l < n_l; l += f) {
+            const float4 g = gm4[l];
+            pv[o][0] += g.x; pv[o][1] += g.y; pv[o][2] += g.z; pv[o][3] += g.w;
+          }
+#pragma unroll
+          for (int j = 0; j < kEdgeBatch; ++j) {
+            if (j < nb) payload[static_cast<int64_t>(e0 + j) * f + ff] = pv[o][j];
+          }
+        }
+      }
+
+      e0 += kEdgeBatch;
+      if (e0 >= end) {
+        store_dc(row);
+        row += n_warps;
+        seek_row();
+        has = row < n_rows;
+      }
+    }
+    if (lane == 0) nb_s[warp] = nb;
+    __syncthreads();  // every warp's batch is staged
+
+    // dW_bot partial: rows ff = warp + 8 r, tile lanes lane + 32 q.
+    for (int w = 0; w < kBwdWarps; ++w) {
+      if (nb_s[w] == 0) continue;
+      const float4* d4 = reinterpret_cast<const float4*>(dl_all + w * kLaneTile * kEdgeBatch);
+      const float4* h4 = reinterpret_cast<const float4*>(h_all + w * f * kEdgeBatch);
+      float4 dv[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dv[q] = d4[lane + kWarp * q];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int ff = warp + kBwdWarps * r;
+        if (ff < f) {
+          const float4 hv = h4[ff];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            dw[r][q] = fmaf(hv.x, dv[q].x, dw[r][q]);
+            dw[r][q] = fmaf(hv.y, dv[q].y, dw[r][q]);
+            dw[r][q] = fmaf(hv.z, dv[q].z, dw[r][q]);
+            dw[r][q] = fmaf(hv.w, dv[q].w, dw[r][q]);
+          }
+        }
+      }
+    }
+    // The loop's __syncthreads_or keeps the next batch's staging behind
+    // these reads.
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int ff = warp + kBwdWarps * r;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int l = lane + kWarp * q;
+      if (ff < f && l < n_l) {
+        dw_part[(static_cast<int64_t>(blockIdx.x) * f + ff) * kf + l_base + l] = dw[r][q];
+      }
+    }
+  }
+}
+
+// out[i] = sum_{p < n_parts} parts[p * len + i], added in order p = 0, 1, ...
+__global__ void sum_slabs_kernel(const float* __restrict__ parts, int n_parts,
+                                 int64_t len, float* __restrict__ out) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < len; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    float s = 0.f;
+#pragma unroll 8
+    for (int p = 0; p < n_parts; ++p) s += __ldg(parts + p * len + i);
+    out[i] = s;
+  }
+}
+
+cudaError_t launch_sum_slabs(const float* parts, int n_parts, int64_t len,
+                             float* out, cudaStream_t s) {
+  const int threads = 256;
+  int64_t blocks = (len + threads - 1) / threads;
+  if (blocks > 4096) blocks = 4096;
+  sum_slabs_kernel<<<static_cast<int>(blocks), threads, 0, s>>>(parts, n_parts, len, out);
+  return cudaGetLastError();
+}
+
+template <int FMAX>
+cudaError_t bwd_occupancy(int f, int* per_sm) {
+  const size_t smem = bwd_smem_bytes(f);
+  cudaError_t err = cudaFuncSetAttribute(edge_program_lean_bwd_kernel<FMAX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, edge_program_lean_bwd_kernel<FMAX>, kBwdWarps * kWarp, smem);
+}
+
 }  // namespace
 
 extern "C" {
@@ -264,10 +601,12 @@ const char* mma_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// data (E, C) f32, row_ptr (n_rows+1,) i32, out (n_rows, C) f32. vec4 != 0
-// requires C % 4 == 0 and 16-byte aligned data/out.
-int mma_segment_sum_csr(const void* data, const void* row_ptr, void* out,
-                        int n_rows, int n_chan, int vec4, void* stream) {
+// data (R, C) f32, row_ptr (n_rows+1,) i32, index (E,) i32 or null,
+// out (n_rows, C) f32. Row e of the CSR reads data[index[e]] (data[e]
+// without an index). vec4 != 0 requires C % 4 == 0 and 16-byte aligned
+// data/out.
+int mma_segment_sum_csr(const void* data, const void* row_ptr, const void* index,
+                        void* out, int n_rows, int n_chan, int vec4, void* stream) {
   const int threads = 256;
   const int blocks = (n_rows + threads / kWarp - 1) / (threads / kWarp);
   if (n_rows <= 0 || n_chan <= 0) return static_cast<int>(cudaSuccess);
@@ -278,11 +617,13 @@ int mma_segment_sum_csr(const void* data, const void* row_ptr, void* out,
   if (vec4) {
     segment_sum_csr_kernel<4><<<blocks, threads, 0, s>>>(
         static_cast<const float*>(data), static_cast<const int32_t*>(row_ptr),
-        static_cast<float*>(out), n_rows, n_vec, lpe);
+        static_cast<const int32_t*>(index), static_cast<float*>(out), n_rows, n_vec,
+        lpe);
   } else {
     segment_sum_csr_kernel<1><<<blocks, threads, 0, s>>>(
         static_cast<const float*>(data), static_cast<const int32_t*>(row_ptr),
-        static_cast<float*>(out), n_rows, n_vec, lpe);
+        static_cast<const int32_t*>(index), static_cast<float*>(out), n_rows, n_vec,
+        lpe);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -322,6 +663,60 @@ int mma_edge_program_lean_fwd(const void* c, const void* h, const void* w_bot,
       static_cast<const int32_t*>(src), static_cast<const int32_t*>(row_ptr),
       static_cast<float*>(out), n_rows, f, kf);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The grid size G of mma_edge_program_lean_bwd (blocks per lane tile): as
+// many blocks as fit on the card at once, but no more than the rows need.
+// The caller sizes the (G, f, kf) dW_bot partial buffer from it.
+int mma_edge_program_lean_bwd_grid(int n_rows, int f, int* grid_x) {
+  int device = 0, n_sm = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = f <= 64 ? bwd_occupancy<64>(f, &per_sm) : bwd_occupancy<128>(f, &per_sm);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int row_blocks = (n_rows + kBwdWarps - 1) / kBwdWarps;
+  *grid_x = max(1, min(row_blocks, n_sm * per_sm));
+  return static_cast<int>(cudaSuccess);
+}
+
+// c, ct (n_rows, kf), h (n_rows, f), w_bot (f, kf), pat (kf,) 0/1 f32,
+// src (n_edges,) i32, row_ptr (n_rows+1,) i32. Outputs: dc (n_rows, kf),
+// dw (f, kf), payload (n_edges, f). Scratch: dw_part (grid_x, f, kf) and,
+// when kf > 128, payload_part (ceil(kf / 128), n_edges, f). Same width
+// requirements as mma_edge_program_lean_fwd.
+int mma_edge_program_lean_bwd(const void* c, const void* h, const void* w_bot,
+                              const void* pat, const void* src,
+                              const void* row_ptr, const void* ct, void* dc,
+                              void* dw, void* payload, void* dw_part,
+                              void* payload_part, int n_rows, int n_edges, int f,
+                              int kf, int grid_x, void* stream) {
+  if (n_rows <= 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int tiles = (kf + kLaneTile - 1) / kLaneTile;
+  float* pay = static_cast<float*>(tiles > 1 ? payload_part : payload);
+  const size_t smem = bwd_smem_bytes(f);
+  int per_sm = 0;  // sets the shared-memory attribute of the instance used
+  cudaError_t err = f <= 64 ? bwd_occupancy<64>(f, &per_sm) : bwd_occupancy<128>(f, &per_sm);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(grid_x, tiles);
+  auto kernel = f <= 64 ? edge_program_lean_bwd_kernel<64> : edge_program_lean_bwd_kernel<128>;
+  kernel<<<grid, kBwdWarps * kWarp, smem, s>>>(
+      static_cast<const float*>(c), static_cast<const float*>(h),
+      static_cast<const float*>(w_bot), static_cast<const float*>(pat),
+      static_cast<const int32_t*>(src), static_cast<const int32_t*>(row_ptr),
+      static_cast<const float*>(ct), static_cast<float*>(dc),
+      static_cast<float*>(dw_part), pay, n_rows, n_edges, f, kf);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  err = launch_sum_slabs(static_cast<const float*>(dw_part), grid_x,
+                         static_cast<int64_t>(f) * kf, static_cast<float*>(dw), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (tiles > 1) {
+    err = launch_sum_slabs(pay, tiles, static_cast<int64_t>(n_edges) * f,
+                           static_cast<float*>(payload), s);
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

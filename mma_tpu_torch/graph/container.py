@@ -72,6 +72,16 @@ class Graph:
         """
         return torch.cat([self.row_ptr[:-1], self.row_ptr[-2:-1]])
 
+    @property
+    def real_col_ptr(self) -> torch.Tensor:
+        """``col_ptr`` with the last (padding) node's column emptied.
+
+        The twin of :attr:`real_row_ptr` for src-keyed reductions in CSC
+        order: every padding edge has the padding node as its source, and
+        no real edge does, so this CSC covers exactly the real edges.
+        """
+        return torch.cat([self.col_ptr[:-1], self.col_ptr[-2:-1]])
+
     def to(self, device) -> "Graph":
         """A copy with every tensor field on ``device``."""
         fields = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}

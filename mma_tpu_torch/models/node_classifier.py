@@ -47,16 +47,22 @@ class NodeClassifier(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, graph: Graph, *, training: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                parity_eval_dropout: bool = False) -> torch.Tensor:
         """Log-probabilities ``(N_pad, n_class)``; padding rows are unspecified.
 
-        Dropout between the layers and on the aggregation masks is active
-        only when ``training`` and a ``generator`` are given, as the JAX
-        package's ``rng``. Mask dropout is not ported yet, so that request
-        raises. On the GPU, call under ``torch.no_grad()``: the kernels
-        have no backward yet.
+        ``generator`` plays the JAX package's ``rng`` (it must live on the
+        model's device). Dropout sites, as there:
+
+        - between the layers: only when ``training``;
+        - on the aggregation masks: when ``training``, or in eval with
+          ``parity_eval_dropout=True`` (the reference's always-on N2).
+
+        Without a generator there is no dropout. The feature dropout draws
+        from the generator first, then the mask dropout.
         """
         h = torch.relu(self.gc1(x, graph))
         h = dropout(h, self.dropout_rate, generator if training else None)
-        out = self.mma(h, graph, generator=generator if training else None)
+        mask_dropout_on = training or parity_eval_dropout
+        out = self.mma(h, graph, generator=generator if mask_dropout_on else None)
         return torch.log_softmax(out, dim=-1)

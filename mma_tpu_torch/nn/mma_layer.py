@@ -74,7 +74,7 @@ class MMALayer(nn.Module):
 
     def forward(self, h: torch.Tensor, graph: Graph, *,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``generator`` requests mask dropout (not ported yet); ``None``
+        """``generator`` turns on mask dropout (N2), drawn from it; ``None``
         gives the deterministic eval output."""
         m = masked_multi_aggregate(
             h, graph, self.masks, self.specs,

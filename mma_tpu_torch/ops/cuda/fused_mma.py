@@ -1,34 +1,45 @@
 """Segment-sum and lean MMA edge-program kernels, with their plain versions.
 
-Two hand-written CUDA kernels (``mma_tpu_torch/csrc/fused_mma.cu``) reduce
-over the dst-sorted CSR of a :class:`~mma_tpu_torch.graph.Graph`:
+Three hand-written CUDA kernels (``mma_tpu_torch/csrc/fused_mma.cu``) reduce
+over the dst-sorted CSR of a :class:`~mma_tpu_torch.graph.Graph` or its CSC
+twin:
 
 - :func:`segment_sum_csr` replaces the JAX package's ``_sum_kernel``:
-  ``out[i] = Σ_{e ∈ [row_ptr[i], row_ptr[i+1])} data[e]``.
+  ``out[i] = Σ_{e ∈ [row_ptr[i], row_ptr[i+1])} data[e]``, or
+  ``data[index[e]]`` with an index (the CSC, by-src and gather-VJP uses).
 - :func:`edge_program_lean` replaces ``_program_fwd_lean_kernel``:
   ``S[i] = Σ_{dst_e=i} act(c[i] + h[src_e] @ W_bot) ⊙ tile(h[src_e], K)``.
+- Its backward, :func:`edge_program_lean_bwd`, replaces
+  ``_program_bwd_lean_kernel``: ``dc``, ``dW_bot`` and a per-edge ``dh``
+  payload, which :func:`segment_sum_csr` then reduces by source.
 
-Each wrapper takes the plain PyTorch version for CPU tensors and launches
+Each function takes the plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors; any other device, dtype, shape or layout
-raises. ``LAUNCHES`` counts kernel launches, so a run can show that its
-path went through the kernels. Gradients are not wired yet: a CUDA input
-that requires grad raises.
+raises. :func:`segment_sum_csr` (without an index) and
+:func:`edge_program_lean` are differentiable through
+``torch.autograd.Function``s whose backward dispatches the same way: the
+plain forward and a plain backward on the CPU, the kernels on the card.
+``LAUNCHES`` counts kernel launches, so a run can show that its path went
+through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
 from mma_tpu_torch.ops.cuda import build
 
-LAUNCHES = {"segment_sum": 0, "edge_program_lean": 0}
+LAUNCHES = {"segment_sum": 0, "edge_program_lean": 0, "edge_program_lean_bwd": 0}
 
-# Widths the edge-program kernel takes: W_bot's 128-lane tile lives in
-# shared memory (F · 512 B) and each thread owns 4 lanes.
+# Widths the edge-program kernels take: W_bot's 128-lane tile lives in
+# shared memory (F · 512 B, twice in the backward) and each thread owns 4
+# lanes.
 MAX_F = 128
 MAX_KF = 512
+LANE_TILE = 128
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,10 +52,14 @@ def _lib() -> ctypes.CDLL:
     if not _configured:
         lib.mma_cuda_error_string.argtypes = [_I]
         lib.mma_cuda_error_string.restype = ctypes.c_char_p
-        lib.mma_segment_sum_csr.argtypes = [_P, _P, _P, _I, _I, _I, _P]
+        lib.mma_segment_sum_csr.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
         lib.mma_segment_sum_csr.restype = _I
         lib.mma_edge_program_lean_fwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
         lib.mma_edge_program_lean_fwd.restype = _I
+        lib.mma_edge_program_lean_bwd_grid.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+        lib.mma_edge_program_lean_bwd_grid.restype = _I
+        lib.mma_edge_program_lean_bwd.argtypes = [_P] * 12 + [_I] * 5 + [_P]
+        lib.mma_edge_program_lean_bwd.restype = _I
         _configured = True
     return lib
 
@@ -57,9 +72,7 @@ def _check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:
 
 
 def _check_cuda_inputs(name: str, **tensors: torch.Tensor) -> None:
-    """Validate grad/device/contiguity of a kernel's inputs."""
-    if any(t.requires_grad for t in tensors.values()):
-        raise NotImplementedError("backward kernels land with the training slice")
+    """Validate device/contiguity of a kernel's inputs."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError(f"{name}: inputs on several devices {sorted(map(str, devices))}")
@@ -76,6 +89,10 @@ def _check_dtype(name: str, arg: str, t: torch.Tensor, dtype: torch.dtype) -> No
         raise ValueError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
 
 
+def _on_cpu(*tensors: Optional[torch.Tensor]) -> bool:
+    return all(t.device.type == "cpu" for t in tensors if t is not None)
+
+
 def _row_ids(row_ptr: torch.Tensor) -> torch.Tensor:
     """Destination row of every edge the CSR covers (``dst`` of a sorted list)."""
     n = row_ptr.shape[0] - 1
@@ -85,50 +102,126 @@ def _row_ids(row_ptr: torch.Tensor) -> torch.Tensor:
     )
 
 
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
 # ---------------------------------------------------------------- kernel 1
 
-def segment_sum_reference(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
+def segment_sum_reference(data: torch.Tensor, row_ptr: torch.Tensor,
+                          index: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of :func:`segment_sum_csr`: ``(N, C)`` float32."""
     n = row_ptr.shape[0] - 1
     lo, hi = int(row_ptr[0]), int(row_ptr[-1])
+    rows = data[lo:hi] if index is None else data.index_select(0, index[lo:hi].long())
     out = torch.zeros((n, data.shape[1]), dtype=torch.float32, device=data.device)
-    return out.index_add_(0, _row_ids(row_ptr), data[lo:hi].float())
+    return out.index_add_(0, _row_ids(row_ptr), rows.float())
 
 
-def _segment_sum_kernel(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
+def _segment_sum_kernel(data: torch.Tensor, row_ptr: torch.Tensor,
+                        index: Optional[torch.Tensor] = None) -> torch.Tensor:
     name = "segment_sum_csr"
-    _check_cuda_inputs(name, data=data, row_ptr=row_ptr)
+    extra = {} if index is None else {"index": index}
+    _check_cuda_inputs(name, data=data, row_ptr=row_ptr, **extra)
     _check_dtype(name, "data", data, torch.float32)
     _check_dtype(name, "row_ptr", row_ptr, torch.int32)
-    if data.ndim != 2 or row_ptr.ndim != 1:
-        raise ValueError(f"{name}: data must be (E, C) and row_ptr (N+1,)")
+    if index is not None:
+        _check_dtype(name, "index", index, torch.int32)
+    if data.ndim != 2 or row_ptr.ndim != 1 or (index is not None and index.ndim != 1):
+        raise ValueError(f"{name}: data must be (R, C), row_ptr (N+1,) and index (E,)")
     n, ch = row_ptr.shape[0] - 1, data.shape[1]
     out = torch.empty((n, ch), dtype=torch.float32, device=data.device)
     vec4 = ch % 4 == 0 and data.data_ptr() % 16 == 0
     lib = _lib()
     with torch.cuda.device(data.device):
         err = lib.mma_segment_sum_csr(
-            data.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), n, ch, int(vec4),
-            torch.cuda.current_stream().cuda_stream,
+            data.data_ptr(), row_ptr.data_ptr(),
+            None if index is None else index.data_ptr(), out.data_ptr(), n, ch,
+            int(vec4), _stream(),
         )
     _check_launch(lib, err, name)
     LAUNCHES["segment_sum"] += 1
     return out
 
 
-def segment_sum_csr(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
-    """Sum ``data`` (E, C) over each CSR row of ``row_ptr`` → (N, C) float32.
+def _segment_sum(data, row_ptr, index=None):
+    if _on_cpu(data, row_ptr, index):
+        return segment_sum_reference(data, row_ptr, index)
+    return _segment_sum_kernel(data, row_ptr, index)
 
-    ``row_ptr`` (N+1,) int32 must be non-decreasing with ``row_ptr[-1] <=
-    E`` (a graph builder's CSR; the kernel does not check its values).
+
+def _expand_rows(ct: torch.Tensor, row_ptr: torch.Tensor, n_edges: int) -> torch.Tensor:
+    """The VJP of a segment sum: ``ct[row(e)]`` for every edge the CSR
+    covers, 0 for the others (the JAX package's ``ct[dst]`` masked by
+    ``edge_mask``). The rows come from the CSR itself, without a host sync."""
+    e = torch.arange(n_edges, dtype=row_ptr.dtype, device=ct.device)
+    ids = torch.searchsorted(row_ptr, e, right=True) - 1
+    covered = (e >= row_ptr[0]) & (e < row_ptr[-1])
+    rows = ct.index_select(0, ids.clamp_(0, ct.shape[0] - 1))
+    return torch.where(covered[:, None], rows, 0.0)
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, row_ptr):
+        ctx.save_for_backward(row_ptr)
+        ctx.n_edges = data.shape[0]
+        return _segment_sum(data, row_ptr)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (row_ptr,) = ctx.saved_tensors
+        return _expand_rows(ct, row_ptr, ctx.n_edges), None
+
+
+def segment_sum_csr(data: torch.Tensor, row_ptr: torch.Tensor,
+                    index: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sum ``data`` over each CSR row of ``row_ptr`` → (N, C) float32.
+
+    Without ``index`` row ``i`` sums ``data[e]`` (``data`` is (E, C)) for
+    ``e ∈ [row_ptr[i], row_ptr[i+1])``, and the result is differentiable
+    in ``data``. With ``index`` (E,) int32 it sums ``data[index[e]]``, so a
+    CSC reduction or a gather's VJP needs no permuted copy of ``data``; that
+    form is backward machinery and not differentiable. ``row_ptr`` (N+1,)
+    int32 must be non-decreasing with ``row_ptr[-1] <= E`` and every index
+    in range (a graph builder's CSR; the kernel does not check the values).
     Deterministic; rows without edges give 0.
     """
-    if data.device.type == "cpu" and row_ptr.device.type == "cpu":
-        return segment_sum_reference(data, row_ptr)
-    return _segment_sum_kernel(data, row_ptr)
+    if index is None:
+        return _SegmentSum.apply(data, row_ptr)
+    if torch.is_grad_enabled() and data.requires_grad:
+        raise ValueError("segment_sum_csr with an index is not differentiable")
+    return _segment_sum(data, row_ptr, index)
 
 
-# ---------------------------------------------------------------- kernel 2
+# ------------------------------------------------------------ kernels 2-3
+
+def _check_program_inputs(name, c, w_bot, h, pattern, src, row_ptr, ct=None):
+    extra = {} if ct is None else {"ct": ct}
+    _check_cuda_inputs(name, c=c, w_bot=w_bot, h=h, pattern=pattern, src=src,
+                       row_ptr=row_ptr, **extra)
+    for arg, t in (("c", c), ("w_bot", w_bot), ("h", h), ("pattern", pattern), *extra.items()):
+        _check_dtype(name, arg, t, torch.float32)
+    for arg, t in (("src", src), ("row_ptr", row_ptr)):
+        _check_dtype(name, arg, t, torch.int32)
+    n, f = h.shape
+    kf = w_bot.shape[1]
+    if (c.shape != (n, kf) or w_bot.shape != (f, kf) or pattern.shape != (kf,)
+            or row_ptr.shape != (n + 1,) or src.ndim != 1
+            or (ct is not None and ct.shape != (n, kf))):
+        raise ValueError(
+            f"{name}: shapes c{tuple(c.shape)} w_bot{tuple(w_bot.shape)} "
+            f"h{tuple(h.shape)} pattern{tuple(pattern.shape)} src{tuple(src.shape)} "
+            f"row_ptr{tuple(row_ptr.shape)} do not fit together"
+        )
+    if f % 4 or f > MAX_F or kf % f or kf > MAX_KF:
+        raise ValueError(
+            f"{name}: takes F % 4 == 0, F <= {MAX_F}, K·F <= {MAX_KF}; got F={f}, K·F={kf}"
+        )
+    if c.data_ptr() % 16 or (ct is not None and ct.data_ptr() % 16):
+        raise ValueError(f"{name}: c and ct must be 16-byte aligned")
+    return n, f, kf
+
 
 def edge_program_lean_reference(c, w_bot, h, pattern, src, row_ptr):
     """Plain version of :func:`edge_program_lean`: ``(N, K·F)`` float32."""
@@ -145,43 +238,117 @@ def edge_program_lean_reference(c, w_bot, h, pattern, src, row_ptr):
 
 def _edge_program_lean_kernel(c, w_bot, h, pattern, src, row_ptr):
     name = "edge_program_lean_fwd"
-    _check_cuda_inputs(name, c=c, w_bot=w_bot, h=h, pattern=pattern, src=src,
-                       row_ptr=row_ptr)
-    for arg, t in (("c", c), ("w_bot", w_bot), ("h", h), ("pattern", pattern)):
-        _check_dtype(name, arg, t, torch.float32)
-    for arg, t in (("src", src), ("row_ptr", row_ptr)):
-        _check_dtype(name, arg, t, torch.int32)
-    n, f = h.shape
-    kf = w_bot.shape[1]
-    if (c.shape != (n, kf) or w_bot.shape != (f, kf) or pattern.shape != (kf,)
-            or row_ptr.shape != (n + 1,) or src.ndim != 1):
-        raise ValueError(
-            f"{name}: shapes c{tuple(c.shape)} w_bot{tuple(w_bot.shape)} "
-            f"h{tuple(h.shape)} pattern{tuple(pattern.shape)} src{tuple(src.shape)} "
-            f"row_ptr{tuple(row_ptr.shape)} do not fit together"
-        )
-    if f % 4 or f > MAX_F or kf % f or kf > MAX_KF:
-        raise ValueError(
-            f"{name}: takes F % 4 == 0, F <= {MAX_F}, K·F <= {MAX_KF}; got F={f}, K·F={kf}"
-        )
-    if c.data_ptr() % 16:
-        raise ValueError(f"{name}: c must be 16-byte aligned")
+    n, f, kf = _check_program_inputs(name, c, w_bot, h, pattern, src, row_ptr)
     out = torch.empty((n, kf), dtype=torch.float32, device=c.device)
     lib = _lib()
     with torch.cuda.device(c.device):
         err = lib.mma_edge_program_lean_fwd(
             c.data_ptr(), h.data_ptr(), w_bot.data_ptr(), pattern.data_ptr(),
-            src.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), n, f, kf,
-            torch.cuda.current_stream().cuda_stream,
+            src.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), n, f, kf, _stream(),
         )
     _check_launch(lib, err, name)
     LAUNCHES["edge_program_lean"] += 1
     return out
 
 
+def edge_program_lean_bwd_reference(c, w_bot, h, pattern, src, row_ptr, ct):
+    """Plain version of :func:`edge_program_lean_bwd`, with explicit
+    per-edge tensors: ``(dc, dW_bot, payload)``."""
+    f, kf = w_bot.shape
+    ids = _row_ids(row_ptr)
+    lo, hi = int(row_ptr[0]), int(row_ptr[-1])
+    h_src = h[src[lo:hi].long()]  # (E, F)
+    logits = c[ids] + h_src @ w_bot  # (E, K·F)
+    sig = torch.sigmoid(logits)
+    on = pattern.bool()
+    mask = torch.where(on, sig, logits)
+    dmask = torch.where(on, sig * (1.0 - sig), 1.0)
+    ge = ct[ids]
+    dlog = ge * h_src.repeat(1, kf // f) * dmask
+    dc = torch.zeros((c.shape[0], kf), dtype=torch.float32, device=c.device)
+    dc.index_add_(0, ids, dlog)
+    dw = h_src.t() @ dlog
+    payload = torch.zeros((src.shape[0], f), dtype=torch.float32, device=c.device)
+    payload[lo:hi] = (ge * mask).reshape(-1, kf // f, f).sum(dim=1) + dlog @ w_bot.t()
+    return dc, dw, payload
+
+
+def _edge_program_lean_bwd_kernel(c, w_bot, h, pattern, src, row_ptr, ct):
+    name = "edge_program_lean_bwd"
+    n, f, kf = _check_program_inputs(name, c, w_bot, h, pattern, src, row_ptr, ct)
+    n_edges = src.shape[0]
+    dev = c.device
+    lib = _lib()
+    with torch.cuda.device(dev):
+        grid = ctypes.c_int(0)
+        _check_launch(lib, lib.mma_edge_program_lean_bwd_grid(n, f, ctypes.byref(grid)), name)
+        tiles = -(-kf // LANE_TILE)
+        dc = torch.empty((n, kf), dtype=torch.float32, device=dev)
+        dw = torch.empty((f, kf), dtype=torch.float32, device=dev)
+        payload = torch.empty((n_edges, f), dtype=torch.float32, device=dev)
+        dw_part = torch.empty((grid.value, f, kf), dtype=torch.float32, device=dev)
+        payload_part = (torch.empty((tiles, n_edges, f), dtype=torch.float32, device=dev)
+                        if tiles > 1 else None)
+        err = lib.mma_edge_program_lean_bwd(
+            c.data_ptr(), h.data_ptr(), w_bot.data_ptr(), pattern.data_ptr(),
+            src.data_ptr(), row_ptr.data_ptr(), ct.data_ptr(), dc.data_ptr(),
+            dw.data_ptr(), payload.data_ptr(), dw_part.data_ptr(),
+            None if payload_part is None else payload_part.data_ptr(),
+            n, n_edges, f, kf, grid.value, _stream(),
+        )
+    _check_launch(lib, err, name)
+    LAUNCHES["edge_program_lean_bwd"] += 1
+    return dc, dw, payload
+
+
+def edge_program_lean_bwd(c: torch.Tensor, w_bot: torch.Tensor, h: torch.Tensor,
+                          pattern: torch.Tensor, src: torch.Tensor,
+                          row_ptr: torch.Tensor, ct: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward of :func:`edge_program_lean` for the cotangent ``ct`` (N, K·F).
+
+    With ``logits_e = c[i] + h[src_e] @ W_bot`` on edge ``e`` of row ``i``,
+    ``mask`` and ``dmask`` the activation and its derivative, and
+    ``dlog_e = ct[i] ⊙ tile(h[src_e], K) ⊙ dmask``, returns
+
+    - ``dc`` (N, K·F): ``Σ_{e ∈ row i} dlog_e``;
+    - ``dW_bot`` (F, K·F): ``Σ_e h[src_e]ᵀ dlog_e``;
+    - ``payload`` (E, F): ``Σ_k (ct[i] ⊙ mask_e)_k + dlog_e @ W_botᵀ`` for
+      the edges the CSR covers, 0 for the others.
+
+    ``dh`` is the payload summed by source. Deterministic: ``dW_bot`` sums
+    per-block partials in a fixed order, with no atomics.
+    """
+    tensors = (c, w_bot, h, pattern, src, row_ptr, ct)
+    if _on_cpu(*tensors):
+        return edge_program_lean_bwd_reference(*tensors)
+    return _edge_program_lean_bwd_kernel(*tensors)
+
+
+def _edge_program_lean(c, w_bot, h, pattern, src, row_ptr):
+    if _on_cpu(c, w_bot, h, pattern, src, row_ptr):
+        return edge_program_lean_reference(c, w_bot, h, pattern, src, row_ptr)
+    return _edge_program_lean_kernel(c, w_bot, h, pattern, src, row_ptr)
+
+
+class _EdgeProgramLean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, c, w_bot, h, pattern, src, row_ptr, col_ptr, src_perm):
+        ctx.save_for_backward(c, w_bot, h, pattern, src, row_ptr, col_ptr, src_perm)
+        return _edge_program_lean(c, w_bot, h, pattern, src, row_ptr)
+
+    @staticmethod
+    def backward(ctx, ct):
+        c, w_bot, h, pattern, src, row_ptr, col_ptr, src_perm = ctx.saved_tensors
+        dc, dw, payload = edge_program_lean_bwd(c, w_bot, h, pattern, src, row_ptr,
+                                                ct.contiguous())
+        dh = segment_sum_csr(payload, col_ptr, index=src_perm) if ctx.needs_input_grad[2] else None
+        return dc, dw, dh, None, None, None, None, None
+
+
 def edge_program_lean(c: torch.Tensor, w_bot: torch.Tensor, h: torch.Tensor,
-                      pattern: torch.Tensor, src: torch.Tensor,
-                      row_ptr: torch.Tensor) -> torch.Tensor:
+                      pattern: torch.Tensor, src: torch.Tensor, row_ptr: torch.Tensor,
+                      col_ptr: torch.Tensor, src_perm: torch.Tensor) -> torch.Tensor:
     """Lean MMA edge program over the dst-sorted CSR.
 
     ``S[i] = Σ_{e ∈ row i} act(c[i] + h[src_e] @ W_bot) ⊙ tile(h[src_e], K)``
@@ -192,8 +359,11 @@ def edge_program_lean(c: torch.Tensor, w_bot: torch.Tensor, h: torch.Tensor,
     (a graph builder's CSR; the kernel does not check the values).
     Aggregator ``k`` owns lanes ``[k·F, (k+1)·F)``. The kernel gathers
     ``h[src]`` itself; no (E, K·F) tensor is stored.
+
+    Differentiable in ``c``, ``w_bot`` and ``h`` (:func:`edge_program_lean_bwd`).
+    The gradient of ``h`` reduces the per-edge payload by source over the
+    CSC ``col_ptr`` (N+1,) int32 with ``index=src_perm`` (E,) int32: the CSC
+    that covers the same edges as ``row_ptr`` (``Graph.real_col_ptr`` and
+    ``Graph.src_perm`` beside ``Graph.real_row_ptr``).
     """
-    tensors = (c, w_bot, h, pattern, src, row_ptr)
-    if all(t.device.type == "cpu" for t in tensors):
-        return edge_program_lean_reference(*tensors)
-    return _edge_program_lean_kernel(*tensors)
+    return _EdgeProgramLean.apply(c, w_bot, h, pattern, src, row_ptr, col_ptr, src_perm)

@@ -2,17 +2,22 @@
 
 For every center node ``i`` and neighbor ``j`` the reference computes
 ``mask_ij = act([h_i ‖ h_j] @ W_k)`` and sums ``mask_ij ⊙ h_j`` over ``j``.
-As in the JAX package, ``[h_i ‖ h_j] @ W = h_i @ W_top + h_j @ W_bot``:
-``c = h @ W_top`` is one per-node matmul for all K aggregators, and the
-per-edge work (``h[src] @ W_bot``, the activation, the product with
-``tile(h[src], K)`` and the sum over each destination's edges) runs in the
-lean edge program (``mma_tpu_torch.ops.cuda.fused_mma.edge_program_lean``).
-All K aggregators share one flat ``(N, K·F)`` layout; aggregator ``k``
-owns lanes ``[k·F, (k+1)·F)``.
+As in the JAX package, ``[h_i ‖ h_j] @ W = h_i @ W_top + h_j @ W_bot``, and
+all K aggregators share one flat ``(N, K·F)`` layout; aggregator ``k``
+owns lanes ``[k·F, (k+1)·F)``. Two routes, chosen as the JAX package
+chooses (``mma_tpu/ops/masked_aggregate.py:236-238``):
 
-This module serves the eval forward. Mask dropout (N2) and the
-``std``/``moment_3`` combines need per-edge messages and raise
-``NotImplementedError`` until the training slice ports that path.
+- **Fused lean**: ``c = h @ W_top`` is one per-node matmul, and the lean
+  edge program (``mma_tpu_torch.ops.cuda.fused_mma.edge_program_lean``)
+  does the per-edge work (``h[src] @ W_bot``, the activation, the product
+  with ``tile(h[src], K)`` and the sum over each destination's edges)
+  without storing per-edge tensors, forward and backward.
+- **Half-fused**: mask dropout (N2) and the ``std``/``moment_3`` combines
+  need the per-edge masks and messages, so they materialise ``(E, K·F)``
+  logits ``c[dst] + d[src]``, mask and messages, and reduce them with
+  kernel 1 over the CSR.
+
+Both routes reduce over the real edges only (``Graph.real_row_ptr``).
 """
 
 from __future__ import annotations
@@ -23,7 +28,10 @@ import torch
 
 from mma_tpu_torch.graph.container import Graph
 from mma_tpu_torch.ops.aggregators import AggSpec
-from mma_tpu_torch.ops.cuda.fused_mma import edge_program_lean
+from mma_tpu_torch.ops.cuda.fused_mma import edge_program_lean, segment_sum_csr
+from mma_tpu_torch.ops.gather import gather_by_dst, gather_by_src
+
+_EPS = 1e-5
 
 
 def _flat_lanes(w: torch.Tensor) -> torch.Tensor:
@@ -54,6 +62,22 @@ def sigmoid_lane_pattern(specs: Sequence[AggSpec], activation: str,
     return pat.repeat_interleave(f).to(device)
 
 
+def _edge_messages(h, graph, mask_weights, pat, rate, generator):
+    """The half-fused route's ``(E, K·F)`` messages ``mask ⊙ tile(h[src], K)``.
+
+    With a generator, mask dropout (N2) keeps each mask entry with
+    probability ``1 - rate`` and scales it by ``1 / (1 - rate)``; the keep
+    draws come from ``generator`` on the tensors' device."""
+    k = mask_weights.shape[0]
+    c, d = mma_mask_projections(h, mask_weights)
+    logits = gather_by_dst(c, graph) + gather_by_src(d, graph)
+    mask = torch.where(pat.bool(), torch.sigmoid(logits), logits)
+    if generator is not None:
+        keep = torch.rand(mask.shape, generator=generator, device=mask.device) >= rate
+        mask = torch.where(keep, mask / (1.0 - rate), 0.0)
+    return mask * gather_by_src(h, graph).repeat(1, k)
+
+
 def masked_multi_aggregate(
     h: torch.Tensor,
     graph: Graph,
@@ -70,27 +94,33 @@ def masked_multi_aggregate(
     For each aggregator ``k``:
     ``S_k[i] = Σ_{e: dst(e)=i} act_k(logits_k[e]) ⊙ h[src(e)]``, then the
     spec's center combine. Rows of padding nodes are unspecified.
-    ``generator`` with a positive ``mask_dropout_rate`` requests mask
-    dropout, which is not ported yet.
+    ``generator`` with a positive ``mask_dropout_rate`` turns on mask
+    dropout, drawn from that generator (it must live on ``h``'s device).
     """
     n, f = h.shape
     k = len(specs)
     if mask_weights.shape != (k, 2 * f, f):
         raise ValueError(f"mask_weights {tuple(mask_weights.shape)} != {(k, 2 * f, f)}")
-    if generator is not None and mask_dropout_rate > 0.0:
-        raise NotImplementedError("mask dropout lands with the training slice")
-    unported = sorted({s.combine for s in specs} & {"std", "moment_3"})
-    if unported:
-        raise NotImplementedError(f"combines {unported} land with the training slice")
-
+    dropout_on = generator is not None and mask_dropout_rate > 0.0
+    need_moments = any(s.combine in ("std", "moment_3") for s in specs)
     pat = sigmoid_lane_pattern(specs, activation, parity, f, h.device)
-    w_top = _flat_lanes(mask_weights[:, :f, :])
-    w_bot = _flat_lanes(mask_weights[:, f:, :]).contiguous()
-    c = h @ w_top
-    s = edge_program_lean(c, w_bot, h.contiguous(), pat, graph.src, graph.real_row_ptr)
+    row_ptr = graph.real_row_ptr
+
+    msgs = None
+    if dropout_on or need_moments:
+        msgs = _edge_messages(h, graph, mask_weights, pat, mask_dropout_rate,
+                              generator if dropout_on else None)
+        s = segment_sum_csr(msgs, row_ptr)
+    else:
+        w_top = _flat_lanes(mask_weights[:, :f, :])
+        w_bot = _flat_lanes(mask_weights[:, f:, :]).contiguous()
+        s = edge_program_lean(h @ w_top, w_bot, h.contiguous(), pat, graph.src, row_ptr,
+                              graph.real_col_ptr, graph.src_perm)
     s = s.reshape(n, k, f)
 
     deg = torch.clamp(graph.deg, min=1.0)[:, None]  # (N, 1)
+    if any(sp.combine == "std" for sp in specs):
+        s2 = segment_sum_csr(msgs * msgs, row_ptr).reshape(n, k, f)
     outs = []
     for idx, sp in enumerate(specs):
         sk = s[:, idx, :]
@@ -104,8 +134,23 @@ def masked_multi_aggregate(
             out = torch.minimum(h, sk)
         elif sp.combine == "passthrough":
             out = sk
+        elif sp.combine == "std":
+            mean = sk / deg
+            mean_sq = s2[:, idx, :] / deg
+            out = torch.sqrt(torch.relu(mean_sq - mean * mean) + _EPS)
         elif sp.combine == "normalized_mean":
             out = sk * torch.rsqrt(deg)
+        elif sp.combine == "moment_3":
+            # Two-pass central moment E[(x − μ)³], and a signed cube root
+            # that is linear at 0, as in the JAX package
+            # (masked_aggregate.py:350-369): the one-pass raw-moment form
+            # cancels catastrophically and sign(m)·|m|^(1/3) jumps on
+            # rounding noise.
+            mean = sk / deg
+            msgs_k = msgs[:, idx * f:(idx + 1) * f]
+            s3 = segment_sum_csr((msgs_k - gather_by_dst(mean, graph)) ** 3, row_ptr)
+            m3 = s3 / deg
+            out = m3 * (m3 * m3 + _EPS) ** (-1.0 / 3.0)
         else:
             raise ValueError(f"unknown combine {sp.combine!r}")
         outs.append(out)

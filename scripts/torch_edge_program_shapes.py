@@ -40,8 +40,8 @@ def main() -> int:
         c = torch.randn((graph.n_node, kf), generator=gen).cuda()
         w = (torch.randn((f, kf), generator=gen) / f ** 0.5).cuda()
         pat = torch.ones(kf, device="cuda")
-        row_ptr = graph.real_row_ptr
-        ms = device_ms(lambda: fused_mma.edge_program_lean(c, w, h, pat, graph.src, row_ptr))
+        args = (c, w, h, pat, graph.src, graph.real_row_ptr, graph.real_col_ptr, graph.src_perm)
+        ms = device_ms(lambda: fused_mma.edge_program_lean(*args))
         print(f"{name}: E={int(graph.num_edges)} max in-degree {int(graph.deg.max())} "
               f"N={graph.n_node}: {ms:.4f} ms")
 

@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
-"""Device-time breakdown of the port's node-classifier eval forward on one GPU.
+"""Device-time breakdown of the port's node classifier on one GPU: its eval
+forward or its train step.
 
-    python3 scripts/torch_forward_profile.py [--graph synthetic-large|cora] [--iters 5]
+    python3 scripts/torch_forward_profile.py [--graph synthetic-large|cora]
+        [--mode forward|train] [--iters 5]
 
-Builds the kernels, runs the forward once to warm up, then traces
-``--iters`` forwards with ``torch.profiler`` and prints the device time per
-kernel (sum over the traced forwards, divided by ``--iters``), the device
-busy share of the traced window, and the host-clock latency per forward.
-Weights and features are random from a seed, as in ``chip_smoke.py``.
+Builds the kernels, runs the work once to warm up, then traces ``--iters``
+runs with ``torch.profiler`` and prints the device time per kernel (sum
+over the traced runs, divided by ``--iters``), the device busy share of
+the traced window, and the host-clock time per run. ``--mode train`` runs
+``node_train_step`` (forward, backward, Adam) as ``chip_smoke.py`` does:
+Cora at the README preset (mask dropout 0.75, the half-fused route) and
+synthetic-large with dropout 0 (the fused route, kernel 3). Weights,
+features and labels are random from a seed, as in ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--graph", choices=("synthetic-large", "cora"), default="synthetic-large")
+    ap.add_argument("--mode", choices=("forward", "train"), default="forward")
     ap.add_argument("--iters", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -33,6 +39,8 @@ def main() -> int:
         return 1
     from mma_tpu_torch import NodeClassifier, load_planetoid, synthetic_powerlaw
     from mma_tpu_torch.ops.cuda import build
+    from mma_tpu_torch.train import make_optimizer
+    from mma_tpu_torch.train.loops import node_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -43,34 +51,50 @@ def main() -> int:
     if args.graph == "cora":
         data = load_planetoid("cora")
         graph, x = data.graph, data.features
+        labels, idx = data.labels.long(), data.idx_train.long()
         model = NodeClassifier(data.num_features, 64, data.num_classes, ("mean", "mean2"),
-                               generator=gen)
+                               dropout_rate=0.75, generator=gen)
     else:
         graph = synthetic_powerlaw(131072, avg_deg=16, seed=1)
         x = torch.randn((graph.n_node, 64), generator=gen).cuda() * graph.node_mask[:, None]
-        model = NodeClassifier(64, 64, 16, ("mean", "mean2"), generator=gen)
+        labels = torch.randint(0, 16, (graph.n_node,), generator=gen).cuda()
+        idx = torch.randperm(131072, generator=gen)[:65536].cuda()
+        model = NodeClassifier(64, 64, 16, ("mean", "mean2"),
+                               dropout_rate=0.0 if args.mode == "train" else 0.5,
+                               generator=gen)
 
-    with torch.no_grad():
-        model(x, graph)
-        torch.cuda.synchronize()
-        lat = []
-        for _ in range(args.iters):
-            t0 = time.perf_counter()
-            model(x, graph)
-            torch.cuda.synchronize()
-            lat.append((time.perf_counter() - t0) * 1e3)
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(args.iters):
+    if args.mode == "train":
+        opt = make_optimizer(model.parameters(), 1e-3, 3e-4)
+        step_gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def run():
+            node_train_step(model, opt, x, graph, labels, idx, step_gen)
+    else:
+        def run():
+            with torch.no_grad():
                 model(x, graph)
-            torch.cuda.synchronize()
-            window_ms = (time.perf_counter() - t0) * 1e3
+
+    run()
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(args.iters):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.iters):
+            run()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
 
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # operator rows repeat their kernels' device time
+        if ev.device_type != torch.autograd.DeviceType.CUDA or getattr(
+                ev, "is_user_annotation", False):
+            continue  # operator and annotation rows repeat their kernels' device time
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0)
@@ -78,12 +102,13 @@ def main() -> int:
             rows.append((dev_us / args.iters / 1e3, ev.count // args.iters, ev.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"graph {args.graph}: host-clock latency per forward (ms): "
+    print(f"graph {args.graph}, {args.mode}: host-clock time per run (ms): "
           f"{' '.join(f'{v:.3f}' for v in lat)}")
-    print(f"traced window {window_ms / args.iters:.3f} ms per forward (host clock), "
-          f"device busy {busy:.3f} ms per forward, busy share {busy / (window_ms / args.iters):.3f}")
-    print("device ms per forward | launches per forward | kernel")
-    for ms, count, key in rows[:15]:
+    print(f"traced window {window_ms / args.iters:.3f} ms per run (host clock), "
+          f"device busy {busy:.3f} ms per run, busy share {busy / (window_ms / args.iters):.3f}, "
+          f"{sum(r[1] for r in rows)} device launches and copies per run")
+    print("device ms per run | launches per run | kernel")
+    for ms, count, key in rows[:20]:
         print(f"{ms:10.4f} | {count:3d} | {key[:110]}")
     if not rows:
         print("profiler recorded no device time")

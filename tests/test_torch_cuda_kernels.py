@@ -66,12 +66,13 @@ def test_edge_program_kernel_matches_plain(cuda, graph, f, aggs):
     w_bot = torch.from_numpy((rs.randn(f, k * f) / np.sqrt(f)).astype(np.float32)).to(cuda)
     pat = sigmoid_lane_pattern([get_agg_spec(a) for a in aggs], "new_sigmoid", True, f, cuda)
     args = (c, w_bot, h, pat, graph.src, graph.row_ptr)
+    csc = (graph.col_ptr, graph.src_perm)
     before = fused_mma.LAUNCHES["edge_program_lean"]
-    got = fused_mma.edge_program_lean(*args)
+    got = fused_mma.edge_program_lean(*args, *csc)
     torch.cuda.synchronize()
     assert fused_mma.LAUNCHES["edge_program_lean"] == before + 1
     _close(got, fused_mma.edge_program_lean_reference(*args))
-    assert torch.equal(got, fused_mma.edge_program_lean(*args))  # deterministic
+    assert torch.equal(got, fused_mma.edge_program_lean(*args, *csc))  # deterministic
     assert (got[260:300] == 0).all()
 
 
@@ -81,14 +82,16 @@ def test_kernels_reject_what_they_do_not_take(cuda, graph):
         fused_mma.segment_sum_csr(data.double(), graph.row_ptr)
     with pytest.raises(ValueError, match="contiguous"):
         fused_mma.segment_sum_csr(data.t(), graph.row_ptr)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fused_mma.segment_sum_csr(data.requires_grad_(), graph.row_ptr)
+    with pytest.raises(ValueError, match="not differentiable"):
+        fused_mma.segment_sum_csr(data.requires_grad_(), graph.real_col_ptr,
+                                  index=graph.src_perm)
     f = 132  # above the kernel's F limit
     h = torch.zeros(graph.n_node, f, device=cuda)
     with pytest.raises(ValueError, match="F <= 128"):
         fused_mma.edge_program_lean(torch.zeros(graph.n_node, f, device=cuda),
                                     torch.zeros(f, f, device=cuda), h,
-                                    torch.zeros(f, device=cuda), graph.src, graph.row_ptr)
+                                    torch.zeros(f, device=cuda), graph.src, graph.row_ptr,
+                                    graph.col_ptr, graph.src_perm)
 
 
 def test_node_classifier_on_card_matches_cpu(cuda, graph):
@@ -107,3 +110,138 @@ def test_node_classifier_on_card_matches_cpu(cuda, graph):
     assert fused_mma.LAUNCHES["segment_sum"] == before["segment_sum"] + 2
     assert fused_mma.LAUNCHES["edge_program_lean"] == before["edge_program_lean"] + 1
     _close(got[:300].cpu(), want[:300])
+
+
+@pytest.mark.parametrize("channels", [64, 16, 7])
+def test_segment_sum_kernel_with_index_matches_plain(cuda, graph, channels):
+    """The indexed uses: the CSC with ``index=dst_csc`` over a node table
+    (binary_spmm's backward) and with ``index=src_perm`` over edge rows (the
+    by-source reduce)."""
+    rs = np.random.RandomState(4)
+    nodes = torch.from_numpy(rs.randn(graph.n_node, channels).astype(np.float32)).to(cuda)
+    edges = torch.from_numpy(rs.randn(graph.n_edge, channels).astype(np.float32)).to(cuda)
+    for data, index in ((nodes, graph.dst_csc), (edges, graph.src_perm), (nodes, graph.src)):
+        row_ptr = graph.real_row_ptr if index is graph.src else graph.real_col_ptr
+        before = fused_mma.LAUNCHES["segment_sum"]
+        got = fused_mma.segment_sum_csr(data, row_ptr, index)
+        torch.cuda.synchronize()
+        assert fused_mma.LAUNCHES["segment_sum"] == before + 1
+        _close(got, fused_mma.segment_sum_reference(data, row_ptr, index))
+        assert torch.equal(got, fused_mma.segment_sum_csr(data, row_ptr, index))
+
+
+@pytest.mark.parametrize("f,aggs", [(12, ("mean", "max", "sum")), (16, ("mean", "max")),
+                                    (64, ("mean", "mean2")), (96, ("mean", "max")),
+                                    (128, ("sum", "max", "min", "mean"))])
+def test_edge_program_bwd_kernel_matches_plain(cuda, graph, f, aggs):
+    """Kernel 3 against its plain version, bitwise equal run to run; K·F
+    above 128 (F=96 and 128 here) takes several lane tiles."""
+    rs = np.random.RandomState(2)
+    k = len(aggs)
+    h = torch.from_numpy(rs.randn(graph.n_node, f).astype(np.float32)).to(cuda)
+    c = torch.from_numpy(rs.randn(graph.n_node, k * f).astype(np.float32)).to(cuda)
+    ct = torch.from_numpy(rs.randn(graph.n_node, k * f).astype(np.float32)).to(cuda)
+    w_bot = torch.from_numpy((rs.randn(f, k * f) / np.sqrt(f)).astype(np.float32)).to(cuda)
+    pat = sigmoid_lane_pattern([get_agg_spec(a) for a in aggs], "new_sigmoid", True, f, cuda)
+    args = (c, w_bot, h, pat, graph.src, graph.real_row_ptr, ct)
+    before = fused_mma.LAUNCHES["edge_program_lean_bwd"]
+    got = fused_mma.edge_program_lean_bwd(*args)
+    torch.cuda.synchronize()
+    assert fused_mma.LAUNCHES["edge_program_lean_bwd"] == before + 1
+    want = fused_mma.edge_program_lean_bwd_reference(*args)
+    for g, w in zip(got, want):
+        _close(g, w)
+    again = fused_mma.edge_program_lean_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # deterministic
+    dc, _, payload = got
+    assert (dc[260:] == 0).all()  # rows without edges
+    assert (payload[int(graph.real_row_ptr[-1]):] == 0).all()  # padding edges
+
+
+def _grads(fn, *inputs):
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    g = torch.from_numpy(np.random.RandomState(9).randn(*out.shape).astype(np.float32))
+    out.backward(g.to(out.device))
+    return out.detach().cpu(), [t.grad.cpu() for t in leaves]
+
+
+def test_autograd_functions_on_card_match_cpu(cuda, graph):
+    """Each Function's forward and gradients on the card (kernels) against
+    the same Function on the CPU (plain forward and backward)."""
+    from mma_tpu_torch.ops import binary_spmm
+    from mma_tpu_torch.ops.gather import gather_by_dst, gather_by_src
+
+    cpu_graph = graph.to("cpu")
+    rs = np.random.RandomState(5)
+    f, aggs = 64, ("mean", "max")
+    h = torch.from_numpy(rs.randn(graph.n_node, f).astype(np.float32))
+    c = torch.from_numpy(rs.randn(graph.n_node, 2 * f).astype(np.float32))
+    w_bot = torch.from_numpy((rs.randn(f, 2 * f) / np.sqrt(f)).astype(np.float32))
+    e_data = torch.from_numpy(rs.randn(graph.n_edge, 16).astype(np.float32))
+    cases = {
+        "edge_program_lean": (
+            lambda g: (lambda c_, w_, h_: fused_mma.edge_program_lean(
+                c_, w_, h_,
+                sigmoid_lane_pattern([get_agg_spec(a) for a in aggs], "new_sigmoid", True, f,
+                                     g.src.device),
+                g.src, g.real_row_ptr, g.real_col_ptr, g.src_perm)),
+            (c, w_bot, h)),
+        "segment_sum_csr": (lambda g: (lambda d: fused_mma.segment_sum_csr(d, g.real_row_ptr)),
+                            (e_data,)),
+        "binary_spmm": (lambda g: (lambda x: binary_spmm(g, x)), (h,)),
+        "gather_by_dst": (lambda g: (lambda x: gather_by_dst(x, g)), (h,)),
+        "gather_by_src": (lambda g: (lambda x: gather_by_src(x, g)), (h,)),
+    }
+    for name, (make, inputs) in cases.items():
+        got, got_g = _grads(make(graph), *(t.to(cuda) for t in inputs))
+        want, want_g = _grads(make(cpu_graph), *inputs)
+        _close(got, want)
+        for g, w in zip(got_g, want_g):
+            _close(g, w)
+
+
+def test_train_step_on_card_matches_cpu(cuda, graph, monkeypatch):
+    """One ``node_train_step`` (dropout 0: fused route, kernel 3) on the card
+    against the CPU; a step with mask dropout (half-fused route) launches no
+    kernel 3 and gives the gradients of the same step with every kernel
+    replaced by its plain version on the card (one seed, so the same
+    dropout draws)."""
+    from mma_tpu_torch import NodeClassifier
+    from mma_tpu_torch.train import make_optimizer
+    from mma_tpu_torch.train.loops import node_train_step
+
+    x = torch.randn((graph.n_node, 24), generator=torch.Generator().manual_seed(1))
+    labels = torch.randint(0, 5, (graph.n_node,), generator=torch.Generator().manual_seed(2))
+    idx = torch.arange(0, 300, 2)
+    models = {}
+    for dev, g in ((cuda, graph), ("cpu", graph.to("cpu"))):
+        model = NodeClassifier(24, 64, 5, ("mean", "max"), dropout_rate=0.0, device=dev,
+                               generator=torch.Generator().manual_seed(0))
+        loss, _ = node_train_step(model, make_optimizer(model.parameters(), 1e-3, 5e-4),
+                                  x.to(dev), g, labels.to(dev), idx.to(dev),
+                                  torch.Generator(device=dev).manual_seed(0))
+        models[str(dev)] = (model, float(loss))
+    (gpu_model, gpu_loss), (cpu_model, cpu_loss) = models["cuda"], models["cpu"]
+    assert abs(gpu_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
+    for (name, p), q in zip(gpu_model.named_parameters(), cpu_model.parameters()):
+        _close(p.grad.cpu(), q.grad)
+
+    def dropout_step():
+        model = NodeClassifier(24, 64, 5, ("mean", "max"), dropout_rate=0.5, device=cuda,
+                               generator=torch.Generator().manual_seed(0))
+        node_train_step(model, make_optimizer(model.parameters(), 1e-3), x.to(cuda), graph,
+                        labels.to(cuda), idx.to(cuda),
+                        torch.Generator(device=cuda).manual_seed(0))
+        return [p.grad for p in model.parameters()]
+
+    before = dict(fused_mma.LAUNCHES)
+    got = dropout_step()
+    torch.cuda.synchronize()
+    assert fused_mma.LAUNCHES["edge_program_lean_bwd"] == before["edge_program_lean_bwd"]
+    assert fused_mma.LAUNCHES["segment_sum"] == before["segment_sum"] + 8
+    for name, plain in (("_segment_sum_kernel", fused_mma.segment_sum_reference),
+                        ("_edge_program_lean_kernel", fused_mma.edge_program_lean_reference)):
+        monkeypatch.setattr(fused_mma, name, plain)
+    for g, w in zip(got, dropout_step()):
+        _close(g, w)

@@ -91,7 +91,7 @@ def test_edge_program_lean_reference_matches_jax(graphs, aggs):
 
     got = fused_mma.edge_program_lean(
         torch.from_numpy(c), torch.from_numpy(w_bot), torch.from_numpy(h), pat,
-        tg.src, tg.row_ptr,
+        tg.src, tg.row_ptr, tg.col_ptr, tg.src_perm,
     ).numpy()
 
     pallas = np.asarray(fused_mma_edge_program_lean(
@@ -126,9 +126,15 @@ def test_kernel_path_raises_off_the_card_and_counts_nothing():
             torch.zeros(8, device="meta"), torch.zeros(8, dtype=torch.int32, device="meta"),
             row_ptr)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        fused_mma.edge_program_lean(*args)
-    with pytest.raises(NotImplementedError, match="training slice"):
+        fused_mma.edge_program_lean(*args, row_ptr, args[4])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused_mma.edge_program_lean_bwd(*args, torch.zeros(2, 8, device="meta"))
+    # Inputs that require grad take the same route, through the autograd
+    # Functions; the indexed form is backward machinery and refuses them.
+    with pytest.raises(ValueError, match="CUDA tensors"):
         fused_mma.segment_sum_csr(data.requires_grad_(), row_ptr)
+    with pytest.raises(ValueError, match="not differentiable"):
+        fused_mma.segment_sum_csr(data, row_ptr, index=torch.zeros(8, dtype=torch.int32))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             build.library("fused_mma")

@@ -1,6 +1,7 @@
 """The port's layers and node classifier against the JAX package's eval
 forward, with the JAX parameters carried over by ``convert.py``."""
 
+import dataclasses
 import subprocess
 import sys
 
@@ -24,6 +25,7 @@ from mma_tpu_torch import (
     load_planetoid,
 )
 from mma_tpu_torch.convert import node_classifier_from_jax
+from mma_tpu_torch.train import NODE_CLS_PRESETS, train_node_classification
 
 # JAX XLA path: f32 with a different summation order; Pallas path: the
 # TPU kernels' bf16-split "high" precision (tests/test_graph_and_native.py).
@@ -121,12 +123,19 @@ def test_unported_requests_raise(small):
         MMALayer(16, 8, ("mean",), compute_dtype="bfloat16", device="cpu")
     with pytest.raises(NotImplementedError):
         NodeClassifier(24, 16, 5, ("mean",), compute_dtype="auto", device="cpu")
-    with pytest.raises(NotImplementedError, match="moment_3"):
-        MMALayer(16, 8, ("moment_3",), parity=False, device="cpu")(
-            torch.from_numpy(np.ascontiguousarray(x[:, :16])), tg)
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        train_node_classification(
+            dataclasses.replace(NODE_CLS_PRESETS["cora"], checkpoint_dir="ckpt"), device="cpu")
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        train_node_classification(dataclasses.replace(NODE_CLS_PRESETS["cora"], resume=True),
+                                  device="cpu")
+    # The moment combines and mask dropout run.
+    out = MMALayer(16, 8, ("moment_3",), parity=False, device="cpu")(
+        torch.from_numpy(np.ascontiguousarray(x[:, :16])), tg)
+    assert torch.isfinite(out[:200]).all()
     model = NodeClassifier(24, 16, 5, ("mean",), device="cpu")
-    with pytest.raises(NotImplementedError, match="mask dropout"):
-        model(torch.from_numpy(x), tg, training=True, generator=torch.Generator().manual_seed(0))
+    out = model(torch.from_numpy(x), tg, training=True, generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(out[:200]).all()
 
 
 def test_port_imports_neither_jax_nor_mma_tpu():
@@ -136,6 +145,8 @@ def test_port_imports_neither_jax_nor_mma_tpu():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'mma_tpu'))\n"
         "assert not bad, bad\n"
+        "for name in ('mma_tpu_torch.train.loops', 'mma_tpu_torch.cli.train_node'):\n"
+        "    assert name in sys.modules, name\n"
         "print('ok')\n"
     )
     import os
