@@ -4,7 +4,7 @@
 1. Prints the card's name and power limit (``nvidia-smi``), then builds
    every CUDA kernel of the port from ``mma_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together).
-2. Three main paths, each with the kernels' launch counters set to 0 just
+2. Six main paths, each with the kernels' launch counters set to 0 just
    before it and read just after:
 
    - **serve**: the node classifier's eval forward answers 3 requests on
@@ -21,6 +21,18 @@
      ``node_train_step``, the loop's own step (the fused route: kernel 2
      forward, kernel 3 backward). Labels and the train split come from
      the seed.
+   - **zinc-serve**: the ZincNet eval forward at the README preset
+     (``min,max``; ``identity,amplification,linear``; hidden 75, edge 50,
+     towers 5, 4 layers; the fused min/max edge program, kernel 6) answers
+     3 requests on the flagship batch: the first 1,024 synthetic ZINC train
+     molecules, padded as the JAX package's benchmark pads them.
+   - **zinc-train**: ``train_zinc`` at the README preset (lr 1e-4, wd 3e-4,
+     batch 64) for 5 epochs on a 2,000-molecule subset, seeds 0, 1, 2 and
+     42 (kernels 1, 6 and 7). The mean val MAE after epoch 5 must lie in
+     the JAX package's CPU band, widened by 3 sd (``ZINC_VAL_MAE_BAND``).
+   - **zinc-train-default**: 3 ``zinc_train_step``s of the command line's
+     default ``mean,max,min`` at the flagship batch (the general CSR
+     route: kernels 1, 4 and 5).
 
    Each path's launch counts are derived from the code and checked.
 3. Checks every output (finite log-probs of the expected shape whose rows
@@ -32,17 +44,24 @@
    same draws on both sides), and every parameter gradient of the first
    synthetic-large train step. The first Cora request is also held against
    the plain forward on the CPU, which the CPU tests hold against the JAX
-   package.
-4. Per kernel, at the synthetic-large shapes of the main paths (kernel 1
-   at the widths of both products, C=64 and C=16): the error
-   against the plain version, run-to-run equality, the kernel's median
-   time, the plain version's time, the time of one PyTorch library call
-   for the same function where there is one, and the least time the card
-   could take (``bound_ms``).
+   package. For ZINC: the first request against the all-plain forward on
+   the card and on the CPU, and one train step of each aggregator set at
+   the flagship batch with dropout on (loss, every parameter gradient, the
+   BatchNorm state).
+4. Per kernel, at the shapes of the main paths (kernels 1-3 at
+   synthetic-large, kernel 1 at the widths of both products, C=64 and
+   C=16; kernels 4-7 on the tensors the ZINC train steps gave them at the
+   flagship batch, for one and two ops, with dropout on and off): the
+   error against the plain version (kernels 4 and 6, and the routed
+   gradients of 5 and 7, must be equal to it), run-to-run equality, the
+   kernel's median time, the plain version's time, the time of one
+   PyTorch library call for the same function where there is one, and the
+   least time the card could take (``bound_ms``).
 5. Prints one ``kernels`` JSON line, the ``nvidia-smi`` line again, and as
    the last line ``{"ok": true, "device": {...}}``.
 
-The per-epoch training log goes to ``artifacts/chip_smoke_train.log``.
+The per-epoch training logs go to ``artifacts/chip_smoke_train.log`` and
+``artifacts/chip_smoke_zinc.log``.
 Any failed check raises, so the script exits non-zero and prints no
 result; so does a host without a GPU, or a directory without the port.
 """
@@ -71,6 +90,16 @@ import torch  # noqa: E402
 SEED = 0
 CORA_SEEDS = (0, 1, 2, 42)
 CORA_MIN_MEAN_ACC = 0.834
+ZINC_SEEDS = (0, 1, 2, 42)
+# Mean val MAE after 5 epochs: the JAX package on the CPU gave 0.2079,
+# 0.2205, 0.2075, 0.2377 for these seeds (python -m mma_tpu.cli.train_zinc
+# --aggregators min,max --scalers identity,amplification,linear --lr 0.0001
+# --weight_decay 3e-4 --subset 2000 --epochs 5 --seed S), mean 0.2184, sd
+# 0.0142: the band is the mean ± 3 sd, wide because the dropout streams
+# of the two packages differ.
+ZINC_VAL_MAE_BAND = (0.1758, 0.2610)
+ZINC_PRESET_AGGS = (("min", "max"), ("identity", "amplification", "linear"))
+ZINC_DEFAULT_AGGS = (("mean", "max", "min"), ("identity", "amplification", "attenuation"))
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth and
 # dense float32 outside the tensor cores. The kernels run f32 on CUDA cores.
 PEAK_BYTES_PER_S = 3.35e12
@@ -80,8 +109,13 @@ REPLACES = {
     "segment_sum_csr": "mma_tpu/ops/pallas/fused_mma.py:176",
     "edge_program_lean_fwd": "mma_tpu/ops/pallas/fused_mma.py:488",
     "edge_program_lean_bwd": "mma_tpu/ops/pallas/fused_mma.py:540",
+    "segment_minmax": "mma_tpu/ops/pallas/segment_minmax.py:85",
+    "segment_minmax_bwd": "mma_tpu/ops/pallas/segment_minmax.py:409",
+    "minmax_prog": "mma_tpu/ops/pallas/segment_minmax.py:195",
+    "minmax_prog_bwd": "mma_tpu/ops/pallas/segment_minmax.py:288",
 }
 SOURCE = "mma_tpu_torch/csrc/fused_mma.cu"
+MINMAX_SOURCE = "mma_tpu_torch/csrc/segment_minmax.cu"
 LOG_DIR = "artifacts"
 
 
@@ -104,17 +138,22 @@ def check_log_probs(out: torch.Tensor, n_pad: int, n_class: int, n_real: int, wh
         raise AssertionError(f"{what}: probabilities sum to 1 ± {row_err}")
 
 
-def compare(got: torch.Tensor, want: torch.Tensor, rel: float, what: str) -> dict:
-    """``|got - want| <= rel * (|want| + max|want|)``: a relative bound per
-    element with a floor scaled to the tensor, since f32 sums taken in
-    another order differ by a few ulps of their largest partial sums."""
+def compare(got: torch.Tensor, want: torch.Tensor, rel: float, what: str,
+            scale: float = None, verbose: bool = True) -> dict:
+    """``|got - want| <= rel * (|want| + scale)``, ``scale`` the largest
+    ``|want|`` unless given: a relative bound per element with a floor
+    scaled to the tensor, since f32 sums taken in another order differ by a
+    few ulps of their largest partial sums."""
     got, want = got.double(), want.double()
-    scale = want.abs().max().item()
+    if scale is None:
+        scale = want.abs().max().item()
     diff = (got - want).abs()
     max_abs = diff.max().item()
-    max_rel = (diff / (want.abs() + scale)).max().item()
-    print(f"{what}: max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} "
-          f"(scale {scale:.3e}, tolerance {rel:g})")
+    # An all-zero reference (the detached pre-NNs' gradients) must be met exactly.
+    max_rel = 0.0 if max_abs == 0 else (diff / (want.abs() + scale)).max().item()
+    if verbose:
+        print(f"{what}: max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} "
+              f"(scale {scale:.3e}, tolerance {rel:g})")
     if not max_rel <= rel:
         raise AssertionError(f"{what}: max_rel_err {max_rel:.3e} > {rel:g}")
     return {"max_abs_err": max_abs, "max_rel_err": max_rel}
@@ -144,63 +183,363 @@ def bound(nbytes: float, flops: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def kernel_modules():
+    from mma_tpu_torch.ops.cuda import fused_mma, segment_minmax
+
+    return fused_mma, segment_minmax
+
+
+# Each kernel launcher of the port and its plain version.
+PLAIN = {
+    "fused_mma": {"_segment_sum_kernel": "segment_sum_reference",
+                  "_edge_program_lean_kernel": "edge_program_lean_reference",
+                  "_edge_program_lean_bwd_kernel": "edge_program_lean_bwd_reference"},
+    "segment_minmax": {"_segment_minmax_kernel": "segment_minmax_reference",
+                       "_segment_minmax_bwd_kernel": "segment_minmax_bwd_reference",
+                       "_minmax_prog_kernel": "minmax_edge_program_reference",
+                       "_minmax_prog_bwd_kernel": "minmax_edge_program_bwd_reference"},
+}
+
+
+def launches() -> dict:
+    """Every kernel's launch count, across the port's kernel modules."""
+    out = {}
+    for mod in kernel_modules():
+        out.update(mod.LAUNCHES)
+    return out
+
+
 @contextlib.contextmanager
-def plain_kernels(fused_mma):
+def plain_kernels():
     """Route every kernel launch, forward and backward, to its plain version,
     under PyTorch's deterministic algorithms: the plain versions sum with
     ``index_add_``, whose atomic order otherwise changes run to run, so the
     reference would not be the same from one run to the next."""
-    names = ("_segment_sum_kernel", "_edge_program_lean_kernel",
-             "_edge_program_lean_bwd_kernel")
-    saved = [getattr(fused_mma, n) for n in names]
+    saved = []
+    for mod in kernel_modules():
+        for launcher, plain in PLAIN[mod.__name__.rsplit(".", 1)[-1]].items():
+            saved.append((mod, launcher, getattr(mod, launcher)))
+            setattr(mod, launcher, getattr(mod, plain))
     deterministic = torch.are_deterministic_algorithms_enabled()
-    fused_mma._segment_sum_kernel = fused_mma.segment_sum_reference
-    fused_mma._edge_program_lean_kernel = fused_mma.edge_program_lean_reference
-    fused_mma._edge_program_lean_bwd_kernel = fused_mma.edge_program_lean_bwd_reference
     torch.use_deterministic_algorithms(True)
     try:
         yield
     finally:
         torch.use_deterministic_algorithms(deterministic)
-        for n, f in zip(names, saved):
-            setattr(fused_mma, n, f)
+        for mod, launcher, fn in saved:
+            setattr(mod, launcher, fn)
 
 
 @contextlib.contextmanager
-def counted(fused_mma, path: str, paths: dict):
+def counted(path: str, paths: dict):
     """Count the kernel launches of one main path into ``paths[path]``."""
-    for key in fused_mma.LAUNCHES:
-        fused_mma.LAUNCHES[key] = 0
+    for mod in kernel_modules():
+        for key in mod.LAUNCHES:
+            mod.LAUNCHES[key] = 0
     yield
     torch.cuda.synchronize()
-    paths[path] = dict(fused_mma.LAUNCHES)
+    paths[path] = launches()
 
 
-def expect_launches(paths: dict, path: str, expected: dict) -> None:
+def expect_launches(paths: dict, path: str, **nonzero: int) -> None:
+    """Check that the path launched exactly ``nonzero`` and no other kernel."""
+    expected = {key: nonzero.pop(key, 0) for key in launches()}
+    if nonzero:
+        raise KeyError(f"unknown kernels {sorted(nonzero)}")
     print(f"{path}: launches {paths[path]} (expected {expected})")
     if paths[path] != expected:
         raise AssertionError(f"{path}: launch counts {paths[path]} != {expected}")
 
 
-def capture_edge_program(masked_aggregate, run):
-    """Run ``run()`` with ``masked_aggregate.edge_program_lean`` wrapped so
-    that its arguments and the cotangent of its output are kept; returns
-    ``(args, ct)`` of the last call."""
-    real = masked_aggregate.edge_program_lean
+def capture_call(module, name, run):
+    """Run ``run()`` with ``module.<name>`` wrapped so that its arguments and
+    the cotangent of its output are kept; returns ``(args, kwargs, ct)`` of
+    the last call."""
+    real = getattr(module, name)
     kept = {}
 
-    def wrapper(*args):
-        out = real(*args)
-        kept["args"] = args
+    def wrapper(*args, **kwargs):
+        out = real(*args, **kwargs)
+        kept["args"], kept["kwargs"] = args, kwargs
         out.register_hook(lambda g: kept.__setitem__("ct", g.detach().clone()))
         return out
 
-    masked_aggregate.edge_program_lean = wrapper
+    setattr(module, name, wrapper)
     try:
         run()
     finally:
-        masked_aggregate.edge_program_lean = real
-    return kept["args"], kept["ct"]
+        setattr(module, name, real)
+    return kept["args"], kept["kwargs"], kept["ct"]
+
+
+def bn_fed_scale(name: str, grads: dict):
+    """For a ZincNet conv's ``lin.b`` and its post-NNs' (last) biases, the
+    largest gradient of the same conv's ``lin.w``; else None. Those biases
+    only shift a training BatchNorm's input by a constant per channel, which
+    the BatchNorm subtracts again: their gradient is 0 in exact arithmetic
+    and rounding noise on both sides, so it is held on the scale of the
+    layer's weight gradient instead of its own."""
+    parts = name.split(".")
+    if parts[0].startswith("conv") and parts[-1] == "b" and parts[1] in ("lin", "post_nns"):
+        return grads[f"{parts[0]}.lin.w"].abs().max().item()
+    return None
+
+
+def run_zinc(dev, paths: dict) -> dict:
+    """The three ZINC main paths, their checks and the per-kernel holds of
+    kernels 4-7; returns the kernels' JSON entries (without ``launches``)."""
+    from mma_tpu_torch.data import load_zinc
+    from mma_tpu_torch.models import ZincNet
+    from mma_tpu_torch.nn import mma_conv
+    from mma_tpu_torch.ops.cuda import segment_minmax as mm
+    from mma_tpu_torch.train import ZincConfig, make_optimizer, train_zinc
+    from mma_tpu_torch.train.loops import zinc_train_step
+
+    # The flagship batch: the first 1,024 train molecules, padded to the
+    # next 1,024 nodes and edges as bench.py:654-667 pads them.
+    ds = load_zinc("train", subset_size=1024)
+    n_need = int(ds.num_nodes.sum()) + 1
+    e_need = int(sum(len(s_) for s_ in ds.edge_src))
+    batch = next(ds.batches(1024, n_node=-(-n_need // 1024) * 1024,
+                            n_edge=-(-e_need // 1024) * 1024, device=dev))
+    g = batch.graph
+    avg = mma_conv.compute_avg_deg(ds.degree_histogram(), parity=True)
+    layers = 4
+    print(f"zinc flagship batch: 1024 molecules, {int(g.num_nodes)} nodes (padded {g.n_node}), "
+          f"{int(g.num_edges)} edges (padded {g.n_edge}), max in-degree {int(g.deg.max())}")
+
+    def model_of(aggs_scalers, seed, device=dev):
+        aggs, scalers = aggs_scalers
+        return ZincNet(aggs, scalers, avg, num_layers=layers, device=device,
+                       generator=torch.Generator().manual_seed(seed))
+
+    # ------------------------------------------------- main path: zinc-serve
+    model = model_of(ZINC_PRESET_AGGS, SEED)
+    serve_ms, outs = [], []
+    with counted("zinc-serve", paths), torch.no_grad():
+        for _ in range(3):
+            t0 = time.perf_counter()
+            outs.append(model(batch))
+            torch.cuda.synchronize()
+            serve_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"zinc-serve: 3 requests (host clock) {serve_ms} ms; median "
+          f"{statistics.median(serve_ms):.4f} ms = "
+          f"{layers * int(g.num_edges) / (statistics.median(serve_ms) * 1e-3):.4e} edge-visits/s")
+    # Per forward: kernel 6 once per conv layer, kernel 1 once (pooling).
+    expect_launches(paths, "zinc-serve", minmax_prog=3 * layers, segment_sum=3)
+    with torch.no_grad():
+        for i, out in enumerate(outs):
+            if tuple(out.shape) != (1024,) or not torch.isfinite(out).all():
+                raise AssertionError(f"zinc-serve request {i}: shape {tuple(out.shape)} or "
+                                     "non-finite predictions")
+            if not torch.equal(out, outs[0]):
+                raise AssertionError(f"zinc-serve request {i} differs from request 0")
+        before = launches()
+        with plain_kernels():
+            plain_out = model(batch)
+        if launches() != before:
+            raise AssertionError("the plain ZINC forward launched a kernel")
+        compare(outs[0], plain_out, 1e-5, "zinc-serve request 0 vs plain on the card")
+        cpu_model = model_of(ZINC_PRESET_AGGS, SEED, device="cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        compare(outs[0].cpu(), cpu_model(batch.to("cpu")), 1e-5,
+                "zinc-serve request 0 vs plain on the CPU")
+    del model, cpu_model
+
+    # ------------------------------------------------- main path: zinc-train
+    aggs, scalers = ZINC_PRESET_AGGS
+    cfg0 = ZincConfig(aggregators=aggs, scalers=scalers, lr=1e-4, weight_decay=3e-4,
+                      batch_size=64, epochs=5, subset_size=2000)
+    splits = {s: load_zinc(s, subset_size=cfg0.subset_size) for s in ("train", "val", "test")}
+    results = {}
+    with counted("zinc-train", paths), \
+            open(os.path.join(LOG_DIR, "chip_smoke_zinc.log"), "w") as log, \
+            contextlib.redirect_stdout(log):
+        for seed in ZINC_SEEDS:
+            results[seed] = train_zinc(dataclasses.replace(cfg0, seed=seed), datasets=splits,
+                                       device=dev)
+    val = [results[s]["val_mae"] for s in ZINC_SEEDS]
+    epoch_s = [r["time"] for s in ZINC_SEEDS for r in results[s]["history"][1:]]
+    mean_val = statistics.mean(val)
+    print("zinc-train: val MAE per seed " + ", ".join(f"{s}: {v:.4f}" for s, v in zip(ZINC_SEEDS, val))
+          + "; test MAE " + ", ".join(f"{results[s]['test_mae']:.4f}" for s in ZINC_SEEDS)
+          + f"; mean val {mean_val:.4f} (band {ZINC_VAL_MAE_BAND}); median epoch "
+          f"{statistics.median(epoch_s) * 1e3:.3f} ms (host clock, train steps + val/test "
+          f"eval, epochs 2-{cfg0.epochs})")
+    # Per train step: kernel 6 and kernel 7 once per layer, kernel 1 once per
+    # layer (the gather_by_src VJP) and once for the pooling; per eval
+    # forward kernel 6 once per layer and kernel 1 once.
+    steps = -(-len(splits["train"]) // cfg0.batch_size)
+    evals = sum(-(-len(splits[s]) // cfg0.batch_size) for s in ("val", "test"))
+    runs = len(ZINC_SEEDS) * cfg0.epochs
+    expect_launches(paths, "zinc-train", minmax_prog=runs * layers * (steps + evals),
+                    minmax_prog_bwd=runs * layers * steps,
+                    segment_sum=runs * (steps * (layers + 1) + evals))
+    if not ZINC_VAL_MAE_BAND[0] <= mean_val <= ZINC_VAL_MAE_BAND[1]:
+        raise AssertionError(f"zinc-train: mean val MAE {mean_val:.4f} outside {ZINC_VAL_MAE_BAND}")
+    del results
+
+    # ----------------------------------------- main path: zinc-train-default
+    # The command line's defaults: mean,max,min with
+    # identity,amplification,attenuation, lr 0.01, weight decay 5e-4.
+    dmodel = model_of(ZINC_DEFAULT_AGGS, SEED + 5)
+    opt = make_optimizer(dmodel.parameters(), 0.01, 5e-4)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    step_ms, losses = [], []
+    with counted("zinc-train-default", paths):
+        for _ in range(3):
+            t0 = time.perf_counter()
+            losses.append(float(zinc_train_step(dmodel, opt, batch, gen)))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"zinc-train-default: losses {losses}; step times (host clock) {step_ms} ms; median "
+          f"{statistics.median(step_ms):.4f} ms")
+    # Per step and layer: forward kernel 4 once (max and min paired) and
+    # kernel 1 once (mean); backward kernel 5 once and kernel 1 twice (the
+    # gather VJPs by dst and by src); kernel 1 once more for the pooling.
+    expect_launches(paths, "zinc-train-default", segment_minmax=3 * layers,
+                    segment_minmax_bwd=3 * layers, segment_sum=3 * (3 * layers + 1))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"zinc-train-default: non-finite loss {losses}")
+    del dmodel
+
+    # ----------------------- one train step of each aggregator set vs plain
+    captured = {}
+    for aggs_scalers, site in ((ZINC_PRESET_AGGS, "fused_minmax_edge_program"),
+                               (ZINC_DEFAULT_AGGS, "fused_segment_minmax")):
+        steps_out = []
+        for plain in (False, True):
+            m = model_of(aggs_scalers, SEED + 7)
+            opt = make_optimizer(m.parameters(), 1e-4, 3e-4)
+
+            def step():
+                with plain_kernels() if plain else contextlib.nullcontext():
+                    loss = zinc_train_step(m, opt, batch,
+                                           torch.Generator(device=dev).manual_seed(SEED))
+                steps_out.append((float(loss),
+                                  {n_: p.grad.clone() for n_, p in m.named_parameters()},
+                                  {n_: b.clone() for n_, b in m.named_buffers()}))
+
+            if plain:
+                step()
+            else:
+                captured[site] = capture_call(mma_conv, site, step)
+        (loss_k, grads_k, bufs_k), (loss_p, grads_p, bufs_p) = steps_out
+        what = f"zinc {','.join(aggs_scalers[0])} step (dropout on)"
+        compare(torch.tensor([loss_k]), torch.tensor([loss_p]), 1e-5, f"{what} loss vs plain")
+        for kind, got, want in (("gradients", grads_k, grads_p), ("BatchNorm buffers", bufs_k,
+                                                                   bufs_p)):
+            errs = {name: compare(t, want[name], 1e-5, f"{what} {name} vs plain",
+                                  scale=bn_fed_scale(name, want) if kind == "gradients" else None,
+                                  verbose=False)
+                    for name, t in got.items()}
+            worst = max(errs, key=lambda k: errs[k]["max_rel_err"])
+            print(f"{what}: {len(errs)} {kind} vs plain on the card, max_rel_err "
+                  f"{errs[worst]['max_rel_err']:.3e} ({worst}; tolerance 1e-05), max_abs_err "
+                  f"{max(e['max_abs_err'] for e in errs.values()):.3e}")
+
+    # ------------------------------------- per-kernel, ZINC flagship shapes
+    rp = g.real_row_ptr
+    e_cov, n_rows = int(rp[-1]), g.n_node
+    kernels = {}
+
+    def record(name, got_err, ms, plain_ms, nbytes, flops, library_ms, shape):
+        kernels[name] = {
+            "name": name, "route": "cuda", "source": MINMAX_SOURCE,
+            "replaces": REPLACES[name], "max_abs_err": got_err, "ms": ms,
+            "plain_ms": plain_ms, **bound(nbytes, flops), "library_ms": library_ms,
+            "shape": shape,
+        }
+        e = kernels[name]
+        print(f"{name}: ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms} "
+              f"bound_ms {e['bound_ms']:.4f} ({e['bound_by']})")
+
+    def equal(got, want, what):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: max_abs_err {(got - want).abs().max().item():.3e}, "
+                                 "must be equal")
+        return 0.0
+
+    with torch.no_grad():
+        # Kernels 4-5 on the messages and cotangent of the mean,max,min step.
+        (msgs, _, ops2), _, ct2 = captured["fused_segment_minmax"]
+        msgs, ch = msgs.detach().contiguous(), msgs.shape[1]
+        for ops in (ops2, ops2[:1]):
+            ct = ct2[:, :len(ops) * ch].contiguous()
+            out = mm.segment_minmax(msgs, rp, ops)
+            grad = mm.segment_minmax_bwd(msgs, rp, ops, out, ct)
+            equal(out, mm.segment_minmax_reference(msgs, rp, ops), f"segment_minmax {ops}")
+            equal(grad, mm.segment_minmax_bwd_reference(msgs, rp, ops, out, ct),
+                  f"segment_minmax_bwd {ops}")
+            equal(out, mm.segment_minmax(msgs, rp, ops), f"segment_minmax {ops} run to run")
+            equal(grad, mm.segment_minmax_bwd(msgs, rp, ops, out, ct),
+                  f"segment_minmax_bwd {ops} run to run")
+            print(f"segment_minmax / _bwd ops={ops}: equal to plain and run to run")
+        ct = ct2.contiguous()
+        out = mm.segment_minmax(msgs, rp, ops2)
+        ids = mm._row_ids(rp)[:, None].expand(e_cov, ch)
+        live = msgs[:e_cov]
+
+        def library():
+            return [torch.zeros(n_rows, ch, device=dev).scatter_reduce_(
+                0, ids, live, "amax" if op == "max" else "amin", include_self=False)
+                for op in ops2]
+
+        shape = f"E={e_cov} N={n_rows} C={ch} ops={','.join(ops2)}"
+        record("segment_minmax", 0.0, device_ms(lambda: mm.segment_minmax(msgs, rp, ops2)),
+               device_ms(lambda: mm.segment_minmax_reference(msgs, rp, ops2), iters=10),
+               4 * (e_cov * ch + (n_rows + 1) + n_rows * len(ops2) * ch),
+               e_cov * ch * len(ops2), device_ms(library),
+               shape + " (library: one scatter_reduce per op)")
+        record("segment_minmax_bwd", 0.0,
+               device_ms(lambda: mm.segment_minmax_bwd(msgs, rp, ops2, out, ct)),
+               device_ms(lambda: mm.segment_minmax_bwd_reference(msgs, rp, ops2, out, ct),
+                         iters=10),
+               4 * (e_cov * ch + 2 * n_rows * len(ops2) * ch + (n_rows + 1) + g.n_edge * ch),
+               e_cov * ch * 2 * len(ops2), None, shape)
+
+        # Kernels 6-7 on the node projection, edge rest, seed and cotangent
+        # of the min,max step (its last layer), with dropout on and off.
+        (c, hg, _, ops_p), kw, ctp = captured["fused_minmax_edge_program"]
+        c, hg, seed, rate = c.detach().contiguous(), hg.detach().contiguous(), kw["seed"], kw["rate"]
+        errs = []
+        for ops in (ops_p, ops_p[:1]):
+            for sd in (seed, None):
+                ct = ctp[:, :len(ops) * ch].contiguous()
+                what = f"minmax_prog ops={ops} dropout={'on' if sd is not None else 'off'}"
+                out = mm.minmax_edge_program(c, hg, rp, ops, sd, rate)
+                dhg, dc = mm.minmax_edge_program_bwd(c, hg, rp, ops, sd, rate, out, ct)
+                equal(out, mm.minmax_edge_program_reference(c, hg, rp, ops, sd, rate), what)
+                want_dhg, want_dc = mm.minmax_edge_program_bwd_reference(c, hg, rp, ops, sd,
+                                                                         rate, out, ct)
+                equal(dhg, want_dhg, f"{what} dhg")
+                errs.append(compare(dc, want_dc, 1e-5, f"{what} dc vs plain")["max_abs_err"])
+                equal(out, mm.minmax_edge_program(c, hg, rp, ops, sd, rate), f"{what} run to run")
+                again = mm.minmax_edge_program_bwd(c, hg, rp, ops, sd, rate, out, ct)
+                equal(dhg, again[0], f"{what} dhg run to run")
+                equal(dc, again[1], f"{what} dc run to run")
+        ct = ctp.contiguous()
+        p = len(ops_p)
+        out = mm.minmax_edge_program(c, hg, rp, ops_p, seed, rate)
+        shape = f"E={e_cov} N={n_rows} C={ch} ops={','.join(ops_p)} dropout on"
+        # Operations per edge and lane: the add, the mask product and one
+        # compare per op (the hash's integer operations not counted).
+        record("minmax_prog", 0.0,
+               device_ms(lambda: mm.minmax_edge_program(c, hg, rp, ops_p, seed, rate)),
+               device_ms(lambda: mm.minmax_edge_program_reference(c, hg, rp, ops_p, seed, rate),
+                         iters=10),
+               4 * (e_cov * ch + n_rows * ch + (n_rows + 1) + 1 + n_rows * p * ch),
+               e_cov * ch * (2 + p), None, shape)
+        record("minmax_prog_bwd", max(errs),
+               device_ms(lambda: mm.minmax_edge_program_bwd(c, hg, rp, ops_p, seed, rate, out,
+                                                            ct)),
+               device_ms(lambda: mm.minmax_edge_program_bwd_reference(c, hg, rp, ops_p, seed,
+                                                                      rate, out, ct),
+                         iters=10),
+               4 * (e_cov * ch + n_rows * ch + 2 * n_rows * p * ch + (n_rows + 1) + 1
+                    + g.n_edge * ch + n_rows * ch),
+               e_cov * ch * (4 + 2 * p), None, shape)
+    return kernels
 
 
 def main() -> int:
@@ -256,7 +595,7 @@ def main() -> int:
 
     # ------------------------------------------------------ main path: serve
     t0 = time.perf_counter()
-    with counted(fused_mma, "serve", paths), torch.no_grad():
+    with counted("serve", paths), torch.no_grad():
         cora_out = [cora_model(x, cora.graph) for x in requests]
         torch.cuda.synchronize()
         t_cora = time.perf_counter() - t0
@@ -267,8 +606,7 @@ def main() -> int:
     print(f"serve: 3 Cora requests in {t_cora * 1e3:.3f} ms (first includes "
           f"library load), 3 synthetic-large forwards in {t_big * 1e3:.3f} ms")
     # Per forward: kernel 1 for each binary_spmm (2), kernel 2 once.
-    expect_launches(paths, "serve", {"segment_sum": 2 * 6, "edge_program_lean": 6,
-                                     "edge_program_lean_bwd": 0})
+    expect_launches(paths, "serve", segment_sum=2 * 6, edge_program_lean=6)
 
     cpu_model = NodeClassifier(cora.num_features, 64, cora.num_classes,
                                ("mean", "mean2"), device="cpu")
@@ -279,11 +617,11 @@ def main() -> int:
                             f"cora request {i}")
         for i, out in enumerate(big_out):
             check_log_probs(out, big.n_node, 16, n_big, f"synthetic-large forward {i}")
-        before = dict(fused_mma.LAUNCHES)
-        with plain_kernels(fused_mma):
+        before = launches()
+        with plain_kernels():
             cora_plain = [cora_model(x, cora.graph) for x in requests]
             big_plain = big_model(x_big, big)
-        if fused_mma.LAUNCHES != before:
+        if launches() != before:
             raise AssertionError("the plain forward launched a kernel")
         n = cora.num_nodes
         for i, (got, want) in enumerate(zip(cora_out, cora_plain)):
@@ -313,7 +651,7 @@ def main() -> int:
     os.makedirs(LOG_DIR, exist_ok=True)
     cfg0 = NODE_CLS_PRESETS["cora"]
     results = {}
-    with counted(fused_mma, "cora-train", paths), \
+    with counted("cora-train", paths), \
             open(os.path.join(LOG_DIR, "chip_smoke_train.log"), "w") as log, \
             contextlib.redirect_stdout(log):
         for seed in CORA_SEEDS:
@@ -336,11 +674,8 @@ def main() -> int:
     epochs = cfg0.epochs
     print(f"cora-train: per epoch kernel 1 x10, kernel 2 x1, kernel 3 x0; "
           f"{runs} runs x {epochs} epochs + {runs} test forwards")
-    expect_launches(paths, "cora-train", {
-        "segment_sum": runs * (epochs * 10 + 2),
-        "edge_program_lean": runs * (epochs + 1),
-        "edge_program_lean_bwd": 0,
-    })
+    expect_launches(paths, "cora-train", segment_sum=runs * (epochs * 10 + 2),
+                    edge_program_lean=runs * (epochs + 1))
     if not mean_acc >= CORA_MIN_MEAN_ACC:
         raise AssertionError(f"cora-train: mean test accuracy {mean_acc:.4f} < {CORA_MIN_MEAN_ACC}")
 
@@ -352,7 +687,7 @@ def main() -> int:
         model = copy.deepcopy(results[CORA_SEEDS[0]]["model"])
         opt = make_optimizer(model.parameters(), cfg0.lr, cfg0.weight_decay)
         before = dict(fused_mma.LAUNCHES)
-        with plain_kernels(fused_mma) if plain else contextlib.nullcontext():
+        with plain_kernels() if plain else contextlib.nullcontext():
             loss, _ = node_train_step(model, opt, cora.features, cora.graph,
                                       cora.labels.long(), cora.idx_train.long(),
                                       torch.Generator(device=dev).manual_seed(SEED))
@@ -379,7 +714,7 @@ def main() -> int:
     opt = make_optimizer(train_model.parameters(), 1e-3)
     step_gen = torch.Generator(device=dev).manual_seed(SEED)
     step_ms, losses = [], []
-    with counted(fused_mma, "large-train", paths):
+    with counted("large-train", paths):
         for step in range(3):
             t0 = time.perf_counter()
             loss, logp = node_train_step(train_model, opt, x_big, big, labels, idx_train,
@@ -396,8 +731,8 @@ def main() -> int:
     # Per step: forward kernel 1 x2 (binary_spmm) and kernel 2 x1; backward
     # kernel 1 x3 (2 binary_spmm, the payload's by-source reduce) and
     # kernel 3 x1.
-    expect_launches(paths, "large-train", {"segment_sum": 3 * 5, "edge_program_lean": 3,
-                                           "edge_program_lean_bwd": 3})
+    expect_launches(paths, "large-train", segment_sum=3 * 5, edge_program_lean=3,
+                    edge_program_lean_bwd=3)
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"large-train: non-finite loss {losses}")
 
@@ -405,18 +740,20 @@ def main() -> int:
     plain_model = NodeClassifier(64, 64, 16, ("mean", "mean2"), dropout_rate=0.0,
                                  device=dev, generator=torch.Generator().manual_seed(SEED + 3))
     plain_model.load_state_dict(init_state)
-    before = dict(fused_mma.LAUNCHES)
-    with plain_kernels(fused_mma):
+    before = launches()
+    with plain_kernels():
         plain_loss, _ = node_train_step(
             plain_model, make_optimizer(plain_model.parameters(), 1e-3), x_big, big,
             labels, idx_train, torch.Generator(device=dev).manual_seed(SEED))
-    if fused_mma.LAUNCHES != before:
+    if launches() != before:
         raise AssertionError("the plain train step launched a kernel")
     compare(torch.tensor([losses[0]]), torch.tensor([float(plain_loss)]), 1e-5,
             "large-train step 1 loss vs plain on the card")
     for name, p in plain_model.named_parameters():
         compare(grads1[name], p.grad, 1e-5, f"large-train step 1 grad {name} vs plain")
     del plain_model, grads1
+
+    zinc_kernels = run_zinc(dev, paths)
 
     # --------------------------------------------- per-kernel, large shapes
     row_ptr = big.real_row_ptr
@@ -503,7 +840,7 @@ def main() -> int:
                 out = train_model(x_big, big, training=True, generator=step_gen)
                 (-out[idx_train, labels[idx_train]].mean()).backward()
 
-        args, ct = capture_edge_program(masked_aggregate, one_step)
+        args, _, ct = capture_call(masked_aggregate, "edge_program_lean", one_step)
         c, w_bot, h, pat, src, rp, cp, perm = (t.detach() for t in args)
         f, kf = w_bot.shape
         fwd_args = (c, w_bot, h, pat, src, rp)
@@ -562,10 +899,10 @@ def main() -> int:
         print(f"edge_program_lean_bwd: ms {ms:.4f} plain_ms {plain_ms:.4f} "
               f"bound_ms {k3['bound_ms']:.4f} ({k3['bound_by']})")
 
-    launch_keys = {"segment_sum_csr": "segment_sum", "edge_program_lean_fwd": "edge_program_lean",
-                   "edge_program_lean_bwd": "edge_program_lean_bwd"}
+    kernels.update(zinc_kernels)
+    launch_keys = {"segment_sum_csr": "segment_sum", "edge_program_lean_fwd": "edge_program_lean"}
     for name, entry in kernels.items():
-        entry["launches"] = sum(p[launch_keys[name]] for p in paths.values())
+        entry["launches"] = sum(p[launch_keys.get(name, name)] for p in paths.values())
     print("launches per main path:", json.dumps(paths))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)

@@ -1,4 +1,4 @@
 from mma_tpu_torch.graph.build import graph_from_edges
-from mma_tpu_torch.graph.container import Graph
+from mma_tpu_torch.graph.container import BatchedGraphs, Graph
 
-__all__ = ["Graph", "graph_from_edges"]
+__all__ = ["BatchedGraphs", "Graph", "graph_from_edges"]

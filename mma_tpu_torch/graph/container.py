@@ -84,7 +84,48 @@ class Graph:
 
     def to(self, device) -> "Graph":
         """A copy with every tensor field on ``device``."""
-        fields = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
-        return dataclasses.replace(self, **{
-            name: v.to(device) for name, v in fields.items() if isinstance(v, torch.Tensor)
-        })
+        return _to(self, device)
+
+
+def _to(obj, device):
+    fields = {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+    return dataclasses.replace(obj, **{
+        name: v.to(device) for name, v in fields.items()
+        if isinstance(v, (torch.Tensor, Graph))
+    })
+
+
+@dataclasses.dataclass
+class BatchedGraphs:
+    """A batch of graphs packed as one disjoint union plus readout indices.
+
+    The JAX package's ``BatchedGraphs`` (the PyG ``DataLoader`` collate of
+    ``graph_regression/mma.py:52-54``): node and edge arrays of all graphs
+    concatenated, node indices offset per graph, ``node_to_graph`` mapping
+    each node to its graph (the reference's ``batch`` vector).
+    """
+
+    graph: Graph
+    node_to_graph: torch.Tensor  # (N,) int32 — graph id per node (pad → G-1)
+    graph_mask: torch.Tensor  # (G,) bool — True for real graphs
+    node_feat: Optional[torch.Tensor] = None  # (N, ...) node features/ids
+    edge_feat: Optional[torch.Tensor] = None  # (E, ...) edge features/ids
+    target: Optional[torch.Tensor] = None  # (G, ...) per-graph targets
+    # (G+1,) int32 — CSR offsets of each graph's nodes, padding nodes in
+    # the last graph's range. The port's own field: pooled readouts sum
+    # over it with the segment-sum kernel.
+    graph_ptr: Optional[torch.Tensor] = None
+    # True when each graph's nodes are contiguous (node_to_graph ascending).
+    nodes_grouped: bool = True
+
+    @property
+    def n_graph(self) -> int:
+        return self.graph_mask.shape[0]
+
+    @property
+    def num_graphs(self) -> torch.Tensor:
+        return self.graph_mask.sum(dtype=torch.int32)
+
+    def to(self, device) -> "BatchedGraphs":
+        """A copy with every tensor field (and the graph) on ``device``."""
+        return _to(self, device)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Device-time breakdown of the port's node classifier on one GPU: its eval
-forward or its train step.
+"""Device-time breakdown of the port's models on one GPU: an eval forward
+or a train step.
 
-    python3 scripts/torch_forward_profile.py [--graph synthetic-large|cora]
-        [--mode forward|train] [--iters 5]
+    python3 scripts/torch_forward_profile.py
+        [--graph synthetic-large|cora|zinc|zinc-default] [--mode forward|train]
+        [--iters 5] [--batch 1024]
 
 Builds the kernels, runs the work once to warm up, then traces ``--iters``
 runs with ``torch.profiler`` and prints the device time per kernel (sum
@@ -11,8 +12,14 @@ over the traced runs, divided by ``--iters``), the device busy share of
 the traced window, and the host-clock time per run. ``--mode train`` runs
 ``node_train_step`` (forward, backward, Adam) as ``chip_smoke.py`` does:
 Cora at the README preset (mask dropout 0.75, the half-fused route) and
-synthetic-large with dropout 0 (the fused route, kernel 3). Weights,
-features and labels are random from a seed, as in ``chip_smoke.py``.
+synthetic-large with dropout 0 (the fused route, kernel 3). ``zinc`` is
+ZincNet at the README preset (``min,max``: the fused min/max edge
+program, kernels 6-7) and ``zinc-default`` at the command line's default
+``mean,max,min`` (the general route, kernels 1, 4, 5), on the first
+``--batch`` synthetic train molecules padded to the next 1,024 nodes and
+edges (``chip_smoke.py``'s flagship batch at 1,024); ``--mode train``
+runs ``zinc_train_step`` with message dropout on. Weights, features and
+labels are random from a seed, as in ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -30,9 +37,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--graph", choices=("synthetic-large", "cora"), default="synthetic-large")
+    ap.add_argument("--graph", choices=("synthetic-large", "cora", "zinc", "zinc-default"),
+                    default="synthetic-large")
     ap.add_argument("--mode", choices=("forward", "train"), default="forward")
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--batch", type=int, default=1024, help="ZINC molecules per batch")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch.cuda.is_available() is False", file=sys.stderr)
@@ -40,7 +49,7 @@ def main() -> int:
     from mma_tpu_torch import NodeClassifier, load_planetoid, synthetic_powerlaw
     from mma_tpu_torch.ops.cuda import build
     from mma_tpu_torch.train import make_optimizer
-    from mma_tpu_torch.train.loops import node_train_step
+    from mma_tpu_torch.train.loops import node_train_step, zinc_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -48,7 +57,21 @@ def main() -> int:
     print(smi.splitlines()[0])
     build.build_all()
     gen = torch.Generator().manual_seed(0)
-    if args.graph == "cora":
+    if args.graph.startswith("zinc"):
+        from mma_tpu_torch.data import load_zinc
+        from mma_tpu_torch.models import ZincNet
+        from mma_tpu_torch.nn.mma_conv import compute_avg_deg
+
+        ds = load_zinc("train", subset_size=args.batch)
+        n_need = int(ds.num_nodes.sum()) + 1
+        e_need = int(sum(len(s) for s in ds.edge_src))
+        batch = next(ds.batches(args.batch, n_node=-(-n_need // 1024) * 1024,
+                                n_edge=-(-e_need // 1024) * 1024))
+        aggs, scalers = ((("min", "max"), ("identity", "amplification", "linear"))
+                         if args.graph == "zinc" else
+                         (("mean", "max", "min"), ("identity", "amplification", "attenuation")))
+        model = ZincNet(aggs, scalers, compute_avg_deg(ds.degree_histogram()), generator=gen)
+    elif args.graph == "cora":
         data = load_planetoid("cora")
         graph, x = data.graph, data.features
         labels, idx = data.labels.long(), data.idx_train.long()
@@ -68,7 +91,14 @@ def main() -> int:
         step_gen = torch.Generator(device="cuda").manual_seed(0)
 
         def run():
-            node_train_step(model, opt, x, graph, labels, idx, step_gen)
+            if args.graph.startswith("zinc"):
+                zinc_train_step(model, opt, batch, step_gen)
+            else:
+                node_train_step(model, opt, x, graph, labels, idx, step_gen)
+    elif args.graph.startswith("zinc"):
+        def run():
+            with torch.no_grad():
+                model(batch)
     else:
         def run():
             with torch.no_grad():

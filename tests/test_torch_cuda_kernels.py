@@ -170,7 +170,7 @@ def test_autograd_functions_on_card_match_cpu(cuda, graph):
     """Each Function's forward and gradients on the card (kernels) against
     the same Function on the CPU (plain forward and backward)."""
     from mma_tpu_torch.ops import binary_spmm
-    from mma_tpu_torch.ops.gather import gather_by_dst, gather_by_src
+    from mma_tpu_torch.ops.gather import gather_by_dst, gather_by_src, gather_rows
 
     cpu_graph = graph.to("cpu")
     rs = np.random.RandomState(5)
@@ -192,6 +192,7 @@ def test_autograd_functions_on_card_match_cpu(cuda, graph):
         "binary_spmm": (lambda g: (lambda x: binary_spmm(g, x)), (h,)),
         "gather_by_dst": (lambda g: (lambda x: gather_by_dst(x, g)), (h,)),
         "gather_by_src": (lambda g: (lambda x: gather_by_src(x, g)), (h,)),
+        "gather_rows": (lambda g: (lambda t: gather_rows(t, g.src[:200] % 7)), (h[:7],)),
     }
     for name, (make, inputs) in cases.items():
         got, got_g = _grads(make(graph), *(t.to(cuda) for t in inputs))
@@ -245,3 +246,114 @@ def test_train_step_on_card_matches_cpu(cuda, graph, monkeypatch):
         monkeypatch.setattr(fused_mma, name, plain)
     for g, w in zip(got, dropout_step()):
         _close(g, w)
+
+
+# ---- kernels 4-7: segmented min/max and the fused min/max edge program ----
+
+def _minmax_inputs(cuda, graph, ch, ties, n_ops):
+    """Edge data (E, C), node table (N, C) and a cotangent (N, P·C); with
+    ``ties`` small integers, so that many edges of a row tie."""
+    rs = np.random.RandomState(ch + 10 * ties)
+
+    def draw(*shape):
+        a = rs.randint(-2, 3, shape) if ties else rs.randn(*shape)
+        return torch.from_numpy(a.astype(np.float32)).to(cuda)
+
+    return draw(graph.n_edge, ch), draw(graph.n_node, ch), draw(graph.n_node, n_ops * ch)
+
+
+_MINMAX_CASES = [(375, ("min", "max")), (375, ("max",)), (37, ("max", "min")), (37, ("min",))]
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("ch,ops", _MINMAX_CASES)
+def test_segment_minmax_kernels_match_plain(cuda, graph, ch, ops, ties):
+    """Kernel 4 equal to its plain version (min/max do not round), kernel 5
+    too (first-hit routing), both bitwise equal run to run; rows without
+    edges give 0 and padding edges a zero gradient."""
+    from mma_tpu_torch.ops.cuda import segment_minmax as mm
+
+    data, _, ct = _minmax_inputs(cuda, graph, ch, ties, len(ops))
+    rp = graph.real_row_ptr
+    before = dict(mm.LAUNCHES)
+    out = mm.segment_minmax(data, rp, ops)
+    grad = mm.segment_minmax_bwd(data, rp, ops, out, ct)
+    torch.cuda.synchronize()
+    assert mm.LAUNCHES["segment_minmax"] == before["segment_minmax"] + 1
+    assert mm.LAUNCHES["segment_minmax_bwd"] == before["segment_minmax_bwd"] + 1
+    assert torch.equal(out, mm.segment_minmax_reference(data, rp, ops))
+    assert torch.equal(grad, mm.segment_minmax_bwd_reference(data, rp, ops, out, ct))
+    assert torch.equal(out, mm.segment_minmax(data, rp, ops))
+    assert torch.equal(grad, mm.segment_minmax_bwd(data, rp, ops, out, ct))
+    assert (out[260:] == 0).all()
+    assert (grad[int(rp[-1]):] == 0).all()
+
+
+@pytest.mark.parametrize("seed", [None, 1234])
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("ch,ops", _MINMAX_CASES)
+def test_minmax_edge_program_kernels_match_plain(cuda, graph, ch, ops, ties, seed):
+    """Kernel 6 equal to its plain version with the hash dropout on and off,
+    kernel 7's dhg equal and dc within 1e-5 (it sums at most P non-zero
+    terms per row, so it comes out equal too); bitwise run to run."""
+    from mma_tpu_torch.ops.cuda import segment_minmax as mm
+
+    hg, c, ct = _minmax_inputs(cuda, graph, ch, ties, len(ops))
+    rp = graph.real_row_ptr
+    sd = None if seed is None else torch.tensor([seed], dtype=torch.int32, device=cuda)
+    before = dict(mm.LAUNCHES)
+    out = mm.minmax_edge_program(c, hg, rp, ops, sd, 0.5)
+    dhg, dc = mm.minmax_edge_program_bwd(c, hg, rp, ops, sd, 0.5, out, ct)
+    torch.cuda.synchronize()
+    assert mm.LAUNCHES["minmax_prog"] == before["minmax_prog"] + 1
+    assert mm.LAUNCHES["minmax_prog_bwd"] == before["minmax_prog_bwd"] + 1
+    assert torch.equal(out, mm.minmax_edge_program_reference(c, hg, rp, ops, sd, 0.5))
+    want_dhg, want_dc = mm.minmax_edge_program_bwd_reference(c, hg, rp, ops, sd, 0.5, out, ct)
+    assert torch.equal(dhg, want_dhg)
+    _close(dc, want_dc)
+    assert torch.equal(out, mm.minmax_edge_program(c, hg, rp, ops, sd, 0.5))
+    again = mm.minmax_edge_program_bwd(c, hg, rp, ops, sd, 0.5, out, ct)
+    assert torch.equal(dhg, again[0]) and torch.equal(dc, again[1])
+    assert (out[260:] == 0).all() and (dc[260:] == 0).all()
+    assert (dhg[int(rp[-1]):] == 0).all()
+
+
+def test_minmax_hash_on_card_matches_cpu(cuda):
+    """The dropout hash's PyTorch form gives the same bits on the card."""
+    from mma_tpu_torch.ops.cuda.segment_minmax import dropout_keep
+
+    pos = torch.arange(0, 50000, 7)[:, None]
+    lane = torch.arange(0, 375)[None, :]
+    seed = torch.tensor([2**31 - 2], dtype=torch.int32)
+    want = dropout_keep(seed, pos, lane, 0.5)
+    got = dropout_keep(seed.to(cuda), pos.to(cuda), lane.to(cuda), 0.5)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("aggs", [("min", "max"), ("mean", "max", "min")])
+def test_zinc_train_steps_are_bitwise_repeatable_on_card(cuda, aggs):
+    """Two ZincNet train steps with message dropout, twice from the same
+    seeds: every parameter and BatchNorm buffer bitwise equal (no atomics on
+    the path, the embeddings' VJP included). Without dropout, against the
+    CPU's plain path within 1e-4 (two Adam steps at lr 1e-5: a gradient at
+    rounding level can move its element by up to lr a step)."""
+    from mma_tpu_torch.data import load_zinc
+    from mma_tpu_torch.models import ZincNet
+    from mma_tpu_torch.train import make_optimizer
+    from mma_tpu_torch.train.loops import zinc_train_step
+
+    ds = load_zinc("val", subset_size=48)
+    states = []
+    for dev, gen_seed in ((cuda, 3), (cuda, 3), (cuda, None), ("cpu", None)):
+        batch = next(ds.batches(48, n_node=2048, n_edge=4096, device=dev))
+        model = ZincNet(aggs, ("identity", "amplification", "linear"),
+                        {"lin": 2.0, "log": 1.0}, num_layers=2, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+        opt = make_optimizer(model.parameters(), 1e-5, 3e-4)
+        gen = None if gen_seed is None else torch.Generator(device=dev).manual_seed(gen_seed)
+        for _ in range(2):
+            zinc_train_step(model, opt, batch, gen)
+        states.append({k: v.detach().cpu() for k, v in model.state_dict().items()})
+    for k in states[0]:
+        assert torch.equal(states[0][k], states[1][k]), k
+        torch.testing.assert_close(states[2][k], states[3][k], rtol=1e-4, atol=1e-4)
