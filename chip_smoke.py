@@ -4,7 +4,7 @@
 1. Prints the card's name and power limit (``nvidia-smi``), then builds
    every CUDA kernel of the port from ``mma_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together).
-2. Six main paths, each with the kernels' launch counters set to 0 just
+2. Eight main paths, each with the kernels' launch counters set to 0 just
    before it and read just after:
 
    - **serve**: the node classifier's eval forward answers 3 requests on
@@ -21,6 +21,11 @@
      ``node_train_step``, the loop's own step (the fused route: kernel 2
      forward, kernel 3 backward). Labels and the train split come from
      the seed.
+   - **large-wide**: ``masked_multi_aggregate`` at synthetic-large (F=64,
+     ``mean,mean2``, parity, no dropout), forward and backward through
+     ``h`` and ``mask_weights``, 3 times with each ``pallas_bwd_mode``:
+     the wide edge program, ``payload_permute`` (kernels 9, 10 and 1) and
+     ``csc_gather`` (kernels 9, 10 and 11).
    - **zinc-serve**: the ZincNet eval forward at the README preset
      (``min,max``; ``identity,amplification,linear``; hidden 75, edge 50,
      towers 5, 4 layers; the fused min/max edge program, kernel 6) answers
@@ -33,6 +38,10 @@
    - **zinc-train-default**: 3 ``zinc_train_step``s of the command line's
      default ``mean,max,min`` at the flagship batch (the general CSR
      route: kernels 1, 4 and 5).
+   - **zinc-train-pna**: 3 ``zinc_train_step``s of the PNA set
+     ``mean,min,max,std`` (``identity,amplification,attenuation``, the
+     command line's other defaults) at the flagship batch: kernels 1, 4, 5
+     and 8.
 
    Each path's launch counts are derived from the code and checked.
 3. Checks every output (finite log-probs of the expected shape whose rows
@@ -44,14 +53,17 @@
    same draws on both sides), and every parameter gradient of the first
    synthetic-large train step. The first Cora request is also held against
    the plain forward on the CPU, which the CPU tests hold against the JAX
-   package. For ZINC: the first request against the all-plain forward on
-   the card and on the CPU, and one train step of each aggregator set at
-   the flagship batch with dropout on (loss, every parameter gradient, the
-   BatchNorm state).
-4. Per kernel, at the shapes of the main paths (kernels 1-3 at
+   package. The wide route's output and gradients, in both modes, against
+   the lean route, the all-plain computation and each other. For ZINC: the
+   first request against the all-plain forward on the card and on the
+   CPU, one train step of each aggregator set at the flagship batch with
+   dropout on (loss, every parameter gradient, the BatchNorm state), and
+   the PNA model's first eval forward against the CPU.
+4. Per kernel, at the shapes of the main paths (kernels 1-3 and 9-11 at
    synthetic-large, kernel 1 at the widths of both products, C=64 and
-   C=16; kernels 4-7 on the tensors the ZINC train steps gave them at the
-   flagship batch, for one and two ops, with dropout on and off): the
+   C=16, and of the wide payload, C=192; kernels 4-8 on the tensors the
+   ZINC train steps gave them at the flagship batch, 4-7 for one and two
+   ops, with dropout on and off): the
    error against the plain version (kernels 4 and 6, and the routed
    gradients of 5 and 7, must be equal to it), run-to-run equality, the
    kernel's median time, the plain version's time, the time of one
@@ -100,6 +112,8 @@ ZINC_SEEDS = (0, 1, 2, 42)
 ZINC_VAL_MAE_BAND = (0.1758, 0.2610)
 ZINC_PRESET_AGGS = (("min", "max"), ("identity", "amplification", "linear"))
 ZINC_DEFAULT_AGGS = (("mean", "max", "min"), ("identity", "amplification", "attenuation"))
+# PyG's examples/pna.py set, which the reference's ZINC script adapted.
+ZINC_PNA_AGGS = (("mean", "min", "max", "std"), ("identity", "amplification", "attenuation"))
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth and
 # dense float32 outside the tensor cores. The kernels run f32 on CUDA cores.
 PEAK_BYTES_PER_S = 3.35e12
@@ -113,6 +127,10 @@ REPLACES = {
     "segment_minmax_bwd": "mma_tpu/ops/pallas/segment_minmax.py:409",
     "minmax_prog": "mma_tpu/ops/pallas/segment_minmax.py:195",
     "minmax_prog_bwd": "mma_tpu/ops/pallas/segment_minmax.py:288",
+    "segment_sum_sq": "mma_tpu/ops/pallas/fused_mma.py:207",
+    "edge_program_fwd": "mma_tpu/ops/pallas/fused_mma.py:293",
+    "edge_program_bwd": "mma_tpu/ops/pallas/fused_mma.py:339",
+    "edge_program_bwd_csc": "mma_tpu/ops/pallas/fused_mma.py:425",
 }
 SOURCE = "mma_tpu_torch/csrc/fused_mma.cu"
 MINMAX_SOURCE = "mma_tpu_torch/csrc/segment_minmax.cu"
@@ -193,7 +211,11 @@ def kernel_modules():
 PLAIN = {
     "fused_mma": {"_segment_sum_kernel": "segment_sum_reference",
                   "_edge_program_lean_kernel": "edge_program_lean_reference",
-                  "_edge_program_lean_bwd_kernel": "edge_program_lean_bwd_reference"},
+                  "_edge_program_lean_bwd_kernel": "edge_program_lean_bwd_reference",
+                  "_segment_sum_sq_kernel": "segment_sum_sq_reference",
+                  "_edge_program_fwd_kernel": "edge_program_fwd_reference",
+                  "_edge_program_bwd_kernel": "edge_program_bwd_reference",
+                  "_edge_program_bwd_csc_kernel": "edge_program_bwd_csc_reference"},
     "segment_minmax": {"_segment_minmax_kernel": "segment_minmax_reference",
                        "_segment_minmax_bwd_kernel": "segment_minmax_bwd_reference",
                        "_minmax_prog_kernel": "minmax_edge_program_reference",
@@ -286,11 +308,12 @@ def bn_fed_scale(name: str, grads: dict):
 
 
 def run_zinc(dev, paths: dict) -> dict:
-    """The three ZINC main paths, their checks and the per-kernel holds of
-    kernels 4-7; returns the kernels' JSON entries (without ``launches``)."""
+    """The four ZINC main paths, their checks and the per-kernel holds of
+    kernels 4-8; returns the kernels' JSON entries (without ``launches``)."""
     from mma_tpu_torch.data import load_zinc
     from mma_tpu_torch.models import ZincNet
     from mma_tpu_torch.nn import mma_conv
+    from mma_tpu_torch.ops.cuda import fused_mma
     from mma_tpu_torch.ops.cuda import segment_minmax as mm
     from mma_tpu_torch.train import ZincConfig, make_optimizer, train_zinc
     from mma_tpu_torch.train.loops import zinc_train_step
@@ -403,10 +426,45 @@ def run_zinc(dev, paths: dict) -> dict:
         raise AssertionError(f"zinc-train-default: non-finite loss {losses}")
     del dmodel
 
+    # --------------------------------------------- main path: zinc-train-pna
+    # The PNA set with the command line's other defaults (lr 0.01, weight
+    # decay 5e-4, hidden 75, edge 50, towers 5, 4 layers).
+    pmodel = model_of(ZINC_PNA_AGGS, SEED + 9)
+    opt = make_optimizer(pmodel.parameters(), 0.01, 5e-4)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    step_ms, losses = [], []
+    with counted("zinc-train-pna", paths):
+        for _ in range(3):
+            t0 = time.perf_counter()
+            losses.append(float(zinc_train_step(pmodel, opt, batch, gen)))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"zinc-train-pna: losses {losses}; step times (host clock) {step_ms} ms; median "
+          f"{statistics.median(step_ms):.4f} ms")
+    # Per step and layer: forward kernel 4 once (min and max paired),
+    # kernel 1 once (mean) and kernel 8 once (std); backward kernel 5 once
+    # and kernel 1 twice (the gather VJPs; the mean's and kernel 8's VJPs
+    # are plain gathers); kernel 1 once more for the pooling.
+    expect_launches(paths, "zinc-train-pna", segment_minmax=3 * layers,
+                    segment_minmax_bwd=3 * layers, segment_sum=3 * (3 * layers + 1),
+                    segment_sum_sq=3 * layers)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"zinc-train-pna: non-finite loss {losses}")
+    with torch.no_grad():
+        ev = pmodel(batch)
+        if tuple(ev.shape) != (1024,) or not torch.isfinite(ev).all():
+            raise AssertionError("zinc-train-pna eval forward: bad shape or non-finite")
+        cpu_model = model_of(ZINC_PNA_AGGS, SEED + 9, device="cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in pmodel.state_dict().items()})
+        compare(ev.cpu(), cpu_model(batch.to("cpu")), 1e-5,
+                "zinc-train-pna eval forward vs plain on the CPU")
+    del pmodel, cpu_model
+
     # ----------------------- one train step of each aggregator set vs plain
     captured = {}
     for aggs_scalers, site in ((ZINC_PRESET_AGGS, "fused_minmax_edge_program"),
-                               (ZINC_DEFAULT_AGGS, "fused_segment_minmax")):
+                               (ZINC_DEFAULT_AGGS, "fused_segment_minmax"),
+                               (ZINC_PNA_AGGS, "segment_sum_sq_csr")):
         steps_out = []
         for plain in (False, True):
             m = model_of(aggs_scalers, SEED + 7)
@@ -443,9 +501,10 @@ def run_zinc(dev, paths: dict) -> dict:
     e_cov, n_rows = int(rp[-1]), g.n_node
     kernels = {}
 
-    def record(name, got_err, ms, plain_ms, nbytes, flops, library_ms, shape):
+    def record(name, got_err, ms, plain_ms, nbytes, flops, library_ms, shape,
+               source=MINMAX_SOURCE):
         kernels[name] = {
-            "name": name, "route": "cuda", "source": MINMAX_SOURCE,
+            "name": name, "route": "cuda", "source": source,
             "replaces": REPLACES[name], "max_abs_err": got_err, "ms": ms,
             "plain_ms": plain_ms, **bound(nbytes, flops), "library_ms": library_ms,
             "shape": shape,
@@ -539,6 +598,29 @@ def run_zinc(dev, paths: dict) -> dict:
                4 * (e_cov * ch + n_rows * ch + 2 * n_rows * p * ch + (n_rows + 1) + 1
                     + g.n_edge * ch + n_rows * ch),
                e_cov * ch * (4 + 2 * p), None, shape)
+
+        # Kernel 8 on the messages of the PNA step (its last layer).
+        (msgs, rp8), _, _ = captured["segment_sum_sq_csr"]
+        msgs = msgs.detach().contiguous()
+        ch = msgs.shape[1]
+        got = fused_mma.segment_sum_sq_csr(msgs, rp8)
+        err = compare(got, fused_mma.segment_sum_sq_reference(msgs, rp8), 1e-5,
+                      "segment_sum_sq vs plain")
+        print(f"segment_sum_sq: equal to plain bit for bit: "
+              f"{torch.equal(got, fused_mma.segment_sum_sq_reference(msgs, rp8))}")
+        equal(got, fused_mma.segment_sum_sq_csr(msgs, rp8), "segment_sum_sq run to run")
+        live = msgs[:e_cov]
+        both = torch.cat([live, live * live], dim=1)
+        ids = mm._row_ids(rp8)
+        # Bytes: the covered edge rows and the CSR read once, [Σx ‖ Σx²]
+        # written once; operations per element: the square and two adds.
+        record("segment_sum_sq", err["max_abs_err"],
+               device_ms(lambda: fused_mma.segment_sum_sq_csr(msgs, rp8)),
+               device_ms(lambda: fused_mma.segment_sum_sq_reference(msgs, rp8), iters=10),
+               4 * (e_cov * ch + (n_rows + 1) + n_rows * 2 * ch), 3 * e_cov * ch,
+               device_ms(lambda: torch.zeros(n_rows, 2 * ch, device=dev).index_add_(0, ids, both)),
+               f"E={e_cov} N={n_rows} C={ch} (library: index_add_ of a pre-built [x ‖ x²])",
+               source=SOURCE)
     return kernels
 
 
@@ -547,7 +629,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     from mma_tpu_torch import NodeClassifier, load_planetoid, synthetic_powerlaw
-    from mma_tpu_torch.ops import masked_aggregate
+    from mma_tpu_torch.ops import get_agg_spec, masked_aggregate
     from mma_tpu_torch.ops.cuda import build, fused_mma
     from mma_tpu_torch.train import NODE_CLS_PRESETS, make_optimizer, train_node_classification
     from mma_tpu_torch.train.loops import node_train_step
@@ -753,6 +835,62 @@ def main() -> int:
         compare(grads1[name], p.grad, 1e-5, f"large-train step 1 grad {name} vs plain")
     del plain_model, grads1
 
+    # ------------------------------------------------- main path: large-wide
+    wide_specs = [get_agg_spec(a) for a in ("mean", "mean2")]
+    mw0 = (torch.randn((2, 128, 64), generator=torch.Generator().manual_seed(SEED + 5))
+           / 8.0).to(dev)
+    ct_wide = (torch.randn((big.n_node, 2, 64), generator=torch.Generator().manual_seed(SEED + 6))
+               .to(dev) * big.node_mask[:, None, None])
+
+    def wide_run(mode):
+        """Forward and backward of the masked aggregate: (out, dh, dmask_weights)."""
+        h = x_big.clone().requires_grad_()
+        mw = mw0.clone().requires_grad_()
+        with torch.enable_grad():
+            out = masked_aggregate.masked_multi_aggregate(h, big, mw, wide_specs,
+                                                          pallas_bwd_mode=mode)
+            (out * ct_wide).sum().backward()
+        return out.detach(), h.grad, mw.grad
+
+    modes = fused_mma.EDGE_BWD_MODES
+    wide, wide_ms = {}, {}
+    with counted("large-wide", paths):
+        for mode in modes:
+            wide_ms[mode] = []
+            for rep in range(3):
+                t0 = time.perf_counter()
+                res = wide_run(mode)
+                torch.cuda.synchronize()
+                wide_ms[mode].append((time.perf_counter() - t0) * 1e3)
+                if rep == 0:
+                    wide[mode] = res
+    t_lean = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        lean = wide_run(None)
+        torch.cuda.synchronize()
+        t_lean.append((time.perf_counter() - t0) * 1e3)
+    print("large-wide: forward + backward (host clock, median of 3): "
+          + ", ".join(f"{m} {statistics.median(wide_ms[m]):.4f} ms" for m in modes)
+          + f"; the lean route {statistics.median(t_lean):.4f} ms (runs {wide_ms}, lean {t_lean})")
+    # Per run: kernel 9 forward and kernel 10 backward, then payload_permute
+    # sums the payload by source with kernel 1 and csc_gather runs kernel 11.
+    expect_launches(paths, "large-wide", edge_program_fwd=6, edge_program_bwd=6,
+                    segment_sum=3, edge_program_bwd_csc=3)
+    before = launches()
+    with plain_kernels():
+        wide_plain = {mode: wide_run(mode) for mode in modes}
+    if launches() != before:
+        raise AssertionError("the plain wide route launched a kernel")
+    names = ("output", "dh", "dmask_weights")
+    for mode in modes:
+        for name, got, want_lean, want_plain in zip(names, wide[mode], lean, wide_plain[mode]):
+            compare(got, want_lean, 1e-5, f"large-wide {mode} {name} vs the lean route")
+            compare(got, want_plain, 1e-5, f"large-wide {mode} {name} vs plain on the card")
+    for name, a, b in zip(names, *(wide[m] for m in modes)):
+        compare(a, b, 1e-5, f"large-wide {name}: {modes[0]} vs {modes[1]}")
+    del wide, wide_plain, lean
+
     zinc_kernels = run_zinc(dev, paths)
 
     # --------------------------------------------- per-kernel, large shapes
@@ -898,6 +1036,95 @@ def main() -> int:
         k3 = kernels["edge_program_lean_bwd"]
         print(f"edge_program_lean_bwd: ms {ms:.4f} plain_ms {plain_ms:.4f} "
               f"bound_ms {k3['bound_ms']:.4f} ({k3['bound_by']})")
+
+        # Kernels 9-11 and kernel 1 at the payload's width on the large-wide
+        # path's own tensors: the arguments of its edge program and the
+        # cotangent the loss gives it.
+        args, _, ct = capture_call(masked_aggregate, "edge_program",
+                                   lambda: wide_run("payload_permute"))
+        c, d, h, pat, src, rp, cp, perm, dst_csc, _ = args
+        c, d, h = (t.detach() for t in (c, d, h))
+        ct = ct.contiguous()
+        f, kf = h.shape[1], c.shape[1]
+        shape = f"E={e_cov} N={n_rows} F={f} K·F={kf}"
+
+        def hold(name, run, plain, outs, nbytes, flops, gather_bytes, iters=25):
+            got = run()
+            got = got if isinstance(got, tuple) else (got,)
+            again = run()
+            again = again if isinstance(again, tuple) else (again,)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name} differs run to run")
+            want = plain()
+            want = want if isinstance(want, tuple) else (want,)
+            errs = [compare(g_, w_, 1e-5, f"{name} {o} vs plain")
+                    for g_, w_, o in zip(got, want, outs)]
+            ms = device_ms(run, iters=iters)
+            plain_ms = device_ms(plain, iters=5)
+            kernels[name] = {
+                "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+                "max_abs_err": max(e["max_abs_err"] for e in errs), "ms": ms,
+                "plain_ms": plain_ms, **bound(nbytes, flops), "library_ms": None,
+                "shape": shape,
+                # The random row reads alone, each gathered row counted once
+                # per edge: what sets these kernels' time.
+                "gather_bound_ms": gather_bytes / PEAK_BYTES_PER_S * 1e3,
+            }
+            e = kernels[name]
+            print(f"{name}: ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {e['bound_ms']:.4f} "
+                  f"({e['bound_by']}); gathered rows alone {e['gather_bound_ms']:.4f} ms; "
+                  "bitwise equal run to run")
+            return got
+
+        fwd = (c, d, h, pat, src, rp)
+        # Bytes: c, d, h, the pattern, src and the CSR read once, S written
+        # once. Per edge and lane: the add, the product with h and the
+        # accumulation (the sigmoid not counted).
+        hold("edge_program_fwd", lambda: fused_mma.edge_program_fwd(*fwd),
+             lambda: fused_mma.edge_program_fwd_reference(*fwd), ("S",),
+             4 * (3 * n_rows * kf + n_rows * f + kf + e_cov + (n_rows + 1)),
+             3 * e_cov * kf, 4 * e_cov * (kf + f))
+        # Bytes: c, d, ct, h, the pattern, src and the CSR read once; dc and
+        # the (E, K·F+F) payload written once. Per edge and lane about 8
+        # operations (the mask chain, dlog, dc, ct ⊙ mask and its K-fold sum).
+        _, payload = hold(
+            "edge_program_bwd", lambda: fused_mma.edge_program_bwd(*fwd, ct),
+            lambda: fused_mma.edge_program_bwd_reference(*fwd, ct), ("dc", "payload"),
+            4 * (4 * n_rows * kf + n_rows * f + kf + e_cov + (n_rows + 1)
+                 + big.n_edge * (kf + f)),
+            8 * e_cov * kf, 4 * e_cov * (kf + f), iters=15)
+        no_payload_ms = device_ms(lambda: fused_mma.edge_program_bwd(*fwd, ct,
+                                                                     emit_payload=False),
+                                  iters=15)
+        print(f"edge_program_bwd without the payload (csc_gather's use): ms {no_payload_ms:.4f}")
+        kernels["edge_program_bwd"]["ms_without_payload"] = no_payload_ms
+        csc_args = (c, d, h, pat, dst_csc, cp, ct)
+        # Bytes: c, d, ct, h, the pattern, dst_csc and the CSC read once,
+        # [dd ‖ dh] written once; per edge it gathers c and ct of the dst.
+        hold("edge_program_bwd_csc", lambda: fused_mma.edge_program_bwd_csc(*csc_args),
+             lambda: fused_mma.edge_program_bwd_csc_reference(*csc_args), ("[dd ‖ dh]",),
+             4 * (3 * n_rows * kf + n_rows * f + kf + e_cov + (n_rows + 1)
+                  + n_rows * (kf + f)),
+             8 * e_cov * kf, 4 * e_cov * 2 * kf, iters=15)
+
+        # Kernel 1 at C = K·F+F: payload_permute's by-source sum of the payload.
+        ch = payload.shape[1]
+        got = fused_mma.segment_sum_csr(payload, cp, perm)
+        if not torch.equal(got, fused_mma.segment_sum_csr(payload, cp, perm)):
+            raise AssertionError("segment_sum_csr C=192 differs run to run")
+        err = compare(got, fused_mma.segment_sum_reference(payload, cp, perm), 1e-5,
+                      f"segment_sum_csr payload by source C={ch} vs plain")
+        ms = device_ms(lambda: fused_mma.segment_sum_csr(payload, cp, perm))
+        plain_ms = device_ms(lambda: fused_mma.segment_sum_reference(payload, cp, perm))
+        library_ms = device_ms(lambda: torch.zeros(n_rows, ch, device=dev).index_add_(
+            0, src_long, payload))
+        b1 = bound(4 * (e_cov * ch + (n_rows + 1) + e_cov + n_rows * ch), e_cov * ch)
+        kernels["segment_sum_csr"]["payload_by_source"] = {
+            "shape": f"E={e_cov} N={n_rows} C={ch}", "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "max_abs_err": err["max_abs_err"], **b1}
+        print(f"segment_sum_csr payload by source (index=src_perm) C={ch}: ms {ms:.4f} "
+              f"plain_ms {plain_ms:.4f} index_add_ over src ms {library_ms:.4f} bound_ms "
+              f"{b1['bound_ms']:.4f} ({b1['bound_by']})")
 
     kernels.update(zinc_kernels)
     launch_keys = {"segment_sum_csr": "segment_sum", "edge_program_lean_fwd": "edge_program_lean"}

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) kernels of the MMA node-classification forward and
-// backward.
+// backward (the lean and the wide edge program) and of the ZINC
+// convolution's sum and sum-of-squares reductions.
 //
 // Built by nvcc into a shared library with a plain C interface and loaded
 // with ctypes (mma_tpu_torch/ops/cuda/build.py). Each entry point launches
@@ -12,6 +13,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -593,6 +596,357 @@ cudaError_t bwd_occupancy(int f, int* per_sm) {
       per_sm, edge_program_lean_bwd_kernel<FMAX>, kBwdWarps * kWarp, smem);
 }
 
+// ---------------------------------------------------------------------------
+// Kernel 8: segment_sum_sq_csr
+//
+// Replaces mma_tpu/ops/pallas/fused_mma.py::_sumsq_kernel (launched by
+// _fused_segment_sum_sq): out[i, :C] = sum_e data[e], out[i, C:] =
+// sum_e data[e]^2 over e in [row_ptr[i], row_ptr[i+1]), the var/std
+// aggregators' input in one pass over the edge data.
+//
+// Bound on this card: bytes (three operations per 4-byte element read).
+// Design: kernel 4's layout (segment_minmax.cu). One thread per
+// (destination row, channel); channels run along threadIdx.x, so each
+// edge's C-wide row is read coalesced with scalar loads (ZINC's C = 375 is
+// not a multiple of 4), and the thread walks the row's edges in CSR order.
+// ZINC's in-degree is at most 4, so each walk is short. Both sums use
+// rounded operations (no FMA contraction), so the kernel gives the plain
+// version's slot-by-slot sums bit for bit.
+// ---------------------------------------------------------------------------
+
+__global__ void segment_sum_sq_kernel(const float* __restrict__ data,
+                                      const int32_t* __restrict__ row_ptr,
+                                      float* __restrict__ out, int n_rows, int n_chan) {
+  const int row = blockIdx.x * blockDim.y + threadIdx.y;
+  if (row >= n_rows) return;
+  const int64_t start = row_ptr[row];
+  const int64_t end = row_ptr[row + 1];
+  float* o = out + static_cast<int64_t>(row) * 2 * n_chan;
+  for (int ch = threadIdx.x; ch < n_chan; ch += blockDim.x) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int64_t e = start; e < end; ++e) {
+      const float x = __ldg(data + e * n_chan + ch);
+      s1 = __fadd_rn(s1, x);
+      s2 = __fadd_rn(s2, __fmul_rn(x, x));
+    }
+    o[ch] = s1;
+    o[n_chan + ch] = s2;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernels 9-11: the wide MMA edge program and its backward
+//
+// Replace mma_tpu/ops/pallas/fused_mma.py::_program_fwd_kernel,
+// _program_bwd_kernel and _program_bwd_csc_kernel (launched by
+// _fused_program_fwd, _fused_program_bwd, _fused_program_bwd_csc). With
+// per-node projections c, d (N, K*F), h (N, F) and, on edge e = (s -> i),
+// logits = c[i] + d[s], sig = sigmoid(logits),
+//   mask = pat ? sig : logits,  dmask = pat ? sig (1 - sig) : 1:
+//   kernel 9:  S[i] = sum_{e in row i} mask_e * tile(h[s], K)
+//   kernel 10: dc[i] = sum_{e in row i} dlog_e, dlog_e = ct[i] * tile(h[s], K) * dmask_e,
+//              and optionally payload[e] = [dlog_e || sum_k (ct[i] * mask_e)_k]
+//              (E, K*F+F), 0 for edges outside the CSR;
+//   kernel 11: out[s] = [sum_{e: src=s} dlog_e || sum_{e: src=s} sum_k (ct[i] * mask_e)_k]
+//              over the CSC, i = dst_csc[e].
+//
+// Bound on this card: bytes. Per edge each kernel reads a K*F + F-wide
+// node row (768 B at F=64, K=2) or two K*F-wide ones at random and does
+// about 4-8 operations per lane. Counted as each input read once, the
+// bound is small; the random row reads (E x the row width) set the time.
+// Design: one warp per row (a destination row for 9-10, a source row for
+// 11), 8 warps a block. A thread owns 4 consecutive lanes of each 128-lane
+// tile of the K*F row (NT = ceil(K*F / 128) tiles, K*F <= 512) and keeps
+// the row's own node data in registers: c[i] (and ct[i]) for 9-10, d[s]
+// and h[s] for 11. Per edge it gathers the other endpoint's rows as
+// 16-byte loads straight from the node tables (no gathered (E, K*F+F)
+// table as the TPU wrapper builds), issuing the next edge's loads before
+// the current edge's arithmetic. The sum over k of the K aggregator blocks
+// (the dh part) crosses threads: the warp stages its ct * mask lanes in
+// shared memory and each thread adds k = 0..K-1 for its 4 output features
+// in that fixed order. Every output row is written once by its warp, edges
+// in CSR / CSC order: no atomics, bitwise equal run to run.
+// ---------------------------------------------------------------------------
+
+constexpr int kWideWarps = 8;
+constexpr int kMaxKF = 512;
+
+__device__ __forceinline__ void load4(float (&v)[4], const float* p, bool on) {
+  if (on) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  } else {
+    v[0] = v[1] = v[2] = v[3] = 0.f;
+  }
+}
+
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// A thread's lanes of a K*F-wide row: l0[t] = 128 t + 4 lane in tile t,
+// on[t] when they exist, hoff[t] = l0[t] mod F (the same lanes of h).
+template <int NT>
+struct WideLanes {
+  int l0[NT];
+  int hoff[NT];
+  bool on[NT];
+  float pat[NT][4];
+
+  __device__ WideLanes(const float* __restrict__ pattern, int lane, int f, int kf) {
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      l0[t] = t * kLaneTile + 4 * lane;
+      on[t] = l0[t] < kf;  // kf % 4 == 0, so all 4 lanes or none
+      hoff[t] = on[t] ? l0[t] % f : 0;
+      load4(pat[t], pattern + l0[t], on[t]);
+    }
+  }
+
+  // v[t] = row[r, l0[t] .. l0[t] + 3] of a (rows, kf) table.
+  __device__ void row(float (&v)[NT][4], const float* __restrict__ table, int64_t r,
+                      int kf) const {
+#pragma unroll
+    for (int t = 0; t < NT; ++t) load4(v[t], table + r * kf + l0[t], on[t]);
+  }
+
+  // v[t] = h[r, hoff[t] .. hoff[t] + 3]: tile(h[r], K) on this thread's lanes.
+  __device__ void hrow(float (&v)[NT][4], const float* __restrict__ h, int64_t r,
+                       int f) const {
+#pragma unroll
+    for (int t = 0; t < NT; ++t) load4(v[t], h + r * f + hoff[t], on[t]);
+  }
+};
+
+template <int NT>
+__device__ __forceinline__ void copy_lanes(float (&dst)[NT][4], const float (&src)[NT][4]) {
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) dst[t][q] = src[t][q];
+  }
+}
+
+// mask and dmask of one lane.
+__device__ __forceinline__ void mask_chain(float x, float p, float& m, float& dm) {
+  const float sg = sigmoidf(x);
+  m = p != 0.f ? sg : x;
+  dm = p != 0.f ? sg * (1.f - sg) : 1.f;
+}
+
+// The warp's dh part: out[ff] = sum_{k < kf / f} gm_s[k f + ff] for this
+// thread's 4 features ff = 4 lane .. 4 lane + 3 (f <= 128), k in order.
+__device__ __forceinline__ void sum_blocks(float* __restrict__ out,
+                                           const float* __restrict__ gm_s, int lane, int f,
+                                           int kf) {
+  const int ff = 4 * lane;
+  if (ff >= f) return;
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int k = 0; k < kf; k += f) {
+    const float4 g = *reinterpret_cast<const float4*>(gm_s + k + ff);
+    s[0] += g.x; s[1] += g.y; s[2] += g.z; s[3] += g.w;
+  }
+  store4(out + ff, s);
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kWideWarps * kWarp)
+edge_program_fwd_kernel(const float* __restrict__ c, const float* __restrict__ d,
+                        const float* __restrict__ h, const float* __restrict__ pat,
+                        const int32_t* __restrict__ src,
+                        const int32_t* __restrict__ row_ptr, float* __restrict__ out,
+                        int n_rows, int f, int kf) {
+  const int row = blockIdx.x * kWideWarps + threadIdx.x / kWarp;
+  if (row >= n_rows) return;  // whole warps leave together
+  const WideLanes<NT> ln(pat, threadIdx.x % kWarp, f, kf);
+  float cv[NT][4], acc[NT][4] = {};
+  ln.row(cv, c, row, kf);
+  const int start = row_ptr[row];
+  const int end = row_ptr[row + 1];
+  float dn[NT][4], hn[NT][4];
+  if (start < end) {
+    const int64_t s = __ldg(src + start);
+    ln.row(dn, d, s, kf);
+    ln.hrow(hn, h, s, f);
+  }
+  for (int e = start; e < end; ++e) {
+    float dv[NT][4], hv[NT][4];
+    copy_lanes(dv, dn);
+    copy_lanes(hv, hn);
+    if (e + 1 < end) {  // the next edge's rows, in flight below
+      const int64_t s = __ldg(src + e + 1);
+      ln.row(dn, d, s, kf);
+      ln.hrow(hn, h, s, f);
+    }
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float x = cv[t][q] + dv[t][q];
+        const float m = ln.pat[t][q] != 0.f ? sigmoidf(x) : x;
+        acc[t][q] = fmaf(m, hv[t][q], acc[t][q]);
+      }
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    if (ln.on[t]) store4(out + static_cast<int64_t>(row) * kf + ln.l0[t], acc[t]);
+  }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kWideWarps * kWarp)
+edge_program_bwd_kernel(const float* __restrict__ c, const float* __restrict__ d,
+                        const float* __restrict__ h, const float* __restrict__ pat,
+                        const int32_t* __restrict__ src,
+                        const int32_t* __restrict__ row_ptr, const float* __restrict__ ct,
+                        float* __restrict__ dc, float* __restrict__ payload, int n_rows,
+                        int n_edges, int f, int kf) {
+  __shared__ __align__(16) float gm_all[kWideWarps * kMaxKF];
+  const int width = kf + f;  // payload row: [dlog || dh_e]
+  if (payload != nullptr) {  // edges no row covers get payload 0
+    const int64_t lo = static_cast<int64_t>(row_ptr[0]) * width;
+    const int64_t hi = static_cast<int64_t>(row_ptr[n_rows]) * width;
+    const int64_t all = static_cast<int64_t>(n_edges) * width;
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+         i < all - hi + lo; i += stride) {
+      payload[i < lo ? i : hi + (i - lo)] = 0.f;
+    }
+  }
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int row = blockIdx.x * kWideWarps + warp;
+  if (row >= n_rows) return;  // whole warps leave together
+  float* gm_s = gm_all + warp * kMaxKF;
+  const WideLanes<NT> ln(pat, lane, f, kf);
+  float cv[NT][4], ctv[NT][4], acc[NT][4] = {};
+  ln.row(cv, c, row, kf);
+  ln.row(ctv, ct, row, kf);
+  const int start = row_ptr[row];
+  const int end = row_ptr[row + 1];
+  float dn[NT][4], hn[NT][4];
+  if (start < end) {
+    const int64_t s = __ldg(src + start);
+    ln.row(dn, d, s, kf);
+    ln.hrow(hn, h, s, f);
+  }
+  for (int e = start; e < end; ++e) {
+    float dv[NT][4], hv[NT][4];
+    copy_lanes(dv, dn);
+    copy_lanes(hv, hn);
+    if (e + 1 < end) {
+      const int64_t s = __ldg(src + e + 1);
+      ln.row(dn, d, s, kf);
+      ln.hrow(hn, h, s, f);
+    }
+    float dl[NT][4], gm[NT][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float m, dm;
+        mask_chain(cv[t][q] + dv[t][q], ln.pat[t][q], m, dm);
+        dl[t][q] = ctv[t][q] * hv[t][q] * dm;
+        gm[t][q] = ctv[t][q] * m;
+        acc[t][q] += dl[t][q];  // edges in CSR order
+      }
+    }
+    if (payload != nullptr) {
+      float* prow = payload + static_cast<int64_t>(e) * width;
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        if (ln.on[t]) {
+          store4(prow + ln.l0[t], dl[t]);
+          store4(gm_s + ln.l0[t], gm[t]);
+        }
+      }
+      __syncwarp();
+      sum_blocks(prow + kf, gm_s, lane, f, kf);
+      __syncwarp();  // gm_s is read before the next edge overwrites it
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    if (ln.on[t]) store4(dc + static_cast<int64_t>(row) * kf + ln.l0[t], acc[t]);
+  }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kWideWarps * kWarp)
+edge_program_bwd_csc_kernel(const float* __restrict__ c, const float* __restrict__ d,
+                            const float* __restrict__ h, const float* __restrict__ pat,
+                            const int32_t* __restrict__ dst_csc,
+                            const int32_t* __restrict__ col_ptr,
+                            const float* __restrict__ ct, float* __restrict__ out,
+                            int n_rows, int f, int kf) {
+  __shared__ __align__(16) float gm_all[kWideWarps * kMaxKF];
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int row = blockIdx.x * kWideWarps + warp;  // a source node
+  if (row >= n_rows) return;  // whole warps leave together
+  float* gm_s = gm_all + warp * kMaxKF;
+  const WideLanes<NT> ln(pat, lane, f, kf);
+  float dv[NT][4], hv[NT][4], dd[NT][4] = {}, gsum[NT][4] = {};
+  ln.row(dv, d, row, kf);
+  ln.hrow(hv, h, row, f);
+  const int start = col_ptr[row];
+  const int end = col_ptr[row + 1];
+  float cn[NT][4], ctn[NT][4];
+  if (start < end) {
+    const int64_t i = __ldg(dst_csc + start);
+    ln.row(cn, c, i, kf);
+    ln.row(ctn, ct, i, kf);
+  }
+  for (int e = start; e < end; ++e) {
+    float cv[NT][4], ctv[NT][4];
+    copy_lanes(cv, cn);
+    copy_lanes(ctv, ctn);
+    if (e + 1 < end) {
+      const int64_t i = __ldg(dst_csc + e + 1);
+      ln.row(cn, c, i, kf);
+      ln.row(ctn, ct, i, kf);
+    }
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float m, dm;
+        mask_chain(cv[t][q] + dv[t][q], ln.pat[t][q], m, dm);
+        dd[t][q] += ctv[t][q] * hv[t][q] * dm;  // edges in CSC order
+        gsum[t][q] += ctv[t][q] * m;
+      }
+    }
+  }
+  const int width = kf + f;
+  float* orow = out + static_cast<int64_t>(row) * width;
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    if (ln.on[t]) {
+      store4(orow + ln.l0[t], dd[t]);
+      store4(gm_s + ln.l0[t], gsum[t]);
+    }
+  }
+  __syncwarp();
+  sum_blocks(orow + kf, gm_s, lane, f, kf);
+}
+
+// Calls launch(std::integral_constant<int, NT>()) for NT = ceil(kf / 128)
+// in 1..4 and returns the launch's error.
+template <typename Launch>
+cudaError_t by_tiles(int kf, Launch launch) {
+  switch ((kf + kLaneTile - 1) / kLaneTile) {
+    case 1: launch(std::integral_constant<int, 1>()); break;
+    case 2: launch(std::integral_constant<int, 2>()); break;
+    case 3: launch(std::integral_constant<int, 3>()); break;
+    case 4: launch(std::integral_constant<int, 4>()); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+int wide_blocks(int n_rows) { return (n_rows + kWideWarps - 1) / kWideWarps; }
+
 }  // namespace
 
 extern "C" {
@@ -717,6 +1071,77 @@ int mma_edge_program_lean_bwd(const void* c, const void* h, const void* w_bot,
                            static_cast<float*>(payload), s);
   }
   return static_cast<int>(err);
+}
+
+// data (E, C) f32, row_ptr (n_rows+1,) i32, out (n_rows, 2C) f32.
+int mma_segment_sum_sq_csr(const void* data, const void* row_ptr, void* out, int n_rows,
+                           int n_chan, void* stream) {
+  if (n_rows <= 0 || n_chan <= 0) return static_cast<int>(cudaSuccess);
+  // Threads along x cover channels (a multiple of 32, at most 128); the
+  // rest of the 256-thread block along y covers rows.
+  int bx = ((n_chan + kWarp - 1) / kWarp) * kWarp;
+  if (bx > 128) bx = 128;
+  const int by = 256 / bx;
+  segment_sum_sq_kernel<<<(n_rows + by - 1) / by, dim3(bx, by), 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(data), static_cast<const int32_t*>(row_ptr),
+      static_cast<float*>(out), n_rows, n_chan);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// c, d (n_rows, kf), h (n_rows, f), pat (kf,) 0/1 f32, src (E,) i32,
+// row_ptr (n_rows+1,) i32, out (n_rows, kf) f32. Requires f % 4 == 0,
+// f <= 128, kf % f == 0, kf <= 512 and 16-byte aligned c, d, h, out.
+int mma_edge_program_fwd(const void* c, const void* d, const void* h, const void* pat,
+                         const void* src, const void* row_ptr, void* out, int n_rows,
+                         int f, int kf, void* stream) {
+  if (n_rows <= 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(by_tiles(kf, [&](auto nt) {
+    edge_program_fwd_kernel<decltype(nt)::value><<<wide_blocks(n_rows), kWideWarps * kWarp,
+                                                    0, s>>>(
+        static_cast<const float*>(c), static_cast<const float*>(d),
+        static_cast<const float*>(h), static_cast<const float*>(pat),
+        static_cast<const int32_t*>(src), static_cast<const int32_t*>(row_ptr),
+        static_cast<float*>(out), n_rows, f, kf);
+  }));
+}
+
+// As mma_edge_program_fwd, plus ct (n_rows, kf). Outputs: dc (n_rows, kf)
+// and, unless payload is null, payload (n_edges, kf + f), 16-byte aligned.
+int mma_edge_program_bwd(const void* c, const void* d, const void* h, const void* pat,
+                         const void* src, const void* row_ptr, const void* ct, void* dc,
+                         void* payload, int n_rows, int n_edges, int f, int kf,
+                         void* stream) {
+  if (n_rows <= 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(by_tiles(kf, [&](auto nt) {
+    edge_program_bwd_kernel<decltype(nt)::value><<<wide_blocks(n_rows), kWideWarps * kWarp,
+                                                    0, s>>>(
+        static_cast<const float*>(c), static_cast<const float*>(d),
+        static_cast<const float*>(h), static_cast<const float*>(pat),
+        static_cast<const int32_t*>(src), static_cast<const int32_t*>(row_ptr),
+        static_cast<const float*>(ct), static_cast<float*>(dc),
+        static_cast<float*>(payload), n_rows, n_edges, f, kf);
+  }));
+}
+
+// c, ct, d (n_rows, kf), h (n_rows, f), pat (kf,), dst_csc (E,) i32,
+// col_ptr (n_rows+1,) i32, out (n_rows, kf + f) f32. Same width and
+// alignment requirements as mma_edge_program_fwd.
+int mma_edge_program_bwd_csc(const void* c, const void* d, const void* h, const void* pat,
+                             const void* dst_csc, const void* col_ptr, const void* ct,
+                             void* out, int n_rows, int f, int kf, void* stream) {
+  if (n_rows <= 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(by_tiles(kf, [&](auto nt) {
+    edge_program_bwd_csc_kernel<decltype(nt)::value><<<wide_blocks(n_rows),
+                                                        kWideWarps * kWarp, 0, s>>>(
+        static_cast<const float*>(c), static_cast<const float*>(d),
+        static_cast<const float*>(h), static_cast<const float*>(pat),
+        static_cast<const int32_t*>(dst_csc), static_cast<const int32_t*>(col_ptr),
+        static_cast<const float*>(ct), static_cast<float*>(out), n_rows, f, kf);
+  }));
 }
 
 }  // extern "C"

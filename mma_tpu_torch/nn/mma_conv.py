@@ -18,8 +18,10 @@ re-design of the reference's PyG ``MessagePassing`` conv,
   plain versions.
 - **General CSR route** (anything else): materialised (E, T·F) messages,
   ``torch.Generator`` dropout, min/max through kernels 4-5 (one paired
-  pass when parity shares the messages), sum/mean through kernel 1 over
-  ``Graph.real_row_ptr``.
+  pass when parity shares the messages), sum/mean through kernel 1 and
+  var/std through kernel 8 (``[Σx ‖ Σx²]`` in one pass, as the JAX
+  package's ``use_pallas`` route, ``mma_tpu/nn/mma_conv.py:501-517``),
+  all over ``Graph.real_row_ptr``.
 
 Parity knobs (SURVEY §5), as in the JAX package:
 
@@ -32,9 +34,9 @@ Parity knobs (SURVEY §5), as in the JAX package:
 - **N2**: message dropout (0.5) whenever the caller asks for it.
 - Empty rows give 0 for every reduce (``torch_scatter``'s fill).
 
-Not ported yet (raise ``NotImplementedError``): ``var``/``std`` (the
-sum-of-squares kernel), ``edge_format="ell"`` and degree-exact graphs (the
-ELL slice), ``compute_dtype`` other than float32, and ``axis_name``.
+Not ported yet (raise ``NotImplementedError``): ``edge_format="ell"`` and
+degree-exact graphs (the ELL slice), ``compute_dtype`` other than float32,
+and ``axis_name``.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ from torch import nn
 from mma_tpu_torch.device import DeviceLike, check_compute_dtype, resolve_device
 from mma_tpu_torch.graph.container import Graph
 from mma_tpu_torch.nn.layers import Dense, dropout
-from mma_tpu_torch.ops.cuda.fused_mma import segment_sum_csr
+from mma_tpu_torch.ops.cuda.fused_mma import segment_sum_csr, segment_sum_sq_csr
 from mma_tpu_torch.ops.cuda.segment_minmax import (
     fused_minmax_edge_program,
     fused_segment_minmax,
@@ -126,10 +128,6 @@ class MultiMaskConv(nn.Module):
         for a in self.aggregators:
             if a not in GR_AGGREGATORS:
                 raise ValueError(f'Unknown aggregator "{a}".')
-            if a in ("var", "std"):
-                raise NotImplementedError(
-                    f"aggregator {a!r} is not ported yet (it comes with {_ELL_SLICE} "
-                    "and the sum-of-squares kernel)")
         for s in self.scalers:
             if s not in GR_SCALERS:
                 raise ValueError(f'Unknown scaler "{s}".')
@@ -248,6 +246,12 @@ class MultiMaskConv(nn.Module):
             return segment_sum_csr(msgs, graph.real_row_ptr)
         if name == "mean":
             return segment_sum_csr(msgs, graph.real_row_ptr) / deg  # deg clamped ≥ 1
+        if name in ("var", "std"):
+            c = msgs.shape[1]
+            both = segment_sum_sq_csr(msgs, graph.real_row_ptr)
+            mean, mean_sq = both[:, :c] / deg, both[:, c:] / deg
+            out = mean_sq - mean * mean
+            return torch.sqrt(torch.relu(out) + 1e-5) if name == "std" else out
         return fused_segment_minmax(msgs, graph, (name,))
 
     def _reduce_all(self, per_agg, graph: Graph, deg, shared_messages: bool):

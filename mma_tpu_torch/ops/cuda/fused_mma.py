@@ -1,8 +1,8 @@
-"""Segment-sum and lean MMA edge-program kernels, with their plain versions.
+"""Segment-sum and MMA edge-program kernels, with their plain versions.
 
-Three hand-written CUDA kernels (``mma_tpu_torch/csrc/fused_mma.cu``) reduce
-over the dst-sorted CSR of a :class:`~mma_tpu_torch.graph.Graph` or its CSC
-twin:
+Seven hand-written CUDA kernels (``mma_tpu_torch/csrc/fused_mma.cu``)
+reduce over the dst-sorted CSR of a :class:`~mma_tpu_torch.graph.Graph` or
+its CSC twin:
 
 - :func:`segment_sum_csr` replaces the JAX package's ``_sum_kernel``:
   ``out[i] = Σ_{e ∈ [row_ptr[i], row_ptr[i+1])} data[e]``, or
@@ -12,11 +12,21 @@ twin:
 - Its backward, :func:`edge_program_lean_bwd`, replaces
   ``_program_bwd_lean_kernel``: ``dc``, ``dW_bot`` and a per-edge ``dh``
   payload, which :func:`segment_sum_csr` then reduces by source.
+- :func:`segment_sum_sq_csr` replaces ``_sumsq_kernel``: ``[Σx ‖ Σx²]``
+  per row, the var/std aggregators' input.
+- The wide edge program :func:`edge_program` (``S[i] = Σ_{dst_e=i}
+  act(c[i] + d[src_e]) ⊙ tile(h[src_e], K)`` from both projections)
+  replaces ``_program_fwd_kernel`` (:func:`edge_program_fwd`),
+  ``_program_bwd_kernel`` (:func:`edge_program_bwd`: ``dc`` and an
+  optional per-edge ``[dlogits ‖ dh_e]`` payload) and
+  ``_program_bwd_csc_kernel`` (:func:`edge_program_bwd_csc`: ``[dd ‖ dh]``
+  in CSC order).
 
 Each function takes the plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors; any other device, dtype, shape or layout
-raises. :func:`segment_sum_csr` (without an index) and
-:func:`edge_program_lean` are differentiable through
+raises. :func:`segment_sum_csr` (without an index),
+:func:`edge_program_lean`, :func:`segment_sum_sq_csr` and
+:func:`edge_program` are differentiable through
 ``torch.autograd.Function``s whose backward dispatches the same way: the
 plain forward and a plain backward on the CPU, the kernels on the card.
 ``LAUNCHES`` counts kernel launches, so a run can show that its path went
@@ -32,11 +42,21 @@ import torch
 
 from mma_tpu_torch.ops.cuda import build
 
-LAUNCHES = {"segment_sum": 0, "edge_program_lean": 0, "edge_program_lean_bwd": 0}
+LAUNCHES = {"segment_sum": 0, "edge_program_lean": 0, "edge_program_lean_bwd": 0,
+            "segment_sum_sq": 0, "edge_program_fwd": 0, "edge_program_bwd": 0,
+            "edge_program_bwd_csc": 0}
 
-# Widths the edge-program kernels take: W_bot's 128-lane tile lives in
-# shared memory (F · 512 B, twice in the backward) and each thread owns 4
-# lanes.
+# The wide program's src-keyed backward strategies, as the JAX package's
+# EDGE_BWD_MODE (mma_tpu/ops/pallas/fused_mma.py:47-58): "payload_permute"
+# emits a per-edge payload from the dst pass and reduces it by source
+# (kernel 1 over the CSC); "csc_gather" recomputes the mask chain in CSC
+# order (kernel 11).
+EDGE_BWD_MODE = "payload_permute"
+EDGE_BWD_MODES = ("payload_permute", "csc_gather")
+
+# Widths the edge-program kernels take: the lean kernels keep W_bot's
+# 128-lane tile in shared memory (F · 512 B, twice in the backward); every
+# edge-program kernel gives each thread 4 lanes of each 128-lane tile.
 MAX_F = 128
 MAX_KF = 512
 LANE_TILE = 128
@@ -60,6 +80,13 @@ def _lib() -> ctypes.CDLL:
         lib.mma_edge_program_lean_bwd_grid.restype = _I
         lib.mma_edge_program_lean_bwd.argtypes = [_P] * 12 + [_I] * 5 + [_P]
         lib.mma_edge_program_lean_bwd.restype = _I
+        lib.mma_segment_sum_sq_csr.argtypes = [_P, _P, _P, _I, _I, _P]
+        lib.mma_edge_program_fwd.argtypes = [_P] * 7 + [_I] * 3 + [_P]
+        lib.mma_edge_program_bwd.argtypes = [_P] * 9 + [_I] * 4 + [_P]
+        lib.mma_edge_program_bwd_csc.argtypes = [_P] * 8 + [_I] * 3 + [_P]
+        for fn in ("mma_segment_sum_sq_csr", "mma_edge_program_fwd", "mma_edge_program_bwd",
+                   "mma_edge_program_bwd_csc"):
+            getattr(lib, fn).restype = _I
         _configured = True
     return lib
 
@@ -196,6 +223,14 @@ def segment_sum_csr(data: torch.Tensor, row_ptr: torch.Tensor,
 
 # ------------------------------------------------------------ kernels 2-3
 
+def _mask_chain(logits: torch.Tensor, pattern: torch.Tensor):
+    """``(mask, dmask)``: σ and its derivative on the pattern's lanes, the
+    identity and 1 elsewhere."""
+    sig = torch.sigmoid(logits)
+    on = pattern.bool()
+    return torch.where(on, sig, logits), torch.where(on, sig * (1.0 - sig), 1.0)
+
+
 def _check_program_inputs(name, c, w_bot, h, pattern, src, row_ptr, ct=None):
     extra = {} if ct is None else {"ct": ct}
     _check_cuda_inputs(name, c=c, w_bot=w_bot, h=h, pattern=pattern, src=src,
@@ -229,8 +264,7 @@ def edge_program_lean_reference(c, w_bot, h, pattern, src, row_ptr):
     ids = _row_ids(row_ptr)
     lo, hi = int(row_ptr[0]), int(row_ptr[-1])
     h_src = h[src[lo:hi].long()]  # (E, F)
-    logits = c[ids] + h_src @ w_bot  # (E, K·F)
-    mask = torch.where(pattern.bool(), torch.sigmoid(logits), logits)
+    mask, _ = _mask_chain(c[ids] + h_src @ w_bot, pattern)  # (E, K·F)
     msg = mask * h_src.repeat(1, kf // f)
     out = torch.zeros((c.shape[0], kf), dtype=torch.float32, device=c.device)
     return out.index_add_(0, ids, msg.float())
@@ -258,11 +292,7 @@ def edge_program_lean_bwd_reference(c, w_bot, h, pattern, src, row_ptr, ct):
     ids = _row_ids(row_ptr)
     lo, hi = int(row_ptr[0]), int(row_ptr[-1])
     h_src = h[src[lo:hi].long()]  # (E, F)
-    logits = c[ids] + h_src @ w_bot  # (E, K·F)
-    sig = torch.sigmoid(logits)
-    on = pattern.bool()
-    mask = torch.where(on, sig, logits)
-    dmask = torch.where(on, sig * (1.0 - sig), 1.0)
+    mask, dmask = _mask_chain(c[ids] + h_src @ w_bot, pattern)  # (E, K·F)
     ge = ct[ids]
     dlog = ge * h_src.repeat(1, kf // f) * dmask
     dc = torch.zeros((c.shape[0], kf), dtype=torch.float32, device=c.device)
@@ -367,3 +397,295 @@ def edge_program_lean(c: torch.Tensor, w_bot: torch.Tensor, h: torch.Tensor,
     ``Graph.src_perm`` beside ``Graph.real_row_ptr``).
     """
     return _EdgeProgramLean.apply(c, w_bot, h, pattern, src, row_ptr, col_ptr, src_perm)
+
+
+# ---------------------------------------------------------------- kernel 8
+
+def segment_sum_sq_reference(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`segment_sum_sq_csr`: ``(N, 2C)`` float32.
+
+    Each row is summed slot by slot in CSR order, with the square rounded
+    before it is added, as the kernel sums: the two agree bit for bit, so
+    that ``var = E[x²] - E[x]²`` cancels the same way on both sides."""
+    n, ch = row_ptr.shape[0] - 1, data.shape[1]
+    s1 = torch.zeros((n, ch), dtype=torch.float32, device=data.device)
+    s2 = torch.zeros_like(s1)
+    starts = row_ptr[:-1].long()
+    counts = row_ptr[1:].long() - starts
+    for j in range(int(counts.max()) if n else 0):
+        live = (counts > j)[:, None]
+        x = data.index_select(0, torch.where(counts > j, starts + j, 0)).float()
+        s1 = s1 + torch.where(live, x, 0.0)
+        s2 = s2 + torch.where(live, x * x, 0.0)
+    return torch.cat([s1, s2], dim=1)
+
+
+def _segment_sum_sq_kernel(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
+    name = "segment_sum_sq_csr"
+    _check_cuda_inputs(name, data=data, row_ptr=row_ptr)
+    _check_dtype(name, "data", data, torch.float32)
+    _check_dtype(name, "row_ptr", row_ptr, torch.int32)
+    if data.ndim != 2 or row_ptr.ndim != 1:
+        raise ValueError(f"{name}: data must be (E, C) and row_ptr (N+1,)")
+    n, ch = row_ptr.shape[0] - 1, data.shape[1]
+    out = torch.empty((n, 2 * ch), dtype=torch.float32, device=data.device)
+    lib = _lib()
+    with torch.cuda.device(data.device):
+        err = lib.mma_segment_sum_sq_csr(data.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
+                                         n, ch, _stream())
+    _check_launch(lib, err, name)
+    LAUNCHES["segment_sum_sq"] += 1
+    return out
+
+
+class _SegmentSumSq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, row_ptr):
+        ctx.save_for_backward(data, row_ptr)
+        if _on_cpu(data, row_ptr):
+            return segment_sum_sq_reference(data, row_ptr)
+        return _segment_sum_sq_kernel(data, row_ptr)
+
+    @staticmethod
+    def backward(ctx, ct):
+        data, row_ptr = ctx.saved_tensors
+        ch = data.shape[1]
+        ct_e = _expand_rows(ct, row_ptr, data.shape[0])
+        return ct_e[:, :ch] + 2.0 * data * ct_e[:, ch:], None
+
+
+def segment_sum_sq_csr(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
+    """``[Σ data ‖ Σ data²]`` over each CSR row of ``row_ptr`` → (N, 2C) float32.
+
+    Row ``i`` sums ``data[e]`` and ``data[e]²`` (``data`` (E, C)) for
+    ``e ∈ [row_ptr[i], row_ptr[i+1])`` in one pass: the var/std
+    aggregators' input. Differentiable in ``data``: ``d/dx_e = ct[i, :C] +
+    2·x_e·ct[i, C:]`` for the edges the CSR covers and 0 for the others, as
+    plain gathers (no kernel). ``row_ptr`` as :func:`segment_sum_csr`'s.
+    Deterministic; rows without edges give 0.
+    """
+    return _SegmentSumSq.apply(data, row_ptr)
+
+
+# ------------------------------------------------------------ kernels 9-11
+
+def _check_wide_inputs(name, c, d, h, pattern, index, ptr, ct=None):
+    extra = {} if ct is None else {"ct": ct}
+    _check_cuda_inputs(name, c=c, d=d, h=h, pattern=pattern, index=index, ptr=ptr, **extra)
+    for arg, t in (("c", c), ("d", d), ("h", h), ("pattern", pattern), *extra.items()):
+        _check_dtype(name, arg, t, torch.float32)
+    for arg, t in (("index", index), ("ptr", ptr)):
+        _check_dtype(name, arg, t, torch.int32)
+    if h.ndim != 2 or c.ndim != 2:
+        raise ValueError(f"{name}: c must be (N, K·F) and h (N, F)")
+    n, f = h.shape
+    kf = c.shape[1]
+    if (c.shape != (n, kf) or d.shape != (n, kf) or pattern.shape != (kf,)
+            or ptr.shape != (n + 1,) or index.ndim != 1
+            or (ct is not None and ct.shape != (n, kf))):
+        raise ValueError(
+            f"{name}: shapes c{tuple(c.shape)} d{tuple(d.shape)} h{tuple(h.shape)} "
+            f"pattern{tuple(pattern.shape)} index{tuple(index.shape)} "
+            f"ptr{tuple(ptr.shape)} do not fit together"
+        )
+    if f % 4 or f > MAX_F or kf % f or kf > MAX_KF:
+        raise ValueError(
+            f"{name}: takes F % 4 == 0, F <= {MAX_F}, K·F <= {MAX_KF}; got F={f}, K·F={kf}"
+        )
+    if any(t.data_ptr() % 16 for t in (c, d, h, *extra.values())):
+        raise ValueError(f"{name}: c, d, h and ct must be 16-byte aligned")
+    return n, f, kf
+
+
+def edge_program_fwd_reference(c, d, h, pattern, src, row_ptr):
+    """Plain version of :func:`edge_program_fwd`: ``(N, K·F)`` float32."""
+    kf, f = c.shape[1], h.shape[1]
+    ids = _row_ids(row_ptr)
+    lo, hi = int(row_ptr[0]), int(row_ptr[-1])
+    s = src[lo:hi].long()
+    mask, _ = _mask_chain(c[ids] + d[s], pattern)  # (E, K·F)
+    msg = mask * h[s].repeat(1, kf // f)
+    out = torch.zeros((c.shape[0], kf), dtype=torch.float32, device=c.device)
+    return out.index_add_(0, ids, msg)
+
+
+def _edge_program_fwd_kernel(c, d, h, pattern, src, row_ptr):
+    name = "edge_program_fwd"
+    n, f, kf = _check_wide_inputs(name, c, d, h, pattern, src, row_ptr)
+    out = torch.empty((n, kf), dtype=torch.float32, device=c.device)
+    lib = _lib()
+    with torch.cuda.device(c.device):
+        err = lib.mma_edge_program_fwd(
+            c.data_ptr(), d.data_ptr(), h.data_ptr(), pattern.data_ptr(), src.data_ptr(),
+            row_ptr.data_ptr(), out.data_ptr(), n, f, kf, _stream(),
+        )
+    _check_launch(lib, err, name)
+    LAUNCHES["edge_program_fwd"] += 1
+    return out
+
+
+def edge_program_fwd(c: torch.Tensor, d: torch.Tensor, h: torch.Tensor,
+                     pattern: torch.Tensor, src: torch.Tensor,
+                     row_ptr: torch.Tensor) -> torch.Tensor:
+    """``S[i] = Σ_{e ∈ row i} act(c[i] + d[src_e]) ⊙ tile(h[src_e], K)`` →
+    (N, K·F) float32; arguments as :func:`edge_program`'s. Not
+    differentiable (:func:`edge_program` is)."""
+    if _on_cpu(c, d, h, pattern, src, row_ptr):
+        return edge_program_fwd_reference(c, d, h, pattern, src, row_ptr)
+    return _edge_program_fwd_kernel(c, d, h, pattern, src, row_ptr)
+
+
+def edge_program_bwd_reference(c, d, h, pattern, src, row_ptr, ct, emit_payload=True):
+    """Plain version of :func:`edge_program_bwd`, with explicit per-edge
+    tensors: ``(dc, payload or None)``."""
+    kf, f = c.shape[1], h.shape[1]
+    ids = _row_ids(row_ptr)
+    lo, hi = int(row_ptr[0]), int(row_ptr[-1])
+    s = src[lo:hi].long()
+    mask, dmask = _mask_chain(c[ids] + d[s], pattern)
+    ge = ct[ids]
+    dlog = ge * h[s].repeat(1, kf // f) * dmask
+    dc = torch.zeros((c.shape[0], kf), dtype=torch.float32, device=c.device)
+    dc.index_add_(0, ids, dlog)
+    if not emit_payload:
+        return dc, None
+    payload = torch.zeros((src.shape[0], kf + f), dtype=torch.float32, device=c.device)
+    payload[lo:hi] = torch.cat([dlog, (ge * mask).reshape(-1, kf // f, f).sum(dim=1)], dim=1)
+    return dc, payload
+
+
+def _edge_program_bwd_kernel(c, d, h, pattern, src, row_ptr, ct, emit_payload=True):
+    name = "edge_program_bwd"
+    n, f, kf = _check_wide_inputs(name, c, d, h, pattern, src, row_ptr, ct)
+    n_edges = src.shape[0]
+    dc = torch.empty((n, kf), dtype=torch.float32, device=c.device)
+    payload = (torch.empty((n_edges, kf + f), dtype=torch.float32, device=c.device)
+               if emit_payload else None)
+    lib = _lib()
+    with torch.cuda.device(c.device):
+        err = lib.mma_edge_program_bwd(
+            c.data_ptr(), d.data_ptr(), h.data_ptr(), pattern.data_ptr(), src.data_ptr(),
+            row_ptr.data_ptr(), ct.data_ptr(), dc.data_ptr(),
+            None if payload is None else payload.data_ptr(), n, n_edges, f, kf, _stream(),
+        )
+    _check_launch(lib, err, name)
+    LAUNCHES["edge_program_bwd"] += 1
+    return dc, payload
+
+
+def edge_program_bwd(c: torch.Tensor, d: torch.Tensor, h: torch.Tensor,
+                     pattern: torch.Tensor, src: torch.Tensor, row_ptr: torch.Tensor,
+                     ct: torch.Tensor, emit_payload: bool = True
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Dst half of :func:`edge_program`'s backward for the cotangent ``ct``
+    (N, K·F).
+
+    With ``logits_e = c[i] + d[src_e]`` on edge ``e`` of row ``i``,
+    ``mask``/``dmask`` the activation and its derivative, and ``dlog_e =
+    ct[i] ⊙ tile(h[src_e], K) ⊙ dmask``, returns ``dc`` (N, K·F) = ``Σ_{e ∈
+    row i} dlog_e`` and, with ``emit_payload``, the per-edge payload (E,
+    K·F+F) = ``[dlog_e ‖ Σ_k (ct[i] ⊙ mask_e)_k]`` for the edges the CSR
+    covers, 0 for the others (else None). ``[dd ‖ dh]`` is the payload
+    summed by source.
+    """
+    tensors = (c, d, h, pattern, src, row_ptr, ct)
+    if _on_cpu(*tensors):
+        return edge_program_bwd_reference(*tensors, emit_payload)
+    return _edge_program_bwd_kernel(*tensors, emit_payload)
+
+
+def edge_program_bwd_csc_reference(c, d, h, pattern, dst_csc, col_ptr, ct):
+    """Plain version of :func:`edge_program_bwd_csc`, with explicit
+    per-edge tensors in CSC order: ``(N, K·F+F)`` float32."""
+    kf, f = c.shape[1], h.shape[1]
+    js = _row_ids(col_ptr)
+    lo, hi = int(col_ptr[0]), int(col_ptr[-1])
+    i = dst_csc[lo:hi].long()
+    mask, dmask = _mask_chain(c[i] + d[js], pattern)
+    ge = ct[i]
+    dlog = ge * h[js].repeat(1, kf // f) * dmask
+    dh_e = (ge * mask).reshape(-1, kf // f, f).sum(dim=1)
+    out = torch.zeros((c.shape[0], kf + f), dtype=torch.float32, device=c.device)
+    return out.index_add_(0, js, torch.cat([dlog, dh_e], dim=1))
+
+
+def _edge_program_bwd_csc_kernel(c, d, h, pattern, dst_csc, col_ptr, ct):
+    name = "edge_program_bwd_csc"
+    n, f, kf = _check_wide_inputs(name, c, d, h, pattern, dst_csc, col_ptr, ct)
+    out = torch.empty((n, kf + f), dtype=torch.float32, device=c.device)
+    lib = _lib()
+    with torch.cuda.device(c.device):
+        err = lib.mma_edge_program_bwd_csc(
+            c.data_ptr(), d.data_ptr(), h.data_ptr(), pattern.data_ptr(), dst_csc.data_ptr(),
+            col_ptr.data_ptr(), ct.data_ptr(), out.data_ptr(), n, f, kf, _stream(),
+        )
+    _check_launch(lib, err, name)
+    LAUNCHES["edge_program_bwd_csc"] += 1
+    return out
+
+
+def edge_program_bwd_csc(c: torch.Tensor, d: torch.Tensor, h: torch.Tensor,
+                         pattern: torch.Tensor, dst_csc: torch.Tensor,
+                         col_ptr: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
+    """Src half of :func:`edge_program`'s backward in CSC order: ``[dd ‖
+    dh]`` (N, K·F+F) with ``dd[s] = Σ_{e: src=s} dlog_e`` and ``dh[s] =
+    Σ_{e: src=s} Σ_k (ct[i] ⊙ mask_e)_k``, ``i = dst_csc[e]``, over the
+    CSC ``col_ptr``. The kernel gathers ``c[i]`` and ``ct[i]`` itself and
+    recomputes the mask chain; no per-edge table is stored.
+    """
+    tensors = (c, d, h, pattern, dst_csc, col_ptr, ct)
+    if _on_cpu(*tensors):
+        return edge_program_bwd_csc_reference(*tensors)
+    return _edge_program_bwd_csc_kernel(*tensors)
+
+
+class _EdgeProgram(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, c, d, h, pattern, src, row_ptr, col_ptr, src_perm, dst_csc, bwd_mode):
+        ctx.save_for_backward(c, d, h, pattern, src, row_ptr, col_ptr, src_perm, dst_csc)
+        ctx.bwd_mode = bwd_mode
+        return edge_program_fwd(c, d, h, pattern, src, row_ptr)
+
+    @staticmethod
+    def backward(ctx, ct):
+        c, d, h, pattern, src, row_ptr, col_ptr, src_perm, dst_csc = ctx.saved_tensors
+        ct = ct.contiguous()
+        src_side = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        csc = ctx.bwd_mode == "csc_gather"
+        dc, payload = edge_program_bwd(c, d, h, pattern, src, row_ptr, ct,
+                                       emit_payload=src_side and not csc)
+        dd = dh = None
+        if src_side:
+            both = (edge_program_bwd_csc(c, d, h, pattern, dst_csc, col_ptr, ct) if csc
+                    else segment_sum_csr(payload, col_ptr, index=src_perm))
+            dd, dh = both[:, :c.shape[1]], both[:, c.shape[1]:]
+        return dc, dd, dh, None, None, None, None, None, None, None
+
+
+def edge_program(c: torch.Tensor, d: torch.Tensor, h: torch.Tensor, pattern: torch.Tensor,
+                 src: torch.Tensor, row_ptr: torch.Tensor, col_ptr: torch.Tensor,
+                 src_perm: torch.Tensor, dst_csc: torch.Tensor,
+                 bwd_mode: Optional[str] = None) -> torch.Tensor:
+    """Wide MMA edge program over the dst-sorted CSR.
+
+    ``S[i] = Σ_{e ∈ row i} act(c[i] + d[src_e]) ⊙ tile(h[src_e], K)`` with
+    the per-node mask projections ``c``, ``d`` (N, K·F), ``h`` (N, F),
+    ``pattern`` (K·F,) float 0/1 (σ where 1, the identity elsewhere),
+    ``src`` (E,) int32 and ``row_ptr`` (N+1,) int32 (a graph builder's
+    CSR; the kernels do not check the values). The kernel gathers
+    ``d[src]`` and ``h[src]`` itself; no (E, K·F+F) table is stored.
+
+    Differentiable in ``c``, ``d`` and ``h``: :func:`edge_program_bwd`
+    gives ``dc``; ``bwd_mode`` (None: :data:`EDGE_BWD_MODE`) chooses how
+    ``[dd ‖ dh]`` is formed over the CSC ``col_ptr`` that covers the same
+    edges as ``row_ptr``: ``"payload_permute"`` sums the dst pass's
+    per-edge payload by source (:func:`segment_sum_csr` with
+    ``index=src_perm``), ``"csc_gather"`` recomputes the mask chain in CSC
+    order (:func:`edge_program_bwd_csc`, reading ``dst_csc``).
+    """
+    if bwd_mode is None:
+        bwd_mode = EDGE_BWD_MODE
+    if bwd_mode not in EDGE_BWD_MODES:
+        raise ValueError(f"bwd_mode must be one of {EDGE_BWD_MODES}, got {bwd_mode!r}")
+    return _EdgeProgram.apply(c, d, h, pattern, src, row_ptr, col_ptr, src_perm, dst_csc,
+                              bwd_mode)

@@ -4,20 +4,26 @@ For every center node ``i`` and neighbor ``j`` the reference computes
 ``mask_ij = act([h_i ‖ h_j] @ W_k)`` and sums ``mask_ij ⊙ h_j`` over ``j``.
 As in the JAX package, ``[h_i ‖ h_j] @ W = h_i @ W_top + h_j @ W_bot``, and
 all K aggregators share one flat ``(N, K·F)`` layout; aggregator ``k``
-owns lanes ``[k·F, (k+1)·F)``. Two routes, chosen as the JAX package
-chooses (``mma_tpu/ops/masked_aggregate.py:236-238``):
+owns lanes ``[k·F, (k+1)·F)``. Three routes, chosen as the JAX package
+chooses (``mma_tpu/ops/masked_aggregate.py:236-294``):
 
-- **Fused lean**: ``c = h @ W_top`` is one per-node matmul, and the lean
-  edge program (``mma_tpu_torch.ops.cuda.fused_mma.edge_program_lean``)
-  does the per-edge work (``h[src] @ W_bot``, the activation, the product
-  with ``tile(h[src], K)`` and the sum over each destination's edges)
-  without storing per-edge tensors, forward and backward.
+- **Fused lean** (the default): ``c = h @ W_top`` is one per-node matmul,
+  and the lean edge program
+  (``mma_tpu_torch.ops.cuda.fused_mma.edge_program_lean``) does the
+  per-edge work (``h[src] @ W_bot``, the activation, the product with
+  ``tile(h[src], K)`` and the sum over each destination's edges) without
+  storing per-edge tensors, forward and backward.
+- **Fused wide** (an explicit ``pallas_bwd_mode``): both projections ``c,
+  d`` are per-node matmuls, and the wide edge program
+  (``mma_tpu_torch.ops.cuda.fused_mma.edge_program``) gathers ``d[src]``
+  and ``h[src]`` per edge; ``pallas_bwd_mode`` chooses its src-keyed
+  backward (``"payload_permute"`` or ``"csc_gather"``).
 - **Half-fused**: mask dropout (N2) and the ``std``/``moment_3`` combines
   need the per-edge masks and messages, so they materialise ``(E, K·F)``
   logits ``c[dst] + d[src]``, mask and messages, and reduce them with
   kernel 1 over the CSR.
 
-Both routes reduce over the real edges only (``Graph.real_row_ptr``).
+Every route reduces over the real edges only (``Graph.real_row_ptr``).
 """
 
 from __future__ import annotations
@@ -28,7 +34,12 @@ import torch
 
 from mma_tpu_torch.graph.container import Graph
 from mma_tpu_torch.ops.aggregators import AggSpec
-from mma_tpu_torch.ops.cuda.fused_mma import edge_program_lean, segment_sum_csr
+from mma_tpu_torch.ops.cuda.fused_mma import (
+    EDGE_BWD_MODES,
+    edge_program,
+    edge_program_lean,
+    segment_sum_csr,
+)
 from mma_tpu_torch.ops.gather import gather_by_dst, gather_by_src
 
 _EPS = 1e-5
@@ -88,6 +99,7 @@ def masked_multi_aggregate(
     parity: bool = True,
     mask_dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    pallas_bwd_mode: Optional[str] = None,
 ) -> torch.Tensor:
     """K-way masked aggregation: returns ``(N, K, F)`` combined outputs.
 
@@ -96,11 +108,18 @@ def masked_multi_aggregate(
     spec's center combine. Rows of padding nodes are unspecified.
     ``generator`` with a positive ``mask_dropout_rate`` turns on mask
     dropout, drawn from that generator (it must live on ``h``'s device).
+    ``pallas_bwd_mode`` (``"payload_permute"`` or ``"csc_gather"``) takes
+    the wide edge program with that backward where the lean one would run
+    (no mask dropout, no ``std``/``moment_3``); None keeps the lean one.
+    The name is the JAX package's.
     """
     n, f = h.shape
     k = len(specs)
     if mask_weights.shape != (k, 2 * f, f):
         raise ValueError(f"mask_weights {tuple(mask_weights.shape)} != {(k, 2 * f, f)}")
+    if pallas_bwd_mode is not None and pallas_bwd_mode not in EDGE_BWD_MODES:
+        raise ValueError(f"pallas_bwd_mode must be None or one of {EDGE_BWD_MODES}, "
+                         f"got {pallas_bwd_mode!r}")
     dropout_on = generator is not None and mask_dropout_rate > 0.0
     need_moments = any(s.combine in ("std", "moment_3") for s in specs)
     pat = sigmoid_lane_pattern(specs, activation, parity, f, h.device)
@@ -111,6 +130,10 @@ def masked_multi_aggregate(
         msgs = _edge_messages(h, graph, mask_weights, pat, mask_dropout_rate,
                               generator if dropout_on else None)
         s = segment_sum_csr(msgs, row_ptr)
+    elif pallas_bwd_mode is not None:
+        c, d = mma_mask_projections(h, mask_weights)
+        s = edge_program(c, d, h.contiguous(), pat, graph.src, row_ptr, graph.real_col_ptr,
+                         graph.src_perm, graph.dst_csc, pallas_bwd_mode)
     else:
         w_top = _flat_lanes(mask_weights[:, :f, :])
         w_bot = _flat_lanes(mask_weights[:, f:, :]).contiguous()

@@ -3,7 +3,8 @@
 or a train step.
 
     python3 scripts/torch_forward_profile.py
-        [--graph synthetic-large|cora|zinc|zinc-default] [--mode forward|train]
+        [--graph synthetic-large|cora|zinc|zinc-default|zinc-pna]
+        [--mode forward|train|wide] [--bwd-mode payload_permute|csc_gather]
         [--iters 5] [--batch 1024]
 
 Builds the kernels, runs the work once to warm up, then traces ``--iters``
@@ -15,11 +16,15 @@ Cora at the README preset (mask dropout 0.75, the half-fused route) and
 synthetic-large with dropout 0 (the fused route, kernel 3). ``zinc`` is
 ZincNet at the README preset (``min,max``: the fused min/max edge
 program, kernels 6-7) and ``zinc-default`` at the command line's default
-``mean,max,min`` (the general route, kernels 1, 4, 5), on the first
+``mean,max,min`` (the general route, kernels 1, 4, 5), ``zinc-pna`` at
+the PNA set ``mean,min,max,std`` (kernels 1, 4, 5 and 8), on the first
 ``--batch`` synthetic train molecules padded to the next 1,024 nodes and
 edges (``chip_smoke.py``'s flagship batch at 1,024); ``--mode train``
-runs ``zinc_train_step`` with message dropout on. Weights, features and
-labels are random from a seed, as in ``chip_smoke.py``.
+runs ``zinc_train_step`` with message dropout on. ``--mode wide`` runs
+``chip_smoke.py``'s large-wide work on synthetic-large: the forward and
+backward of ``masked_multi_aggregate`` (F=64, ``mean,mean2``) with
+``pallas_bwd_mode=--bwd-mode`` (kernels 9, 10 and 1 or 11). Weights,
+features and labels are random from a seed, as in ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -37,12 +42,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--graph", choices=("synthetic-large", "cora", "zinc", "zinc-default"),
-                    default="synthetic-large")
-    ap.add_argument("--mode", choices=("forward", "train"), default="forward")
+    ap.add_argument("--graph", choices=("synthetic-large", "cora", "zinc", "zinc-default",
+                                        "zinc-pna"), default="synthetic-large")
+    ap.add_argument("--mode", choices=("forward", "train", "wide"), default="forward")
+    ap.add_argument("--bwd-mode", choices=("payload_permute", "csc_gather"),
+                    default="payload_permute")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--batch", type=int, default=1024, help="ZINC molecules per batch")
     args = ap.parse_args()
+    if args.mode == "wide" and args.graph != "synthetic-large":
+        ap.error("--mode wide runs on --graph synthetic-large")
     if not torch.cuda.is_available():
         print("torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -67,9 +76,12 @@ def main() -> int:
         e_need = int(sum(len(s) for s in ds.edge_src))
         batch = next(ds.batches(args.batch, n_node=-(-n_need // 1024) * 1024,
                                 n_edge=-(-e_need // 1024) * 1024))
-        aggs, scalers = ((("min", "max"), ("identity", "amplification", "linear"))
-                         if args.graph == "zinc" else
-                         (("mean", "max", "min"), ("identity", "amplification", "attenuation")))
+        aggs, scalers = {
+            "zinc": (("min", "max"), ("identity", "amplification", "linear")),
+            "zinc-default": (("mean", "max", "min"), ("identity", "amplification", "attenuation")),
+            "zinc-pna": (("mean", "min", "max", "std"),
+                         ("identity", "amplification", "attenuation")),
+        }[args.graph]
         model = ZincNet(aggs, scalers, compute_avg_deg(ds.degree_histogram()), generator=gen)
     elif args.graph == "cora":
         data = load_planetoid("cora")
@@ -86,7 +98,20 @@ def main() -> int:
                                dropout_rate=0.0 if args.mode == "train" else 0.5,
                                generator=gen)
 
-    if args.mode == "train":
+    if args.mode == "wide":
+        from mma_tpu_torch.ops import get_agg_spec
+        from mma_tpu_torch.ops.masked_aggregate import masked_multi_aggregate
+
+        specs = [get_agg_spec(a) for a in ("mean", "mean2")]
+        mw0 = (torch.randn((2, 128, 64), generator=gen) / 8.0).cuda()
+        ct = torch.randn((graph.n_node, 2, 64), generator=gen).cuda()
+
+        def run():
+            h = x.clone().requires_grad_()
+            mw = mw0.clone().requires_grad_()
+            out = masked_multi_aggregate(h, graph, mw, specs, pallas_bwd_mode=args.bwd_mode)
+            (out * ct).sum().backward()
+    elif args.mode == "train":
         opt = make_optimizer(model.parameters(), 1e-3, 3e-4)
         step_gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -132,7 +157,8 @@ def main() -> int:
             rows.append((dev_us / args.iters / 1e3, ev.count // args.iters, ev.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"graph {args.graph}, {args.mode}: host-clock time per run (ms): "
+    mode = f"wide {args.bwd_mode}" if args.mode == "wide" else args.mode
+    print(f"graph {args.graph}, {mode}: host-clock time per run (ms): "
           f"{' '.join(f'{v:.3f}' for v in lat)}")
     print(f"traced window {window_ms / args.iters:.3f} ms per run (host clock), "
           f"device busy {busy:.3f} ms per run, busy share {busy / (window_ms / args.iters):.3f}, "

@@ -330,7 +330,8 @@ def test_minmax_hash_on_card_matches_cpu(cuda):
     assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("aggs", [("min", "max"), ("mean", "max", "min")])
+@pytest.mark.parametrize("aggs", [("min", "max"), ("mean", "max", "min"),
+                                  ("mean", "min", "max", "std")])
 def test_zinc_train_steps_are_bitwise_repeatable_on_card(cuda, aggs):
     """Two ZincNet train steps with message dropout, twice from the same
     seeds: every parameter and BatchNorm buffer bitwise equal (no atomics on
@@ -357,3 +358,97 @@ def test_zinc_train_steps_are_bitwise_repeatable_on_card(cuda, aggs):
     for k in states[0]:
         assert torch.equal(states[0][k], states[1][k]), k
         torch.testing.assert_close(states[2][k], states[3][k], rtol=1e-4, atol=1e-4)
+
+
+# ---- kernel 8 (sum of squares) and the wide edge program (kernels 9-11) ----
+
+@pytest.mark.parametrize("channels", [375, 37, 64])
+def test_segment_sum_sq_kernel_matches_plain(cuda, graph, channels):
+    """Kernel 8 equal to its plain version bit for bit (both add each row's
+    edges in CSR order, the square rounded first) and run to run; rows
+    without edges and the padding node give 0."""
+    rs = np.random.RandomState(channels)
+    data = torch.from_numpy(rs.randn(graph.n_edge, channels).astype(np.float32)).to(cuda)
+    rp = graph.real_row_ptr
+    before = fused_mma.LAUNCHES["segment_sum_sq"]
+    got = fused_mma.segment_sum_sq_csr(data, rp)
+    torch.cuda.synchronize()
+    assert fused_mma.LAUNCHES["segment_sum_sq"] == before + 1
+    assert torch.equal(got, fused_mma.segment_sum_sq_reference(data, rp))
+    assert torch.equal(got, fused_mma.segment_sum_sq_csr(data, rp))
+    assert (got[260:] == 0).all()
+
+
+@pytest.mark.parametrize("f,k", [(12, 3), (16, 2), (64, 2), (96, 2), (128, 4)])
+def test_wide_edge_program_kernels_match_plain(cuda, graph, f, k):
+    """Kernels 9, 10 (with and without the payload) and 11 against their
+    plain versions within 1e-5 of the largest value, bitwise equal run to
+    run; K·F of 36 to 512 takes one to four lane tiles."""
+    rs = np.random.RandomState(6)
+    n = graph.n_node
+    c, d, ct = (torch.from_numpy(rs.randn(n, k * f).astype(np.float32)).to(cuda)
+                for _ in range(3))
+    h = torch.from_numpy(rs.randn(n, f).astype(np.float32)).to(cuda)
+    pat = torch.from_numpy(np.repeat(np.arange(k) % 2 == 0, f).astype(np.float32)).to(cuda)
+    rp, cp = graph.real_row_ptr, graph.real_col_ptr
+    fwd = (c, d, h, pat, graph.src, rp)
+    csc_args = (c, d, h, pat, graph.dst_csc, cp, ct)
+    before = dict(fused_mma.LAUNCHES)
+    out = fused_mma.edge_program_fwd(*fwd)
+    dc, payload = fused_mma.edge_program_bwd(*fwd, ct)
+    dc_only, none = fused_mma.edge_program_bwd(*fwd, ct, emit_payload=False)
+    csc = fused_mma.edge_program_bwd_csc(*csc_args)
+    torch.cuda.synchronize()
+    for key, added in (("edge_program_fwd", 1), ("edge_program_bwd", 2),
+                       ("edge_program_bwd_csc", 1)):
+        assert fused_mma.LAUNCHES[key] == before[key] + added
+    _close(out, fused_mma.edge_program_fwd_reference(*fwd))
+    want_dc, want_payload = fused_mma.edge_program_bwd_reference(*fwd, ct)
+    _close(dc, want_dc)
+    _close(payload, want_payload)
+    _close(csc, fused_mma.edge_program_bwd_csc_reference(*csc_args))
+    assert none is None and torch.equal(dc_only, dc)
+    assert torch.equal(out, fused_mma.edge_program_fwd(*fwd))
+    again = fused_mma.edge_program_bwd(*fwd, ct)
+    assert torch.equal(dc, again[0]) and torch.equal(payload, again[1])
+    assert torch.equal(csc, fused_mma.edge_program_bwd_csc(*csc_args))
+    assert (out[260:] == 0).all() and (dc[260:] == 0).all() and (csc[300:] == 0).all()
+    assert (payload[int(rp[-1]):] == 0).all()  # padding edges
+
+
+@pytest.mark.parametrize("bwd_mode", ["payload_permute", "csc_gather"])
+def test_wide_edge_program_on_card_matches_cpu(cuda, graph, bwd_mode):
+    """``edge_program``'s forward and its three gradients on the card
+    (kernels 9, 10 and 1 or 11) against the CPU's plain path."""
+    cpu_graph = graph.to("cpu")
+    rs = np.random.RandomState(8)
+    f, k = 64, 2
+    c, d = (torch.from_numpy(rs.randn(graph.n_node, k * f).astype(np.float32))
+            for _ in range(2))
+    h = torch.from_numpy(rs.randn(graph.n_node, f).astype(np.float32))
+    pat = torch.from_numpy(np.repeat(np.array([0.0, 1.0], np.float32), f))
+
+    def make(g):
+        return lambda c_, d_, h_: fused_mma.edge_program(
+            c_, d_, h_, pat.to(g.src.device), g.src, g.real_row_ptr, g.real_col_ptr,
+            g.src_perm, g.dst_csc, bwd_mode)
+
+    before = dict(fused_mma.LAUNCHES)
+    got, got_g = _grads(make(graph), *(t.to(cuda) for t in (c, d, h)))
+    assert fused_mma.LAUNCHES["edge_program_fwd"] == before["edge_program_fwd"] + 1
+    assert fused_mma.LAUNCHES["edge_program_bwd"] == before["edge_program_bwd"] + 1
+    want, want_g = _grads(make(cpu_graph), c, d, h)
+    _close(got, want)
+    for g, w in zip(got_g, want_g):
+        _close(g, w)
+
+
+def test_wide_kernels_reject_what_they_do_not_take(cuda, graph):
+    n, f = graph.n_node, 132  # above the kernels' F limit
+    c = torch.zeros(n, f, device=cuda)
+    with pytest.raises(ValueError, match="F <= 128"):
+        fused_mma.edge_program_fwd(c, c, c, torch.zeros(f, device=cuda), graph.src,
+                                   graph.real_row_ptr)
+    with pytest.raises(ValueError, match="float32"):
+        fused_mma.segment_sum_sq_csr(torch.zeros(graph.n_edge, 3, device=cuda).double(),
+                                     graph.real_row_ptr)
