@@ -4,7 +4,7 @@
 1. Prints the card's name and power limit (``nvidia-smi``), then builds
    every CUDA kernel of the port from ``mma_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together).
-2. Eight main paths, each with the kernels' launch counters set to 0 just
+2. Nine main paths, each with the kernels' launch counters set to 0 just
    before it and read just after:
 
    - **serve**: the node classifier's eval forward answers 3 requests on
@@ -26,6 +26,11 @@
      ``h`` and ``mask_weights``, 3 times with each ``pallas_bwd_mode``:
      the wide edge program, ``payload_permute`` (kernels 9, 10 and 1) and
      ``csc_gather`` (kernels 9, 10 and 11).
+   - **large-masked**: the same work's aggregate ``S`` (no combine) through
+     ``fused_masked_aggregate`` on the pre-gathered logits ``c[dst] +
+     d[src]`` and rows ``h[src]``, forward and backward to ``h`` and
+     ``mask_weights``, 3 times: kernel 12, and kernel 1 for the gathers'
+     VJPs.
    - **zinc-serve**: the ZincNet eval forward at the README preset
      (``min,max``; ``identity,amplification,linear``; hidden 75, edge 50,
      towers 5, 4 layers; the fused min/max edge program, kernel 6) answers
@@ -54,12 +59,15 @@
    synthetic-large train step. The first Cora request is also held against
    the plain forward on the CPU, which the CPU tests hold against the JAX
    package. The wide route's output and gradients, in both modes, against
-   the lean route, the all-plain computation and each other. For ZINC: the
+   the lean route, the all-plain computation and each other; the masked
+   route's ``S``, ``dlogits``, ``dh_src``, ``dh`` and ``dmask_weights``
+   against the all-plain computation, and its ``S``, ``dh`` and
+   ``dmask_weights`` against the wide and the lean route's. For ZINC: the
    first request against the all-plain forward on the card and on the
    CPU, one train step of each aggregator set at the flagship batch with
    dropout on (loss, every parameter gradient, the BatchNorm state), and
    the PNA model's first eval forward against the CPU.
-4. Per kernel, at the shapes of the main paths (kernels 1-3 and 9-11 at
+4. Per kernel, at the shapes of the main paths (kernels 1-3 and 9-12 at
    synthetic-large, kernel 1 at the widths of both products, C=64 and
    C=16, and of the wide payload, C=192; kernels 4-8 on the tensors the
    ZINC train steps gave them at the flagship batch, 4-7 for one and two
@@ -131,6 +139,7 @@ REPLACES = {
     "edge_program_fwd": "mma_tpu/ops/pallas/fused_mma.py:293",
     "edge_program_bwd": "mma_tpu/ops/pallas/fused_mma.py:339",
     "edge_program_bwd_csc": "mma_tpu/ops/pallas/fused_mma.py:425",
+    "masked_segment_sum": "mma_tpu/ops/pallas/fused_mma.py:247",
 }
 SOURCE = "mma_tpu_torch/csrc/fused_mma.cu"
 MINMAX_SOURCE = "mma_tpu_torch/csrc/segment_minmax.cu"
@@ -215,7 +224,8 @@ PLAIN = {
                   "_segment_sum_sq_kernel": "segment_sum_sq_reference",
                   "_edge_program_fwd_kernel": "edge_program_fwd_reference",
                   "_edge_program_bwd_kernel": "edge_program_bwd_reference",
-                  "_edge_program_bwd_csc_kernel": "edge_program_bwd_csc_reference"},
+                  "_edge_program_bwd_csc_kernel": "edge_program_bwd_csc_reference",
+                  "_masked_segment_sum_kernel": "masked_segment_sum_reference"},
     "segment_minmax": {"_segment_minmax_kernel": "segment_minmax_reference",
                        "_segment_minmax_bwd_kernel": "segment_minmax_bwd_reference",
                        "_minmax_prog_kernel": "minmax_edge_program_reference",
@@ -629,8 +639,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     from mma_tpu_torch import NodeClassifier, load_planetoid, synthetic_powerlaw
-    from mma_tpu_torch.ops import get_agg_spec, masked_aggregate
+    from mma_tpu_torch.ops import fused_masked_aggregate, get_agg_spec, masked_aggregate
     from mma_tpu_torch.ops.cuda import build, fused_mma
+    from mma_tpu_torch.ops.gather import gather_by_dst, gather_by_src
     from mma_tpu_torch.train import NODE_CLS_PRESETS, make_optimizer, train_node_classification
     from mma_tpu_torch.train.loops import node_train_step
 
@@ -891,6 +902,77 @@ def main() -> int:
         compare(a, b, 1e-5, f"large-wide {name}: {modes[0]} vs {modes[1]}")
     del wide, wide_plain, lean
 
+    # ----------------------------------------------- main path: large-masked
+    # The large-wide work's S = Σ_{e ∈ row i} act(c[i] + d[src_e]) ⊙
+    # tile(h[src_e], K) (no combine) by three routes: fused_masked_aggregate
+    # on the pre-gathered logits c[dst] + d[src] and rows h[src], built as
+    # the half-fused route builds them (kernel 12; the input of the JAX
+    # package's A/B profile, scripts/archive/profile_bwd.py:98-119), and the
+    # wide and the lean edge program on c, d and h.
+    f_big, k_big = 64, len(wide_specs)
+    pat_big = masked_aggregate.sigmoid_lane_pattern(wide_specs, "new_sigmoid", True, f_big, dev)
+    ct_s = ct_wide.reshape(big.n_node, k_big * f_big)
+    rp_big, cp_big = big.real_row_ptr, big.real_col_ptr
+
+    def s_run(route):
+        """Forward and backward of S by ``route`` ("masked", "wide" or "lean")
+        from h and mask_weights: S, dh and dmask_weights, and for "masked"
+        the pre-gathered logits and h_src and their gradients."""
+        h = x_big.clone().requires_grad_()
+        mw = mw0.clone().requires_grad_()
+        with torch.enable_grad():
+            c, d = masked_aggregate.mma_mask_projections(h, mw)
+            if route == "masked":
+                logits = gather_by_dst(c, big) + gather_by_src(d, big)
+                h_src = gather_by_src(h, big)
+                logits.retain_grad()
+                h_src.retain_grad()
+                s = fused_masked_aggregate(logits, h_src, pat_big, big, k_big)
+            elif route == "wide":
+                s = fused_mma.edge_program(c, d, h, pat_big, big.src, rp_big, cp_big,
+                                           big.src_perm, big.dst_csc, "payload_permute")
+            else:
+                w_bot = mw[:, f_big:, :].permute(1, 0, 2).reshape(f_big, -1).contiguous()
+                s = fused_mma.edge_program_lean(c, w_bot, h, pat_big, big.src, rp_big, cp_big,
+                                                big.src_perm)
+            (s * ct_s).sum().backward()
+        res = {"S": s.detach(), "dh": h.grad, "dmask_weights": mw.grad}
+        if route == "masked":
+            res.update(dlogits=logits.grad, dh_src=h_src.grad, logits=logits.detach(),
+                       h_src=h_src.detach())
+        return res
+
+    masked_ms = []
+    with counted("large-masked", paths):
+        for rep in range(3):
+            t0 = time.perf_counter()
+            res = s_run("masked")
+            torch.cuda.synchronize()
+            masked_ms.append((time.perf_counter() - t0) * 1e3)
+            if rep == 0:
+                masked = res
+    print(f"large-masked: fused_masked_aggregate forward + backward from h and mask_weights "
+          f"(host clock) {masked_ms} ms; median {statistics.median(masked_ms):.4f} ms")
+    # Per run: kernel 12 forward. Backward: the Function's own VJP is
+    # elementwise (no kernel), then the three gathers' VJPs run kernel 1
+    # once each: c by dst over the CSR, d and h by src over the CSC.
+    expect_launches(paths, "large-masked", masked_segment_sum=3, segment_sum=3 * 3)
+    before = launches()
+    with plain_kernels():
+        masked_plain = s_run("masked")
+    if launches() != before:
+        raise AssertionError("the plain masked route launched a kernel")
+    for name in ("S", "dlogits", "dh_src", "dh", "dmask_weights"):
+        compare(masked[name], masked_plain[name], 1e-5, f"large-masked {name} vs plain on the card")
+    del masked_plain
+    for route in ("wide", "lean"):
+        other = s_run(route)
+        for name in ("S", "dh", "dmask_weights"):
+            compare(masked[name], other[name], 1e-5, f"large-masked {name} vs the {route} route")
+        del other
+    masked_in = (masked["logits"], masked["h_src"])
+    del masked, res
+
     zinc_kernels = run_zinc(dev, paths)
 
     # --------------------------------------------- per-kernel, large shapes
@@ -1048,7 +1130,8 @@ def main() -> int:
         f, kf = h.shape[1], c.shape[1]
         shape = f"E={e_cov} N={n_rows} F={f} K·F={kf}"
 
-        def hold(name, run, plain, outs, nbytes, flops, gather_bytes, iters=25):
+        def hold(name, run, plain, outs, nbytes, flops, gather_bytes=None, iters=25,
+                 library=None):
             got = run()
             got = got if isinstance(got, tuple) else (got,)
             again = run()
@@ -1064,16 +1147,20 @@ def main() -> int:
             kernels[name] = {
                 "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
                 "max_abs_err": max(e["max_abs_err"] for e in errs), "ms": ms,
-                "plain_ms": plain_ms, **bound(nbytes, flops), "library_ms": None,
+                "plain_ms": plain_ms, **bound(nbytes, flops),
+                "library_ms": None if library is None else device_ms(library),
                 "shape": shape,
-                # The random row reads alone, each gathered row counted once
-                # per edge: what sets these kernels' time.
-                "gather_bound_ms": gather_bytes / PEAK_BYTES_PER_S * 1e3,
             }
             e = kernels[name]
-            print(f"{name}: ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {e['bound_ms']:.4f} "
-                  f"({e['bound_by']}); gathered rows alone {e['gather_bound_ms']:.4f} ms; "
-                  "bitwise equal run to run")
+            note = ""
+            if gather_bytes is not None:
+                # The random row reads alone, each gathered row counted once
+                # per edge: what sets the wide kernels' time.
+                e["gather_bound_ms"] = gather_bytes / PEAK_BYTES_PER_S * 1e3
+                note = f"; gathered rows alone {e['gather_bound_ms']:.4f} ms"
+            print(f"{name}: ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {e['library_ms']} "
+                  f"bound_ms {e['bound_ms']:.4f} ({e['bound_by']}){note}; bitwise equal run "
+                  "to run")
             return got
 
         fwd = (c, d, h, pat, src, rp)
@@ -1125,6 +1212,35 @@ def main() -> int:
         print(f"segment_sum_csr payload by source (index=src_perm) C={ch}: ms {ms:.4f} "
               f"plain_ms {plain_ms:.4f} index_add_ over src ms {library_ms:.4f} bound_ms "
               f"{b1['bound_ms']:.4f} ({b1['bound_by']})")
+
+        # Kernel 12 on the large-masked path's own inputs: the pre-gathered
+        # logits and source rows of its first run. The library call sums the
+        # pre-built message by dst: no single PyTorch call also applies the
+        # activation.
+        logits, h_src = masked_in
+        margs = (logits, h_src, pat_big, row_ptr)
+        msg = (torch.where(pat_big.bool(), torch.sigmoid(logits[:e_cov]), logits[:e_cov])
+               * h_src[:e_cov].repeat(1, kf // f))
+        ids = dst_long[:e_cov]
+        # Bytes: each covered edge's logits and h_src rows, the pattern and
+        # the CSR read once, S written once. Per edge and lane about 6
+        # operations: the sigmoid's exp, add and division, the select, the
+        # product with h_src and the accumulation.
+        hold("masked_segment_sum", lambda: fused_mma.masked_segment_sum(*margs),
+             lambda: fused_mma.masked_segment_sum_reference(*margs), ("S",),
+             4 * (e_cov * (kf + f) + kf + (n_rows + 1) + n_rows * kf), 6 * e_cov * kf,
+             library=lambda: torch.zeros(n_rows, kf, device=dev).index_add_(0, ids, msg))
+        kernels["masked_segment_sum"]["shape"] += (" (library: index_add_ over dst of the "
+                                                   "pre-built message)")
+        # Skew: the heaviest row alone, one warp's loop over its edges.
+        deg = row_ptr[1:] - row_ptr[:-1]
+        top = int(torch.argmax(deg))
+        one_row = row_ptr[top:top + 2].contiguous()
+        heavy_ms = device_ms(lambda: fused_mma.masked_segment_sum(logits, h_src, pat_big, one_row))
+        kernels["masked_segment_sum"]["heaviest_row_ms"] = heavy_ms
+        print(f"masked_segment_sum: the heaviest row alone ({int(deg[top])} edges, one warp) "
+              f"ms {heavy_ms:.4f}")
+        del msg, masked_in, logits, h_src
 
     kernels.update(zinc_kernels)
     launch_keys = {"segment_sum_csr": "segment_sum", "edge_program_lean_fwd": "edge_program_lean"}

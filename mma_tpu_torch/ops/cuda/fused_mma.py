@@ -1,6 +1,6 @@
 """Segment-sum and MMA edge-program kernels, with their plain versions.
 
-Seven hand-written CUDA kernels (``mma_tpu_torch/csrc/fused_mma.cu``)
+Eight hand-written CUDA kernels (``mma_tpu_torch/csrc/fused_mma.cu``)
 reduce over the dst-sorted CSR of a :class:`~mma_tpu_torch.graph.Graph` or
 its CSC twin:
 
@@ -21,16 +21,22 @@ its CSC twin:
   optional per-edge ``[dlogits ‖ dh_e]`` payload) and
   ``_program_bwd_csc_kernel`` (:func:`edge_program_bwd_csc`: ``[dd ‖ dh]``
   in CSC order).
+- :func:`masked_segment_sum` replaces ``_masked_kernel``: ``S[i] =
+  Σ_{dst_e=i} where(pat, σ(l_e), l_e) ⊙ tile(h_src_e, K)`` from
+  pre-gathered per-edge logits and source rows, the forward of
+  :func:`fused_masked_aggregate`.
 
 Each function takes the plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors; any other device, dtype, shape or layout
 raises. :func:`segment_sum_csr` (without an index),
-:func:`edge_program_lean`, :func:`segment_sum_sq_csr` and
-:func:`edge_program` are differentiable through
-``torch.autograd.Function``s whose backward dispatches the same way: the
-plain forward and a plain backward on the CPU, the kernels on the card.
-``LAUNCHES`` counts kernel launches, so a run can show that its path went
-through the kernels.
+:func:`edge_program_lean`, :func:`segment_sum_sq_csr`,
+:func:`edge_program` and :func:`fused_masked_aggregate` are
+differentiable through ``torch.autograd.Function``s whose backward
+dispatches the same way: the plain forward and a plain backward on the
+CPU, the kernels on the card (the backward of :func:`segment_sum_sq_csr`
+and of :func:`fused_masked_aggregate` is plain elementwise code on both,
+as in the JAX package). ``LAUNCHES`` counts kernel launches, so a run can
+show that its path went through the kernels.
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ from mma_tpu_torch.ops.cuda import build
 
 LAUNCHES = {"segment_sum": 0, "edge_program_lean": 0, "edge_program_lean_bwd": 0,
             "segment_sum_sq": 0, "edge_program_fwd": 0, "edge_program_bwd": 0,
-            "edge_program_bwd_csc": 0}
+            "edge_program_bwd_csc": 0, "masked_segment_sum": 0}
 
 # The wide program's src-keyed backward strategies, as the JAX package's
 # EDGE_BWD_MODE (mma_tpu/ops/pallas/fused_mma.py:47-58): "payload_permute"
@@ -84,8 +90,9 @@ def _lib() -> ctypes.CDLL:
         lib.mma_edge_program_fwd.argtypes = [_P] * 7 + [_I] * 3 + [_P]
         lib.mma_edge_program_bwd.argtypes = [_P] * 9 + [_I] * 4 + [_P]
         lib.mma_edge_program_bwd_csc.argtypes = [_P] * 8 + [_I] * 3 + [_P]
+        lib.mma_masked_segment_sum.argtypes = [_P] * 5 + [_I] * 4 + [_P]
         for fn in ("mma_segment_sum_sq_csr", "mma_edge_program_fwd", "mma_edge_program_bwd",
-                   "mma_edge_program_bwd_csc"):
+                   "mma_edge_program_bwd_csc", "mma_masked_segment_sum"):
             getattr(lib, fn).restype = _I
         _configured = True
     return lib
@@ -689,3 +696,112 @@ def edge_program(c: torch.Tensor, d: torch.Tensor, h: torch.Tensor, pattern: tor
         raise ValueError(f"bwd_mode must be one of {EDGE_BWD_MODES}, got {bwd_mode!r}")
     return _EdgeProgram.apply(c, d, h, pattern, src, row_ptr, col_ptr, src_perm, dst_csc,
                               bwd_mode)
+
+
+# --------------------------------------------------------------- kernel 12
+
+def _check_masked_inputs(name, logits, h_src, pattern, row_ptr):
+    """Dtypes, shapes and widths of :func:`masked_segment_sum`'s inputs, on
+    any device: ``(n_rows, F, K·F)``."""
+    for arg, t in (("logits", logits), ("h_src", h_src), ("pattern", pattern)):
+        _check_dtype(name, arg, t, torch.float32)
+    _check_dtype(name, "row_ptr", row_ptr, torch.int32)
+    if logits.ndim != 2 or h_src.ndim != 2 or row_ptr.ndim != 1:
+        raise ValueError(f"{name}: logits must be (E, K·F), h_src (E, F) and row_ptr (N+1,)")
+    (e, kf), f = logits.shape, h_src.shape[1]
+    if h_src.shape[0] != e or pattern.shape != (kf,) or f == 0 or kf % f:
+        raise ValueError(
+            f"{name}: shapes logits{tuple(logits.shape)} h_src{tuple(h_src.shape)} "
+            f"pattern{tuple(pattern.shape)} do not fit together"
+        )
+    if f > MAX_F or kf > MAX_KF:
+        raise ValueError(f"{name}: takes F <= {MAX_F}, K·F <= {MAX_KF}; got F={f}, K·F={kf}")
+    return row_ptr.shape[0] - 1, f, kf
+
+
+def masked_segment_sum_reference(logits: torch.Tensor, h_src: torch.Tensor,
+                                 pattern: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`masked_segment_sum`: ``(N, K·F)`` float32."""
+    mask, _ = _mask_chain(logits, pattern)
+    return segment_sum_reference(mask * h_src.repeat(1, logits.shape[1] // h_src.shape[1]),
+                                 row_ptr)
+
+
+def _masked_segment_sum_kernel(logits, h_src, pattern, row_ptr):
+    name = "masked_segment_sum"
+    _check_cuda_inputs(name, logits=logits, h_src=h_src, pattern=pattern, row_ptr=row_ptr)
+    n, f, kf = _check_masked_inputs(name, logits, h_src, pattern, row_ptr)
+    out = torch.empty((n, kf), dtype=torch.float32, device=logits.device)
+    vec4 = f % 4 == 0 and logits.data_ptr() % 16 == 0 and h_src.data_ptr() % 16 == 0
+    lib = _lib()
+    with torch.cuda.device(logits.device):
+        err = lib.mma_masked_segment_sum(
+            logits.data_ptr(), h_src.data_ptr(), pattern.data_ptr(), row_ptr.data_ptr(),
+            out.data_ptr(), n, f, kf, int(vec4), _stream(),
+        )
+    _check_launch(lib, err, name)
+    LAUNCHES["masked_segment_sum"] += 1
+    return out
+
+
+def masked_segment_sum(logits: torch.Tensor, h_src: torch.Tensor, pattern: torch.Tensor,
+                       row_ptr: torch.Tensor) -> torch.Tensor:
+    """``S[i] = Σ_{e ∈ row i} where(pattern, σ(logits_e), logits_e) ⊙
+    tile(h_src_e, K)`` → (N, K·F) float32 over the CSR ``row_ptr`` (N+1,)
+    int32, from per-edge ``logits`` (E, K·F) and ``h_src`` (E, F) float32
+    and ``pattern`` (K·F,) float 0/1. Lane ``k·F + j`` multiplies
+    ``h_src[e, j]``; rows without edges give 0. Takes F <= 128 and K·F <=
+    512. Deterministic. Not differentiable (:func:`fused_masked_aggregate`
+    is)."""
+    if _on_cpu(logits, h_src, pattern, row_ptr):
+        return masked_segment_sum_reference(logits, h_src, pattern, row_ptr)
+    return _masked_segment_sum_kernel(logits, h_src, pattern, row_ptr)
+
+
+class _MaskedAggregate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, h_src, pattern, row_ptr):
+        ctx.save_for_backward(logits, h_src, pattern, row_ptr)
+        return masked_segment_sum(logits, h_src, pattern, row_ptr)
+
+    @staticmethod
+    def backward(ctx, ct):
+        # The JAX package's VJP (fused_mma.py:1593-1607), elementwise.
+        logits, h_src, pattern, row_ptr = ctx.saved_tensors
+        (e, kf), f = logits.shape, h_src.shape[1]
+        ge = _expand_rows(ct, row_ptr, e)  # ct[dst_e], 0 on edges the CSR skips
+        mask, dmask = _mask_chain(logits, pattern)
+        dlogits = ge * h_src.repeat(1, kf // f) * dmask
+        dh_src = (ge * mask).reshape(e, kf // f, f).sum(dim=1)
+        return dlogits, dh_src, None, None
+
+
+def fused_masked_aggregate(logits: torch.Tensor, h_src: torch.Tensor,
+                           sig_pattern: torch.Tensor, graph, n_agg: int) -> torch.Tensor:
+    """``S[i] = Σ_{e: dst=i} act(logits_e) ⊙ tile(h_src_e, K)`` fused → (N,
+    K·F) float32, with the JAX package's name and argument order.
+
+    ``logits``: (E, K·F) flat mask logits, pre-gathered per edge (``E =
+    graph.n_edge``); ``h_src``: (E, F) gathered source features;
+    ``sig_pattern``: (K·F,) bool or 0/1, the lanes that apply σ (the N1
+    table); ``n_agg`` = K. The sum runs over ``graph.real_row_ptr``:
+    padding edges add nothing and get zero gradient, and padding rows are 0
+    (the JAX kernel sums the padding edges into them). Differentiable in
+    ``logits`` and ``h_src``; the backward recomputes the activation
+    elementwise, as the JAX package's custom VJP does.
+
+    The port computes in float32 natively, so the JAX wrapper's TPU knobs
+    (``block_r``, ``block_b``, ``precision``) have no counterpart. Inputs
+    are float32; the JAX wrapper's single-pass bfloat16 form waits for the
+    port's ``compute_dtype``. Takes F <= 128 and K·F <= 512 on any device.
+    """
+    if logits.ndim != 2 or logits.shape[0] != graph.n_edge or logits.shape[1] % n_agg:
+        raise ValueError(f"fused_masked_aggregate: logits {tuple(logits.shape)} must be "
+                         f"(graph.n_edge={graph.n_edge}, K·F) with K={n_agg}")
+    if tuple(h_src.shape) != (logits.shape[0], logits.shape[1] // n_agg):
+        raise ValueError(f"fused_masked_aggregate: h_src {tuple(h_src.shape)} must be "
+                         f"{(logits.shape[0], logits.shape[1] // n_agg)}")
+    pattern = sig_pattern.to(torch.float32).reshape(-1).contiguous()
+    row_ptr = graph.real_row_ptr
+    _check_masked_inputs("fused_masked_aggregate", logits, h_src, pattern, row_ptr)
+    return _MaskedAggregate.apply(logits, h_src, pattern, row_ptr)

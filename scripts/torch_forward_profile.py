@@ -4,7 +4,7 @@ or a train step.
 
     python3 scripts/torch_forward_profile.py
         [--graph synthetic-large|cora|zinc|zinc-default|zinc-pna]
-        [--mode forward|train|wide] [--bwd-mode payload_permute|csc_gather]
+        [--mode forward|train|wide|masked] [--bwd-mode payload_permute|csc_gather]
         [--iters 5] [--batch 1024]
 
 Builds the kernels, runs the work once to warm up, then traces ``--iters``
@@ -23,7 +23,11 @@ edges (``chip_smoke.py``'s flagship batch at 1,024); ``--mode train``
 runs ``zinc_train_step`` with message dropout on. ``--mode wide`` runs
 ``chip_smoke.py``'s large-wide work on synthetic-large: the forward and
 backward of ``masked_multi_aggregate`` (F=64, ``mean,mean2``) with
-``pallas_bwd_mode=--bwd-mode`` (kernels 9, 10 and 1 or 11). Weights,
+``pallas_bwd_mode=--bwd-mode`` (kernels 9, 10 and 1 or 11). ``--mode
+masked`` runs ``chip_smoke.py``'s large-masked work: the forward and
+backward of ``fused_masked_aggregate`` on the pre-gathered logits ``c[dst]
++ d[src]`` and rows ``h[src]`` (kernel 12, and kernel 1 for the gathers'
+VJPs). Weights,
 features and labels are random from a seed, as in ``chip_smoke.py``.
 """
 
@@ -44,14 +48,14 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--graph", choices=("synthetic-large", "cora", "zinc", "zinc-default",
                                         "zinc-pna"), default="synthetic-large")
-    ap.add_argument("--mode", choices=("forward", "train", "wide"), default="forward")
+    ap.add_argument("--mode", choices=("forward", "train", "wide", "masked"), default="forward")
     ap.add_argument("--bwd-mode", choices=("payload_permute", "csc_gather"),
                     default="payload_permute")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--batch", type=int, default=1024, help="ZINC molecules per batch")
     args = ap.parse_args()
-    if args.mode == "wide" and args.graph != "synthetic-large":
-        ap.error("--mode wide runs on --graph synthetic-large")
+    if args.mode in ("wide", "masked") and args.graph != "synthetic-large":
+        ap.error(f"--mode {args.mode} runs on --graph synthetic-large")
     if not torch.cuda.is_available():
         print("torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -98,19 +102,28 @@ def main() -> int:
                                dropout_rate=0.0 if args.mode == "train" else 0.5,
                                generator=gen)
 
-    if args.mode == "wide":
-        from mma_tpu_torch.ops import get_agg_spec
-        from mma_tpu_torch.ops.masked_aggregate import masked_multi_aggregate
+    if args.mode in ("wide", "masked"):
+        from mma_tpu_torch.ops import fused_masked_aggregate, get_agg_spec
+        from mma_tpu_torch.ops.gather import gather_by_dst, gather_by_src
+        from mma_tpu_torch.ops.masked_aggregate import (masked_multi_aggregate,
+                                                        mma_mask_projections,
+                                                        sigmoid_lane_pattern)
 
         specs = [get_agg_spec(a) for a in ("mean", "mean2")]
+        pat = sigmoid_lane_pattern(specs, "new_sigmoid", True, 64, "cuda")
         mw0 = (torch.randn((2, 128, 64), generator=gen) / 8.0).cuda()
         ct = torch.randn((graph.n_node, 2, 64), generator=gen).cuda()
 
         def run():
             h = x.clone().requires_grad_()
             mw = mw0.clone().requires_grad_()
-            out = masked_multi_aggregate(h, graph, mw, specs, pallas_bwd_mode=args.bwd_mode)
-            (out * ct).sum().backward()
+            if args.mode == "wide":
+                out = masked_multi_aggregate(h, graph, mw, specs, pallas_bwd_mode=args.bwd_mode)
+            else:
+                c, d = mma_mask_projections(h, mw)
+                logits = gather_by_dst(c, graph) + gather_by_src(d, graph)
+                out = fused_masked_aggregate(logits, gather_by_src(h, graph), pat, graph, 2)
+            (out.reshape(ct.shape) * ct).sum().backward()
     elif args.mode == "train":
         opt = make_optimizer(model.parameters(), 1e-3, 3e-4)
         step_gen = torch.Generator(device="cuda").manual_seed(0)

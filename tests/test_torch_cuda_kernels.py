@@ -452,3 +452,82 @@ def test_wide_kernels_reject_what_they_do_not_take(cuda, graph):
     with pytest.raises(ValueError, match="float32"):
         fused_mma.segment_sum_sq_csr(torch.zeros(graph.n_edge, 3, device=cuda).double(),
                                      graph.real_row_ptr)
+
+
+# ---- kernel 12: the masked segment sum behind fused_masked_aggregate ----
+
+@pytest.fixture(scope="module")
+def hub_graph(cuda):
+    """300 nodes: node 0 takes 1,000 edges, the last 40 none (empty rows)."""
+    rs = np.random.RandomState(12)
+    n = 300
+    src = rs.randint(0, n, 4000).astype(np.int32)
+    dst = np.concatenate([np.zeros(1000, np.int32), rs.randint(1, n - 40, 3000)]).astype(np.int32)
+    return graph_from_edges(src, dst, n, device=cuda)
+
+
+@pytest.mark.parametrize("f,k", [(64, 2), (128, 4), (12, 3), (5, 1), (6, 3), (127, 4)])
+def test_masked_segment_sum_kernel_matches_plain(cuda, hub_graph, f, k):
+    """Kernel 12 against its plain version within 1e-5 of the largest value,
+    bitwise equal run to run, over a 1,000-edge row and empty rows: the
+    16-byte path at K·F of 36 to 512 and the scalar path (F % 4 != 0) at
+    K·F of 5 to 508. Rows that are not 16-byte aligned take the scalar path
+    and give the same bits."""
+    g = hub_graph
+    rs = np.random.RandomState(f + k)
+    logits = torch.from_numpy(rs.randn(g.n_edge, k * f).astype(np.float32)).to(cuda)
+    h_src = torch.from_numpy(rs.randn(g.n_edge, f).astype(np.float32)).to(cuda)
+    pat = torch.from_numpy((np.arange(k * f) // f % 2 == 0).astype(np.float32)).to(cuda)
+    rp = g.real_row_ptr
+    assert int(rp[1] - rp[0]) == 1000
+    before = fused_mma.LAUNCHES["masked_segment_sum"]
+    got = fused_mma.masked_segment_sum(logits, h_src, pat, rp)
+    torch.cuda.synchronize()
+    assert fused_mma.LAUNCHES["masked_segment_sum"] == before + 1
+    _close(got, fused_mma.masked_segment_sum_reference(logits, h_src, pat, rp))
+    assert torch.equal(got, fused_mma.masked_segment_sum(logits, h_src, pat, rp))
+    assert (got[260:] == 0).all()
+    shifted = torch.empty(logits.numel() + 1, device=cuda)[1:].view_as(logits).copy_(logits)
+    assert torch.equal(got, fused_mma.masked_segment_sum(shifted, h_src, pat, rp))
+
+
+def test_fused_masked_aggregate_on_card_matches_cpu(cuda, hub_graph):
+    """``fused_masked_aggregate``'s forward (kernel 12) and its gradients on
+    the card against the CPU's plain path; padding edges get no gradient."""
+    cpu_graph = hub_graph.to("cpu")
+    rs = np.random.RandomState(13)
+    f, k = 64, 2
+    logits = torch.from_numpy(rs.randn(hub_graph.n_edge, k * f).astype(np.float32))
+    h_src = torch.from_numpy(rs.randn(hub_graph.n_edge, f).astype(np.float32))
+    pat = torch.from_numpy(np.repeat(np.array([True, False]), f))
+
+    def make(g):
+        return lambda l_, h_: fused_mma.fused_masked_aggregate(l_, h_, pat.to(g.src.device), g, k)
+
+    before = fused_mma.LAUNCHES["masked_segment_sum"]
+    got, got_g = _grads(make(hub_graph), logits.to(cuda), h_src.to(cuda))
+    assert fused_mma.LAUNCHES["masked_segment_sum"] == before + 1
+    want, want_g = _grads(make(cpu_graph), logits, h_src)
+    _close(got, want)
+    for g, w in zip(got_g, want_g):
+        _close(g, w)
+        assert (g[int(cpu_graph.real_row_ptr[-1]):] == 0).all()
+
+
+def test_masked_kernel_rejects_what_it_does_not_take(cuda, hub_graph):
+    e = hub_graph.n_edge
+    logits, h_src = torch.zeros(e, 16, device=cuda), torch.zeros(e, 8, device=cuda)
+    pat = torch.ones(16, device=cuda)
+    rp = hub_graph.real_row_ptr
+    before = fused_mma.LAUNCHES["masked_segment_sum"]
+    with pytest.raises(ValueError, match="float32"):
+        fused_mma.masked_segment_sum(logits.bfloat16(), h_src, pat, rp)
+    with pytest.raises(ValueError, match="K·F <= 512"):
+        fused_mma.masked_segment_sum(torch.zeros(e, 520, device=cuda),
+                                     torch.zeros(e, 130, device=cuda),
+                                     torch.ones(520, device=cuda), rp)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_mma.masked_segment_sum(torch.zeros(16, e, device=cuda).t(), h_src, pat, rp)
+    with pytest.raises(ValueError, match="several devices"):
+        fused_mma.masked_segment_sum(logits, h_src.cpu(), pat, rp)
+    assert fused_mma.LAUNCHES["masked_segment_sum"] == before
