@@ -69,7 +69,8 @@
    the PNA model's first eval forward against the CPU.
 4. Per kernel, at the shapes of the main paths (kernels 1-3 and 9-12 at
    synthetic-large, kernel 1 at the widths of both products, C=64 and
-   C=16, and of the wide payload, C=192; kernels 4-8 on the tensors the
+   C=16, and of the wide payload, C=192, and also its heaviest row alone at
+   C=64 and Cora's spmm forward at C=64 and C=7; kernels 4-8 on the tensors the
    ZINC train steps gave them at the flagship batch, 4-7 for one and two
    ops, with dropout on and off): the
    error against the plain version (kernels 4 and 6, and the routed
@@ -1048,6 +1049,35 @@ def main() -> int:
                   f"{lib_name} ms {library_ms:.4f} bound_ms {entry['bound_ms']:.4f} "
                   f"({entry['bound_by']})")
             kernels.setdefault("segment_sum_csr", entry)
+        k1 = kernels["segment_sum_csr"]
+        # Skew: the heaviest row alone at C=64 indexed (binary_spmm forward's
+        # form), its edges split over chunks and joined by the fixup.
+        deg = row_ptr[1:] - row_ptr[:-1]
+        top = int(torch.argmax(deg))
+        one_row = row_ptr[top:top + 2].contiguous()
+        compare(fused_mma.segment_sum_csr(support, one_row, big.src),
+                fused_mma.segment_sum_reference(support, one_row, big.src), 1e-5,
+                "segment_sum_csr heaviest row alone vs plain")
+        k1["heaviest_row_ms"] = device_ms(
+            lambda: fused_mma.segment_sum_csr(support, one_row, big.src))
+        print(f"segment_sum_csr: the heaviest row alone ({int(deg[top])} edges, C=64, "
+              f"index=src) ms {k1['heaviest_row_ms']:.4f}")
+        # Cora's binary_spmm forward shapes (index=src): the first layer's
+        # C=64 and the classes' C=7 (scalar loads).
+        cg = cora.graph
+        cora_x = {64: cora.features @ cora_model.gc1.w,
+                  7: torch.randn((cg.n_node, 7), generator=torch.Generator().manual_seed(SEED + 8))
+                  .to(dev) * cg.node_mask[:, None]}
+        for ch, x in cora_x.items():
+            args = (x.contiguous(), cg.real_row_ptr, cg.src)
+            got = fused_mma.segment_sum_csr(*args)
+            if not torch.equal(got, fused_mma.segment_sum_csr(*args)):
+                raise AssertionError(f"segment_sum_csr Cora C={ch} differs run to run")
+            compare(got, fused_mma.segment_sum_reference(*args), 1e-5,
+                    f"segment_sum_csr Cora spmm fwd C={ch} vs plain")
+            k1[f"cora_spmm_fwd_c{ch}_ms"] = device_ms(lambda: fused_mma.segment_sum_csr(*args))
+            print(f"segment_sum_csr Cora spmm fwd (index=src) C={ch}: "
+                  f"E={int(cg.num_edges)} N={cg.n_node} ms {k1[f'cora_spmm_fwd_c{ch}_ms']:.4f}")
         gather_ms = device_ms(lambda: support.index_select(0, big.src))
         print(f"binary_spmm forward, gather + sum: index_select {gather_ms:.4f} ms + "
               f"kernel 1 {kernels['segment_sum_csr']['ms']:.4f} ms (indexed form above)")

@@ -28,17 +28,81 @@ constexpr int kWarp = 32;
 // or data[index[e]] when an index is given: the CSC / by-src / gather-VJP
 // uses read their rows through the index instead of a permuted copy.
 //
-// Bound on this card: bytes. Each edge row of `data` is read once and each
-// output row written once, one FLOP per 4 bytes, far below the ridge.
-// Design: one warp per destination row. The warp splits into groups of
-// `lpe` lanes; a group covers up to 4*lpe channels with 16-byte loads
-// (when C % 4 == 0), and the groups walk the row's edges with stride
-// `groups`, so a narrow row (C=16 needs 4 lanes) still keeps all 32 lanes
-// loading. The group partials combine with a fixed butterfly of shuffles,
-// so the summation order is fixed. A heavy row (power-law skew) is one
-// warp's sequential loop; the other warps of the SM keep the memory system
-// busy meanwhile.
+// Bound on this card: bytes, one FLOP per 4 bytes, far below the ridge.
+// Counted as chip_smoke.py counts it (each input read once, each output
+// written once): the node table (indexed) or the edge rows, the CSR, the
+// index and the output; 0.023 ms at the synthetic-large graph's C=64
+// indexed sum (E = 2.1M, N = 131k). The gathered rows themselves are
+// E*C*4 B: 537 MB at C=64, 0.160 ms at 3.35 TB/s, and 0.48 ms at C=192.
+// A sum can beat that figure when the table it gathers from stays in the
+// 50 MB L2: the C=64 node table is 33.5 MB, so most gathers hit the L2.
+//
+// Design: an edge-balanced two-pass sum, the card's form of the TPU
+// kernel's grid flattened over (row block, edge chunk). A power-law graph
+// puts up to 1,448 edges in one row; a warp per row would make that row
+// one warp's sequential loop and the floor of the whole launch.
+//
+// Pass 1 (segment_sum_chunk_kernel): the edge positions [0, E) split into
+// chunks of `chunk` edges, one warp each. The warp finds the rows that
+// start inside its chunk by two 32-ary searches of row_ptr (merge-path),
+// loads row_ptr (and, for a row the whole warp takes, the index) 32
+// entries at a time with one coalesced load and hands them out by
+// __shfl_sync, then walks its rows in order. Groups
+// of `lpe` lanes cover the channels, each lane `tiles` slots of 16-byte
+// loads (C % 4 == 0) or scalars, several edges' loads in flight before
+// their adds. A row that fills at least half a warp step takes the whole
+// warp: the groups stride over its edges and combine with a fixed
+// butterfly of shuffles. Shorter rows (narrow C: Cora, the classes' C=16)
+// go one to a group, `groups` rows at a time, each in CSR order, so a warp
+// is not one row's memory latency after another.
+//
+// A row of at most max(chunk, kSumMinSplit) edges belongs whole to the
+// chunk it starts in, which writes it directly (an empty one as 0), even
+// where it runs on past the chunk. It is summed as a warp per row would, so
+// where one group covers a row (the ZINC widths) it keeps the plain
+// version's sequential bits, which the std aggregator's cancelling
+// gradient needs: splitting ZINC's 4-edge rows moved a PNA train step's
+// embedding gradient by 2e-3 relative. A longer row is split at the chunk
+// boundaries: the partial of the row that enters the chunk from an
+// earlier one goes to the chunk's head slot, and that of the chunk's last
+// row, when it goes on past the chunk, to its tail slot: scratch
+// (n_chunks, 2, C), and the tail row's id to tail_row.
+// Pass 2 (segment_sum_fixup_kernel): one warp per chunk with a tail row
+// adds the tail and the later chunks' heads in chunk order and writes the
+// row once.
+//
+// Every output row is written exactly once, with no atomics, and the
+// partition depends only on E (the data's or the index's length, which
+// bounds row_ptr[n]), never on the card: results are bitwise equal run to
+// run, and the host never reads row_ptr (no sync; the launch can be
+// captured in a CUDA graph). Positions outside [row_ptr[0], row_ptr[n])
+// are nobody's edges; row_ptr[0] may be above 0.
+//
+// The chunk size: E / kSumTargetChunks rounded up to a power of two, at
+// least kSumMinChunk. 8,192 chunks fill the card's resident warps about
+// once, and a heavy row splits into chunk-sized pieces. A fixed large
+// chunk would leave a small graph (Cora, 10.6k edges) a few dozen warps
+// that each walk hundreds of edges; its floor of 16 edges gives Cora 672
+// warps of about 4 rows. Rows of up to kSumMinSplit = 64 edges are never
+// split, whatever the chunk, so that a ZINC molecule (at most 38 atoms)
+// stays whole in the pooling sum.
 // ---------------------------------------------------------------------------
+
+constexpr int kSumTargetChunks = 8192;
+constexpr int kSumMinChunk = 16;
+constexpr int kSumMinSplit = 64;  // rows of at most max(chunk, 64) edges stay whole
+constexpr int kSumWarps = 8;  // warps per block, both passes
+
+int sum_chunk_edges(int n_edges) {
+  int chunk = kSumMinChunk;
+  while (static_cast<int64_t>(chunk) * kSumTargetChunks < n_edges) chunk <<= 1;
+  return chunk;
+}
+
+int sum_n_chunks(int n_edges) {
+  const int chunk = sum_chunk_edges(n_edges);
+  return max(1, (n_edges + chunk - 1) / chunk);
+}
 
 template <int VEC>
 struct Vec;
@@ -66,41 +130,273 @@ struct Vec<1> {
   }
 };
 
-template <int VEC>
-__global__ void segment_sum_csr_kernel(const float* __restrict__ data,
-                                       const int32_t* __restrict__ row_ptr,
-                                       const int32_t* __restrict__ index,
-                                       float* __restrict__ out, int n_rows,
-                                       int n_vec, int lpe) {
+// For keys[0] and keys[1] at once, the first i in [0, n] with
+// row_ptr[i] >= key (n if none): a 32-ary search, one probe a lane and key
+// per step, so 4 steps for 131k rows. Warp-uniform.
+__device__ __forceinline__ void lower_bound2(const int32_t* __restrict__ row_ptr, int n,
+                                             const int64_t keys[2], int found[2]) {
+  const int lane = threadIdx.x % kWarp;
+  int lo[2] = {0, 0}, hi[2] = {n, n};
+  while (lo[0] < hi[0] || lo[1] < hi[1]) {
+    int step[2];
+    bool pred[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      step[k] = (hi[k] - lo[k] + kWarp - 1) / kWarp;
+      const int64_t q = lo[k] + static_cast<int64_t>(lane + 1) * step[k] - 1;
+      pred[k] = lo[k] >= hi[k] || q >= hi[k] || __ldg(row_ptr + q) >= keys[k];
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const unsigned m = __ballot_sync(0xffffffffu, pred[k]);
+      if (lo[k] >= hi[k]) continue;
+      if (m == 0) {  // every probe below the key, the last one at hi - 1
+        lo[k] = hi[k];
+      } else {
+        const int f = __ffs(m) - 1;
+        const int nlo = lo[k] + f * step[k];
+        hi[k] = min(hi[k], lo[k] + (f + 1) * step[k] - 1);
+        lo[k] = nlo;
+      }
+    }
+  }
+  found[0] = lo[0];
+  found[1] = lo[1];
+}
+
+// The data row that edge position e reads, or -1 past the end re.
+__device__ __forceinline__ int64_t edge_row(const int32_t* __restrict__ index, int64_t e,
+                                            int64_t re) {
+  return e < re ? (index != nullptr ? static_cast<int64_t>(__ldg(index + e)) : e) : -1;
+}
+
+// Pass 1. TILES: the lane's channel slots per edge (a compile-time bound
+// on `tiles`; wider rows take several rounds over the row's edges). U:
+// edges a group loads before it adds them, about 32 floats in flight a
+// lane.
+template <int VEC, int TILES>
+__global__ void __launch_bounds__(kSumWarps* kWarp)
+segment_sum_chunk_kernel(const float* __restrict__ data, const int32_t* __restrict__ row_ptr,
+                         const int32_t* __restrict__ index, float* __restrict__ out,
+                         float* __restrict__ part, int32_t* __restrict__ tail_row,
+                         int n_rows, int n_vec, int lpe, int tiles, int chunk, int n_chunks) {
   using V = Vec<VEC>;
   using T = typename V::T;
-  const int warps = blockDim.x / kWarp;
-  const int row = blockIdx.x * warps + threadIdx.x / kWarp;
-  if (row >= n_rows) return;  // whole warps leave together
+  constexpr int U = TILES * VEC >= 12 ? 2 : (TILES * VEC >= 8 ? 4 : 8);
+  const int c = blockIdx.x * kSumWarps + threadIdx.x / kWarp;
+  if (c >= n_chunks) return;  // whole warps leave together
   const int lane = threadIdx.x % kWarp;
   const int groups = kWarp / lpe;
   const int g = lane / lpe;
   const int li = lane % lpe;
-  const int64_t start = row_ptr[row];
-  const int64_t end = row_ptr[row + 1];
-  const T* rows = reinterpret_cast<const T*>(data);
-  T* dst = reinterpret_cast<T*>(out) + static_cast<int64_t>(row) * n_vec;
+  const int uu = min(U, kWarp / groups);  // a step's edges fit one index window
+  const int step = groups * uu;
+  const int split = max(chunk, kSumMinSplit);  // longer rows are split at chunk boundaries
 
-  for (int base = 0; base < n_vec; base += lpe) {
-    const int cv = base + li;
-    T acc = V::zero();
-    if (cv < n_vec) {
-#pragma unroll 4
-      for (int64_t e = start + g; e < end; e += groups) {
-        const int64_t r = index ? static_cast<int64_t>(__ldg(index + e)) : e;
-        V::add(acc, __ldg(rows + r * n_vec + cv));
+  const int64_t a = static_cast<int64_t>(c) * chunk;
+  const int64_t b = a + chunk;
+  const int64_t keys[2] = {a, b};
+  int found[2];
+  lower_bound2(row_ptr, n_rows, keys, found);
+  // Rows [i0, i1) start inside the chunk (the last chunk also takes the
+  // empty rows that start at row_ptr[n] == E); row i0 - 1 enters it from
+  // an earlier chunk when it ends past a and is longer than `split`.
+  const int i0 = found[0];
+  const int i1 = c == n_chunks - 1 ? n_rows : found[1];
+  const int64_t hi = __ldg(row_ptr + n_rows);
+  const int32_t* rp_i0 = row_ptr + i0;
+  const int32_t* rp_i1 = row_ptr + i1;
+  const bool head = i0 > 0 && __ldg(rp_i0) > a && __ldg(rp_i0) - __ldg(rp_i0 - 1) > split;
+  const bool tail = i1 > i0 && __ldg(rp_i1) > b && __ldg(rp_i1) - __ldg(rp_i1 - 1) > split;
+  if (lane == 0) tail_row[c] = tail ? i1 - 1 : -1;
+
+  const T* rows = reinterpret_cast<const T*>(data);
+  T* outv = reinterpret_cast<T*>(out);
+  T* head_slot = reinterpret_cast<T*>(part) + static_cast<int64_t>(c) * 2 * n_vec;
+  T* tail_slot = head_slot + n_vec;
+  int64_t wb = -2 * kWarp;  // the index window [wb, wb + 32), empty at first
+  int widx = 0;
+
+  for (int rb = head ? i0 - 1 : i0; rb < i1; rb += kWarp) {
+    const int r = rb + lane;
+    const bool live = r < i1;
+    const int s = live ? __ldg(row_ptr + r) : 0;
+    const int e = live ? __ldg(row_ptr + r + 1) : 0;
+    const unsigned live_mask = __ballot_sync(0xffffffffu, live);
+    const unsigned empty = __ballot_sync(0xffffffffu, live && s == e);
+    if (empty == live_mask) {  // a run of empty rows, all owned: write 0
+      T* z = outv + static_cast<int64_t>(rb) * n_vec;
+      const int64_t n_z = static_cast<int64_t>(__popc(live_mask)) * n_vec;
+      for (int64_t i = lane; i < n_z; i += kWarp) z[i] = V::zero();
+      continue;
+    }
+    // Rows shorter than half a warp step: one row a group, `groups` rows at
+    // a time, each summed in CSR order, the next step's rows fetched before
+    // this step's adds. The other rows take the whole warp, one at a time.
+    const int64_t my_re = e - s > split && e > b ? b : e;
+    const unsigned batched = __ballot_sync(
+        0xffffffffu, groups > 1 && live && 2 * (my_re - (s > a ? s : a)) <= step);
+    unsigned m = batched;
+    while (m) {
+      int mine = -1;
+      for (int i = 0; i < groups && m != 0; ++i) {
+        const int k = __ffs(m) - 1;
+        m &= m - 1;
+        if (i == g) mine = k;
+      }
+      const int kk = mine < 0 ? 0 : mine;
+      const int64_t row_s = __shfl_sync(0xffffffffu, s, kk);
+      const int64_t row_e = __shfl_sync(0xffffffffu, e, kk);
+      const int64_t rs = mine < 0 ? 0 : (row_s > a ? row_s : a);
+      const int64_t re = mine < 0 ? 0 : (row_e - row_s > split && row_e > b ? b : row_e);
+      const unsigned max_len = __reduce_max_sync(0xffffffffu, static_cast<unsigned>(re - rs));
+      const int row = rb + kk;
+      T* dst = row < i0 ? head_slot
+                        : (tail && row == i1 - 1 ? tail_slot
+                                                 : outv + static_cast<int64_t>(row) * n_vec);
+      for (int t0 = 0; t0 < tiles; t0 += TILES) {
+        T acc[TILES];
+#pragma unroll
+        for (int t = 0; t < TILES; ++t) acc[t] = V::zero();
+        int64_t src[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) src[u] = edge_row(index, rs + u, re);
+        for (unsigned j = 0; j < max_len; j += U) {
+          T v[U][TILES];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+#pragma unroll
+            for (int t = 0; t < TILES; ++t) {
+              const int cv = (t0 + t) * lpe + li;
+              v[u][t] = src[u] >= 0 && cv < n_vec ? __ldg(rows + src[u] * n_vec + cv)
+                                                  : V::zero();
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) src[u] = edge_row(index, rs + j + U + u, re);
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+#pragma unroll
+            for (int t = 0; t < TILES; ++t) V::add(acc[t], v[u][t]);
+          }
+        }
+        if (mine >= 0) {
+#pragma unroll
+          for (int t = 0; t < TILES; ++t) {
+            const int cv = (t0 + t) * lpe + li;
+            if (cv < n_vec) dst[cv] = acc[t];
+          }
+        }
       }
     }
-    for (int off = lpe; off < kWarp; off <<= 1) {
-      V::add(acc, V::shfl_xor(acc, off));
+    unsigned todo = live_mask & ~batched;
+    while (todo) {
+      const int k = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const int row = rb + k;
+      const int64_t row_s = __shfl_sync(0xffffffffu, s, k);
+      const int64_t row_e = __shfl_sync(0xffffffffu, e, k);
+      // A long row's edges inside this chunk; a short one whole.
+      const int64_t rs = row_s > a ? row_s : a;
+      const int64_t re = row_e - row_s > split && row_e > b ? b : row_e;
+      T* dst = row < i0 ? head_slot
+                        : (tail && row == i1 - 1 ? tail_slot
+                                                 : outv + static_cast<int64_t>(row) * n_vec);
+      for (int t0 = 0; t0 < tiles; t0 += TILES) {
+        T acc[TILES];
+#pragma unroll
+        for (int t = 0; t < TILES; ++t) acc[t] = V::zero();
+        for (int64_t e0 = rs; e0 < re; e0 += step) {
+          if (index != nullptr && (e0 < wb || e0 + step > wb + kWarp)) {
+            wb = e0;
+            widx = wb + lane < hi ? __ldg(index + wb + lane) : 0;
+          }
+          int64_t src[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int64_t ee = e0 + u * groups + g;
+            const int j = index != nullptr
+                              ? __shfl_sync(0xffffffffu, widx, static_cast<int>((ee - wb) & 31))
+                              : 0;
+            src[u] = u < uu && ee < re ? (index != nullptr ? j : ee) : -1;
+          }
+          T v[U][TILES];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+#pragma unroll
+            for (int t = 0; t < TILES; ++t) {
+              const int cv = (t0 + t) * lpe + li;
+              v[u][t] = src[u] >= 0 && cv < n_vec ? __ldg(rows + src[u] * n_vec + cv)
+                                                  : V::zero();
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+#pragma unroll
+            for (int t = 0; t < TILES; ++t) V::add(acc[t], v[u][t]);
+          }
+        }
+        if (rs < re) {
+#pragma unroll
+          for (int t = 0; t < TILES; ++t) {
+            for (int off = lpe; off < kWarp; off <<= 1) {
+              V::add(acc[t], V::shfl_xor(acc[t], off));
+            }
+          }
+        }
+        if (g == 0) {
+#pragma unroll
+          for (int t = 0; t < TILES; ++t) {
+            const int cv = (t0 + t) * lpe + li;
+            if (cv < n_vec) dst[cv] = acc[t];
+          }
+        }
+      }
     }
-    if (g == 0 && cv < n_vec) dst[cv] = acc;
   }
+}
+
+// Pass 2: the long rows that cross a chunk boundary, one warp per chunk
+// whose tail row goes on: the tail partial, then the heads of the later
+// chunks the row reaches, in chunk order.
+template <int VEC>
+__global__ void __launch_bounds__(kSumWarps* kWarp)
+segment_sum_fixup_kernel(const int32_t* __restrict__ row_ptr, const float* __restrict__ part,
+                         const int32_t* __restrict__ tail_row, float* __restrict__ out,
+                         int n_vec, int chunk, int n_chunks) {
+  using V = Vec<VEC>;
+  using T = typename V::T;
+  const int c = blockIdx.x * kSumWarps + threadIdx.x / kWarp;
+  if (c >= n_chunks) return;
+  const int row = __ldg(tail_row + c);
+  if (row < 0) return;
+  const int64_t end = __ldg(row_ptr + row + 1);
+  const T* slots = reinterpret_cast<const T*>(part);
+  T* dst = reinterpret_cast<T*>(out) + static_cast<int64_t>(row) * n_vec;
+  for (int cv = threadIdx.x % kWarp; cv < n_vec; cv += kWarp) {
+    T acc = slots[(2 * static_cast<int64_t>(c) + 1) * n_vec + cv];
+    for (int64_t c2 = c + 1; c2 * chunk < end; ++c2) {
+      V::add(acc, slots[2 * c2 * n_vec + cv]);
+    }
+    dst[cv] = acc;
+  }
+}
+
+template <int VEC, int TILES>
+cudaError_t launch_segment_sum(const void* data, const void* row_ptr, const void* index,
+                               void* out, void* part, void* tail_row, int n_rows, int n_vec,
+                               int lpe, int tiles, int chunk, int n_chunks, cudaStream_t s) {
+  const int blocks = (n_chunks + kSumWarps - 1) / kSumWarps;
+  segment_sum_chunk_kernel<VEC, TILES><<<blocks, kSumWarps * kWarp, 0, s>>>(
+      static_cast<const float*>(data), static_cast<const int32_t*>(row_ptr),
+      static_cast<const int32_t*>(index), static_cast<float*>(out), static_cast<float*>(part),
+      static_cast<int32_t*>(tail_row), n_rows, n_vec, lpe, tiles, chunk, n_chunks);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  segment_sum_fixup_kernel<VEC><<<blocks, kSumWarps * kWarp, 0, s>>>(
+      static_cast<const int32_t*>(row_ptr), static_cast<const float*>(part),
+      static_cast<const int32_t*>(tail_row), static_cast<float*>(out), n_vec, chunk, n_chunks);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1078,31 +1374,45 @@ const char* mma_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// data (R, C) f32, row_ptr (n_rows+1,) i32, index (E,) i32 or null,
-// out (n_rows, C) f32. Row e of the CSR reads data[index[e]] (data[e]
-// without an index). vec4 != 0 requires C % 4 == 0 and 16-byte aligned
-// data/out.
+// The chunk count of mma_segment_sum_csr for n_edges edge positions (the
+// length of data, or of index when there is one); the caller sizes the
+// (n_chunks, 2, C) f32 partials and the (n_chunks,) i32 tail rows from it.
+int mma_segment_sum_n_chunks(int n_edges) { return sum_n_chunks(n_edges); }
+
+// data (R, C) f32, row_ptr (n_rows+1,) i32 with row_ptr[n_rows] <= n_edges,
+// index (n_edges,) i32 or null (then R = n_edges), out (n_rows, C) f32;
+// scratch part (n_chunks, 2, C) f32 and tail_row (n_chunks,) i32. Row e of
+// the CSR reads data[index[e]] (data[e] without an index). vec4 != 0
+// requires C % 4 == 0 and 16-byte aligned data/out/part.
 int mma_segment_sum_csr(const void* data, const void* row_ptr, const void* index,
-                        void* out, int n_rows, int n_chan, int vec4, void* stream) {
-  const int threads = 256;
-  const int blocks = (n_rows + threads / kWarp - 1) / (threads / kWarp);
+                        void* out, void* part, void* tail_row, int n_rows, int n_chan,
+                        int n_edges, int vec4, void* stream) {
   if (n_rows <= 0 || n_chan <= 0) return static_cast<int>(cudaSuccess);
   const int n_vec = vec4 ? n_chan / 4 : n_chan;
+  // Lanes per edge: the power of two that covers a narrow row, else 32 or
+  // 16 lanes, whichever divides the row (C=192: 3 slots of 16 lanes).
   int lpe = 1;
   while (lpe < n_vec && lpe < kWarp) lpe <<= 1;
+  if (n_vec > kWarp && n_vec % kWarp != 0 && n_vec % (kWarp / 2) == 0) lpe = kWarp / 2;
+  const int tiles = (n_vec + lpe - 1) / lpe;
+  const int chunk = sum_chunk_edges(n_edges);
+  const int n_chunks = sum_n_chunks(n_edges);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+#define MMA_SUM_ARGS \
+  data, row_ptr, index, out, part, tail_row, n_rows, n_vec, lpe, tiles, chunk, n_chunks, s
   if (vec4) {
-    segment_sum_csr_kernel<4><<<blocks, threads, 0, s>>>(
-        static_cast<const float*>(data), static_cast<const int32_t*>(row_ptr),
-        static_cast<const int32_t*>(index), static_cast<float*>(out), n_rows, n_vec,
-        lpe);
+    err = tiles <= 1   ? launch_segment_sum<4, 1>(MMA_SUM_ARGS)
+          : tiles <= 2 ? launch_segment_sum<4, 2>(MMA_SUM_ARGS)
+          : tiles <= 3 ? launch_segment_sum<4, 3>(MMA_SUM_ARGS)
+                       : launch_segment_sum<4, 4>(MMA_SUM_ARGS);
   } else {
-    segment_sum_csr_kernel<1><<<blocks, threads, 0, s>>>(
-        static_cast<const float*>(data), static_cast<const int32_t*>(row_ptr),
-        static_cast<const int32_t*>(index), static_cast<float*>(out), n_rows, n_vec,
-        lpe);
+    err = tiles <= 1   ? launch_segment_sum<1, 1>(MMA_SUM_ARGS)
+          : tiles <= 4 ? launch_segment_sum<1, 4>(MMA_SUM_ARGS)
+                       : launch_segment_sum<1, 16>(MMA_SUM_ARGS);
   }
-  return static_cast<int>(cudaGetLastError());
+#undef MMA_SUM_ARGS
+  return static_cast<int>(err);
 }
 
 // c (n_rows, kf), h (n_rows, f), w_bot (f, kf), pat (kf,) 0/1 f32,

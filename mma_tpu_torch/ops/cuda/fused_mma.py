@@ -7,6 +7,9 @@ its CSC twin:
 - :func:`segment_sum_csr` replaces the JAX package's ``_sum_kernel``:
   ``out[i] = Σ_{e ∈ [row_ptr[i], row_ptr[i+1])} data[e]``, or
   ``data[index[e]]`` with an index (the CSC, by-src and gather-VJP uses).
+  Two kernels a call: fixed-size edge chunks, one warp each, then a fixup
+  of the rows longer than a chunk, which are split across warps.
+  ``LAUNCHES["segment_sum"]`` counts calls.
 - :func:`edge_program_lean` replaces ``_program_fwd_lean_kernel``:
   ``S[i] = Σ_{dst_e=i} act(c[i] + h[src_e] @ W_bot) ⊙ tile(h[src_e], K)``.
 - Its backward, :func:`edge_program_lean_bwd`, replaces
@@ -78,7 +81,9 @@ def _lib() -> ctypes.CDLL:
     if not _configured:
         lib.mma_cuda_error_string.argtypes = [_I]
         lib.mma_cuda_error_string.restype = ctypes.c_char_p
-        lib.mma_segment_sum_csr.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
+        lib.mma_segment_sum_n_chunks.argtypes = [_I]
+        lib.mma_segment_sum_n_chunks.restype = _I
+        lib.mma_segment_sum_csr.argtypes = [_P] * 6 + [_I] * 4 + [_P]
         lib.mma_segment_sum_csr.restype = _I
         lib.mma_edge_program_lean_fwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
         lib.mma_edge_program_lean_fwd.restype = _I
@@ -164,14 +169,21 @@ def _segment_sum_kernel(data: torch.Tensor, row_ptr: torch.Tensor,
     if data.ndim != 2 or row_ptr.ndim != 1 or (index is not None and index.ndim != 1):
         raise ValueError(f"{name}: data must be (R, C), row_ptr (N+1,) and index (E,)")
     n, ch = row_ptr.shape[0] - 1, data.shape[1]
-    out = torch.empty((n, ch), dtype=torch.float32, device=data.device)
-    vec4 = ch % 4 == 0 and data.data_ptr() % 16 == 0
+    # The edge positions the CSR may cover, from shapes alone (no host sync):
+    # they fix the kernel's partition into chunks and its scratch.
+    n_edges = data.shape[0] if index is None else index.shape[0]
+    dev = data.device
     lib = _lib()
-    with torch.cuda.device(data.device):
+    n_chunks = lib.mma_segment_sum_n_chunks(n_edges)
+    out = torch.empty((n, ch), dtype=torch.float32, device=dev)
+    part = torch.empty((n_chunks, 2, ch), dtype=torch.float32, device=dev)
+    tail_row = torch.empty((n_chunks,), dtype=torch.int32, device=dev)
+    vec4 = ch % 4 == 0 and data.data_ptr() % 16 == 0
+    with torch.cuda.device(dev):
         err = lib.mma_segment_sum_csr(
             data.data_ptr(), row_ptr.data_ptr(),
-            None if index is None else index.data_ptr(), out.data_ptr(), n, ch,
-            int(vec4), _stream(),
+            None if index is None else index.data_ptr(), out.data_ptr(), part.data_ptr(),
+            tail_row.data_ptr(), n, ch, n_edges, int(vec4), _stream(),
         )
     _check_launch(lib, err, name)
     LAUNCHES["segment_sum"] += 1

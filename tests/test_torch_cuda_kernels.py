@@ -130,6 +130,83 @@ def test_segment_sum_kernel_with_index_matches_plain(cuda, graph, channels):
         assert torch.equal(got, fused_mma.segment_sum_csr(data, row_ptr, index))
 
 
+@pytest.fixture(scope="module")
+def chunk_graph(cuda):
+    """CSRs that exercise kernel 1's edge chunks, as ``name -> (row_ptr,
+    n_edges)``. Below 8,192 · 16 edges a chunk holds 16 edge positions;
+    rows of at most 64 edges stay whole, longer ones are split."""
+    rs = np.random.RandomState(7)
+    # Rows 0-1 empty, row 2 a 3,000-edge hub over 188 chunks, rows 4-5 empty
+    # at 3,008 = 188 · 16, row 6 starting on that chunk boundary, row 7 (100
+    # edges) split across boundaries, row 8 (60) whole across them, then
+    # short rows with empty ones among them, and 30 empty rows at the end.
+    deg = np.concatenate([[0, 0, 3000, 8, 0, 0, 24, 100, 60],
+                          rs.randint(0, 6, 400) * (rs.rand(400) > 0.2), np.zeros(30, int)])
+    row_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    n_edges = int(row_ptr[-1]) + 50  # padding edge positions no row covers
+    assert row_ptr[6] == 3008 and deg[6] > 0
+    return {
+        "hub": (row_ptr, n_edges),
+        "slice row_ptr[0] > 0": (row_ptr[5:300], n_edges),
+        "hub alone": (row_ptr[2:4], n_edges),
+        "smaller than a chunk": (np.array([0, 3, 3, 7, 7], np.int32), 10),
+        "covers no edge": (np.array([5, 5, 5, 5], np.int32), 64),
+    }
+
+
+@pytest.mark.parametrize("indexed", [False, True])
+@pytest.mark.parametrize("channels", [7, 16, 64, 128, 192, 200, 375, 640])
+def test_segment_sum_chunks_match_plain(cuda, chunk_graph, channels, indexed):
+    """Kernel 1's two passes against the plain version within 1e-5, over a
+    row split across many chunks, a row on a chunk boundary, empty rows
+    inside and at both ends, a CSR slice, a graph under one chunk and a CSR
+    that covers nothing; one launch counted a call, bitwise equal run to
+    run, empty rows 0. C=7 and 375 take scalar loads, 192 three 16-lane
+    slots, 640 two rounds over each row's edges."""
+    rs = np.random.RandomState(channels)
+    for what, (rp_np, n_edges) in chunk_graph.items():
+        rp = torch.from_numpy(rp_np).to(cuda)
+        if indexed:
+            data = torch.from_numpy(rs.randn(97, channels).astype(np.float32)).to(cuda)
+            index = torch.from_numpy(rs.randint(0, 97, n_edges).astype(np.int32)).to(cuda)
+        else:
+            data = torch.from_numpy(rs.randn(n_edges, channels).astype(np.float32)).to(cuda)
+            index = None
+        before = fused_mma.LAUNCHES["segment_sum"]
+        got = fused_mma.segment_sum_csr(data, rp, index)
+        torch.cuda.synchronize()
+        assert fused_mma.LAUNCHES["segment_sum"] == before + 1, what
+        want = fused_mma.segment_sum_reference(data, rp, index)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item(),
+                                   msg=what)
+        assert torch.equal(got, fused_mma.segment_sum_csr(data, rp, index)), what
+        empty = torch.from_numpy(rp_np[1:] == rp_np[:-1]).to(cuda)
+        assert (got[empty] == 0).all(), what
+
+
+def test_segment_sum_replays_in_a_cuda_graph(cuda, chunk_graph):
+    """One kernel-1 call captured in a CUDA graph and replayed gives the
+    eager result: the wrapper sizes its grid and scratch from shapes and
+    never reads ``row_ptr`` on the host."""
+    rp_np, n_edges = chunk_graph["hub"]
+    rp = torch.from_numpy(rp_np).to(cuda)
+    rs = np.random.RandomState(11)
+    data = torch.from_numpy(rs.randn(97, 64).astype(np.float32)).to(cuda)
+    index = torch.from_numpy(rs.randint(0, 97, n_edges).astype(np.int32)).to(cuda)
+    eager = fused_mma.segment_sum_csr(data, rp, index)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused_mma.segment_sum_csr(data, rp, index)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fused_mma.segment_sum_csr(data, rp, index)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+
+
 @pytest.mark.parametrize("f,aggs", [(12, ("mean", "max", "sum")), (16, ("mean", "max")),
                                     (64, ("mean", "mean2")), (96, ("mean", "max")),
                                     (128, ("sum", "max", "min", "mean"))])

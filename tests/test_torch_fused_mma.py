@@ -53,8 +53,20 @@ def _program_inputs(n_pad, f, k, seed=1):
     return h, mw, np.ascontiguousarray(h @ w_top), np.ascontiguousarray(w_bot)
 
 
-def test_segment_sum_reference_matches_pallas_kernel(graphs):
-    jg, tg, _ = graphs
+@pytest.fixture(scope="module")
+def hub_graphs():
+    """300 nodes: node 0 takes a 3,000-edge row (the heavy row that the
+    card's kernel splits across edge chunks), the last 40 no edges."""
+    rs = np.random.RandomState(5)
+    n = 300
+    src = rs.randint(0, n, 5400).astype(np.int32)
+    dst = np.concatenate([np.zeros(3000, np.int32), rs.randint(1, n - 40, 2400)]).astype(np.int32)
+    return jax_graph_from_edges(src, dst, n), graph_from_edges(src, dst, n, device="cpu"), n
+
+
+@pytest.mark.parametrize("which", ["graphs", "hub_graphs"])
+def test_segment_sum_reference_matches_pallas_kernel(request, which):
+    jg, tg, _ = request.getfixturevalue(which)
     rs = np.random.RandomState(0)
     data = rs.randn(jg.n_edge, 32).astype(np.float32)
     data[~np.asarray(jg.edge_mask)] = 0.0
