@@ -70,7 +70,9 @@
 4. Per kernel, at the shapes of the main paths (kernels 1-3 and 9-12 at
    synthetic-large, kernel 1 at the widths of both products, C=64 and
    C=16, and of the wide payload, C=192, and also its heaviest row alone at
-   C=64 and Cora's spmm forward at C=64 and C=7; kernels 4-8 on the tensors the
+   C=64 and Cora's spmm forward at C=64 and C=7; kernel 2 also as its node
+   pass and edge pass alone, its heaviest row alone (as a whole call and
+   through the edge pass alone) and at Cora's shape; kernels 4-8 on the tensors the
    ZINC train steps gave them at the flagship batch, 4-7 for one and two
    ops, with dropout on and off): the
    error against the plain version (kernels 4 and 6, and the routed
@@ -287,14 +289,15 @@ def expect_launches(paths: dict, path: str, **nonzero: int) -> None:
 def capture_call(module, name, run):
     """Run ``run()`` with ``module.<name>`` wrapped so that its arguments and
     the cotangent of its output are kept; returns ``(args, kwargs, ct)`` of
-    the last call."""
+    the last call (``ct`` None when the output takes no gradient)."""
     real = getattr(module, name)
     kept = {}
 
     def wrapper(*args, **kwargs):
         out = real(*args, **kwargs)
         kept["args"], kept["kwargs"] = args, kwargs
-        out.register_hook(lambda g: kept.__setitem__("ct", g.detach().clone()))
+        if out.requires_grad:
+            out.register_hook(lambda g: kept.__setitem__("ct", g.detach().clone()))
         return out
 
     setattr(module, name, wrapper)
@@ -302,7 +305,7 @@ def capture_call(module, name, run):
         run()
     finally:
         setattr(module, name, real)
-    return kept["args"], kept["kwargs"], kept["ct"]
+    return kept["args"], kept["kwargs"], kept.get("ct")
 
 
 def bn_fed_scale(name: str, grads: dict):
@@ -1103,18 +1106,62 @@ def main() -> int:
         plain_ms = device_ms(lambda: fused_mma.edge_program_lean_reference(*fwd_args), iters=10)
         nbytes = 4 * (n_rows * kf + n_rows * f + f * kf + kf + e_cov + (n_rows + 1)
                       + n_rows * kf)
-        # Per edge: the (1 x F)(F x K·F) product, then per lane the add of
-        # c, the product with h and the accumulation (sigmoid not counted).
+        # The work these inputs need: the node-level product h @ W_bot once,
+        # then per edge and lane the add of c, the product with h and the
+        # accumulation (the sigmoid not counted).
         kernels["edge_program_lean_fwd"] = {
             "name": "edge_program_lean_fwd", "route": "cuda", "source": SOURCE,
             "replaces": REPLACES["edge_program_lean_fwd"],
             "max_abs_err": err["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
-            **bound(nbytes, e_cov * (2 * f * kf + 3 * kf)), "library_ms": None,
+            **bound(nbytes, 2 * n_rows * f * kf + 3 * e_cov * kf), "library_ms": None,
+            # The random D and h rows the edge pass gathers, once per edge.
+            "gather_bound_ms": 4 * e_cov * (kf + f) / PEAK_BYTES_PER_S * 1e3,
             "shape": f"E={e_cov} N={n_rows} F={f} K·F={kf}",
         }
         k2 = kernels["edge_program_lean_fwd"]
         print(f"edge_program_lean_fwd: ms {ms:.4f} plain_ms {plain_ms:.4f} "
-              f"bound_ms {k2['bound_ms']:.4f} ({k2['bound_by']})")
+              f"bound_ms {k2['bound_ms']:.4f} ({k2['bound_by']}); gathered rows alone "
+              f"{k2['gather_bound_ms']:.4f} ms; bitwise equal run to run")
+        # Its three launches: the node pass alone, then the edge pass alone.
+        d_tab = fused_mma._lean_node_pass(h, w_bot)
+        k2["node_pass_ms"] = device_ms(lambda: fused_mma._lean_node_pass(h, w_bot))
+        k2["edge_pass_ms"] = device_ms(
+            lambda: fused_mma._lean_edge_pass(c, pat, d_tab, h, src, rp))
+        print(f"edge_program_lean_fwd: node pass {k2['node_pass_ms']:.4f} ms "
+              f"({k2['node_pass_ms'] / ms:.3f} of the call), edge pass "
+              f"{k2['edge_pass_ms']:.4f} ms")
+        # Skew: the heaviest row alone, as a whole call on a CSR of N rows
+        # that covers its edges only (the node pass still covers all N nodes
+        # of h) and through the edge pass alone on its own CSR slice (its
+        # edges split over chunks, joined by the fixup).
+        deg = rp[1:] - rp[:-1]
+        top = int(torch.argmax(deg))
+        only_top = rp.clamp(int(rp[top]), int(rp[top + 1]))
+        heavy = (c, w_bot, h, pat, src, only_top)
+        compare(fused_mma.edge_program_lean(*heavy, cp, perm),
+                fused_mma.edge_program_lean_reference(*heavy), 1e-5,
+                "edge_program_lean_fwd heaviest row alone vs plain")
+        one_row, c_top = rp[top:top + 2].contiguous(), c[top:top + 1]
+        compare(fused_mma._lean_edge_pass(c_top, pat, d_tab, h, src, one_row),
+                fused_mma.edge_program_lean_reference(c_top, w_bot, h, pat, src, one_row),
+                1e-5, "edge_program_lean_fwd heaviest row alone, edge pass vs plain")
+        k2["heaviest_row_call_ms"] = device_ms(
+            lambda: fused_mma.edge_program_lean(*heavy, cp, perm))
+        k2["heaviest_row_ms"] = device_ms(
+            lambda: fused_mma._lean_edge_pass(c_top, pat, d_tab, h, src, one_row))
+        print(f"edge_program_lean_fwd: the heaviest row alone ({int(deg[top])} edges, "
+              f"N={n_rows}): whole call ms {k2['heaviest_row_call_ms']:.4f}, edge pass alone "
+              f"ms {k2['heaviest_row_ms']:.4f}")
+        # Cora's shape: the eval forward's own edge program.
+        cora_args, _, _ = capture_call(masked_aggregate, "edge_program_lean",
+                                       lambda: cora_model(requests[0], cora.graph))
+        cora_fwd = tuple(t.detach() for t in cora_args[:6])
+        compare(fused_mma.edge_program_lean(*cora_args),
+                fused_mma.edge_program_lean_reference(*cora_fwd), 1e-5,
+                "edge_program_lean_fwd Cora vs plain")
+        k2["cora_ms"] = device_ms(lambda: fused_mma.edge_program_lean(*cora_args))
+        print(f"edge_program_lean_fwd Cora: E={int(cora.graph.num_edges)} N={cora.graph.n_node} "
+              f"F={cora_fwd[2].shape[1]} K·F={cora_fwd[0].shape[1]} ms {k2['cora_ms']:.4f}")
 
         bwd_args = fwd_args + (ct.contiguous(),)
         got = fused_mma.edge_program_lean_bwd(*bwd_args)
@@ -1130,17 +1177,19 @@ def main() -> int:
         plain_ms = device_ms(lambda: fused_mma.edge_program_lean_bwd_reference(*bwd_args),
                              iters=5)
         # Bytes: c, ct, h, W_bot, pattern, src, row_ptr read once; dc, dW_bot
-        # and the (E, F) payload written once. Operations per edge: three
-        # (1 x F)(F x K·F) products (the logits, dlog @ W_botᵀ, the dW_bot
-        # outer product) and about 10 per lane (the mask chain, dlog, dc,
-        # ct ⊙ mask), the sigmoid not counted.
+        # and the (E, F) payload written once. The work these inputs need:
+        # the logits' h @ W_bot and dW_bot = hᵀ · dD (dD the by-source sum
+        # of dlog) node-level, dlog_e @ W_botᵀ per edge (the payload is per
+        # edge), and about 10 operations per edge and lane (the mask chain,
+        # dlog, dc, ct ⊙ mask), the sigmoid not counted.
         nbytes = 4 * (2 * n_rows * kf + n_rows * f + f * kf + kf + e_cov + (n_rows + 1)
                       + n_rows * kf + f * kf + big.n_edge * f)
         kernels["edge_program_lean_bwd"] = {
             "name": "edge_program_lean_bwd", "route": "cuda", "source": SOURCE,
             "replaces": REPLACES["edge_program_lean_bwd"],
             "max_abs_err": max(e["max_abs_err"] for e in errs), "ms": ms,
-            "plain_ms": plain_ms, **bound(nbytes, e_cov * (6 * f * kf + 10 * kf)),
+            "plain_ms": plain_ms,
+            **bound(nbytes, 4 * n_rows * f * kf + e_cov * (2 * f * kf + 10 * kf)),
             # No single PyTorch call computes dc, dW_bot and the payload.
             "library_ms": None,
             "shape": f"E={e_cov} N={n_rows} F={f} K·F={kf}",

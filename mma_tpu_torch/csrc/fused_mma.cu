@@ -6,7 +6,7 @@
 // with ctypes (mma_tpu_torch/ops/cuda/build.py). Each entry point launches
 // on the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so that the Python wrapper raises on a refused
-// launch. Every kernel reduces over the dst-sorted CSR (or its CSC twin)
+// launch. Every reduction runs over the dst-sorted CSR (or its CSC twin)
 // in a fixed order: each output element is written exactly once, so there
 // are no atomics and the results are deterministic; rows with no edges
 // get 0.
@@ -57,19 +57,29 @@ constexpr int kWarp = 32;
 // is not one row's memory latency after another.
 //
 // A row of at most max(chunk, kSumMinSplit) edges belongs whole to the
-// chunk it starts in, which writes it directly (an empty one as 0), even
-// where it runs on past the chunk. It is summed as a warp per row would, so
-// where one group covers a row (the ZINC widths) it keeps the plain
-// version's sequential bits, which the std aggregator's cancelling
-// gradient needs: splitting ZINC's 4-edge rows moved a PNA train step's
-// embedding gradient by 2e-3 relative. A longer row is split at the chunk
+// chunk it starts in, which writes it directly, even where it runs on
+// past the chunk. It is summed as a warp per row would, so where one group
+// covers a row (the ZINC widths) it keeps the plain version's sequential
+// bits, which the std aggregator's cancelling gradient needs: splitting
+// ZINC's 4-edge rows moved a PNA train step's embedding gradient by 2e-3
+// relative. A longer row is split at the chunk
 // boundaries: the partial of the row that enters the chunk from an
 // earlier one goes to the chunk's head slot, and that of the chunk's last
 // row, when it goes on past the chunk, to its tail slot: scratch
 // (n_chunks, 2, C), and the tail row's id to tail_row.
 // Pass 2 (segment_sum_fixup_kernel): one warp per chunk with a tail row
 // adds the tail and the later chunks' heads in chunk order and writes the
-// row once.
+// row once. Pass 1's body (chunk_pass) takes what it adds per edge as a
+// type (RowsOf, the data row itself): kernel 2's edge pass is the same two
+// passes with its own message (LeanMessage).
+//
+// Empty rows are not the chunks' work: all the empty rows between two
+// edges start at one edge position, so a graph with many of them in a row
+// (a CSR that covers a few rows of many) would hand them all to the one
+// warp whose chunk holds that position. A chunk's warp leaves them out and
+// steps over a window of them to the next row that may have edges with
+// one search of row_ptr; pass 2 also runs zeroing warps, each writing 0 to
+// the empty rows among kSumZeroRows consecutive rows.
 //
 // Every output row is written exactly once, with no atomics, and the
 // partition depends only on E (the data's or the index's length, which
@@ -92,6 +102,7 @@ constexpr int kSumTargetChunks = 8192;
 constexpr int kSumMinChunk = 16;
 constexpr int kSumMinSplit = 64;  // rows of at most max(chunk, 64) edges stay whole
 constexpr int kSumWarps = 8;  // warps per block, both passes
+constexpr int kSumZeroRows = 256;  // rows a zeroing warp of pass 2 covers
 
 int sum_chunk_edges(int n_edges) {
   int chunk = kSumMinChunk;
@@ -102,6 +113,22 @@ int sum_chunk_edges(int n_edges) {
 int sum_n_chunks(int n_edges) {
   const int chunk = sum_chunk_edges(n_edges);
   return max(1, (n_edges + chunk - 1) / chunk);
+}
+
+// Pass 2's blocks: a warp per chunk, then the zeroing warps of n_rows rows.
+int sum_fixup_blocks(int n_chunks, int n_rows) {
+  const int warps = n_chunks + (n_rows + kSumZeroRows - 1) / kSumZeroRows;
+  return (warps + kSumWarps - 1) / kSumWarps;
+}
+
+// Lanes per edge for rows of n_vec slots: the power of two that covers a
+// narrow row, else 32 or 16 lanes, whichever divides the row (C=192: 3
+// slots of 16 lanes).
+int lanes_per_edge(int n_vec) {
+  int lpe = 1;
+  while (lpe < n_vec && lpe < kWarp) lpe <<= 1;
+  if (n_vec > kWarp && n_vec % kWarp != 0 && n_vec % (kWarp / 2) == 0) lpe = kWarp / 2;
+  return lpe;
 }
 
 template <int VEC>
@@ -129,6 +156,10 @@ struct Vec<1> {
     return __shfl_xor_sync(0xffffffffu, a, off);
   }
 };
+
+__device__ __forceinline__ float sigmoidf(float x) {
+  return 1.f / (1.f + expf(-x));
+}
 
 // For keys[0] and keys[1] at once, the first i in [0, n] with
 // row_ptr[i] >= key (n if none): a 32-ary search, one probe a lane and key
@@ -164,25 +195,103 @@ __device__ __forceinline__ void lower_bound2(const int32_t* __restrict__ row_ptr
   found[1] = lo[1];
 }
 
+// After a window of empty rows that all start (and end) at edge position
+// p: the last row that starts at p, the first one after them that may
+// have edges (n_rows - 1 if none).
+__device__ __forceinline__ int last_row_at(const int32_t* __restrict__ row_ptr, int n_rows,
+                                        int64_t p) {
+  const int64_t keys[2] = {p + 1, p + 1};
+  int found[2];
+  lower_bound2(row_ptr, n_rows, keys, found);
+  return found[0] - 1;
+}
+
 // The data row that edge position e reads, or -1 past the end re.
 __device__ __forceinline__ int64_t edge_row(const int32_t* __restrict__ index, int64_t e,
                                             int64_t re) {
   return e < re ? (index != nullptr ? static_cast<int64_t>(__ldg(index + e)) : e) : -1;
 }
 
-// Pass 1. TILES: the lane's channel slots per edge (a compile-time bound
-// on `tiles`; wider rows take several rounds over the row's edges). U:
-// edges a group loads before it adds them, about 32 floats in flight a
-// lane.
-template <int VEC, int TILES>
-__global__ void __launch_bounds__(kSumWarps* kWarp)
-segment_sum_chunk_kernel(const float* __restrict__ data, const int32_t* __restrict__ row_ptr,
-                         const int32_t* __restrict__ index, float* __restrict__ out,
-                         float* __restrict__ part, int32_t* __restrict__ tail_row,
-                         int n_rows, int n_vec, int lpe, int tiles, int chunk, int n_chunks) {
-  using V = Vec<VEC>;
+// Pass 2's zeroing warp z: 0 in the empty rows among rows [z R, (z + 1) R),
+// R = kSumZeroRows, 32 rows a step; a step of 32 empty rows is one
+// contiguous store.
+template <int VEC>
+__device__ __forceinline__ void zero_empty_rows(const int32_t* __restrict__ row_ptr,
+                                                float* __restrict__ out, int z, int n_rows,
+                                                int n_vec) {
+  using T = typename Vec<VEC>::T;
+  const int lane = threadIdx.x % kWarp;
+  const int r0 = z * kSumZeroRows;
+  const int r_end = min(n_rows, r0 + kSumZeroRows);
+  T* outv = reinterpret_cast<T*>(out);
+  for (int rb = r0; rb < r_end; rb += kWarp) {
+    const int r = rb + lane;
+    const bool empty = r < r_end && __ldg(row_ptr + r) == __ldg(row_ptr + r + 1);
+    unsigned m = __ballot_sync(0xffffffffu, empty);
+    if (m == 0xffffffffu) {
+      T* z_rows = outv + static_cast<int64_t>(rb) * n_vec;
+      for (int i = lane; i < kWarp * n_vec; i += kWarp) z_rows[i] = Vec<VEC>::zero();
+      continue;
+    }
+    while (m) {
+      const int k = __ffs(m) - 1;
+      m &= m - 1;
+      T* z_row = outv + static_cast<int64_t>(rb + k) * n_vec;
+      for (int cv = lane; cv < n_vec; cv += kWarp) z_row[cv] = Vec<VEC>::zero();
+    }
+  }
+}
+
+// What the chunk pass adds for each edge, on a lane's slot cv (16 bytes, or
+// one float) of an output row. A message type has
+//   Slot slot(row, cv): what the destination row gives the slot, loaded
+//                       once per row (no_slot() past the row's end);
+//   Edge load(r, cv, slot): the loads of data row r, issued for several
+//                       edges before any of them is added (none(): no edge);
+//   add(acc, edge, slot): the edge's message added into acc;
+// and in_flight<TILES>(), the edges whose loads a lane issues before it
+// adds them. RowsOf is kernel 1's (the data row itself); LeanMessage,
+// kernel 2's, is below with that kernel.
+template <int VEC_>
+struct RowsOf {
+  static constexpr int VEC = VEC_;
+  // About 32 floats in flight a lane.
+  template <int TILES>
+  __host__ __device__ static constexpr int in_flight() {
+    return TILES * VEC >= 12 ? 2 : (TILES * VEC >= 8 ? 4 : 8);
+  }
+  using T = typename Vec<VEC>::T;
+  struct Slot {};
+  struct Edge {
+    T v;
+  };
+  const T* rows;
+  int n_vec;
+  __device__ Slot slot(int64_t, int) const { return {}; }
+  __device__ static Slot no_slot() { return {}; }
+  __device__ Edge load(int64_t r, int cv, const Slot&) const {
+    return {__ldg(rows + r * n_vec + cv)};
+  }
+  __device__ static Edge none() { return {Vec<VEC>::zero()}; }
+  __device__ static void add(T& acc, const Edge& e, const Slot&) { Vec<VEC>::add(acc, e.v); }
+};
+
+// Pass 1, for any message type Msg: the body of kernel 1's
+// segment_sum_chunk_kernel and of kernel 2's lean_edge_kernel. TILES: the
+// lane's channel slots per edge (a compile-time bound on `tiles`; wider
+// rows take several rounds over the row's edges). U: edges a group loads
+// before it adds them.
+template <class Msg, int TILES>
+__device__ __forceinline__ void chunk_pass(const Msg& msg, const int32_t* __restrict__ row_ptr,
+                                           const int32_t* __restrict__ index,
+                                           float* __restrict__ out, float* __restrict__ part,
+                                           int32_t* __restrict__ tail_row, int n_rows, int n_vec,
+                                           int lpe, int tiles, int chunk, int n_chunks) {
+  using V = Vec<Msg::VEC>;
   using T = typename V::T;
-  constexpr int U = TILES * VEC >= 12 ? 2 : (TILES * VEC >= 8 ? 4 : 8);
+  using Slot = typename Msg::Slot;
+  using Edge = typename Msg::Edge;
+  constexpr int U = Msg::template in_flight<TILES>();
   const int c = blockIdx.x * kSumWarps + threadIdx.x / kWarp;
   if (c >= n_chunks) return;  // whole warps leave together
   const int lane = threadIdx.x % kWarp;
@@ -210,7 +319,6 @@ segment_sum_chunk_kernel(const float* __restrict__ data, const int32_t* __restri
   const bool tail = i1 > i0 && __ldg(rp_i1) > b && __ldg(rp_i1) - __ldg(rp_i1 - 1) > split;
   if (lane == 0) tail_row[c] = tail ? i1 - 1 : -1;
 
-  const T* rows = reinterpret_cast<const T*>(data);
   T* outv = reinterpret_cast<T*>(out);
   T* head_slot = reinterpret_cast<T*>(part) + static_cast<int64_t>(c) * 2 * n_vec;
   T* tail_slot = head_slot + n_vec;
@@ -224,18 +332,19 @@ segment_sum_chunk_kernel(const float* __restrict__ data, const int32_t* __restri
     const int e = live ? __ldg(row_ptr + r + 1) : 0;
     const unsigned live_mask = __ballot_sync(0xffffffffu, live);
     const unsigned empty = __ballot_sync(0xffffffffu, live && s == e);
-    if (empty == live_mask) {  // a run of empty rows, all owned: write 0
-      T* z = outv + static_cast<int64_t>(rb) * n_vec;
-      const int64_t n_z = static_cast<int64_t>(__popc(live_mask)) * n_vec;
-      for (int64_t i = lane; i < n_z; i += kWarp) z[i] = V::zero();
+    if (empty == live_mask) {
+      // Empty rows only (pass 2 writes them), all at one edge position: go
+      // on from the first row after them that may have edges.
+      rb = max(rb, last_row_at(row_ptr, n_rows, __shfl_sync(0xffffffffu, s, 0)) - kWarp);
       continue;
     }
     // Rows shorter than half a warp step: one row a group, `groups` rows at
     // a time, each summed in CSR order, the next step's rows fetched before
-    // this step's adds. The other rows take the whole warp, one at a time.
+    // this step's adds. The other rows with edges take the whole warp, one
+    // at a time.
     const int64_t my_re = e - s > split && e > b ? b : e;
     const unsigned batched = __ballot_sync(
-        0xffffffffu, groups > 1 && live && 2 * (my_re - (s > a ? s : a)) <= step);
+        0xffffffffu, groups > 1 && live && s != e && 2 * (my_re - (s > a ? s : a)) <= step);
     unsigned m = batched;
     while (m) {
       int mine = -1;
@@ -256,20 +365,24 @@ segment_sum_chunk_kernel(const float* __restrict__ data, const int32_t* __restri
                                                  : outv + static_cast<int64_t>(row) * n_vec);
       for (int t0 = 0; t0 < tiles; t0 += TILES) {
         T acc[TILES];
+        Slot sl[TILES];
 #pragma unroll
-        for (int t = 0; t < TILES; ++t) acc[t] = V::zero();
+        for (int t = 0; t < TILES; ++t) {
+          acc[t] = V::zero();
+          const int cv = (t0 + t) * lpe + li;
+          sl[t] = cv < n_vec ? msg.slot(row, cv) : Msg::no_slot();
+        }
         int64_t src[U];
 #pragma unroll
         for (int u = 0; u < U; ++u) src[u] = edge_row(index, rs + u, re);
         for (unsigned j = 0; j < max_len; j += U) {
-          T v[U][TILES];
+          Edge v[U][TILES];
 #pragma unroll
           for (int u = 0; u < U; ++u) {
 #pragma unroll
             for (int t = 0; t < TILES; ++t) {
               const int cv = (t0 + t) * lpe + li;
-              v[u][t] = src[u] >= 0 && cv < n_vec ? __ldg(rows + src[u] * n_vec + cv)
-                                                  : V::zero();
+              v[u][t] = src[u] >= 0 && cv < n_vec ? msg.load(src[u], cv, sl[t]) : Msg::none();
             }
           }
 #pragma unroll
@@ -277,7 +390,7 @@ segment_sum_chunk_kernel(const float* __restrict__ data, const int32_t* __restri
 #pragma unroll
           for (int u = 0; u < U; ++u) {
 #pragma unroll
-            for (int t = 0; t < TILES; ++t) V::add(acc[t], v[u][t]);
+            for (int t = 0; t < TILES; ++t) Msg::add(acc[t], v[u][t], sl[t]);
           }
         }
         if (mine >= 0) {
@@ -296,6 +409,7 @@ segment_sum_chunk_kernel(const float* __restrict__ data, const int32_t* __restri
       const int row = rb + k;
       const int64_t row_s = __shfl_sync(0xffffffffu, s, k);
       const int64_t row_e = __shfl_sync(0xffffffffu, e, k);
+      if (row_s == row_e) continue;  // empty: pass 2 writes it
       // A long row's edges inside this chunk; a short one whole.
       const int64_t rs = row_s > a ? row_s : a;
       const int64_t re = row_e - row_s > split && row_e > b ? b : row_e;
@@ -304,8 +418,13 @@ segment_sum_chunk_kernel(const float* __restrict__ data, const int32_t* __restri
                                                  : outv + static_cast<int64_t>(row) * n_vec);
       for (int t0 = 0; t0 < tiles; t0 += TILES) {
         T acc[TILES];
+        Slot sl[TILES];
 #pragma unroll
-        for (int t = 0; t < TILES; ++t) acc[t] = V::zero();
+        for (int t = 0; t < TILES; ++t) {
+          acc[t] = V::zero();
+          const int cv = (t0 + t) * lpe + li;
+          sl[t] = cv < n_vec ? msg.slot(row, cv) : Msg::no_slot();
+        }
         for (int64_t e0 = rs; e0 < re; e0 += step) {
           if (index != nullptr && (e0 < wb || e0 + step > wb + kWarp)) {
             wb = e0;
@@ -320,20 +439,19 @@ segment_sum_chunk_kernel(const float* __restrict__ data, const int32_t* __restri
                               : 0;
             src[u] = u < uu && ee < re ? (index != nullptr ? j : ee) : -1;
           }
-          T v[U][TILES];
+          Edge v[U][TILES];
 #pragma unroll
           for (int u = 0; u < U; ++u) {
 #pragma unroll
             for (int t = 0; t < TILES; ++t) {
               const int cv = (t0 + t) * lpe + li;
-              v[u][t] = src[u] >= 0 && cv < n_vec ? __ldg(rows + src[u] * n_vec + cv)
-                                                  : V::zero();
+              v[u][t] = src[u] >= 0 && cv < n_vec ? msg.load(src[u], cv, sl[t]) : Msg::none();
             }
           }
 #pragma unroll
           for (int u = 0; u < U; ++u) {
 #pragma unroll
-            for (int t = 0; t < TILES; ++t) V::add(acc[t], v[u][t]);
+            for (int t = 0; t < TILES; ++t) Msg::add(acc[t], v[u][t], sl[t]);
           }
         }
         if (rs < re) {
@@ -358,16 +476,22 @@ segment_sum_chunk_kernel(const float* __restrict__ data, const int32_t* __restri
 
 // Pass 2: the long rows that cross a chunk boundary, one warp per chunk
 // whose tail row goes on: the tail partial, then the heads of the later
-// chunks the row reaches, in chunk order.
+// chunks the row reaches, in chunk order; then the zeroing warps, which
+// write the empty rows.
 template <int VEC>
 __global__ void __launch_bounds__(kSumWarps* kWarp)
 segment_sum_fixup_kernel(const int32_t* __restrict__ row_ptr, const float* __restrict__ part,
                          const int32_t* __restrict__ tail_row, float* __restrict__ out,
-                         int n_vec, int chunk, int n_chunks) {
+                         int n_rows, int n_vec, int chunk, int n_chunks) {
   using V = Vec<VEC>;
   using T = typename V::T;
   const int c = blockIdx.x * kSumWarps + threadIdx.x / kWarp;
-  if (c >= n_chunks) return;
+  if (c >= n_chunks) {  // a zeroing warp, or past them (whole warps leave together)
+    if (static_cast<int64_t>(c - n_chunks) * kSumZeroRows < n_rows) {
+      zero_empty_rows<VEC>(row_ptr, out, c - n_chunks, n_rows, n_vec);
+    }
+    return;
+  }
   const int row = __ldg(tail_row + c);
   if (row < 0) return;
   const int64_t end = __ldg(row_ptr + row + 1);
@@ -383,6 +507,31 @@ segment_sum_fixup_kernel(const int32_t* __restrict__ row_ptr, const float* __res
 }
 
 template <int VEC, int TILES>
+__global__ void __launch_bounds__(kSumWarps* kWarp)
+segment_sum_chunk_kernel(const float* __restrict__ data, const int32_t* __restrict__ row_ptr,
+                         const int32_t* __restrict__ index, float* __restrict__ out,
+                         float* __restrict__ part, int32_t* __restrict__ tail_row,
+                         int n_rows, int n_vec, int lpe, int tiles, int chunk, int n_chunks) {
+  const RowsOf<VEC> rows{reinterpret_cast<const typename Vec<VEC>::T*>(data), n_vec};
+  chunk_pass<RowsOf<VEC>, TILES>(rows, row_ptr, index, out, part, tail_row, n_rows, n_vec, lpe,
+                                 tiles, chunk, n_chunks);
+}
+
+// Pass 2 (a warp per chunk, then the zeroing warps) after pass 1 has been
+// launched.
+template <int VEC>
+cudaError_t launch_fixup(const void* row_ptr, const void* part, const void* tail_row, void* out,
+                         int n_rows, int n_vec, int chunk, int n_chunks, cudaStream_t s) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  segment_sum_fixup_kernel<VEC><<<sum_fixup_blocks(n_chunks, n_rows), kSumWarps * kWarp, 0, s>>>(
+      static_cast<const int32_t*>(row_ptr), static_cast<const float*>(part),
+      static_cast<const int32_t*>(tail_row), static_cast<float*>(out), n_rows, n_vec, chunk,
+      n_chunks);
+  return cudaGetLastError();
+}
+
+template <int VEC, int TILES>
 cudaError_t launch_segment_sum(const void* data, const void* row_ptr, const void* index,
                                void* out, void* part, void* tail_row, int n_rows, int n_vec,
                                int lpe, int tiles, int chunk, int n_chunks, cudaStream_t s) {
@@ -391,12 +540,7 @@ cudaError_t launch_segment_sum(const void* data, const void* row_ptr, const void
       static_cast<const float*>(data), static_cast<const int32_t*>(row_ptr),
       static_cast<const int32_t*>(index), static_cast<float*>(out), static_cast<float*>(part),
       static_cast<int32_t*>(tail_row), n_rows, n_vec, lpe, tiles, chunk, n_chunks);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  segment_sum_fixup_kernel<VEC><<<blocks, kSumWarps * kWarp, 0, s>>>(
-      static_cast<const int32_t*>(row_ptr), static_cast<const float*>(part),
-      static_cast<const int32_t*>(tail_row), static_cast<float*>(out), n_vec, chunk, n_chunks);
-  return cudaGetLastError();
+  return launch_fixup<VEC>(row_ptr, part, tail_row, out, n_rows, n_vec, chunk, n_chunks, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -407,33 +551,229 @@ cudaError_t launch_segment_sum(const void* data, const void* row_ptr, const void
 //   S[i] = sum_{e: dst_e = i} act(c[i] + h[src_e] @ W_bot) * tile(h[src_e], K)
 // with act = sigmoid on lanes where pat is 1 and the identity elsewhere.
 //
-// Bound on this card: operations. Per edge the (1 x F)(F x K*F) product is
-// 2*F*K*F FLOPs against about 4*F bytes of gathered h, i.e. 2*K*F FLOP per
-// byte (256 at F=64, K=2): far above the f32 CUDA-core ridge (~20 FLOP/B).
-// Design: W_bot's lane tile (F x 128 floats) sits in shared memory for the
-// whole block; each lane owns 4 consecutive output lanes of a row, and one
-// warp owns a whole row, so the row's sum is written once. The warp gathers
-// h[src] for a batch of 4 edges into shared memory (stored [f][edge], so
-// one 16-byte broadcast load gives all 4 edges' h[src, f]) and each thread
-// does 16 FMAs per pair of 16-byte shared loads: W_bot is read from shared
-// memory once per 4 edges instead of once per edge, which keeps the loop on
-// the FMA units. The next batch's gather is issued into registers before
-// the current batch's products, so its latency hides behind them. The grid
-// is persistent (as many blocks as fit on the card) and rows are dealt
-// round-robin over all its warps: the power-law graph's heaviest rows are
-// its lowest ids, so they land on distinct warps instead of queuing on one.
-// Neither logits nor messages touch device memory.
+// The TPU kernel recomputes h[src_e] @ W_bot for every edge on the MXU so
+// that its per-edge gather is the 128-lane h row: a 192-lane [d || h] row
+// hits an XLA gather cliff there. On this card the trade runs the other
+// way. The per-edge product is 2 F K*F FLOPs on CUDA cores (34.4 GFLOP at
+// the synthetic-large graph, 0.51 ms at the f32 peak), while 16-byte
+// gathers are cheap and the 50 MB L2 holds much of the node tables. The
+// product depends on src_e alone, so it is done once per node:
+//
+// Node pass (lean_node_kernel): D = h @ W_bot, (N, F) x (F, K*F) in f32
+// FMAs, into a table of its own: the edge pass reads a D row and an h row
+// per edge (one interleaved [D || h] row per edge measured 1% slower on
+// the card, its node pass writing h once more). A block keeps
+// W_bot's 128-lane tile in shared memory and walks blocks of 64 node rows
+// (a persistent grid), staging the next block of h with 16-byte cp.async
+// copies while it multiplies the current one; a thread accumulates 8 rows
+// x 4 lanes in registers, over F in order. 2 N F K*F = 2.15 GFLOP at
+// synthetic-large (N = 131k, F = 64, K*F = 128), 16x less than per edge.
+//
+// Edge pass (lean_edge_kernel, then segment_sum_fixup_kernel): kernel 1's
+// two passes, the first with LeanMessage (chunk_pass), the message
+// act(c[row] + D[src]) * h[src, l mod F] on each 16-byte slot: c[row] and
+// the pattern are loaded once per row segment, a lane selects sigmoid or
+// the identity per lane of its slot (a row may mix them), and two edges'
+// D and h slots are in flight before their FMAs, in at most 64 registers
+// so that 32 warps share an SM. So skew and
+// determinism are kernel 1's: edge positions in chunks sized from E alone,
+// one warp each; rows of at most max(chunk, 64) edges summed whole, in CSR
+// order, by the chunk they start in; the power-law graph's 1,448-edge row
+// split into head and tail partials that the fixup adds in chunk order.
+// Every row is written once (empty rows as 0, by pass 2's zeroing warps),
+// with no atomics and no host sync: bitwise equal run to run, and a call
+// replays in a CUDA graph. A lane takes at most two slots of a row per
+// pass, so K*F = 384 or 512 takes two rounds over each row's edges.
+//
+// Bound on this card: bytes. Each input read once and the output written
+// once: c 67.1 + h 33.6 + src 8.4 + row_ptr 0.5 + S 67.1 ~ 177 MB at
+// synthetic-large (E = 2.1M), 0.053 ms at 3.35 TB/s, above 2.15 GFLOP of
+// node products and 3 E K*F = 0.81 GFLOP per edge (0.044 ms at 67
+// TFLOP/s). The random table rows the edge pass gathers are E x 768 B =
+// 1.61 GB, 0.481 ms, less what the L2 keeps of the 67 MB D and 34 MB h:
+// that sets its time.
 // ---------------------------------------------------------------------------
 
-constexpr int kLaneTile = 128;     // output lanes per block (32 lanes x 4)
-constexpr int kEdgeBatch = 4;      // edges per shared-memory batch
-constexpr int kProgWarps = 8;      // warps per block
-constexpr int kMaxF = 128;
-constexpr int kStageRegs = kEdgeBatch * kMaxF / kWarp;  // gather registers
+constexpr int kLaneTile = 128;  // output lanes per block (32 lanes x 4)
+constexpr int kNodeRows = 64;   // node rows per step of the node pass
+constexpr int kNodeWarps = 8;   // warp w takes rows w, w + 8, ..., w + 56
+constexpr int kNodeRowsPerWarp = kNodeRows / kNodeWarps;
 
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.f / (1.f + expf(-x));
+size_t node_smem_bytes(int f) {
+  // W_bot's lane tile [f][128] and two row blocks of h [64][f].
+  return sizeof(float) * (static_cast<size_t>(f) * kLaneTile +
+                          2 * static_cast<size_t>(kNodeRows) * f);
 }
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = full ? 16 : 0;  // 0: fill the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// d = h @ w_bot. Grid: (persistent, ceil(kf / 128) lane tiles).
+__global__ void __launch_bounds__(kNodeWarps* kWarp)
+lean_node_kernel(const float* __restrict__ h, const float* __restrict__ w_bot,
+                 float* __restrict__ d, int n_rows, int f, int kf) {
+  extern __shared__ float4 smem4[];
+  float* w_s = reinterpret_cast<float*>(smem4);  // [f][kLaneTile]
+  float* h_s = w_s + f * kLaneTile;              // [2][kNodeRows][f]
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int l_base = blockIdx.y * kLaneTile;
+  const int l0 = l_base + 4 * lane;  // this thread's 4 lanes
+  const int n_blocks = (n_rows + kNodeRows - 1) / kNodeRows;
+  const int block_vec = kNodeRows * f / 4;  // 16-byte pieces of a row block
+  const int64_t h_vec = static_cast<int64_t>(n_rows) * f / 4;
+  const float4* h4 = reinterpret_cast<const float4*>(h);
+
+  // The row block b of h into buffer buf, zeros past the last row.
+  auto stage = [&](int b, int buf) {
+    float4* dst = reinterpret_cast<float4*>(h_s) + buf * block_vec;
+    const int64_t first = static_cast<int64_t>(b) * block_vec;
+    for (int i = threadIdx.x; i < block_vec; i += blockDim.x) {
+      const bool in = first + i < h_vec;
+      cp_async16(dst + i, in ? h4 + first + i : h4, in);
+    }
+    cp_async_commit();
+  };
+
+  int b = blockIdx.x;
+  if (b < n_blocks) stage(b, 0);
+  for (int idx = threadIdx.x; idx < f * kLaneTile; idx += blockDim.x) {
+    const int l = l_base + idx % kLaneTile;
+    w_s[idx] = l < kf ? __ldg(w_bot + static_cast<int64_t>(idx / kLaneTile) * kf + l) : 0.f;
+  }
+  const float4* w4 = reinterpret_cast<const float4*>(w_s) + lane;
+  for (int buf = 0; b < n_blocks; b += gridDim.x, buf ^= 1) {
+    if (b + static_cast<int>(gridDim.x) < n_blocks) {
+      stage(b + gridDim.x, buf ^ 1);  // in flight below
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // block b's rows (and W_bot's tile) are in shared memory
+    const float* hb = h_s + buf * kNodeRows * f;
+    float acc[kNodeRowsPerWarp][4] = {};
+#pragma unroll 2
+    for (int k = 0; k < f; k += 4) {
+      float4 w[4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) w[kk] = w4[(k + kk) * (kLaneTile / 4)];
+#pragma unroll
+      for (int i = 0; i < kNodeRowsPerWarp; ++i) {
+        // Every lane of the warp reads the same h row: a broadcast.
+        const float4 hv =
+            *reinterpret_cast<const float4*>(hb + (warp + kNodeWarps * i) * f + k);
+        const float hk[4] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          acc[i][0] = fmaf(hk[kk], w[kk].x, acc[i][0]);
+          acc[i][1] = fmaf(hk[kk], w[kk].y, acc[i][1]);
+          acc[i][2] = fmaf(hk[kk], w[kk].z, acc[i][2]);
+          acc[i][3] = fmaf(hk[kk], w[kk].w, acc[i][3]);
+        }
+      }
+    }
+    if (l0 < kf) {  // kf % 4 == 0, so all 4 lanes or none
+#pragma unroll
+      for (int i = 0; i < kNodeRowsPerWarp; ++i) {
+        const int row = b * kNodeRows + warp + kNodeWarps * i;
+        if (row < n_rows) {
+          *reinterpret_cast<float4*>(d + static_cast<int64_t>(row) * kf + l0) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        }
+      }
+    }
+    __syncthreads();  // this buffer is read before the next step restages it
+  }
+}
+
+// The edge pass's message: act(c[row] + D[r]) * h[r, l mod F] on 16-byte
+// slots.
+struct LeanMessage {
+  static constexpr int VEC = 4;
+  // Two edges' D and h slots in flight (see lean_edge_kernel).
+  template <int TILES>
+  __host__ __device__ static constexpr int in_flight() {
+    return 2;
+  }
+  struct Slot {
+    float4 c, p;  // c[row] and the pattern on the slot's 4 lanes
+    int hv;       // the slot of h that the lanes read: cv mod F/4
+  };
+  struct Edge {
+    float4 d, h;
+  };
+  const float4* c;
+  const float4* pat;
+  const float4* d;
+  const float4* h;
+  int n_vec, f_vec;  // slots of a K*F row (c, D) and of an F row (h)
+
+  __device__ Slot slot(int64_t row, int cv) const {
+    return {__ldg(c + row * n_vec + cv), __ldg(pat + cv), cv % f_vec};
+  }
+  __device__ static Slot no_slot() { return {Vec<4>::zero(), Vec<4>::zero(), 0}; }
+  __device__ Edge load(int64_t r, int cv, const Slot& s) const {
+    return {__ldg(d + r * n_vec + cv), __ldg(h + r * f_vec + s.hv)};
+  }
+  __device__ static Edge none() { return {Vec<4>::zero(), Vec<4>::zero()}; }
+  __device__ static float term(float acc, float c, float p, float d, float h) {
+    const float x = c + d;
+    return fmaf(p != 0.f ? sigmoidf(x) : x, h, acc);
+  }
+  __device__ static void add(float4& acc, const Edge& e, const Slot& s) {
+    acc.x = term(acc.x, s.c.x, s.p.x, e.d.x, e.h.x);
+    acc.y = term(acc.y, s.c.y, s.p.y, e.d.y, e.h.y);
+    acc.z = term(acc.z, s.c.z, s.p.z, e.d.z, e.h.z);
+    acc.w = term(acc.w, s.c.w, s.p.w, e.d.w, e.h.w);
+  }
+};
+
+// Pass 1 of the edge pass. Two edges in flight and at most 64 registers,
+// so that four blocks (32 warps) share an SM: chosen on the card over 4
+// and 8 edges in flight and over 2 or 3 blocks per SM, because the
+// sigmoids of one warp's edges then run while other warps wait on their
+// gathers.
+template <int TILES>
+__global__ void __launch_bounds__(kSumWarps* kWarp, 4)
+lean_edge_kernel(const LeanMessage msg, const int32_t* __restrict__ row_ptr,
+                 const int32_t* __restrict__ src, float* __restrict__ out,
+                 float* __restrict__ part, int32_t* __restrict__ tail_row, int n_rows,
+                 int n_vec, int lpe, int tiles, int chunk, int n_chunks) {
+  chunk_pass<LeanMessage, TILES>(msg, row_ptr, src, out, part, tail_row, n_rows, n_vec, lpe,
+                                 tiles, chunk, n_chunks);
+}
+
+template <int TILES>
+cudaError_t launch_lean_edges(const LeanMessage& msg, const void* row_ptr, const void* src,
+                              void* out, void* part, void* tail_row, int n_rows, int n_vec,
+                              int lpe, int tiles, int chunk, int n_chunks, cudaStream_t s) {
+  const int blocks = (n_chunks + kSumWarps - 1) / kSumWarps;
+  lean_edge_kernel<TILES><<<blocks, kSumWarps * kWarp, 0, s>>>(
+      msg, static_cast<const int32_t*>(row_ptr), static_cast<const int32_t*>(src),
+      static_cast<float*>(out), static_cast<float*>(part), static_cast<int32_t*>(tail_row),
+      n_rows, n_vec, lpe, tiles, chunk, n_chunks);
+  return launch_fixup<4>(row_ptr, part, tail_row, out, n_rows, n_vec, chunk, n_chunks, s);
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 3's helpers: the lean backward recomputes the logits per edge
+// from batches of kEdgeBatch gathered h rows.
+// ---------------------------------------------------------------------------
+
+constexpr int kEdgeBatch = 4;  // edges per shared-memory batch
 
 // Gathers h[src[e0 + j], ff] for the batch's kEdgeBatch x f values into
 // st (element idx = lane + 32 v is edge j = idx / f, feature ff = idx % f);
@@ -500,87 +840,6 @@ __device__ __forceinline__ void batch_logits(float (&lg)[kEdgeBatch][4],
   }
 }
 
-__global__ void __launch_bounds__(kProgWarps * kWarp)
-edge_program_lean_fwd_kernel(const float* __restrict__ c,
-                             const float* __restrict__ h,
-                             const float* __restrict__ w_bot,
-                             const float* __restrict__ pat,
-                             const int32_t* __restrict__ src,
-                             const int32_t* __restrict__ row_ptr,
-                             float* __restrict__ out, int n_rows, int f,
-                             int kf) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* w_s = smem;                                  // [f][kLaneTile]
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  float* h_s = smem + f * kLaneTile + warp * f * kEdgeBatch;  // [f][edge]
-
-  const int l_base = blockIdx.y * kLaneTile;
-  for (int idx = threadIdx.x; idx < f * kLaneTile; idx += blockDim.x) {
-    const int ff = idx / kLaneTile;
-    const int l = l_base + idx % kLaneTile;
-    w_s[idx] = l < kf ? w_bot[static_cast<int64_t>(ff) * kf + l] : 0.f;
-  }
-  __syncthreads();
-
-  const int l0 = l_base + lane * 4;  // this thread's 4 output lanes
-  const bool active = l0 < kf;      // kf % 4 == 0, so all 4 or none
-  float p[4];
-  int hl[4];  // lane l reads h[src, l mod F]
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    p[q] = active ? pat[l0 + q] : 0.f;
-    hl[q] = (l0 + q) % f;
-  }
-  const float4* w4 = reinterpret_cast<const float4*>(w_s) + lane;
-  const float4* hs4 = reinterpret_cast<const float4*>(h_s);
-  float st[kStageRegs];
-
-  const int n_warps = gridDim.x * kProgWarps;
-  for (int row = blockIdx.x * kProgWarps + warp; row < n_rows; row += n_warps) {
-    const int start = row_ptr[row];
-    const int end = row_ptr[row + 1];
-    float4 ci = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (active) {
-      ci = *reinterpret_cast<const float4*>(c + static_cast<int64_t>(row) * kf + l0);
-    }
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    if (start < end) gather_batch(st, h, src, start, end, f, lane);
-
-    for (int e0 = start; e0 < end; e0 += kEdgeBatch) {
-      const int nb = min(kEdgeBatch, end - e0);
-      __syncwarp();  // the previous batch's reads of h_s are done
-      stage_batch(h_s, st, f, lane);
-      __syncwarp();
-      if (e0 + kEdgeBatch < end) {
-        gather_batch(st, h, src, e0 + kEdgeBatch, end, f, lane);  // in flight below
-      }
-
-      float lg[kEdgeBatch][4];
-      batch_logits(lg, ci, w4, hs4, f);
-      if (active) {
-        // Unrolled with a guard (not a loop to nb) so that lg stays in
-        // registers; edges are added in CSR order.
-#pragma unroll
-        for (int j = 0; j < kEdgeBatch; ++j) {
-          if (j < nb) {
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const float m = p[q] != 0.f ? sigmoidf(lg[j][q]) : lg[j][q];
-              acc[q] = fmaf(m, h_s[hl[q] * kEdgeBatch + j], acc[q]);
-            }
-          }
-        }
-      }
-    }
-    if (active) {
-      *reinterpret_cast<float4*>(out + static_cast<int64_t>(row) * kf + l0) =
-          make_float4(acc[0], acc[1], acc[2], acc[3]);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Kernel 3: edge_program_lean_bwd
 //
@@ -599,9 +858,9 @@ edge_program_lean_fwd_kernel(const float* __restrict__ c,
 // Bound on this card: operations. Per edge it does three (1 x F)(F x K*F)
 // products (the logits again, dlog @ W_bot^T, and the outer product into
 // dW_bot), 6*F*K*F FLOPs against about 4*F gathered bytes.
-// Design: kernel 2's structure (persistent grid, rows dealt round-robin to
-// warps, a 128-lane tile of W_bot in shared memory, batches of 4 edges
-// gathered into shared memory as [f][edge]) plus a W_bot^T tile, so that
+// Design: a persistent grid, rows dealt round-robin to warps, a 128-lane
+// tile of W_bot in shared memory, batches of 4 edges gathered into shared
+// memory as [f][edge] (kernel 2's first design), plus a W_bot^T tile, so that
 // a lane owning output feature ff reads W_bot^T[l][ff] without bank
 // conflicts for the payload product. ct[i] and c[i] are constant over a
 // row, so a warp loads its 4 lanes of each once per row. dc and payload
@@ -1389,11 +1648,7 @@ int mma_segment_sum_csr(const void* data, const void* row_ptr, const void* index
                         int n_edges, int vec4, void* stream) {
   if (n_rows <= 0 || n_chan <= 0) return static_cast<int>(cudaSuccess);
   const int n_vec = vec4 ? n_chan / 4 : n_chan;
-  // Lanes per edge: the power of two that covers a narrow row, else 32 or
-  // 16 lanes, whichever divides the row (C=192: 3 slots of 16 lanes).
-  int lpe = 1;
-  while (lpe < n_vec && lpe < kWarp) lpe <<= 1;
-  if (n_vec > kWarp && n_vec % kWarp != 0 && n_vec % (kWarp / 2) == 0) lpe = kWarp / 2;
+  const int lpe = lanes_per_edge(n_vec);
   const int tiles = (n_vec + lpe - 1) / lpe;
   const int chunk = sum_chunk_edges(n_edges);
   const int n_chunks = sum_n_chunks(n_edges);
@@ -1415,41 +1670,62 @@ int mma_segment_sum_csr(const void* data, const void* row_ptr, const void* index
   return static_cast<int>(err);
 }
 
-// c (n_rows, kf), h (n_rows, f), w_bot (f, kf), pat (kf,) 0/1 f32,
-// src (E,) i32, row_ptr (n_rows+1,) i32, out (n_rows, kf) f32.
-// Requires f % 4 == 0, f <= 128, kf % f == 0, kf <= 512, 16-byte aligned
-// c/out.
-int mma_edge_program_lean_fwd(const void* c, const void* h, const void* w_bot,
-                              const void* pat, const void* src,
-                              const void* row_ptr, void* out, int n_rows,
-                              int f, int kf, void* stream) {
+// Kernel 2's node pass: d = h @ w_bot. h (n_rows, f), w_bot (f, kf), d
+// (n_rows, kf) f32. Requires f % 4 == 0, f <= 128, kf % 4 == 0, kf <= 512
+// and 16-byte aligned h and d.
+int mma_edge_program_lean_node(const void* h, const void* w_bot, void* d, int n_rows, int f,
+                               int kf, void* stream) {
   if (n_rows <= 0) return static_cast<int>(cudaSuccess);
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(f) * kLaneTile +
-                       static_cast<size_t>(kProgWarps) * f * kEdgeBatch);
+  const size_t smem = node_smem_bytes(f);
   cudaError_t err = cudaFuncSetAttribute(
-      edge_program_lean_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      lean_node_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  // Persistent grid: as many blocks per lane tile as fit on the card at
-  // once, but no more than the rows need.
+  // Persistent grid: as many blocks as fit on the card at once, spread over
+  // the lane tiles, but no more than the row blocks need.
   int device = 0, n_sm = 0, per_sm = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, edge_program_lean_fwd_kernel, kProgWarps * kWarp, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lean_node_kernel,
+                                                      kNodeWarps * kWarp, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int row_blocks = (n_rows + kProgWarps - 1) / kProgWarps;
-  dim3 grid(min(row_blocks, max(1, n_sm * per_sm)),
-            (kf + kLaneTile - 1) / kLaneTile);
-  edge_program_lean_fwd_kernel<<<grid, kProgWarps * kWarp, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(c), static_cast<const float*>(h),
-      static_cast<const float*>(w_bot), static_cast<const float*>(pat),
-      static_cast<const int32_t*>(src), static_cast<const int32_t*>(row_ptr),
-      static_cast<float*>(out), n_rows, f, kf);
+  const int tiles = (kf + kLaneTile - 1) / kLaneTile;
+  const int row_blocks = (n_rows + kNodeRows - 1) / kNodeRows;
+  dim3 grid(min(row_blocks, max(1, n_sm * per_sm / tiles)), tiles);
+  lean_node_kernel<<<grid, kNodeWarps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(h), static_cast<const float*>(w_bot),
+      static_cast<float*>(d), n_rows, f, kf);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 2's edge pass: out[i] = sum_{e in row i} act(c[i] + d[src_e]) *
+// tile(h[src_e], K). c (n_rows, kf), pat (kf,) 0/1 f32; node tables d (R,
+// kf) and h (R, f) f32, R any row count above every src;
+// src (n_edges,) i32, row_ptr (n_rows+1,) i32 with row_ptr[n_rows] <=
+// n_edges, out (n_rows, kf) f32; scratch part (n_chunks, 2, kf) f32 and
+// tail_row (n_chunks,) i32, n_chunks = mma_segment_sum_n_chunks(n_edges).
+// Requires f % 4 == 0, kf % f == 0 and 16-byte aligned c, pat, d, h and
+// out.
+int mma_edge_program_lean_edges(const void* c, const void* pat, const void* d, const void* h,
+                                const void* src, const void* row_ptr,
+                                void* out, void* part, void* tail_row, int n_rows, int f,
+                                int kf, int n_edges, void* stream) {
+  if (n_rows <= 0) return static_cast<int>(cudaSuccess);
+  const int n_vec = kf / 4;
+  const LeanMessage msg{static_cast<const float4*>(c), static_cast<const float4*>(pat),
+                        static_cast<const float4*>(d), static_cast<const float4*>(h),
+                        n_vec, f / 4};
+  const int lpe = lanes_per_edge(n_vec);
+  const int tiles = (n_vec + lpe - 1) / lpe;
+  const int chunk = sum_chunk_edges(n_edges);
+  const int n_chunks = sum_n_chunks(n_edges);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      tiles <= 1 ? launch_lean_edges<1>(msg, row_ptr, src, out, part, tail_row, n_rows, n_vec,
+                                        lpe, tiles, chunk, n_chunks, s)
+                 : launch_lean_edges<2>(msg, row_ptr, src, out, part, tail_row, n_rows, n_vec,
+                                        lpe, tiles, chunk, n_chunks, s);
+  return static_cast<int>(err);
 }
 
 // The grid size G of mma_edge_program_lean_bwd (blocks per lane tile): as
@@ -1471,8 +1747,8 @@ int mma_edge_program_lean_bwd_grid(int n_rows, int f, int* grid_x) {
 // c, ct (n_rows, kf), h (n_rows, f), w_bot (f, kf), pat (kf,) 0/1 f32,
 // src (n_edges,) i32, row_ptr (n_rows+1,) i32. Outputs: dc (n_rows, kf),
 // dw (f, kf), payload (n_edges, f). Scratch: dw_part (grid_x, f, kf) and,
-// when kf > 128, payload_part (ceil(kf / 128), n_edges, f). Same width
-// requirements as mma_edge_program_lean_fwd.
+// when kf > 128, payload_part (ceil(kf / 128), n_edges, f). Requires f % 4
+// == 0, f <= 128, kf % f == 0, kf <= 512 and 16-byte aligned c and ct.
 int mma_edge_program_lean_bwd(const void* c, const void* h, const void* w_bot,
                               const void* pat, const void* src,
                               const void* row_ptr, const void* ct, void* dc,

@@ -12,6 +12,9 @@ its CSC twin:
   ``LAUNCHES["segment_sum"]`` counts calls.
 - :func:`edge_program_lean` replaces ``_program_fwd_lean_kernel``:
   ``S[i] = Σ_{dst_e=i} act(c[i] + h[src_e] @ W_bot) ⊙ tile(h[src_e], K)``.
+  Three kernels a call: a node pass ``D = h @ W_bot``, then kernel 1's two
+  passes summing the messages from ``D`` and ``h``.
+  ``LAUNCHES["edge_program_lean"]`` counts calls.
 - Its backward, :func:`edge_program_lean_bwd`, replaces
   ``_program_bwd_lean_kernel``: ``dc``, ``dW_bot`` and a per-edge ``dh``
   payload, which :func:`segment_sum_csr` then reduces by source.
@@ -63,9 +66,10 @@ LAUNCHES = {"segment_sum": 0, "edge_program_lean": 0, "edge_program_lean_bwd": 0
 EDGE_BWD_MODE = "payload_permute"
 EDGE_BWD_MODES = ("payload_permute", "csc_gather")
 
-# Widths the edge-program kernels take: the lean kernels keep W_bot's
-# 128-lane tile in shared memory (F · 512 B, twice in the backward); every
-# edge-program kernel gives each thread 4 lanes of each 128-lane tile.
+# Widths the edge-program kernels take: the lean node pass and backward
+# keep W_bot's 128-lane tile in shared memory (F · 512 B, twice in the
+# backward); every edge-program kernel gives each thread 4 lanes of each
+# 128-lane tile.
 MAX_F = 128
 MAX_KF = 512
 LANE_TILE = 128
@@ -85,8 +89,10 @@ def _lib() -> ctypes.CDLL:
         lib.mma_segment_sum_n_chunks.restype = _I
         lib.mma_segment_sum_csr.argtypes = [_P] * 6 + [_I] * 4 + [_P]
         lib.mma_segment_sum_csr.restype = _I
-        lib.mma_edge_program_lean_fwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
-        lib.mma_edge_program_lean_fwd.restype = _I
+        lib.mma_edge_program_lean_node.argtypes = [_P, _P, _P] + [_I] * 3 + [_P]
+        lib.mma_edge_program_lean_node.restype = _I
+        lib.mma_edge_program_lean_edges.argtypes = [_P] * 9 + [_I] * 4 + [_P]
+        lib.mma_edge_program_lean_edges.restype = _I
         lib.mma_edge_program_lean_bwd_grid.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
         lib.mma_edge_program_lean_bwd_grid.restype = _I
         lib.mma_edge_program_lean_bwd.argtypes = [_P] * 12 + [_I] * 5 + [_P]
@@ -289,17 +295,51 @@ def edge_program_lean_reference(c, w_bot, h, pattern, src, row_ptr):
     return out.index_add_(0, ids, msg.float())
 
 
-def _edge_program_lean_kernel(c, w_bot, h, pattern, src, row_ptr):
-    name = "edge_program_lean_fwd"
-    n, f, kf = _check_program_inputs(name, c, w_bot, h, pattern, src, row_ptr)
-    out = torch.empty((n, kf), dtype=torch.float32, device=c.device)
+def _lean_node_pass(h, w_bot):
+    """Kernel 2's node pass, one launch: ``D = h @ W_bot`` (N, K·F)."""
+    n, f = h.shape
+    kf = w_bot.shape[1]
+    d = torch.empty((n, kf), dtype=torch.float32, device=h.device)
     lib = _lib()
+    with torch.cuda.device(h.device):
+        err = lib.mma_edge_program_lean_node(h.data_ptr(), w_bot.data_ptr(), d.data_ptr(), n, f,
+                                             kf, _stream())
+    _check_launch(lib, err, "edge_program_lean_fwd node pass")
+    return d
+
+
+def _lean_edge_pass(c, pattern, d, h, src, row_ptr):
+    """Kernel 2's edge pass, kernel 1's two launches with the lean message:
+    ``S[i] = Σ_{e ∈ row i} act(c[i] + d[src_e]) ⊙ tile(h[src_e], K)`` over
+    the CSR ``row_ptr`` (N+1,), with ``c`` (N, K·F) and the node tables
+    ``d`` (R, K·F) and ``h`` (R, F), as :func:`_edge_program_lean_kernel`
+    checks them (``c`` may be a slice of rows of a checked one). The
+    partition, scratch and grid come from ``src.shape`` alone: no host
+    sync."""
+    n, kf, f = row_ptr.shape[0] - 1, c.shape[1], h.shape[1]
+    n_edges = src.shape[0]
+    lib = _lib()
+    n_chunks = lib.mma_segment_sum_n_chunks(n_edges)
+    out = torch.empty((n, kf), dtype=torch.float32, device=c.device)
+    part = torch.empty((n_chunks, 2, kf), dtype=torch.float32, device=c.device)
+    tail_row = torch.empty((n_chunks,), dtype=torch.int32, device=c.device)
     with torch.cuda.device(c.device):
-        err = lib.mma_edge_program_lean_fwd(
-            c.data_ptr(), h.data_ptr(), w_bot.data_ptr(), pattern.data_ptr(),
-            src.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), n, f, kf, _stream(),
+        err = lib.mma_edge_program_lean_edges(
+            c.data_ptr(), pattern.data_ptr(), d.data_ptr(), h.data_ptr(), src.data_ptr(),
+            row_ptr.data_ptr(), out.data_ptr(), part.data_ptr(), tail_row.data_ptr(), n, f, kf,
+            n_edges, _stream(),
         )
-    _check_launch(lib, err, name)
+    _check_launch(lib, err, "edge_program_lean_fwd edge pass")
+    return out
+
+
+def _edge_program_lean_kernel(c, w_bot, h, pattern, src, row_ptr):
+    """Kernel 2 on the card: the node pass, then the edge pass."""
+    name = "edge_program_lean_fwd"
+    _check_program_inputs(name, c, w_bot, h, pattern, src, row_ptr)
+    if h.data_ptr() % 16 or pattern.data_ptr() % 16:
+        raise ValueError(f"{name}: h and pattern must be 16-byte aligned")
+    out = _lean_edge_pass(c, pattern, _lean_node_pass(h, w_bot), h, src, row_ptr)
     LAUNCHES["edge_program_lean"] += 1
     return out
 
@@ -406,8 +446,13 @@ def edge_program_lean(c: torch.Tensor, w_bot: torch.Tensor, h: torch.Tensor,
     ``pattern``: (K·F,) float 0/1; ``src``: (E,) int32; ``row_ptr``:
     (N+1,) int32, non-decreasing, with every ``src`` it covers in ``[0, N)``
     (a graph builder's CSR; the kernel does not check the values).
-    Aggregator ``k`` owns lanes ``[k·F, (k+1)·F)``. The kernel gathers
-    ``h[src]`` itself; no (E, K·F) tensor is stored.
+    Aggregator ``k`` owns lanes ``[k·F, (k+1)·F)``. On the card a node pass
+    computes ``D = h @ W_bot`` once per node, and an edge-balanced pass sums
+    the messages from ``D`` and ``h``; no (E, K·F) tensor is stored. On the
+    card it takes F % 4 == 0, F <= 128, K·F <= 512 and a 16-byte aligned
+    ``c``, as before, and now also a 16-byte aligned ``h`` and ``pattern``,
+    which the edge pass reads in 16-byte slots; the backward takes ``h`` and
+    ``pattern`` at any alignment.
 
     Differentiable in ``c``, ``w_bot`` and ``h`` (:func:`edge_program_lean_bwd`).
     The gradient of ``h`` reduces the per-edge payload by source over the

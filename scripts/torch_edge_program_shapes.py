@@ -4,9 +4,12 @@
     python3 scripts/torch_edge_program_shapes.py
 
 Separates the kernel's per-edge cost from its skew cost: one heavy row
-alone, uniform degrees, and the power-law synthetic-large graph, at F=64,
-K=2 with random inputs. Reduces over ``Graph.real_row_ptr`` as the model
-does, and prints the median device time of one launch (``chip_smoke``'s
+alone, uniform degrees, the power-law synthetic-large graph and Cora's graph
+(the eval forward's shape), at F=64, K=2 with random inputs. Uses
+only ``edge_program_lean``'s public signature, so a copy placed in the
+``scripts/`` of another checkout of this repository times that checkout's
+kernel on the same graphs. Reduces over ``Graph.real_row_ptr`` as the model
+does, and prints the median device time of one call (``chip_smoke``'s
 CUDA-event timer).
 """
 
@@ -26,7 +29,7 @@ def main() -> int:
         print("torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     from chip_smoke import device_ms, nvidia_smi_line
-    from mma_tpu_torch import graph_from_edges, synthetic_powerlaw
+    from mma_tpu_torch import graph_from_edges, load_planetoid, synthetic_powerlaw
     from mma_tpu_torch.ops.cuda import fused_mma
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -56,6 +59,7 @@ def main() -> int:
     run("every row 16 edges, N=131072",
         edges(rs.randint(0, n, 16 * n), np.repeat(np.arange(n), 16), n))
     run("synthetic-large power law", synthetic_powerlaw(131072, avg_deg=16, seed=1))
+    run("Cora", load_planetoid("cora").graph)
     return 0
 
 

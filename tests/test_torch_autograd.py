@@ -45,6 +45,17 @@ def graphs():
     return jax_graph_from_edges(src, dst, n), graph_from_edges(src, dst, n, device="cpu"), n
 
 
+@pytest.fixture(scope="module")
+def hub_graphs():
+    """300 nodes: node 0 takes a 3,000-edge row (the heavy row that the
+    card's kernels split across edge chunks), the last 40 no edges."""
+    rs = np.random.RandomState(5)
+    n = 300
+    src = rs.randint(0, n, 5400).astype(np.int32)
+    dst = np.concatenate([np.zeros(3000, np.int32), rs.randint(1, n - 40, 2400)]).astype(np.int32)
+    return jax_graph_from_edges(src, dst, n), graph_from_edges(src, dst, n, device="cpu"), n
+
+
 def _leaf(a):
     return torch.tensor(np.asarray(a), requires_grad=True)
 
@@ -59,11 +70,13 @@ def _program_inputs(n_pad, f, k, seed=1):
     return h, mw, np.ascontiguousarray(h @ w_top), np.ascontiguousarray(w_bot), ct
 
 
+@pytest.mark.parametrize("which", ["graphs", "hub_graphs"])
 @pytest.mark.parametrize("aggs", [("mean", "mean2"), ("mean", "max")])
-def test_edge_program_lean_grads_match_pallas(graphs, aggs):
+def test_edge_program_lean_grads_match_pallas(request, which, aggs):
     """The Function (plain forward, plain kernel-3 backward, by-src reduce)
-    against ``jax.vjp`` of the Pallas lean program (interpret mode)."""
-    jg, tg, n = graphs
+    against ``jax.vjp`` of the Pallas lean program (interpret mode), also
+    over a 3,000-edge row (``hub_graphs``)."""
+    jg, tg, n = request.getfixturevalue(which)
     f, k = 16, len(aggs)
     h, _, c, w_bot, ct = _program_inputs(jg.n_node, f, k)
     ct[n:] = 0.0  # padding rows: the Pallas forward sums padding edges there

@@ -151,6 +151,9 @@ def chunk_graph(cuda):
         "hub alone": (row_ptr[2:4], n_edges),
         "smaller than a chunk": (np.array([0, 3, 3, 7, 7], np.int32), 10),
         "covers no edge": (np.array([5, 5, 5, 5], np.int32), 64),
+        # Row 700 alone has edges, 3,000 from position 100 on: the 700 empty
+        # rows before it and the 1,299 after it each start at one position.
+        "hub among empty rows": (np.repeat(np.array([100, 3100], np.int32), [701, 1300]), 3200),
     }
 
 
@@ -159,9 +162,9 @@ def chunk_graph(cuda):
 def test_segment_sum_chunks_match_plain(cuda, chunk_graph, channels, indexed):
     """Kernel 1's two passes against the plain version within 1e-5, over a
     row split across many chunks, a row on a chunk boundary, empty rows
-    inside and at both ends, a CSR slice, a graph under one chunk and a CSR
-    that covers nothing; one launch counted a call, bitwise equal run to
-    run, empty rows 0. C=7 and 375 take scalar loads, 192 three 16-lane
+    inside and at both ends, a CSR slice, a graph under one chunk, a CSR
+    that covers nothing and one row among long runs of empty rows; one
+    launch counted a call, bitwise equal run to run, empty rows 0. C=7 and 375 take scalar loads, 192 three 16-lane
     slots, 640 two rounds over each row's edges."""
     rs = np.random.RandomState(channels)
     for what, (rp_np, n_edges) in chunk_graph.items():
@@ -205,6 +208,110 @@ def test_segment_sum_replays_in_a_cuda_graph(cuda, chunk_graph):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(captured, eager)
+
+
+def _lean_inputs(cuda, rs, n, n_edges, f, kf):
+    """Kernel 2's inputs on ``n`` nodes: ``(c, w_bot, h, pattern, src)``,
+    the pattern's lanes sigmoid or the identity at random."""
+    def draw(*shape, scale=1.0):
+        return torch.from_numpy((rs.randn(*shape) * scale).astype(np.float32)).to(cuda)
+
+    pat = torch.from_numpy((rs.rand(kf) > 0.5).astype(np.float32)).to(cuda)
+    src = torch.from_numpy(rs.randint(0, n, n_edges).astype(np.int32)).to(cuda)
+    return draw(n, kf), draw(f, kf, scale=f ** -0.5), draw(n, f), pat, src
+
+
+def _lean_f64(c, w_bot, h, pattern, src, row_ptr):
+    """``edge_program_lean_reference``'s formula in float64. The float32
+    plain version is itself up to 1.8e-5 off on the "hub alone" CSR (3,000
+    edges from two source rows: its running sum adds the same few terms
+    over and over, and they round alike), so the kernel is held against
+    the exact sum."""
+    f, kf = w_bot.shape
+    ids = fused_mma._row_ids(row_ptr)
+    lo, hi = int(row_ptr[0]), int(row_ptr[-1])
+    h_src = h.double()[src[lo:hi].long()]
+    mask, _ = fused_mma._mask_chain(c.double()[ids] + h_src @ w_bot.double(), pattern)
+    out = torch.zeros((c.shape[0], kf), dtype=torch.float64, device=c.device)
+    return out.index_add_(0, ids, mask * h_src.repeat(1, kf // f))
+
+
+@pytest.mark.parametrize("f,kf", [(16, 32), (16, 384), (16, 512), (64, 128), (64, 384),
+                                  (64, 512), (128, 256), (128, 384), (128, 512)])
+def test_edge_program_lean_chunks_match_plain(cuda, chunk_graph, f, kf):
+    """Kernel 2 (the node pass, then kernel 1's chunk pass and fixup with
+    the lean message) against its plain version's formula (in float64,
+    ``_lean_f64``) within 1e-5 over kernel 1's chunk cases: a row split
+    over many chunks, a row on a chunk boundary, empty rows inside and at
+    both ends, a CSR slice, a graph under one chunk, a CSR that covers
+    nothing and one row among long runs of empty rows. One launch counted
+    a call, bitwise equal run to run, empty rows 0. K·F = 384 and 512 take
+    two rounds over each row's edges. The node pass matches ``h @ W_bot``."""
+    rs = np.random.RandomState(f + kf)
+    for what, (rp_np, n_edges) in chunk_graph.items():
+        n = len(rp_np) - 1
+        rp = torch.from_numpy(rp_np).to(cuda)
+        c, w_bot, h, pat, src = _lean_inputs(cuda, rs, n, n_edges, f, kf)
+        args = (c, w_bot, h, pat, src, rp)
+        before = fused_mma.LAUNCHES["edge_program_lean"]
+        got = fused_mma.edge_program_lean(*args, rp, src)  # the CSC is the backward's
+        torch.cuda.synchronize()
+        assert fused_mma.LAUNCHES["edge_program_lean"] == before + 1, what
+        want = _lean_f64(*args)
+        torch.testing.assert_close(got.double(), want, rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item(), msg=what)
+        assert torch.equal(got, fused_mma.edge_program_lean(*args, rp, src)), what
+        empty = torch.from_numpy(rp_np[1:] == rp_np[:-1]).to(cuda)
+        assert (got[empty] == 0).all(), what
+
+        _close(fused_mma._lean_node_pass(h, w_bot), h @ w_bot)
+
+
+def test_edge_program_lean_replays_in_a_cuda_graph(cuda, chunk_graph):
+    """One kernel-2 call (three launches) captured in a CUDA graph and
+    replayed gives the eager result: the wrapper sizes its grids and
+    scratch from shapes and never reads ``row_ptr`` on the host."""
+    rp_np, n_edges = chunk_graph["hub"]
+    rp = torch.from_numpy(rp_np).to(cuda)
+    c, w_bot, h, pat, src = _lean_inputs(cuda, np.random.RandomState(12), len(rp_np) - 1,
+                                         n_edges, 64, 128)
+    args = (c, w_bot, h, pat, src, rp, rp, src)
+    eager = fused_mma.edge_program_lean(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused_mma.edge_program_lean(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fused_mma.edge_program_lean(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+
+
+def test_edge_program_lean_alignment(cuda, graph):
+    """Kernel 2's edge pass reads ``h`` and ``pattern`` in 16-byte slots, so
+    the forward refuses them unaligned; kernel 3, its backward, reads them
+    a float at a time and takes the same unaligned tensors."""
+    n, f, kf = graph.n_node, 64, 128
+    c, w_bot, h, pat, _ = _lean_inputs(cuda, np.random.RandomState(5), n, 1, f, kf)
+
+    def unaligned(t):
+        """``t``'s values in a contiguous tensor 4 bytes past a 16-byte boundary."""
+        return torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape).copy_(t)
+
+    args = (c, w_bot, h, pat, graph.src, graph.row_ptr)
+    csc = (graph.col_ptr, graph.src_perm)
+    for i in (2, 3):  # h, pattern
+        bad = args[:i] + (unaligned(args[i]),) + args[i + 1:]
+        assert bad[i].is_contiguous() and bad[i].data_ptr() % 16
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fused_mma.edge_program_lean(*bad, *csc)
+        ct = torch.from_numpy(np.random.RandomState(i).randn(n, kf).astype(np.float32)).to(cuda)
+        got = fused_mma.edge_program_lean_bwd(*bad, ct)
+        for g, w in zip(got, fused_mma.edge_program_lean_bwd_reference(*args, ct)):
+            _close(g, w)
 
 
 @pytest.mark.parametrize("f,aggs", [(12, ("mean", "max", "sum")), (16, ("mean", "max")),

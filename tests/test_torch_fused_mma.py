@@ -89,11 +89,14 @@ def test_segment_sum_plain_matches_jax(graphs):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("which", ["graphs", "hub_graphs"])
 @pytest.mark.parametrize("aggs", [("mean", "mean2"), ("mean", "max")])
-def test_edge_program_lean_reference_matches_jax(graphs, aggs):
+def test_edge_program_lean_reference_matches_jax(request, which, aggs):
     """Against the Pallas lean kernel (interpret, bf16-split "high") and the
-    XLA formulation; ("mean", "max") mixes sigmoid and raw-logit lanes."""
-    jg, tg, n = graphs
+    XLA formulation; ("mean", "max") mixes sigmoid and raw-logit lanes.
+    ``hub_graphs`` puts 3,000 edges in one row, which the card's edge pass
+    splits across chunks."""
+    jg, tg, n = request.getfixturevalue(which)
     f, k = 16, len(aggs)
     h, mw, c, w_bot = _program_inputs(jg.n_node, f, k)
     jspecs = [jax_get_agg_spec(a) for a in aggs]
