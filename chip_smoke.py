@@ -72,7 +72,10 @@
    C=16, and of the wide payload, C=192, and also its heaviest row alone at
    C=64 and Cora's spmm forward at C=64 and C=7; kernel 2 also as its node
    pass and edge pass alone, its heaviest row alone (as a whole call and
-   through the edge pass alone) and at Cora's shape; kernels 4-8 on the tensors the
+   through the edge pass alone) and at Cora's shape; kernel 3 also as its
+   four parts alone (``D``, the dst pass, the src pass, the node pass),
+   each edge pass on its heaviest row alone and at Cora's shape; kernels
+   4-8 on the tensors the
    ZINC train steps gave them at the flagship batch, 4-7 for one and two
    ops, with dropout on and off): the
    error against the plain version (kernels 4 and 6, and the routed
@@ -826,9 +829,8 @@ def main() -> int:
           f"{statistics.median(step_ms):.4f} ms = "
           f"{e_big / (statistics.median(step_ms) * 1e-3):.4e} edges/s")
     # Per step: forward kernel 1 x2 (binary_spmm) and kernel 2 x1; backward
-    # kernel 1 x3 (2 binary_spmm, the payload's by-source reduce) and
-    # kernel 3 x1.
-    expect_launches(paths, "large-train", segment_sum=3 * 5, edge_program_lean=3,
+    # kernel 1 x2 (binary_spmm) and kernel 3 x1, which gives dh itself.
+    expect_launches(paths, "large-train", segment_sum=3 * 4, edge_program_lean=3,
                     edge_program_lean_bwd=3)
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"large-train: non-finite loss {losses}")
@@ -938,7 +940,7 @@ def main() -> int:
             else:
                 w_bot = mw[:, f_big:, :].permute(1, 0, 2).reshape(f_big, -1).contiguous()
                 s = fused_mma.edge_program_lean(c, w_bot, h, pat_big, big.src, rp_big, cp_big,
-                                                big.src_perm)
+                                                big.dst_csc)
             (s * ct_s).sum().backward()
         res = {"S": s.detach(), "dh": h.grad, "dmask_weights": mw.grad}
         if route == "masked":
@@ -1094,15 +1096,15 @@ def main() -> int:
                 (-out[idx_train, labels[idx_train]].mean()).backward()
 
         args, _, ct = capture_call(masked_aggregate, "edge_program_lean", one_step)
-        c, w_bot, h, pat, src, rp, cp, perm = (t.detach() for t in args)
+        c, w_bot, h, pat, src, rp, cp, dst_csc = (t.detach() for t in args)
         f, kf = w_bot.shape
         fwd_args = (c, w_bot, h, pat, src, rp)
-        got = fused_mma.edge_program_lean(*fwd_args, cp, perm)
-        if not torch.equal(got, fused_mma.edge_program_lean(*fwd_args, cp, perm)):
+        got = fused_mma.edge_program_lean(*fwd_args, cp, dst_csc)
+        if not torch.equal(got, fused_mma.edge_program_lean(*fwd_args, cp, dst_csc)):
             raise AssertionError("edge_program_lean_fwd differs run to run")
         err = compare(got, fused_mma.edge_program_lean_reference(*fwd_args), 1e-5,
                       "edge_program_lean_fwd vs plain")
-        ms = device_ms(lambda: fused_mma.edge_program_lean(*fwd_args, cp, perm))
+        ms = device_ms(lambda: fused_mma.edge_program_lean(*fwd_args, cp, dst_csc))
         plain_ms = device_ms(lambda: fused_mma.edge_program_lean_reference(*fwd_args), iters=10)
         nbytes = 4 * (n_rows * kf + n_rows * f + f * kf + kf + e_cov + (n_rows + 1)
                       + n_rows * kf)
@@ -1138,7 +1140,7 @@ def main() -> int:
         top = int(torch.argmax(deg))
         only_top = rp.clamp(int(rp[top]), int(rp[top + 1]))
         heavy = (c, w_bot, h, pat, src, only_top)
-        compare(fused_mma.edge_program_lean(*heavy, cp, perm),
+        compare(fused_mma.edge_program_lean(*heavy, cp, dst_csc),
                 fused_mma.edge_program_lean_reference(*heavy), 1e-5,
                 "edge_program_lean_fwd heaviest row alone vs plain")
         one_row, c_top = rp[top:top + 2].contiguous(), c[top:top + 1]
@@ -1146,7 +1148,7 @@ def main() -> int:
                 fused_mma.edge_program_lean_reference(c_top, w_bot, h, pat, src, one_row),
                 1e-5, "edge_program_lean_fwd heaviest row alone, edge pass vs plain")
         k2["heaviest_row_call_ms"] = device_ms(
-            lambda: fused_mma.edge_program_lean(*heavy, cp, perm))
+            lambda: fused_mma.edge_program_lean(*heavy, cp, dst_csc))
         k2["heaviest_row_ms"] = device_ms(
             lambda: fused_mma._lean_edge_pass(c_top, pat, d_tab, h, src, one_row))
         print(f"edge_program_lean_fwd: the heaviest row alone ({int(deg[top])} edges, "
@@ -1163,40 +1165,111 @@ def main() -> int:
         print(f"edge_program_lean_fwd Cora: E={int(cora.graph.num_edges)} N={cora.graph.n_node} "
               f"F={cora_fwd[2].shape[1]} K·F={cora_fwd[0].shape[1]} ms {k2['cora_ms']:.4f}")
 
-        bwd_args = fwd_args + (ct.contiguous(),)
+        # Kernel 3 on the same tensors and the cotangent of the step's loss.
+        bwd_args = fwd_args + (cp, dst_csc, ct.contiguous())
         got = fused_mma.edge_program_lean_bwd(*bwd_args)
         again = fused_mma.edge_program_lean_bwd(*bwd_args)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError("edge_program_lean_bwd differs run to run")
-        print("edge_program_lean_bwd: dc, dW_bot and payload bitwise equal run to run")
+        print("edge_program_lean_bwd: dc, dW_bot and dh bitwise equal run to run")
         want = fused_mma.edge_program_lean_bwd_reference(*bwd_args)
         errs = [compare(g, w, 1e-5, f"edge_program_lean_bwd {name} vs plain")
-                for g, w, name in zip(got, want, ("dc", "dW_bot", "payload"))]
+                for g, w, name in zip(got, want, ("dc", "dW_bot", "dh"))]
         del got, again, want
         ms = device_ms(lambda: fused_mma.edge_program_lean_bwd(*bwd_args), iters=15)
         plain_ms = device_ms(lambda: fused_mma.edge_program_lean_bwd_reference(*bwd_args),
                              iters=5)
-        # Bytes: c, ct, h, W_bot, pattern, src, row_ptr read once; dc, dW_bot
-        # and the (E, F) payload written once. The work these inputs need:
-        # the logits' h @ W_bot and dW_bot = hᵀ · dD (dD the by-source sum
-        # of dlog) node-level, dlog_e @ W_botᵀ per edge (the payload is per
-        # edge), and about 10 operations per edge and lane (the mask chain,
-        # dlog, dc, ct ⊙ mask), the sigmoid not counted.
-        nbytes = 4 * (2 * n_rows * kf + n_rows * f + f * kf + kf + e_cov + (n_rows + 1)
-                      + n_rows * kf + f * kf + big.n_edge * f)
+        # Bytes: c, ct, h, W_bot, the pattern, src, dst_csc and both pointer
+        # arrays read once; dc, dW_bot and dh written once. The work these
+        # inputs need: three node-level products (D = h @ W_bot, dD @
+        # W_botᵀ, hᵀ · dD: 6 N F K·F) and about 10 operations per edge and
+        # lane (the mask chain, dlog, its two sums, ct ⊙ mask and its sum),
+        # the sigmoid not counted.
+        nbytes = 4 * (3 * n_rows * kf + 2 * n_rows * f + 2 * f * kf + kf + 2 * e_cov
+                      + 2 * (n_rows + 1))
+        # The same function under the per-edge contract kept beside it: an
+        # (E, F) payload written, and dlog_e @ W_botᵀ done per edge.
+        old = bound(4 * (3 * n_rows * kf + n_rows * f + 2 * f * kf + kf + e_cov
+                         + (n_rows + 1) + big.n_edge * f),
+                    4 * n_rows * f * kf + e_cov * (2 * f * kf + 10 * kf))
         kernels["edge_program_lean_bwd"] = {
             "name": "edge_program_lean_bwd", "route": "cuda", "source": SOURCE,
             "replaces": REPLACES["edge_program_lean_bwd"],
             "max_abs_err": max(e["max_abs_err"] for e in errs), "ms": ms,
-            "plain_ms": plain_ms,
-            **bound(nbytes, 4 * n_rows * f * kf + e_cov * (2 * f * kf + 10 * kf)),
-            # No single PyTorch call computes dc, dW_bot and the payload.
+            "plain_ms": plain_ms, **bound(nbytes, 6 * n_rows * f * kf + 10 * e_cov * kf),
+            # No single PyTorch call gives dc, dW_bot and dh.
             "library_ms": None,
+            "payload_contract_bound_ms": old["bound_ms"],
+            # The random node rows the two edge passes gather, once per edge:
+            # D[src] and h[src] (dst pass), c[dst] and ct[dst] (src pass).
+            "gather_bound_ms": 4 * e_cov * (kf + f + 2 * kf) / PEAK_BYTES_PER_S * 1e3,
             "shape": f"E={e_cov} N={n_rows} F={f} K·F={kf}",
         }
         k3 = kernels["edge_program_lean_bwd"]
         print(f"edge_program_lean_bwd: ms {ms:.4f} plain_ms {plain_ms:.4f} "
-              f"bound_ms {k3['bound_ms']:.4f} ({k3['bound_by']})")
+              f"bound_ms {k3['bound_ms']:.4f} ({k3['bound_by']}); the payload contract's "
+              f"bound {k3['payload_contract_bound_ms']:.4f}; gathered rows alone "
+              f"{k3['gather_bound_ms']:.4f} ms")
+        # Its parts alone: D, the dst pass, the src pass, the node pass (with
+        # sum_slabs), each held against the plain formula of the same sums
+        # (kernels 10 and 11's plain versions with D in place of d).
+        ct3 = bwd_args[-1]
+        d_tab = fused_mma._lean_node_pass(h, w_bot)
+        ddg = fused_mma._lean_bwd_src_pass(c, ct3, pat, d_tab, h, dst_csc, cp)
+
+        def hold_dst(row_ptr, what):
+            compare(fused_mma._lean_bwd_dst_pass(c, ct3, pat, d_tab, h, src, row_ptr),
+                    fused_mma.edge_program_bwd_reference(c, d_tab, h, pat, src, row_ptr, ct3,
+                                                         emit_payload=False)[0],
+                    1e-5, f"edge_program_lean_bwd dst pass{what} vs plain")
+
+        def hold_src(col_ptr, what):
+            got = fused_mma._lean_bwd_src_pass(c, ct3, pat, d_tab, h, dst_csc, col_ptr)
+            want = fused_mma.edge_program_bwd_csc_reference(c, d_tab, h, pat, dst_csc,
+                                                            col_ptr, ct3)
+            compare(got[:, :kf], want[:, :kf], 1e-5, f"edge_program_lean_bwd src pass{what} "
+                    "dD vs plain")
+            compare(got[:, kf:].reshape(n_rows, kf // f, f).sum(dim=1), want[:, kf:], 1e-5,
+                    f"edge_program_lean_bwd src pass{what} fold_K(G) vs plain")
+
+        hold_dst(rp, "")
+        hold_src(cp, "")
+        k3["d_ms"] = device_ms(lambda: fused_mma._lean_node_pass(h, w_bot))
+        k3["dst_pass_ms"] = device_ms(
+            lambda: fused_mma._lean_bwd_dst_pass(c, ct3, pat, d_tab, h, src, rp))
+        k3["src_pass_ms"] = device_ms(
+            lambda: fused_mma._lean_bwd_src_pass(c, ct3, pat, d_tab, h, dst_csc, cp))
+        k3["node_pass_ms"] = device_ms(lambda: fused_mma._lean_bwd_node_pass(ddg, h, w_bot))
+        print(f"edge_program_lean_bwd parts: D {k3['d_ms']:.4f} ms, dst pass "
+              f"{k3['dst_pass_ms']:.4f}, src pass {k3['src_pass_ms']:.4f}, node pass "
+              f"{k3['node_pass_ms']:.4f}")
+        # Skew: each edge pass alone on its heaviest row, on a CSR (CSC) of
+        # N rows that covers that row's edges only.
+        for what, ptr, hold, run in (
+                ("dst", rp, hold_dst,
+                 lambda p: fused_mma._lean_bwd_dst_pass(c, ct3, pat, d_tab, h, src, p)),
+                ("src", cp, hold_src,
+                 lambda p: fused_mma._lean_bwd_src_pass(c, ct3, pat, d_tab, h, dst_csc, p))):
+            deg = ptr[1:] - ptr[:-1]
+            top = int(torch.argmax(deg))
+            only_top = ptr.clamp(int(ptr[top]), int(ptr[top + 1]))
+            hold(only_top, " heaviest row alone")
+            k3[f"heaviest_{what}_row_ms"] = device_ms(lambda: run(only_top))
+            print(f"edge_program_lean_bwd {what} pass, the heaviest row alone ({int(deg[top])} "
+                  f"edges, N={n_rows}): ms {k3[f'heaviest_{what}_row_ms']:.4f}")
+        del d_tab, ddg
+        # Cora's shape: the eval forward's captured arguments and a cotangent
+        # from a seed.
+        ct_cora = (torch.randn((cora.graph.n_node, cora_fwd[0].shape[1]),
+                               generator=torch.Generator().manual_seed(SEED + 9)).to(dev)
+                   * cora.graph.node_mask[:, None])
+        cora_bwd = cora_fwd + tuple(t.detach() for t in cora_args[6:8]) + (ct_cora,)
+        for g, w, name in zip(fused_mma.edge_program_lean_bwd(*cora_bwd),
+                              fused_mma.edge_program_lean_bwd_reference(*cora_bwd),
+                              ("dc", "dW_bot", "dh")):
+            compare(g, w, 1e-5, f"edge_program_lean_bwd Cora {name} vs plain")
+        k3["cora_ms"] = device_ms(lambda: fused_mma.edge_program_lean_bwd(*cora_bwd))
+        print(f"edge_program_lean_bwd Cora: ms {k3['cora_ms']:.4f}")
 
         # Kernels 9-11 and kernel 1 at the payload's width on the large-wide
         # path's own tensors: the arguments of its edge program and the

@@ -161,6 +161,13 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
+// mask and dmask of one lane.
+__device__ __forceinline__ void mask_chain(float x, float p, float& m, float& dm) {
+  const float sg = sigmoidf(x);
+  m = p != 0.f ? sg : x;
+  dm = p != 0.f ? sg * (1.f - sg) : 1.f;
+}
+
 // For keys[0] and keys[1] at once, the first i in [0, n] with
 // row_ptr[i] >= key (n if none): a 32-ary search, one probe a lane and key
 // per step, so 4 steps for 131k rows. Warp-uniform.
@@ -244,17 +251,21 @@ __device__ __forceinline__ void zero_empty_rows(const int32_t* __restrict__ row_
 
 // What the chunk pass adds for each edge, on a lane's slot cv (16 bytes, or
 // one float) of an output row. A message type has
-//   Slot slot(row, cv): what the destination row gives the slot, loaded
+//   kSums: the sums a slot keeps (an output row holds kSums blocks of
+//                       n_vec slots; slot cv's sum a goes to cv + a n_vec);
+//   Slot slot(row, cv): what the output row gives the slot, loaded
 //                       once per row (no_slot() past the row's end);
 //   Edge load(r, cv, slot): the loads of data row r, issued for several
 //                       edges before any of them is added (none(): no edge);
-//   add(acc, edge, slot): the edge's message added into acc;
+//   add(acc, edge, slot): the edge's message added into acc[0 .. kSums);
 // and in_flight<TILES>(), the edges whose loads a lane issues before it
 // adds them. RowsOf is kernel 1's (the data row itself); LeanMessage,
-// kernel 2's, is below with that kernel.
+// kernel 2's, and LeanDcMessage and LeanSrcMessage, kernel 3's, are below
+// with those kernels.
 template <int VEC_>
 struct RowsOf {
   static constexpr int VEC = VEC_;
+  static constexpr int kSums = 1;
   // About 32 floats in flight a lane.
   template <int TILES>
   __host__ __device__ static constexpr int in_flight() {
@@ -273,14 +284,18 @@ struct RowsOf {
     return {__ldg(rows + r * n_vec + cv)};
   }
   __device__ static Edge none() { return {Vec<VEC>::zero()}; }
-  __device__ static void add(T& acc, const Edge& e, const Slot&) { Vec<VEC>::add(acc, e.v); }
+  __device__ static void add(T (&acc)[1], const Edge& e, const Slot&) {
+    Vec<VEC>::add(acc[0], e.v);
+  }
 };
 
 // Pass 1, for any message type Msg: the body of kernel 1's
-// segment_sum_chunk_kernel and of kernel 2's lean_edge_kernel. TILES: the
-// lane's channel slots per edge (a compile-time bound on `tiles`; wider
-// rows take several rounds over the row's edges). U: edges a group loads
-// before it adds them.
+// segment_sum_chunk_kernel, of kernel 2's lean_edge_kernel and of kernel
+// 3's lean_bwd_edge_kernel. TILES: the lane's channel slots
+// per edge (a compile-time bound on `tiles`; wider rows take several
+// rounds over the row's edges). U: edges a group loads before it adds
+// them. n_vec counts the slots of one sum; an output row (and a partial)
+// holds Msg::kSums of them.
 template <class Msg, int TILES>
 __device__ __forceinline__ void chunk_pass(const Msg& msg, const int32_t* __restrict__ row_ptr,
                                            const int32_t* __restrict__ index,
@@ -292,6 +307,8 @@ __device__ __forceinline__ void chunk_pass(const Msg& msg, const int32_t* __rest
   using Slot = typename Msg::Slot;
   using Edge = typename Msg::Edge;
   constexpr int U = Msg::template in_flight<TILES>();
+  constexpr int A = Msg::kSums;
+  const int row_vec = A * n_vec;
   const int c = blockIdx.x * kSumWarps + threadIdx.x / kWarp;
   if (c >= n_chunks) return;  // whole warps leave together
   const int lane = threadIdx.x % kWarp;
@@ -320,8 +337,8 @@ __device__ __forceinline__ void chunk_pass(const Msg& msg, const int32_t* __rest
   if (lane == 0) tail_row[c] = tail ? i1 - 1 : -1;
 
   T* outv = reinterpret_cast<T*>(out);
-  T* head_slot = reinterpret_cast<T*>(part) + static_cast<int64_t>(c) * 2 * n_vec;
-  T* tail_slot = head_slot + n_vec;
+  T* head_slot = reinterpret_cast<T*>(part) + static_cast<int64_t>(c) * 2 * row_vec;
+  T* tail_slot = head_slot + row_vec;
   int64_t wb = -2 * kWarp;  // the index window [wb, wb + 32), empty at first
   int widx = 0;
 
@@ -362,13 +379,14 @@ __device__ __forceinline__ void chunk_pass(const Msg& msg, const int32_t* __rest
       const int row = rb + kk;
       T* dst = row < i0 ? head_slot
                         : (tail && row == i1 - 1 ? tail_slot
-                                                 : outv + static_cast<int64_t>(row) * n_vec);
+                                                 : outv + static_cast<int64_t>(row) * row_vec);
       for (int t0 = 0; t0 < tiles; t0 += TILES) {
-        T acc[TILES];
+        T acc[TILES][A];
         Slot sl[TILES];
 #pragma unroll
         for (int t = 0; t < TILES; ++t) {
-          acc[t] = V::zero();
+#pragma unroll
+          for (int a_ = 0; a_ < A; ++a_) acc[t][a_] = V::zero();
           const int cv = (t0 + t) * lpe + li;
           sl[t] = cv < n_vec ? msg.slot(row, cv) : Msg::no_slot();
         }
@@ -397,7 +415,10 @@ __device__ __forceinline__ void chunk_pass(const Msg& msg, const int32_t* __rest
 #pragma unroll
           for (int t = 0; t < TILES; ++t) {
             const int cv = (t0 + t) * lpe + li;
-            if (cv < n_vec) dst[cv] = acc[t];
+            if (cv < n_vec) {
+#pragma unroll
+              for (int a_ = 0; a_ < A; ++a_) dst[cv + a_ * n_vec] = acc[t][a_];
+            }
           }
         }
       }
@@ -415,13 +436,14 @@ __device__ __forceinline__ void chunk_pass(const Msg& msg, const int32_t* __rest
       const int64_t re = row_e - row_s > split && row_e > b ? b : row_e;
       T* dst = row < i0 ? head_slot
                         : (tail && row == i1 - 1 ? tail_slot
-                                                 : outv + static_cast<int64_t>(row) * n_vec);
+                                                 : outv + static_cast<int64_t>(row) * row_vec);
       for (int t0 = 0; t0 < tiles; t0 += TILES) {
-        T acc[TILES];
+        T acc[TILES][A];
         Slot sl[TILES];
 #pragma unroll
         for (int t = 0; t < TILES; ++t) {
-          acc[t] = V::zero();
+#pragma unroll
+          for (int a_ = 0; a_ < A; ++a_) acc[t][a_] = V::zero();
           const int cv = (t0 + t) * lpe + li;
           sl[t] = cv < n_vec ? msg.slot(row, cv) : Msg::no_slot();
         }
@@ -457,8 +479,11 @@ __device__ __forceinline__ void chunk_pass(const Msg& msg, const int32_t* __rest
         if (rs < re) {
 #pragma unroll
           for (int t = 0; t < TILES; ++t) {
-            for (int off = lpe; off < kWarp; off <<= 1) {
-              V::add(acc[t], V::shfl_xor(acc[t], off));
+#pragma unroll
+            for (int a_ = 0; a_ < A; ++a_) {
+              for (int off = lpe; off < kWarp; off <<= 1) {
+                V::add(acc[t][a_], V::shfl_xor(acc[t][a_], off));
+              }
             }
           }
         }
@@ -466,7 +491,10 @@ __device__ __forceinline__ void chunk_pass(const Msg& msg, const int32_t* __rest
 #pragma unroll
           for (int t = 0; t < TILES; ++t) {
             const int cv = (t0 + t) * lpe + li;
-            if (cv < n_vec) dst[cv] = acc[t];
+            if (cv < n_vec) {
+#pragma unroll
+              for (int a_ = 0; a_ < A; ++a_) dst[cv + a_ * n_vec] = acc[t][a_];
+            }
           }
         }
       }
@@ -703,6 +731,7 @@ lean_node_kernel(const float* __restrict__ h, const float* __restrict__ w_bot,
 // slots.
 struct LeanMessage {
   static constexpr int VEC = 4;
+  static constexpr int kSums = 1;
   // Two edges' D and h slots in flight (see lean_edge_kernel).
   template <int TILES>
   __host__ __device__ static constexpr int in_flight() {
@@ -733,11 +762,11 @@ struct LeanMessage {
     const float x = c + d;
     return fmaf(p != 0.f ? sigmoidf(x) : x, h, acc);
   }
-  __device__ static void add(float4& acc, const Edge& e, const Slot& s) {
-    acc.x = term(acc.x, s.c.x, s.p.x, e.d.x, e.h.x);
-    acc.y = term(acc.y, s.c.y, s.p.y, e.d.y, e.h.y);
-    acc.z = term(acc.z, s.c.z, s.p.z, e.d.z, e.h.z);
-    acc.w = term(acc.w, s.c.w, s.p.w, e.d.w, e.h.w);
+  __device__ static void add(float4 (&acc)[1], const Edge& e, const Slot& s) {
+    acc[0].x = term(acc[0].x, s.c.x, s.p.x, e.d.x, e.h.x);
+    acc[0].y = term(acc[0].y, s.c.y, s.p.y, e.d.y, e.h.y);
+    acc[0].z = term(acc[0].z, s.c.z, s.p.z, e.d.z, e.h.z);
+    acc[0].w = term(acc[0].w, s.c.w, s.p.w, e.d.w, e.h.w);
   }
 };
 
@@ -769,351 +798,436 @@ cudaError_t launch_lean_edges(const LeanMessage& msg, const void* row_ptr, const
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 3's helpers: the lean backward recomputes the logits per edge
-// from batches of kEdgeBatch gathered h rows.
-// ---------------------------------------------------------------------------
-
-constexpr int kEdgeBatch = 4;  // edges per shared-memory batch
-
-// Gathers h[src[e0 + j], ff] for the batch's kEdgeBatch x f values into
-// st (element idx = lane + 32 v is edge j = idx / f, feature ff = idx % f);
-// edges at or past `end` give 0. NREG * 32 must be at least kEdgeBatch * f.
-template <int NREG>
-__device__ __forceinline__ void gather_batch(float (&st)[NREG],
-                                             const float* __restrict__ h,
-                                             const int32_t* __restrict__ src,
-                                             int e0, int end, int f, int lane) {
-  int j = 0, ff = lane;
-  while (ff >= f) { ff -= f; ++j; }
-#pragma unroll
-  for (int v = 0; v < NREG; ++v) {
-    st[v] = 0.f;
-    if (j < kEdgeBatch && e0 + j < end) {
-      st[v] = __ldg(h + static_cast<int64_t>(__ldg(src + e0 + j)) * f + ff);
-    }
-    ff += kWarp;
-    while (ff >= f) { ff -= f; ++j; }
-  }
-}
-
-// Stores a gathered batch into the warp's h_s, laid out [f][edge] so that
-// one 16-byte broadcast load gives h[src, ff] for all kEdgeBatch edges.
-template <int NREG>
-__device__ __forceinline__ void stage_batch(float* __restrict__ h_s,
-                                            const float (&st)[NREG], int f,
-                                            int lane) {
-  int j = 0, ff = lane;
-  while (ff >= f) { ff -= f; ++j; }
-#pragma unroll
-  for (int v = 0; v < NREG; ++v) {
-    if (j < kEdgeBatch) h_s[ff * kEdgeBatch + j] = st[v];
-    ff += kWarp;
-    while (ff >= f) { ff -= f; ++j; }
-  }
-}
-
-// Logits of a batch on this thread's 4 lanes:
-// lg[j][q] = c[row, l0 + q] + sum_ff h[src_j, ff] * W_bot[ff, l0 + q].
-// w4 points at this thread's 4 lanes of the shared W_bot tile, hs4 at the
-// warp's staged batch.
-__device__ __forceinline__ void batch_logits(float (&lg)[kEdgeBatch][4],
-                                             const float4 ci,
-                                             const float4* __restrict__ w4,
-                                             const float4* __restrict__ hs4,
-                                             int f) {
-#pragma unroll
-  for (int j = 0; j < kEdgeBatch; ++j) {
-    lg[j][0] = ci.x; lg[j][1] = ci.y; lg[j][2] = ci.z; lg[j][3] = ci.w;
-  }
-#pragma unroll 4
-  for (int ff = 0; ff < f; ++ff) {
-    const float4 wv = w4[ff * (kLaneTile / 4)];
-    const float4 hv = hs4[ff];
-    const float hj[kEdgeBatch] = {hv.x, hv.y, hv.z, hv.w};
-#pragma unroll
-    for (int j = 0; j < kEdgeBatch; ++j) {
-      lg[j][0] = fmaf(hj[j], wv.x, lg[j][0]);
-      lg[j][1] = fmaf(hj[j], wv.y, lg[j][1]);
-      lg[j][2] = fmaf(hj[j], wv.z, lg[j][2]);
-      lg[j][3] = fmaf(hj[j], wv.w, lg[j][3]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Kernel 3: edge_program_lean_bwd
 //
 // Replaces mma_tpu/ops/pallas/fused_mma.py::_program_bwd_lean_kernel
-// (launched by _fused_program_bwd_lean). For each edge e of row i over the
-// CSR, with s = src_e, logits = c[i] + h[s] @ W_bot, sig = sigmoid(logits):
-//   mask = pat ? sig : logits,  dmask = pat ? sig (1 - sig) : 1,
-//   dlog_e = ct[i] * tile(h[s], K) * dmask,
-// and it emits
-//   dc[i]      = sum_{e in row i} dlog_e                     (N, K*F)
-//   dW_bot     = sum_e h[s]^T dlog_e                         (F, K*F)
-//   payload[e] = sum_k (ct[i] * mask_e)_k + dlog_e @ W_bot^T (E, F)
-// Edges outside [row_ptr[0], row_ptr[n_rows]) get payload 0. The caller
-// reduces the payload by source (kernel 1 over the CSC) to form dh.
+// (launched by _fused_program_bwd_lean), the backward of kernel 2. With
+// D = h @ W_bot, on edge e = (s -> i): x_e = c[i] + D[s], mask_e and
+// dmask_e the activation and its derivative (sigmoid on the pattern's
+// lanes, the identity elsewhere),
+//   dlog_e = ct[i] * tile(h[s], K) * dmask_e,   gm_e = ct[i] * mask_e;
+//   dc[i]  = sum_{e: dst = i} dlog_e                          (N, K*F)
+//   dD[s]  = sum_{e: src = s} dlog_e,  G[s] = sum_{e: src = s} gm_e
+//   dW_bot = h^T dD                                           (F, K*F)
+//   dh[s]  = sum_k G[s, kF:(k+1)F] + dD[s] @ W_bot^T          (N, F)
+// The TPU kernel recomputes h[s] @ W_bot per edge on the MXU, accumulates
+// h[s]^T dlog_e per edge and emits a per-edge dh_e = sum_k gm_e + dlog_e @
+// W_bot^T, which its caller sums by source. Every one of those products
+// depends on the source alone, so here each is done once per node, and
+// nothing per edge is stored.
 //
-// Bound on this card: operations. Per edge it does three (1 x F)(F x K*F)
-// products (the logits again, dlog @ W_bot^T, and the outer product into
-// dW_bot), 6*F*K*F FLOPs against about 4*F gathered bytes.
-// Design: a persistent grid, rows dealt round-robin to warps, a 128-lane
-// tile of W_bot in shared memory, batches of 4 edges gathered into shared
-// memory as [f][edge] (kernel 2's first design), plus a W_bot^T tile, so that
-// a lane owning output feature ff reads W_bot^T[l][ff] without bank
-// conflicts for the payload product. ct[i] and c[i] are constant over a
-// row, so a warp loads its 4 lanes of each once per row. dc and payload
-// are written once each, by the warp that owns the row. dW_bot is a sum
-// over every edge and takes no atomics: each block keeps its (F x 128)
-// partial in registers spread over its 256 threads (thread = rows
-// warp + 8 r, lanes lane + 32 q) and, once per step, all warps stage their
-// batch's h[src] and dlog in shared memory and the whole block adds them
-// in a fixed order (warp 0..7, edge 0..3). The block partials go to a
-// (G, F, K*F) buffer that sum_slabs_kernel adds in block order: with the
-// grid size G fixed by the card, dW_bot is bitwise equal run to run. A
-// K*F above 128 takes one block column per lane tile, and the payload
-// partials of the tiles are added by the same fixed-order pass.
+// Bound on this card: operations, barely. Each input read once and each
+// output written once (c, ct, h, W_bot, the pattern, src, dst_csc, both
+// pointer arrays; dc, dW_bot, dh) is about 286 MB at the synthetic-large
+// graph (E = 2.1M, N = 131k, F = 64, K*F = 128), 0.085 ms at 3.35 TB/s;
+// three node-level products (6 N F K*F = 6.4 GFLOP) and about 10
+// operations per edge and lane (2.7 GFLOP) take 0.136 ms at 67 TFLOP/s.
+// What sets the time is the random node rows the two edge passes gather,
+// E x (768 + 1,024) B = 3.76 GB (1.12 ms), less what the 50 MB L2 keeps.
+//
+// Design: four steps, eight launches, no per-edge tensor, no per-edge
+// product.
+// 1. D = h @ W_bot by kernel 2's node pass (lean_node_kernel), recomputed:
+//    saving it from the forward would hold 67 MB per layer.
+// 2. The dst pass (lean_bwd_edge_kernel<LeanDcMessage>, then kernel 1's
+//    fixup): kernel 1's chunk pass over the CSR, gathering through src.
+//    c[i], ct[i] and the pattern are loaded once per row segment; per edge
+//    a lane gathers its D[s] and h[s] slots and adds dlog_e into dc.
+// 3. The src pass (lean_bwd_edge_kernel<LeanSrcMessage>, then the fixup):
+//    the same chunk pass over the CSC, gathering through dst_csc. D[s],
+//    h[s] and the pattern are loaded once per row segment, c[i] and ct[i]
+//    per edge, and a slot keeps two sums that share the edge's loads:
+//    dlog_e into dD and gm_e into G, one (N, 2 K*F) row [dD || G].
+//    Both passes split a long row (the power-law graph's heaviest
+//    destination and heaviest source each have 1,448 edges) into chunk
+//    partials that the fixup adds in chunk order, and leave empty rows to
+//    the fixup's zeroing warps. Each pass is its own __global__ with its
+//    own launch bounds (a bound shared with kernel 1 slows kernel 1):
+//    the dst pass at 64 registers (32 warps an SM), the src pass, which
+//    keeps twice the sums, at 80 (24 warps), chosen on the card over 3
+//    and 4 blocks an SM for the one and 2, 3 and 4 for the other.
+// 4. The node pass: lean_dh_kernel (dh = fold_K(G) + dD @ W_bot^T) and
+//    lean_dw_kernel (dW_bot's partials h^T dD over slabs of node rows),
+//    then sum_slabs_kernel adds the slabs in order. Both are FFMA tiles as
+//    lean_node_kernel is, with blocks of rows staged by 16-byte cp.async,
+//    double-buffered; lean_dh_kernel streams W_bot in slices of kDhSlice
+//    lanes of K*F through shared memory beside the same lanes of dD and
+//    of G, whose lanes it folds as they pass (W_bot is 256 KB at F = 128,
+//    K*F = 512, more than a block's 227 KB).
+// Every partition depends on E, N and the widths alone, never on the card:
+// the chunks on E, the slabs on N, F and K*F. Every output row is written
+// once, with no atomics and no host sync: bitwise equal run to run, and a
+// call replays in a CUDA graph.
 // ---------------------------------------------------------------------------
 
-constexpr int kBwdWarps = 8;
+// The dst pass's message: dlog_e on 16-byte slots of a K*F row of dc.
+struct LeanDcMessage {
+  static constexpr int VEC = 4;
+  static constexpr int kSums = 1;
+  static constexpr int kMinBlocks = 4;  // blocks an SM: 64 registers
+  template <int TILES>
+  __host__ __device__ static constexpr int in_flight() {
+    return 2;
+  }
+  struct Slot {
+    float4 c, ct, p;  // c[row], ct[row] and the pattern on the slot's 4 lanes
+    int hv;           // the slot of h that the lanes read: cv mod F/4
+  };
+  struct Edge {
+    float4 d, h;
+  };
+  const float4* c;
+  const float4* ct;
+  const float4* pat;
+  const float4* d;
+  const float4* h;
+  int n_vec, f_vec;  // slots of a K*F row (c, ct, D) and of an F row (h)
 
-inline size_t bwd_smem_bytes(int f) {
-  return sizeof(float) * (2 * static_cast<size_t>(f) * kLaneTile +
-                          static_cast<size_t>(kBwdWarps) *
-                              (static_cast<size_t>(f) * kEdgeBatch +
-                               2 * kLaneTile * kEdgeBatch)) +
-         sizeof(int) * kBwdWarps;
+  __device__ Slot slot(int64_t row, int cv) const {
+    return {__ldg(c + row * n_vec + cv), __ldg(ct + row * n_vec + cv), __ldg(pat + cv),
+            cv % f_vec};
+  }
+  __device__ static Slot no_slot() {
+    return {Vec<4>::zero(), Vec<4>::zero(), Vec<4>::zero(), 0};
+  }
+  __device__ Edge load(int64_t r, int cv, const Slot& s) const {
+    return {__ldg(d + r * n_vec + cv), __ldg(h + r * f_vec + s.hv)};
+  }
+  __device__ static Edge none() { return {Vec<4>::zero(), Vec<4>::zero()}; }
+  __device__ static float term(float acc, float c, float ct, float p, float d, float h) {
+    float m, dm;
+    mask_chain(c + d, p, m, dm);
+    return acc + ct * h * dm;
+  }
+  __device__ static void add(float4 (&acc)[1], const Edge& e, const Slot& s) {
+    acc[0].x = term(acc[0].x, s.c.x, s.ct.x, s.p.x, e.d.x, e.h.x);
+    acc[0].y = term(acc[0].y, s.c.y, s.ct.y, s.p.y, e.d.y, e.h.y);
+    acc[0].z = term(acc[0].z, s.c.z, s.ct.z, s.p.z, e.d.z, e.h.z);
+    acc[0].w = term(acc[0].w, s.c.w, s.ct.w, s.p.w, e.d.w, e.h.w);
+  }
+};
+
+// The src pass's message: on 16-byte slots of a K*F row, dlog_e into the
+// row's dD block and gm_e into its G block.
+struct LeanSrcMessage {
+  static constexpr int VEC = 4;
+  static constexpr int kSums = 2;
+  static constexpr int kMinBlocks = 3;  // blocks an SM: 80 registers
+  template <int TILES>
+  __host__ __device__ static constexpr int in_flight() {
+    return 2;
+  }
+  struct Slot {
+    float4 d, h, p;  // D[row], tile(h[row], K) and the pattern on the slot's 4 lanes
+  };
+  struct Edge {
+    float4 c, ct;
+  };
+  const float4* c;
+  const float4* ct;
+  const float4* pat;
+  const float4* d;
+  const float4* h;
+  int n_vec, f_vec;
+
+  __device__ Slot slot(int64_t row, int cv) const {
+    return {__ldg(d + row * n_vec + cv), __ldg(h + row * f_vec + cv % f_vec), __ldg(pat + cv)};
+  }
+  __device__ static Slot no_slot() { return {Vec<4>::zero(), Vec<4>::zero(), Vec<4>::zero()}; }
+  __device__ Edge load(int64_t r, int cv, const Slot&) const {
+    return {__ldg(c + r * n_vec + cv), __ldg(ct + r * n_vec + cv)};
+  }
+  __device__ static Edge none() { return {Vec<4>::zero(), Vec<4>::zero()}; }
+  __device__ static void term(float& dd, float& g, float c, float ct, float p, float d,
+                              float h) {
+    float m, dm;
+    mask_chain(c + d, p, m, dm);
+    dd += ct * h * dm;
+    g += ct * m;
+  }
+  __device__ static void add(float4 (&acc)[2], const Edge& e, const Slot& s) {
+    term(acc[0].x, acc[1].x, e.c.x, e.ct.x, s.p.x, s.d.x, s.h.x);
+    term(acc[0].y, acc[1].y, e.c.y, e.ct.y, s.p.y, s.d.y, s.h.y);
+    term(acc[0].z, acc[1].z, e.c.z, e.ct.z, s.p.z, s.d.z, s.h.z);
+    term(acc[0].w, acc[1].w, e.c.w, e.ct.w, s.p.w, s.d.w, s.h.w);
+  }
+};
+
+// Pass 1 of the dst pass (Msg = LeanDcMessage) and of the src pass
+// (LeanSrcMessage), each at its message's launch bounds.
+template <class Msg, int TILES, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kSumWarps* kWarp, MIN_BLOCKS)
+lean_bwd_edge_kernel(const Msg msg, const int32_t* __restrict__ ptr,
+                     const int32_t* __restrict__ index, float* __restrict__ out,
+                     float* __restrict__ part, int32_t* __restrict__ tail_row, int n_rows,
+                     int n_vec, int lpe, int tiles, int chunk, int n_chunks) {
+  chunk_pass<Msg, TILES>(msg, ptr, index, out, part, tail_row, n_rows, n_vec, lpe, tiles, chunk,
+                         n_chunks);
 }
 
-// FMAX (64 or 128) bounds F; it sizes the per-thread register arrays.
-template <int FMAX>
-__global__ void __launch_bounds__(kBwdWarps * kWarp)
-edge_program_lean_bwd_kernel(const float* __restrict__ c,
-                             const float* __restrict__ h,
-                             const float* __restrict__ w_bot,
-                             const float* __restrict__ pat,
-                             const int32_t* __restrict__ src,
-                             const int32_t* __restrict__ row_ptr,
-                             const float* __restrict__ ct,
-                             float* __restrict__ dc,
-                             float* __restrict__ dw_part,
-                             float* __restrict__ payload_tiles, int n_rows,
-                             int n_edges, int f, int kf) {
-  constexpr int kRows = FMAX / kBwdWarps;  // dW_bot rows per thread
-  constexpr int kOut = FMAX / kWarp;       // payload features per lane
-  constexpr int kRegs = kEdgeBatch * FMAX / kWarp;
+// Both passes of a dst or src pass over n_edges edge positions of the CSR
+// (or CSC) ptr, reading the other endpoint through index; out holds
+// Msg::kSums * kf floats a row, part as many a slot.
+template <class Msg>
+cudaError_t launch_lean_bwd_edges(const Msg& msg, const void* ptr, const void* index, void* out,
+                                  void* part, void* tail_row, int n_rows, int kf, int n_edges,
+                                  cudaStream_t s) {
+  const int n_vec = kf / 4;
+  const int lpe = lanes_per_edge(n_vec);
+  const int tiles = (n_vec + lpe - 1) / lpe;
+  const int chunk = sum_chunk_edges(n_edges);
+  const int n_chunks = sum_n_chunks(n_edges);
+  const int blocks = (n_chunks + kSumWarps - 1) / kSumWarps;
+  auto launch = [&](auto t) {
+    lean_bwd_edge_kernel<Msg, decltype(t)::value, Msg::kMinBlocks>
+        <<<blocks, kSumWarps * kWarp, 0, s>>>(
+            msg, static_cast<const int32_t*>(ptr), static_cast<const int32_t*>(index),
+            static_cast<float*>(out), static_cast<float*>(part),
+            static_cast<int32_t*>(tail_row), n_rows, n_vec, lpe, tiles, chunk, n_chunks);
+  };
+  if (tiles <= 1) {
+    launch(std::integral_constant<int, 1>());
+  } else {
+    launch(std::integral_constant<int, 2>());  // two slots a lane, several rounds past 256 lanes
+  }
+  return launch_fixup<4>(ptr, part, tail_row, out, n_rows, Msg::kSums * n_vec, chunk, n_chunks,
+                         s);
+}
+
+// The node pass. lean_dh_kernel: a thread owns kDhRowsPerThread rows and
+// the features lq + LPR j (j < 4) of dh, LPR lanes a row (4 LPR >= F),
+// kWarp / LPR row groups a warp; a step stages, for the block's rows,
+// kDhSlice lanes of K*F of dD and the same lanes of G, and those lanes of
+// W_bot for 4 LPR features (rows padded to kDhSliceP floats, so that the
+// lanes of a row group read W_bot's rows without bank conflicts).
+constexpr int kDhSlice = 32;
+constexpr int kDhSliceP = kDhSlice + 4;
+constexpr int kDhRowsPerThread = 8;
+
+template <int LPR>
+__host__ __device__ constexpr int dh_rows() {  // node rows of a block step
+  return kNodeWarps * (kWarp / LPR) * kDhRowsPerThread;
+}
+
+template <int LPR>
+__host__ __device__ constexpr int dh_tile_floats() {  // a stage buffer: dD, G and W_bot slices
+  return 2 * dh_rows<LPR>() * kDhSlice + 4 * LPR * kDhSliceP;
+}
+
+// dh = fold_K(G) + dD @ W_bot^T from ddg (n_rows, 2 kf) = [dD || G].
+// Grid: persistent over blocks of dh_rows<LPR>() rows; each block walks
+// its row blocks slice by slice, staging the next (block, slice) while it
+// multiplies the current one and adds the current G lanes that fall on
+// its features.
+template <int LPR>
+__global__ void __launch_bounds__(kNodeWarps* kWarp)
+lean_dh_kernel(const float* __restrict__ ddg, const float* __restrict__ w_bot,
+               float* __restrict__ dh, int n_rows, int f, int kf) {
+  constexpr int kGroups = kWarp / LPR;
+  constexpr int kRows = dh_rows<LPR>();
+  constexpr int kTile = dh_tile_floats<LPR>();
+  constexpr int kRowStep = kNodeWarps * kGroups;  // between a thread's rows
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* w_s = smem;                       // [f][kLaneTile]
-  float* wt_s = w_s + f * kLaneTile;       // [kLaneTile][f]
-  float* h_all = wt_s + kLaneTile * f;     // per warp [f][edge]
-  float* dl_all = h_all + kBwdWarps * f * kEdgeBatch;           // per warp [l][edge]
-  float* gm_all = dl_all + kBwdWarps * kLaneTile * kEdgeBatch;  // per warp [l][edge]
-  int* nb_s = reinterpret_cast<int*>(gm_all + kBwdWarps * kLaneTile * kEdgeBatch);
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
-  float* h_s = h_all + warp * f * kEdgeBatch;
-  float* dl_s = dl_all + warp * kLaneTile * kEdgeBatch;
-  float* gm_s = gm_all + warp * kLaneTile * kEdgeBatch;
+  const int lq = lane % LPR;
+  const int r0 = warp * kGroups + lane / LPR;  // rows r0 + kRowStep i of the block
+  const int n_slices = (kf + kDhSlice - 1) / kDhSlice;
+  const int n_blocks = (n_rows + kRows - 1) / kRows;
+  const int64_t stride = 2 * static_cast<int64_t>(kf);  // a [dD || G] row
+  // This block's k-th step: row block blockIdx.x + (k / n_slices) gridDim.x,
+  // slice k mod n_slices.
+  auto block_of = [&](int k) { return static_cast<int>(blockIdx.x + (k / n_slices) * gridDim.x); };
 
-  const int l_base = blockIdx.y * kLaneTile;
-  const int n_l = min(kLaneTile, kf - l_base);  // lanes of this tile
-  float* payload = payload_tiles + static_cast<int64_t>(blockIdx.y) * n_edges * f;
-
-  // Edges no row covers get payload 0.
-  {
-    const int64_t lo = static_cast<int64_t>(row_ptr[0]) * f;
-    const int64_t hi = static_cast<int64_t>(row_ptr[n_rows]) * f;
-    const int64_t all = static_cast<int64_t>(n_edges) * f;
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-    for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-         i < all - hi + lo; i += stride) {
-      payload[i < lo ? i : hi + (i - lo)] = 0.f;
+  auto stage = [&](int k, int buf) {
+    float* dds = smem + buf * kTile;     // [2][kRows][kDhSlice]: dD, then G
+    float* ws = dds + 2 * kRows * kDhSlice;  // [4 LPR][kDhSliceP]
+    const int64_t first = static_cast<int64_t>(block_of(k)) * kRows;
+    const int l0 = (k % n_slices) * kDhSlice;
+    constexpr int kQ = kDhSlice / 4;
+    for (int i = threadIdx.x; i < 2 * kRows * kQ; i += blockDim.x) {
+      const int r = (i / kQ) % kRows, l = l0 + 4 * (i % kQ);
+      const int half = i / (kRows * kQ);  // 0: dD, 1: G (kf lanes further on)
+      const bool in = first + r < n_rows && l < kf;
+      cp_async16(dds + (half * kRows + r) * kDhSlice + (l - l0),
+                 in ? ddg + (first + r) * stride + half * kf + l : ddg, in);
     }
-  }
-
-  for (int idx = threadIdx.x; idx < f * kLaneTile; idx += blockDim.x) {
-    const int ff = idx / kLaneTile;
-    const int l = idx % kLaneTile;
-    const float v = l < n_l ? w_bot[static_cast<int64_t>(ff) * kf + l_base + l] : 0.f;
-    w_s[idx] = v;
-    wt_s[l * f + ff] = v;
-  }
-  __syncthreads();
-
-  const int l0 = l_base + lane * 4;  // this thread's 4 lanes (logits, dc)
-  const bool active = l0 < kf;      // kf % 4 == 0, so all 4 or none
-  float p[4];
-  int hl[4];  // lane l reads h[src, l mod F]
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    p[q] = active ? pat[l0 + q] : 0.f;
-    hl[q] = (l0 + q) % f;
-  }
-  const float4* w4 = reinterpret_cast<const float4*>(w_s) + lane;
-  const float4* hs4 = reinterpret_cast<const float4*>(h_s);
-
-  float dw[kRows][4];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    dw[r][0] = dw[r][1] = dw[r][2] = dw[r][3] = 0.f;
-  }
-
-  // The warp's current row: edges [e0, end), c and ct on its 4 lanes, and
-  // its dc sums. next_row() writes the sums of a finished row, skips (and
-  // zeroes) empty rows, and loads the next non-empty one.
-  const int n_warps = gridDim.x * kBwdWarps;
-  int row = blockIdx.x * kBwdWarps + warp;
-  int e0 = 0, end = 0;
-  float4 ci = make_float4(0.f, 0.f, 0.f, 0.f), cti = ci;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  auto store_dc = [&](int r) {
-    if (active) {
-      *reinterpret_cast<float4*>(dc + static_cast<int64_t>(r) * kf + l0) =
-          make_float4(acc[0], acc[1], acc[2], acc[3]);
+    for (int i = threadIdx.x; i < 4 * LPR * kQ; i += blockDim.x) {
+      const int r = i / kQ, l = l0 + 4 * (i % kQ);
+      const bool in = r < f && l < kf;
+      cp_async16(ws + r * kDhSliceP + (l - l0),
+                 in ? w_bot + static_cast<int64_t>(r) * kf + l : w_bot, in);
     }
+    cp_async_commit();
   };
-  auto seek_row = [&]() {
-    for (; row < n_rows; row += n_warps) {
-      e0 = row_ptr[row];
-      end = row_ptr[row + 1];
-      acc[0] = acc[1] = acc[2] = acc[3] = 0.f;
-      if (e0 < end) {
-        if (active) {
-          ci = *reinterpret_cast<const float4*>(c + static_cast<int64_t>(row) * kf + l0);
-          cti = *reinterpret_cast<const float4*>(ct + static_cast<int64_t>(row) * kf + l0);
-        }
-        return;
+
+  if (block_of(0) < n_blocks) stage(0, 0);
+  float acc[kDhRowsPerThread][4] = {};
+  for (int k = 0, buf = 0; block_of(k) < n_blocks; ++k, buf ^= 1) {
+    if (block_of(k + 1) < n_blocks) {
+      stage(k + 1, buf ^ 1);  // in flight below
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // step k's slices are in shared memory
+    const float* dds = smem + buf * kTile;
+    const float* gs = dds + kRows * kDhSlice;
+    const float* ws = gs + kRows * kDhSlice;
+#pragma unroll 2
+    for (int l = 0; l < kDhSlice; l += 4) {
+      float4 w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        w[j] = *reinterpret_cast<const float4*>(ws + (lq + LPR * j) * kDhSliceP + l);
       }
-      store_dc(row);  // an empty row's sums are 0
-    }
-  };
-  seek_row();
-  bool has = row < n_rows;
-
-  while (__syncthreads_or(has)) {
-    int nb = 0;
-    if (has) {
-      nb = min(kEdgeBatch, end - e0);
-      float st[kRegs];
-      gather_batch(st, h, src, e0, end, f, lane);
-      stage_batch(h_s, st, f, lane);
-      __syncwarp();
-
-      float lg[kEdgeBatch][4];
-      batch_logits(lg, ci, w4, hs4, f);
-      const float cq[4] = {cti.x, cti.y, cti.z, cti.w};
-      float dl[4][kEdgeBatch], gm[4][kEdgeBatch];
 #pragma unroll
-      for (int j = 0; j < kEdgeBatch; ++j) {
+      for (int i = 0; i < kDhRowsPerThread; ++i) {
+        // The lanes of a row group read the same dD row: a broadcast.
+        const float4 x =
+            *reinterpret_cast<const float4*>(dds + (r0 + kRowStep * i) * kDhSlice + l);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[i][j] = fmaf(x.x, w[j].x, acc[i][j]);
+          acc[i][j] = fmaf(x.y, w[j].y, acc[i][j]);
+          acc[i][j] = fmaf(x.z, w[j].z, acc[i][j]);
+          acc[i][j] = fmaf(x.w, w[j].w, acc[i][j]);
+        }
+      }
+    }
+    // fold_K(G): the slice's G lanes l0 + d with (l0 + d) mod f on a feature.
+    const int l0 = (k % n_slices) * kDhSlice;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int ff = lq + LPR * j;
+      if (ff >= f) continue;
+      for (int d = ((ff - l0) % f + f) % f; d < kDhSlice; d += f) {
+#pragma unroll
+        for (int i = 0; i < kDhRowsPerThread; ++i) {
+          acc[i][j] += gs[(r0 + kRowStep * i) * kDhSlice + d];
+        }
+      }
+    }
+    if (k % n_slices == n_slices - 1) {  // the row block's last slice: store
+#pragma unroll
+      for (int i = 0; i < kDhRowsPerThread; ++i) {
+        const int64_t row = static_cast<int64_t>(block_of(k)) * kRows + r0 + kRowStep * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int ff = lq + LPR * j;
+          if (row < n_rows && ff < f) dh[row * f + ff] = acc[i][j];
+          acc[i][j] = 0.f;
+        }
+      }
+    }
+    __syncthreads();  // this buffer is read before the next step restages it
+  }
+}
+
+// lean_dw_kernel: block (slab, lane tile) adds h[n]^T dD[n] over the
+// slab's rows n, in order, kDwRows at a time; warp w owns the features
+// RF w .. RF w + RF - 1 (8 RF >= F), a thread 4 lanes of the 128-lane
+// tile. The slab partials (n_slabs, F, K*F) stay near kDwPartialFloats.
+constexpr int kDwRows = 32;
+constexpr int64_t kDwPartialFloats = 1 << 20;
+constexpr int kDwMinSlabs = 16;
+constexpr int kDwMaxSlabs = 128;
+
+int dw_slab_rows(int n_rows, int f, int kf) {
+  int64_t slabs = kDwPartialFloats / (static_cast<int64_t>(f) * kf);
+  slabs = slabs < kDwMinSlabs ? kDwMinSlabs : (slabs > kDwMaxSlabs ? kDwMaxSlabs : slabs);
+  const int64_t per = (n_rows + slabs - 1) / slabs;
+  const int64_t steps = (per + kDwRows - 1) / kDwRows;
+  return static_cast<int>((steps > 0 ? steps : 1) * kDwRows);
+}
+
+int dw_n_slabs(int n_rows, int f, int kf) {
+  const int rows = dw_slab_rows(n_rows, f, kf);
+  return max(1, (n_rows + rows - 1) / rows);
+}
+
+// The h tile is padded past its last row by 8 RF floats: a warp whose
+// features run past F reads them (and drops what it sums).
+__host__ __device__ inline size_t dw_tile_floats(int f, int rf) {
+  return static_cast<size_t>(kDwRows) * (f + kLaneTile) + 8 * rf;
+}
+
+template <int RF>
+__global__ void __launch_bounds__(kNodeWarps* kWarp)
+lean_dw_kernel(const float* __restrict__ ddg, const float* __restrict__ h,
+               float* __restrict__ part, int n_rows, int f, int kf, int slab_rows) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tile = static_cast<int>(dw_tile_floats(f, RF));
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int l_base = blockIdx.y * kLaneTile;
+  const int row_begin = blockIdx.x * slab_rows;
+  const int row_end = min(n_rows, row_begin + slab_rows);
+  const int n_steps = (row_end - row_begin + kDwRows - 1) / kDwRows;
+  const int64_t stride = 2 * static_cast<int64_t>(kf);  // a [dD || G] row
+  const int fq = f / 4;
+
+  auto stage = [&](int st, int buf) {
+    float* hs = smem + buf * tile;                 // [kDwRows][f] + padding
+    float* ds = hs + kDwRows * f + 8 * RF;         // [kDwRows][kLaneTile]
+    const int first = row_begin + st * kDwRows;
+    for (int i = threadIdx.x; i < kDwRows * fq; i += blockDim.x) {
+      const int r = i / fq, q = i % fq;
+      const bool in = first + r < row_end;
+      cp_async16(hs + r * f + 4 * q, in ? h + static_cast<int64_t>(first + r) * f + 4 * q : h,
+                 in);
+    }
+    for (int i = threadIdx.x; i < kDwRows * (kLaneTile / 4); i += blockDim.x) {
+      const int r = i / (kLaneTile / 4), l = l_base + 4 * (i % (kLaneTile / 4));
+      const bool in = first + r < row_end && l < kf;
+      cp_async16(ds + r * kLaneTile + (l - l_base),
+                 in ? ddg + static_cast<int64_t>(first + r) * stride + l : ddg, in);
+    }
+    cp_async_commit();
+  };
+
+  float acc[RF][4] = {};
+  if (n_steps > 0) stage(0, 0);
+  for (int st = 0, buf = 0; st < n_steps; ++st, buf ^= 1) {
+    if (st + 1 < n_steps) {
+      stage(st + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* hs = smem + buf * tile + RF * warp;
+    const float4* d4 = reinterpret_cast<const float4*>(smem + buf * tile + kDwRows * f + 8 * RF) +
+                       lane;
+#pragma unroll 2
+    for (int n = 0; n < kDwRows; ++n) {
+      const float4 dv = d4[n * (kLaneTile / 4)];
+#pragma unroll
+      for (int r4 = 0; r4 < RF; r4 += 4) {
+        // Every lane of the warp reads the same h features: a broadcast.
+        const float4 hv = *reinterpret_cast<const float4*>(hs + n * f + r4);
+        const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          const bool valid = active && j < nb;
-          const float x = lg[j][q];
-          const float sg = sigmoidf(x);
-          const float m = p[q] != 0.f ? sg : x;
-          const float dm = p[q] != 0.f ? sg * (1.f - sg) : 1.f;
-          const float ht = h_s[hl[q] * kEdgeBatch + j];
-          dl[q][j] = valid ? cq[q] * ht * dm : 0.f;
-          gm[q][j] = valid ? cq[q] * m : 0.f;
-          acc[q] += dl[q][j];  // edges in CSR order
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int l = lane * 4 + q;
-        reinterpret_cast<float4*>(dl_s)[l] = make_float4(dl[q][0], dl[q][1], dl[q][2], dl[q][3]);
-        reinterpret_cast<float4*>(gm_s)[l] = make_float4(gm[q][0], gm[q][1], gm[q][2], gm[q][3]);
-      }
-      __syncwarp();
-
-      // payload[e, ff] for ff = lane + 32 o: the dlog @ W_bot^T product over
-      // the tile's lanes, then the (ct * mask) lanes with l mod F == ff.
-      float pv[kOut][kEdgeBatch];
-#pragma unroll
-      for (int o = 0; o < kOut; ++o) {
-#pragma unroll
-        for (int j = 0; j < kEdgeBatch; ++j) pv[o][j] = 0.f;
-      }
-      const float4* dl4 = reinterpret_cast<const float4*>(dl_s);
-      const float4* gm4 = reinterpret_cast<const float4*>(gm_s);
-#pragma unroll 4
-      for (int l = 0; l < n_l; ++l) {
-        const float4 d = dl4[l];
-#pragma unroll
-        for (int o = 0; o < kOut; ++o) {
-          const int ff = lane + kWarp * o;
-          if (ff < f) {
-            const float wv = wt_s[l * f + ff];
-            pv[o][0] = fmaf(d.x, wv, pv[o][0]);
-            pv[o][1] = fmaf(d.y, wv, pv[o][1]);
-            pv[o][2] = fmaf(d.z, wv, pv[o][2]);
-            pv[o][3] = fmaf(d.w, wv, pv[o][3]);
-          }
-        }
-      }
-#pragma unroll
-      for (int o = 0; o < kOut; ++o) {
-        const int ff = lane + kWarp * o;
-        if (ff < f) {
-          for (int l = ((ff - l_base) % f + f) % f; l < n_l; l += f) {
-            const float4 g = gm4[l];
-            pv[o][0] += g.x; pv[o][1] += g.y; pv[o][2] += g.z; pv[o][3] += g.w;
-          }
-#pragma unroll
-          for (int j = 0; j < kEdgeBatch; ++j) {
-            if (j < nb) payload[static_cast<int64_t>(e0 + j) * f + ff] = pv[o][j];
-          }
-        }
-      }
-
-      e0 += kEdgeBatch;
-      if (e0 >= end) {
-        store_dc(row);
-        row += n_warps;
-        seek_row();
-        has = row < n_rows;
-      }
-    }
-    if (lane == 0) nb_s[warp] = nb;
-    __syncthreads();  // every warp's batch is staged
-
-    // dW_bot partial: rows ff = warp + 8 r, tile lanes lane + 32 q.
-    for (int w = 0; w < kBwdWarps; ++w) {
-      if (nb_s[w] == 0) continue;
-      const float4* d4 = reinterpret_cast<const float4*>(dl_all + w * kLaneTile * kEdgeBatch);
-      const float4* h4 = reinterpret_cast<const float4*>(h_all + w * f * kEdgeBatch);
-      float4 dv[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) dv[q] = d4[lane + kWarp * q];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int ff = warp + kBwdWarps * r;
-        if (ff < f) {
-          const float4 hv = h4[ff];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            dw[r][q] = fmaf(hv.x, dv[q].x, dw[r][q]);
-            dw[r][q] = fmaf(hv.y, dv[q].y, dw[r][q]);
-            dw[r][q] = fmaf(hv.z, dv[q].z, dw[r][q]);
-            dw[r][q] = fmaf(hv.w, dv[q].w, dw[r][q]);
-          }
+          acc[r4 + q][0] = fmaf(hr[q], dv.x, acc[r4 + q][0]);
+          acc[r4 + q][1] = fmaf(hr[q], dv.y, acc[r4 + q][1]);
+          acc[r4 + q][2] = fmaf(hr[q], dv.z, acc[r4 + q][2]);
+          acc[r4 + q][3] = fmaf(hr[q], dv.w, acc[r4 + q][3]);
         }
       }
     }
-    // The loop's __syncthreads_or keeps the next batch's staging behind
-    // these reads.
+    __syncthreads();  // this buffer is read before the next step restages it
   }
-
+  const int l0 = l_base + 4 * lane;
+  if (l0 < kf) {  // kf % 4 == 0, so all 4 lanes or none
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int ff = warp + kBwdWarps * r;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int l = lane + kWarp * q;
-      if (ff < f && l < n_l) {
-        dw_part[(static_cast<int64_t>(blockIdx.x) * f + ff) * kf + l_base + l] = dw[r][q];
+    for (int r = 0; r < RF; ++r) {
+      const int ff = RF * warp + r;
+      if (ff < f) {
+        *reinterpret_cast<float4*>(part + (static_cast<int64_t>(blockIdx.x) * f + ff) * kf + l0) =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
       }
     }
   }
@@ -1140,15 +1254,46 @@ cudaError_t launch_sum_slabs(const float* parts, int n_parts, int64_t len,
   return cudaGetLastError();
 }
 
-template <int FMAX>
-cudaError_t bwd_occupancy(int f, int* per_sm) {
-  const size_t smem = bwd_smem_bytes(f);
-  cudaError_t err = cudaFuncSetAttribute(edge_program_lean_bwd_kernel<FMAX>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+// Sets a kernel's dynamic shared memory and gives the blocks of
+// kNodeWarps warps that the card holds at once (at least 1).
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, size_t smem, int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, edge_program_lean_bwd_kernel<FMAX>, kBwdWarps * kWarp, smem);
+  int device = 0, n_sm = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kNodeWarps * kWarp, smem);
+  *blocks = max(1, n_sm * per_sm);
+  return err;
+}
+
+template <int LPR>
+cudaError_t launch_dh(const float* ddg, const float* w_bot, float* dh, int n_rows, int f,
+                      int kf, cudaStream_t s) {
+  const size_t smem = sizeof(float) * dh_tile_floats<LPR>() * 2;
+  int resident = 0;
+  cudaError_t err = resident_blocks(lean_dh_kernel<LPR>, smem, &resident);
+  if (err != cudaSuccess) return err;
+  const int row_blocks = (n_rows + dh_rows<LPR>() - 1) / dh_rows<LPR>();
+  lean_dh_kernel<LPR><<<min(row_blocks, resident), kNodeWarps * kWarp, smem, s>>>(
+      ddg, w_bot, dh, n_rows, f, kf);
+  return cudaGetLastError();
+}
+
+template <int RF>
+cudaError_t launch_dw(const float* ddg, const float* h, float* part, int n_rows, int f, int kf,
+                      cudaStream_t s) {
+  const size_t smem = sizeof(float) * dw_tile_floats(f, RF) * 2;
+  cudaError_t err = cudaFuncSetAttribute(
+      lean_dw_kernel<RF>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid(dw_n_slabs(n_rows, f, kf), (kf + kLaneTile - 1) / kLaneTile);
+  lean_dw_kernel<RF><<<grid, kNodeWarps * kWarp, smem, s>>>(ddg, h, part, n_rows, f, kf,
+                                                            dw_slab_rows(n_rows, f, kf));
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1280,13 +1425,6 @@ __device__ __forceinline__ void copy_lanes(float (&dst)[NT][4], const float (&sr
 #pragma unroll
     for (int q = 0; q < 4; ++q) dst[t][q] = src[t][q];
   }
-}
-
-// mask and dmask of one lane.
-__device__ __forceinline__ void mask_chain(float x, float p, float& m, float& dm) {
-  const float sg = sigmoidf(x);
-  m = p != 0.f ? sg : x;
-  dm = p != 0.f ? sg * (1.f - sg) : 1.f;
 }
 
 // The warp's dh part: out[ff] = sum_{k < kf / f} gm_s[k f + ff] for this
@@ -1677,21 +1815,14 @@ int mma_edge_program_lean_node(const void* h, const void* w_bot, void* d, int n_
                                int kf, void* stream) {
   if (n_rows <= 0) return static_cast<int>(cudaSuccess);
   const size_t smem = node_smem_bytes(f);
-  cudaError_t err = cudaFuncSetAttribute(
-      lean_node_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
   // Persistent grid: as many blocks as fit on the card at once, spread over
   // the lane tiles, but no more than the row blocks need.
-  int device = 0, n_sm = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lean_node_kernel,
-                                                      kNodeWarps * kWarp, smem);
+  int resident = 0;
+  const cudaError_t err = resident_blocks(lean_node_kernel, smem, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (kf + kLaneTile - 1) / kLaneTile;
   const int row_blocks = (n_rows + kNodeRows - 1) / kNodeRows;
-  dim3 grid(min(row_blocks, max(1, n_sm * per_sm / tiles)), tiles);
+  dim3 grid(min(row_blocks, max(1, resident / tiles)), tiles);
   lean_node_kernel<<<grid, kNodeWarps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(h), static_cast<const float*>(w_bot),
       static_cast<float*>(d), n_rows, f, kf);
@@ -1728,58 +1859,77 @@ int mma_edge_program_lean_edges(const void* c, const void* pat, const void* d, c
   return static_cast<int>(err);
 }
 
-// The grid size G of mma_edge_program_lean_bwd (blocks per lane tile): as
-// many blocks as fit on the card at once, but no more than the rows need.
-// The caller sizes the (G, f, kf) dW_bot partial buffer from it.
-int mma_edge_program_lean_bwd_grid(int n_rows, int f, int* grid_x) {
-  int device = 0, n_sm = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = f <= 64 ? bwd_occupancy<64>(f, &per_sm) : bwd_occupancy<128>(f, &per_sm);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int row_blocks = (n_rows + kBwdWarps - 1) / kBwdWarps;
-  *grid_x = max(1, min(row_blocks, n_sm * per_sm));
-  return static_cast<int>(cudaSuccess);
+// Kernel 3's dst pass: dc[i] = sum_{e in row i} dlog_e. c, ct (n_rows,
+// kf), pat (kf,) 0/1 f32; node tables d = h @ w_bot (R, kf) and h (R, f)
+// f32, R above every src; src (n_edges,) i32, row_ptr (n_rows+1,) i32 with
+// row_ptr[n_rows] <= n_edges, dc (n_rows, kf) f32; scratch part (n_chunks,
+// 2, kf) f32 and tail_row (n_chunks,) i32, n_chunks =
+// mma_segment_sum_n_chunks(n_edges). Requires f % 4 == 0, kf % f == 0 and
+// 16-byte aligned c, ct, pat, d, h and dc.
+int mma_edge_program_lean_bwd_dst(const void* c, const void* ct, const void* pat, const void* d,
+                                  const void* h, const void* src, const void* row_ptr, void* dc,
+                                  void* part, void* tail_row, int n_rows, int f, int kf,
+                                  int n_edges, void* stream) {
+  if (n_rows <= 0) return static_cast<int>(cudaSuccess);
+  const LeanDcMessage msg{static_cast<const float4*>(c),   static_cast<const float4*>(ct),
+                          static_cast<const float4*>(pat), static_cast<const float4*>(d),
+                          static_cast<const float4*>(h),   kf / 4, f / 4};
+  return static_cast<int>(launch_lean_bwd_edges(msg, row_ptr, src, dc, part, tail_row, n_rows,
+                                                kf, n_edges, static_cast<cudaStream_t>(stream)));
 }
 
-// c, ct (n_rows, kf), h (n_rows, f), w_bot (f, kf), pat (kf,) 0/1 f32,
-// src (n_edges,) i32, row_ptr (n_rows+1,) i32. Outputs: dc (n_rows, kf),
-// dw (f, kf), payload (n_edges, f). Scratch: dw_part (grid_x, f, kf) and,
-// when kf > 128, payload_part (ceil(kf / 128), n_edges, f). Requires f % 4
-// == 0, f <= 128, kf % f == 0, kf <= 512 and 16-byte aligned c and ct.
-int mma_edge_program_lean_bwd(const void* c, const void* h, const void* w_bot,
-                              const void* pat, const void* src,
-                              const void* row_ptr, const void* ct, void* dc,
-                              void* dw, void* payload, void* dw_part,
-                              void* payload_part, int n_rows, int n_edges, int f,
-                              int kf, int grid_x, void* stream) {
+// Kernel 3's src pass over the CSC: out[s] = [dD[s] || G[s]] (n_rows, 2
+// kf) f32. Node tables c, ct (R, kf) gathered through dst_csc (n_edges,)
+// i32, R above every dst_csc; d (n_rows, kf), h (n_rows, f), pat (kf,);
+// col_ptr (n_rows+1,) i32 with col_ptr[n_rows] <= n_edges; scratch part
+// (n_chunks, 2, 2 kf) f32 and tail_row (n_chunks,) i32. Same width and
+// alignment requirements as mma_edge_program_lean_bwd_dst.
+int mma_edge_program_lean_bwd_src(const void* c, const void* ct, const void* pat, const void* d,
+                                  const void* h, const void* dst_csc, const void* col_ptr,
+                                  void* out, void* part, void* tail_row, int n_rows, int f,
+                                  int kf, int n_edges, void* stream) {
   if (n_rows <= 0) return static_cast<int>(cudaSuccess);
+  const LeanSrcMessage msg{static_cast<const float4*>(c),   static_cast<const float4*>(ct),
+                           static_cast<const float4*>(pat), static_cast<const float4*>(d),
+                           static_cast<const float4*>(h),   kf / 4, f / 4};
+  return static_cast<int>(launch_lean_bwd_edges(msg, col_ptr, dst_csc, out, part, tail_row,
+                                                n_rows, kf, n_edges,
+                                                static_cast<cudaStream_t>(stream)));
+}
+
+// The slab count of mma_edge_program_lean_bwd_node; the caller sizes the
+// (n_slabs, f, kf) f32 dW_bot partials from it.
+int mma_edge_program_lean_bwd_n_slabs(int n_rows, int f, int kf) {
+  return dw_n_slabs(n_rows, f, kf);
+}
+
+// Kernel 3's node pass: dh = fold_K(G) + dD @ w_bot^T (n_rows, f) and dw =
+// h^T dD (f, kf), from ddg (n_rows, 2 kf) = [dD || G], h (n_rows, f) and
+// w_bot (f, kf) f32; scratch dw_part (n_slabs, f, kf) f32. Requires f % 4
+// == 0, f <= 128, kf % f == 0, kf <= 512 and 16-byte aligned ddg, h and
+// w_bot.
+int mma_edge_program_lean_bwd_node(const void* ddg, const void* h, const void* w_bot, void* dh,
+                                   void* dw, void* dw_part, int n_rows, int f, int kf,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = (kf + kLaneTile - 1) / kLaneTile;
-  float* pay = static_cast<float*>(tiles > 1 ? payload_part : payload);
-  const size_t smem = bwd_smem_bytes(f);
-  int per_sm = 0;  // sets the shared-memory attribute of the instance used
-  cudaError_t err = f <= 64 ? bwd_occupancy<64>(f, &per_sm) : bwd_occupancy<128>(f, &per_sm);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(grid_x, tiles);
-  auto kernel = f <= 64 ? edge_program_lean_bwd_kernel<64> : edge_program_lean_bwd_kernel<128>;
-  kernel<<<grid, kBwdWarps * kWarp, smem, s>>>(
-      static_cast<const float*>(c), static_cast<const float*>(h),
-      static_cast<const float*>(w_bot), static_cast<const float*>(pat),
-      static_cast<const int32_t*>(src), static_cast<const int32_t*>(row_ptr),
-      static_cast<const float*>(ct), static_cast<float*>(dc),
-      static_cast<float*>(dw_part), pay, n_rows, n_edges, f, kf);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  err = launch_sum_slabs(static_cast<const float*>(dw_part), grid_x,
-                         static_cast<int64_t>(f) * kf, static_cast<float*>(dw), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (tiles > 1) {
-    err = launch_sum_slabs(pay, tiles, static_cast<int64_t>(n_edges) * f,
-                           static_cast<float*>(payload), s);
+  const float* dd = static_cast<const float*>(ddg);
+  const float* hp = static_cast<const float*>(h);
+  float* part = static_cast<float*>(dw_part);
+  const int64_t len = static_cast<int64_t>(f) * kf;
+  if (n_rows <= 0) {  // no rows: dW_bot is 0
+    return static_cast<int>(launch_sum_slabs(part, 0, len, static_cast<float*>(dw), s));
   }
-  return static_cast<int>(err);
+  const float* w = static_cast<const float*>(w_bot);
+  float* out = static_cast<float*>(dh);
+  cudaError_t err = f <= 32   ? launch_dh<8>(dd, w, out, n_rows, f, kf, s)
+                    : f <= 64 ? launch_dh<16>(dd, w, out, n_rows, f, kf, s)
+                              : launch_dh<32>(dd, w, out, n_rows, f, kf, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = f <= 64 ? launch_dw<8>(dd, hp, part, n_rows, f, kf, s)
+                : launch_dw<16>(dd, hp, part, n_rows, f, kf, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_sum_slabs(part, dw_n_slabs(n_rows, f, kf), len,
+                                           static_cast<float*>(dw), s));
 }
 
 // data (E, C) f32, row_ptr (n_rows+1,) i32, out (n_rows, 2C) f32.

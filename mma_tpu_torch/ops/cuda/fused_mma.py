@@ -16,8 +16,12 @@ its CSC twin:
   passes summing the messages from ``D`` and ``h``.
   ``LAUNCHES["edge_program_lean"]`` counts calls.
 - Its backward, :func:`edge_program_lean_bwd`, replaces
-  ``_program_bwd_lean_kernel``: ``dc``, ``dW_bot`` and a per-edge ``dh``
-  payload, which :func:`segment_sum_csr` then reduces by source.
+  ``_program_bwd_lean_kernel``: ``dc``, ``dW_bot`` and ``dh``. Eight
+  kernels a call and no per-edge tensor: kernel 2's node pass ``D = h @
+  W_bot``, a dst pass over the CSR (``dc``) and a src pass over the CSC
+  (``[dD ‖ G]``), each kernel 1's two passes with its own message, and a
+  node pass (``dh = fold_K(G) + dD @ W_botᵀ``, ``dW_bot = hᵀ · dD`` in
+  slab partials added in order).
 - :func:`segment_sum_sq_csr` replaces ``_sumsq_kernel``: ``[Σx ‖ Σx²]``
   per row, the var/std aggregators' input.
 - The wide edge program :func:`edge_program` (``S[i] = Σ_{dst_e=i}
@@ -66,13 +70,11 @@ LAUNCHES = {"segment_sum": 0, "edge_program_lean": 0, "edge_program_lean_bwd": 0
 EDGE_BWD_MODE = "payload_permute"
 EDGE_BWD_MODES = ("payload_permute", "csc_gather")
 
-# Widths the edge-program kernels take: the lean node pass and backward
-# keep W_bot's 128-lane tile in shared memory (F · 512 B, twice in the
-# backward); every edge-program kernel gives each thread 4 lanes of each
-# 128-lane tile.
+# Widths the edge-program kernels take: the lean node passes keep W_bot's
+# 128-lane tile (or a slice of it) in shared memory; every edge-program
+# kernel gives each thread 4 lanes of each 128-lane tile.
 MAX_F = 128
 MAX_KF = 512
-LANE_TILE = 128
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -93,16 +95,18 @@ def _lib() -> ctypes.CDLL:
         lib.mma_edge_program_lean_node.restype = _I
         lib.mma_edge_program_lean_edges.argtypes = [_P] * 9 + [_I] * 4 + [_P]
         lib.mma_edge_program_lean_edges.restype = _I
-        lib.mma_edge_program_lean_bwd_grid.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
-        lib.mma_edge_program_lean_bwd_grid.restype = _I
-        lib.mma_edge_program_lean_bwd.argtypes = [_P] * 12 + [_I] * 5 + [_P]
-        lib.mma_edge_program_lean_bwd.restype = _I
+        for fn in ("mma_edge_program_lean_bwd_dst", "mma_edge_program_lean_bwd_src"):
+            getattr(lib, fn).argtypes = [_P] * 10 + [_I] * 4 + [_P]
+        lib.mma_edge_program_lean_bwd_n_slabs.argtypes = [_I] * 3
+        lib.mma_edge_program_lean_bwd_node.argtypes = [_P] * 6 + [_I] * 3 + [_P]
         lib.mma_segment_sum_sq_csr.argtypes = [_P, _P, _P, _I, _I, _P]
         lib.mma_edge_program_fwd.argtypes = [_P] * 7 + [_I] * 3 + [_P]
         lib.mma_edge_program_bwd.argtypes = [_P] * 9 + [_I] * 4 + [_P]
         lib.mma_edge_program_bwd_csc.argtypes = [_P] * 8 + [_I] * 3 + [_P]
         lib.mma_masked_segment_sum.argtypes = [_P] * 5 + [_I] * 4 + [_P]
-        for fn in ("mma_segment_sum_sq_csr", "mma_edge_program_fwd", "mma_edge_program_bwd",
+        for fn in ("mma_edge_program_lean_bwd_dst", "mma_edge_program_lean_bwd_src",
+                   "mma_edge_program_lean_bwd_n_slabs", "mma_edge_program_lean_bwd_node",
+                   "mma_segment_sum_sq_csr", "mma_edge_program_fwd", "mma_edge_program_bwd",
                    "mma_edge_program_bwd_csc", "mma_masked_segment_sum"):
             getattr(lib, fn).restype = _I
         _configured = True
@@ -163,6 +167,14 @@ def segment_sum_reference(data: torch.Tensor, row_ptr: torch.Tensor,
     return out.index_add_(0, _row_ids(row_ptr), rows.float())
 
 
+def _chunk_scratch(n_edges: int, width: int, device):
+    """Kernel 1's pass-1 scratch for ``n_edges`` edge positions and rows of
+    ``width`` floats: the head and tail partials and the tail rows."""
+    n_chunks = _lib().mma_segment_sum_n_chunks(n_edges)
+    return (torch.empty((n_chunks, 2, width), dtype=torch.float32, device=device),
+            torch.empty((n_chunks,), dtype=torch.int32, device=device))
+
+
 def _segment_sum_kernel(data: torch.Tensor, row_ptr: torch.Tensor,
                         index: Optional[torch.Tensor] = None) -> torch.Tensor:
     name = "segment_sum_csr"
@@ -180,10 +192,8 @@ def _segment_sum_kernel(data: torch.Tensor, row_ptr: torch.Tensor,
     n_edges = data.shape[0] if index is None else index.shape[0]
     dev = data.device
     lib = _lib()
-    n_chunks = lib.mma_segment_sum_n_chunks(n_edges)
     out = torch.empty((n, ch), dtype=torch.float32, device=dev)
-    part = torch.empty((n_chunks, 2, ch), dtype=torch.float32, device=dev)
-    tail_row = torch.empty((n_chunks,), dtype=torch.int32, device=dev)
+    part, tail_row = _chunk_scratch(n_edges, ch, dev)
     vec4 = ch % 4 == 0 and data.data_ptr() % 16 == 0
     with torch.cuda.device(dev):
         err = lib.mma_segment_sum_csr(
@@ -319,10 +329,8 @@ def _lean_edge_pass(c, pattern, d, h, src, row_ptr):
     n, kf, f = row_ptr.shape[0] - 1, c.shape[1], h.shape[1]
     n_edges = src.shape[0]
     lib = _lib()
-    n_chunks = lib.mma_segment_sum_n_chunks(n_edges)
     out = torch.empty((n, kf), dtype=torch.float32, device=c.device)
-    part = torch.empty((n_chunks, 2, kf), dtype=torch.float32, device=c.device)
-    tail_row = torch.empty((n_chunks,), dtype=torch.int32, device=c.device)
+    part, tail_row = _chunk_scratch(n_edges, kf, c.device)
     with torch.cuda.device(c.device):
         err = lib.mma_edge_program_lean_edges(
             c.data_ptr(), pattern.data_ptr(), d.data_ptr(), h.data_ptr(), src.data_ptr(),
@@ -344,9 +352,10 @@ def _edge_program_lean_kernel(c, w_bot, h, pattern, src, row_ptr):
     return out
 
 
-def edge_program_lean_bwd_reference(c, w_bot, h, pattern, src, row_ptr, ct):
-    """Plain version of :func:`edge_program_lean_bwd`, with explicit
-    per-edge tensors: ``(dc, dW_bot, payload)``."""
+def edge_program_lean_payload_reference(c, w_bot, h, pattern, src, row_ptr, ct):
+    """The JAX kernel's own contract, with explicit per-edge tensors:
+    ``(dc, dW_bot, payload)``, the payload ``(E, F)`` being each edge's
+    ``Σ_k (ct[i] ⊙ mask_e)_k + dlog_e @ W_botᵀ`` (0 on edges the CSR skips)."""
     f, kf = w_bot.shape
     ids = _row_ids(row_ptr)
     lo, hi = int(row_ptr[0]), int(row_ptr[-1])
@@ -362,53 +371,127 @@ def edge_program_lean_bwd_reference(c, w_bot, h, pattern, src, row_ptr, ct):
     return dc, dw, payload
 
 
-def _edge_program_lean_bwd_kernel(c, w_bot, h, pattern, src, row_ptr, ct):
-    name = "edge_program_lean_bwd"
-    n, f, kf = _check_program_inputs(name, c, w_bot, h, pattern, src, row_ptr, ct)
-    n_edges = src.shape[0]
-    dev = c.device
+def edge_program_lean_bwd_reference(c, w_bot, h, pattern, src, row_ptr, col_ptr, dst_csc, ct):
+    """Plain version of :func:`edge_program_lean_bwd`: the per-edge form
+    (:func:`edge_program_lean_payload_reference`), then its payload summed
+    by source. ``col_ptr`` and ``dst_csc`` are the kernels' (the CSC covers
+    the edges the CSR covers): ``(dc, dW_bot, dh)``."""
+    dc, dw, payload = edge_program_lean_payload_reference(c, w_bot, h, pattern, src, row_ptr, ct)
+    lo, hi = int(row_ptr[0]), int(row_ptr[-1])
+    dh = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
+    return dc, dw, dh.index_add_(0, src[lo:hi].long(), payload[lo:hi])
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it on a 16-byte boundary."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _lean_bwd_dst_pass(c, ct, pattern, d, h, src, row_ptr):
+    """Kernel 3's dst pass, kernel 1's two launches with the ``dc`` message:
+    ``dc[i] = Σ_{e ∈ row i} ct[i] ⊙ tile(h[src_e], K) ⊙ dmask(c[i] +
+    d[src_e])`` over the CSR ``row_ptr`` (N+1,), with ``c``, ``ct`` (N, K·F)
+    and the node tables ``d`` (R, K·F) and ``h`` (R, F), 16-byte aligned.
+    No host sync."""
+    n, kf, f = row_ptr.shape[0] - 1, c.shape[1], h.shape[1]
     lib = _lib()
-    with torch.cuda.device(dev):
-        grid = ctypes.c_int(0)
-        _check_launch(lib, lib.mma_edge_program_lean_bwd_grid(n, f, ctypes.byref(grid)), name)
-        tiles = -(-kf // LANE_TILE)
-        dc = torch.empty((n, kf), dtype=torch.float32, device=dev)
-        dw = torch.empty((f, kf), dtype=torch.float32, device=dev)
-        payload = torch.empty((n_edges, f), dtype=torch.float32, device=dev)
-        dw_part = torch.empty((grid.value, f, kf), dtype=torch.float32, device=dev)
-        payload_part = (torch.empty((tiles, n_edges, f), dtype=torch.float32, device=dev)
-                        if tiles > 1 else None)
-        err = lib.mma_edge_program_lean_bwd(
-            c.data_ptr(), h.data_ptr(), w_bot.data_ptr(), pattern.data_ptr(),
-            src.data_ptr(), row_ptr.data_ptr(), ct.data_ptr(), dc.data_ptr(),
-            dw.data_ptr(), payload.data_ptr(), dw_part.data_ptr(),
-            None if payload_part is None else payload_part.data_ptr(),
-            n, n_edges, f, kf, grid.value, _stream(),
+    dc = torch.empty((n, kf), dtype=torch.float32, device=c.device)
+    part, tail_row = _chunk_scratch(src.shape[0], kf, c.device)
+    with torch.cuda.device(c.device):
+        err = lib.mma_edge_program_lean_bwd_dst(
+            c.data_ptr(), ct.data_ptr(), pattern.data_ptr(), d.data_ptr(), h.data_ptr(),
+            src.data_ptr(), row_ptr.data_ptr(), dc.data_ptr(), part.data_ptr(),
+            tail_row.data_ptr(), n, f, kf, src.shape[0], _stream(),
         )
-    _check_launch(lib, err, name)
+    _check_launch(lib, err, "edge_program_lean_bwd dst pass")
+    return dc
+
+
+def _lean_bwd_src_pass(c, ct, pattern, d, h, dst_csc, col_ptr):
+    """Kernel 3's src pass, kernel 1's two launches with the ``[dD ‖ G]``
+    message over the CSC ``col_ptr`` (N+1,), reading each edge's
+    destination through ``dst_csc``: row ``s`` is ``[Σ dlog_e ‖ Σ ct[i] ⊙
+    mask_e]`` over the edges ``e = (s → i)`` it covers, (N, 2·K·F). ``c``,
+    ``ct`` are node tables (R, K·F), ``d`` (N, K·F), ``h`` (N, F). No host
+    sync."""
+    n, kf, f = col_ptr.shape[0] - 1, d.shape[1], h.shape[1]
+    lib = _lib()
+    out = torch.empty((n, 2 * kf), dtype=torch.float32, device=d.device)
+    part, tail_row = _chunk_scratch(dst_csc.shape[0], 2 * kf, d.device)
+    with torch.cuda.device(d.device):
+        err = lib.mma_edge_program_lean_bwd_src(
+            c.data_ptr(), ct.data_ptr(), pattern.data_ptr(), d.data_ptr(), h.data_ptr(),
+            dst_csc.data_ptr(), col_ptr.data_ptr(), out.data_ptr(), part.data_ptr(),
+            tail_row.data_ptr(), n, f, kf, dst_csc.shape[0], _stream(),
+        )
+    _check_launch(lib, err, "edge_program_lean_bwd src pass")
+    return out
+
+
+def _lean_bwd_node_pass(ddg, h, w_bot):
+    """Kernel 3's node pass, three launches: ``dh = fold_K(G) + dD @
+    W_botᵀ`` (N, F) and ``dW_bot = hᵀ · dD`` (F, K·F) from ``ddg = [dD ‖
+    G]`` (N, 2·K·F), ``dW_bot`` as slab partials over node rows added in
+    order."""
+    n, f = h.shape
+    kf = w_bot.shape[1]
+    lib = _lib()
+    dh = torch.empty((n, f), dtype=torch.float32, device=h.device)
+    dw = torch.empty((f, kf), dtype=torch.float32, device=h.device)
+    dw_part = torch.empty((lib.mma_edge_program_lean_bwd_n_slabs(n, f, kf), f, kf),
+                          dtype=torch.float32, device=h.device)
+    with torch.cuda.device(h.device):
+        err = lib.mma_edge_program_lean_bwd_node(
+            ddg.data_ptr(), h.data_ptr(), w_bot.data_ptr(), dh.data_ptr(), dw.data_ptr(),
+            dw_part.data_ptr(), n, f, kf, _stream(),
+        )
+    _check_launch(lib, err, "edge_program_lean_bwd node pass")
+    return dh, dw
+
+
+def _edge_program_lean_bwd_kernel(c, w_bot, h, pattern, src, row_ptr, col_ptr, dst_csc, ct):
+    """Kernel 3 on the card: ``D``, the dst pass, the src pass, the node pass."""
+    name = "edge_program_lean_bwd"
+    n, _, _ = _check_program_inputs(name, c, w_bot, h, pattern, src, row_ptr, ct)
+    _check_cuda_inputs(name, c=c, col_ptr=col_ptr, dst_csc=dst_csc)
+    for arg, t in (("col_ptr", col_ptr), ("dst_csc", dst_csc)):
+        _check_dtype(name, arg, t, torch.int32)
+    if col_ptr.shape != (n + 1,) or dst_csc.ndim != 1:
+        raise ValueError(f"{name}: col_ptr{tuple(col_ptr.shape)} and "
+                         f"dst_csc{tuple(dst_csc.shape)} do not fit N={n}")
+    # The passes read h, the pattern and W_bot in 16-byte pieces.
+    h, pattern, w_bot = _aligned(h), _aligned(pattern), _aligned(w_bot)
+    d = _lean_node_pass(h, w_bot)
+    dc = _lean_bwd_dst_pass(c, ct, pattern, d, h, src, row_ptr)
+    ddg = _lean_bwd_src_pass(c, ct, pattern, d, h, dst_csc, col_ptr)
+    dh, dw = _lean_bwd_node_pass(ddg, h, w_bot)
     LAUNCHES["edge_program_lean_bwd"] += 1
-    return dc, dw, payload
+    return dc, dw, dh
 
 
 def edge_program_lean_bwd(c: torch.Tensor, w_bot: torch.Tensor, h: torch.Tensor,
-                          pattern: torch.Tensor, src: torch.Tensor,
-                          row_ptr: torch.Tensor, ct: torch.Tensor
+                          pattern: torch.Tensor, src: torch.Tensor, row_ptr: torch.Tensor,
+                          col_ptr: torch.Tensor, dst_csc: torch.Tensor, ct: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Backward of :func:`edge_program_lean` for the cotangent ``ct`` (N, K·F).
 
-    With ``logits_e = c[i] + h[src_e] @ W_bot`` on edge ``e`` of row ``i``,
+    With ``logits_e = c[i] + h[s] @ W_bot`` on edge ``e = (s → i)``,
     ``mask`` and ``dmask`` the activation and its derivative, and
-    ``dlog_e = ct[i] ⊙ tile(h[src_e], K) ⊙ dmask``, returns
+    ``dlog_e = ct[i] ⊙ tile(h[s], K) ⊙ dmask``, returns
 
-    - ``dc`` (N, K·F): ``Σ_{e ∈ row i} dlog_e``;
-    - ``dW_bot`` (F, K·F): ``Σ_e h[src_e]ᵀ dlog_e``;
-    - ``payload`` (E, F): ``Σ_k (ct[i] ⊙ mask_e)_k + dlog_e @ W_botᵀ`` for
-      the edges the CSR covers, 0 for the others.
+    - ``dc`` (N, K·F): ``Σ_{e: dst=i} dlog_e`` over the CSR ``row_ptr``;
+    - ``dW_bot`` (F, K·F): ``Σ_e h[s]ᵀ dlog_e``;
+    - ``dh`` (N, F): ``Σ_{e: src=s} (Σ_k (ct[i] ⊙ mask_e)_k + dlog_e @
+      W_botᵀ)``, the gradient of both uses of ``h``.
 
-    ``dh`` is the payload summed by source. Deterministic: ``dW_bot`` sums
-    per-block partials in a fixed order, with no atomics.
+    ``col_ptr`` (N+1,) and ``dst_csc`` (E,) int32 are the CSC that covers
+    the same edges as ``row_ptr`` (``Graph.real_col_ptr`` and
+    ``Graph.dst_csc`` beside ``Graph.real_row_ptr``). On the card no
+    per-edge tensor is stored: the src-keyed sums come from a pass over the
+    CSC and the products from node-level passes. Deterministic: no
+    atomics, every partition fixed by E and N.
     """
-    tensors = (c, w_bot, h, pattern, src, row_ptr, ct)
+    tensors = (c, w_bot, h, pattern, src, row_ptr, col_ptr, dst_csc, ct)
     if _on_cpu(*tensors):
         return edge_program_lean_bwd_reference(*tensors)
     return _edge_program_lean_bwd_kernel(*tensors)
@@ -422,22 +505,19 @@ def _edge_program_lean(c, w_bot, h, pattern, src, row_ptr):
 
 class _EdgeProgramLean(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, c, w_bot, h, pattern, src, row_ptr, col_ptr, src_perm):
-        ctx.save_for_backward(c, w_bot, h, pattern, src, row_ptr, col_ptr, src_perm)
+    def forward(ctx, c, w_bot, h, pattern, src, row_ptr, col_ptr, dst_csc):
+        ctx.save_for_backward(c, w_bot, h, pattern, src, row_ptr, col_ptr, dst_csc)
         return _edge_program_lean(c, w_bot, h, pattern, src, row_ptr)
 
     @staticmethod
     def backward(ctx, ct):
-        c, w_bot, h, pattern, src, row_ptr, col_ptr, src_perm = ctx.saved_tensors
-        dc, dw, payload = edge_program_lean_bwd(c, w_bot, h, pattern, src, row_ptr,
-                                                ct.contiguous())
-        dh = segment_sum_csr(payload, col_ptr, index=src_perm) if ctx.needs_input_grad[2] else None
+        dc, dw, dh = edge_program_lean_bwd(*ctx.saved_tensors, ct.contiguous())
         return dc, dw, dh, None, None, None, None, None
 
 
 def edge_program_lean(c: torch.Tensor, w_bot: torch.Tensor, h: torch.Tensor,
                       pattern: torch.Tensor, src: torch.Tensor, row_ptr: torch.Tensor,
-                      col_ptr: torch.Tensor, src_perm: torch.Tensor) -> torch.Tensor:
+                      col_ptr: torch.Tensor, dst_csc: torch.Tensor) -> torch.Tensor:
     """Lean MMA edge program over the dst-sorted CSR.
 
     ``S[i] = Σ_{e ∈ row i} act(c[i] + h[src_e] @ W_bot) ⊙ tile(h[src_e], K)``
@@ -454,13 +534,13 @@ def edge_program_lean(c: torch.Tensor, w_bot: torch.Tensor, h: torch.Tensor,
     which the edge pass reads in 16-byte slots; the backward takes ``h`` and
     ``pattern`` at any alignment.
 
-    Differentiable in ``c``, ``w_bot`` and ``h`` (:func:`edge_program_lean_bwd`).
-    The gradient of ``h`` reduces the per-edge payload by source over the
-    CSC ``col_ptr`` (N+1,) int32 with ``index=src_perm`` (E,) int32: the CSC
-    that covers the same edges as ``row_ptr`` (``Graph.real_col_ptr`` and
-    ``Graph.src_perm`` beside ``Graph.real_row_ptr``).
+    Differentiable in ``c``, ``w_bot`` and ``h`` (:func:`edge_program_lean_bwd`),
+    whose src-keyed sums run over the CSC ``col_ptr`` (N+1,) int32 and
+    ``dst_csc`` (E,) int32, the destination of each edge in CSC order: the
+    CSC that covers the same edges as ``row_ptr`` (``Graph.real_col_ptr``
+    and ``Graph.dst_csc`` beside ``Graph.real_row_ptr``).
     """
-    return _EdgeProgramLean.apply(c, w_bot, h, pattern, src, row_ptr, col_ptr, src_perm)
+    return _EdgeProgramLean.apply(c, w_bot, h, pattern, src, row_ptr, col_ptr, dst_csc)
 
 
 # ---------------------------------------------------------------- kernel 8

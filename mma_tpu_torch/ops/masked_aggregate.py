@@ -138,7 +138,7 @@ def masked_multi_aggregate(
         w_top = _flat_lanes(mask_weights[:, :f, :])
         w_bot = _flat_lanes(mask_weights[:, f:, :]).contiguous()
         s = edge_program_lean(h @ w_top, w_bot, h.contiguous(), pat, graph.src, row_ptr,
-                              graph.real_col_ptr, graph.src_perm)
+                              graph.real_col_ptr, graph.dst_csc)
     s = s.reshape(n, k, f)
 
     deg = torch.clamp(graph.deg, min=1.0)[:, None]  # (N, 1)

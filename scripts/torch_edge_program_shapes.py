@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""Time the edge-program kernel on graphs of chosen shape, on one GPU.
+"""Time the lean edge program on graphs of chosen shape, on one GPU.
 
-    python3 scripts/torch_edge_program_shapes.py
+    python3 scripts/torch_edge_program_shapes.py [--backward]
 
 Separates the kernel's per-edge cost from its skew cost: one heavy row
 alone, uniform degrees, the power-law synthetic-large graph and Cora's graph
 (the eval forward's shape), at F=64, K=2 with random inputs. Uses
-only ``edge_program_lean``'s public signature, so a copy placed in the
-``scripts/`` of another checkout of this repository times that checkout's
-kernel on the same graphs. Reduces over ``Graph.real_row_ptr`` as the model
-does, and prints the median device time of one call (``chip_smoke``'s
-CUDA-event timer).
+only ``edge_program_lean``'s public signature (its last argument, the CSC
+index, is ``dst_csc`` or, in older checkouts, ``src_perm``), so a copy
+placed in the ``scripts/`` of another checkout of this repository times
+that checkout's kernels on the same graphs. Reduces over
+``Graph.real_row_ptr`` as the model does, and prints the median device
+time of one call (``chip_smoke``'s CUDA-event timer): the forward (kernel
+2), or with ``--backward`` the forward and the backward through autograd
+to ``c``, ``W_bot`` and ``h`` (kernels 2 and 3, and whatever else the
+checkout's backward launches).
 """
 
 from __future__ import annotations
 
+import argparse
+import inspect
 import os
 import sys
 
@@ -25,6 +31,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--backward", action="store_true",
+                    help="time the forward and the backward through autograd")
+    backward = ap.parse_args().backward
     if not torch.cuda.is_available():
         print("torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -43,8 +53,19 @@ def main() -> int:
         c = torch.randn((graph.n_node, kf), generator=gen).cuda()
         w = (torch.randn((f, kf), generator=gen) / f ** 0.5).cuda()
         pat = torch.ones(kf, device="cuda")
-        args = (c, w, h, pat, graph.src, graph.real_row_ptr, graph.real_col_ptr, graph.src_perm)
-        ms = device_ms(lambda: fused_mma.edge_program_lean(*args))
+        csc_index = getattr(graph, list(inspect.signature(
+            fused_mma.edge_program_lean).parameters)[-1])
+        args = (c, w, h, pat, graph.src, graph.real_row_ptr, graph.real_col_ptr, csc_index)
+        if backward:
+            ct = torch.randn((graph.n_node, kf), generator=gen).cuda()
+            leaves = [t.clone().requires_grad_() for t in (c, w, h)]
+
+            def step():
+                fused_mma.edge_program_lean(*leaves, *args[3:]).backward(ct)
+        else:
+            def step():
+                fused_mma.edge_program_lean(*args)
+        ms = device_ms(step)
         print(f"{name}: E={int(graph.num_edges)} max in-degree {int(graph.deg.max())} "
               f"N={graph.n_node}: {ms:.4f} ms")
 

@@ -85,7 +85,7 @@ def test_edge_program_lean_grads_match_pallas(request, which, aggs):
 
     tc, tw, th = _leaf(c), _leaf(w_bot), _leaf(h)
     s = fused_mma.edge_program_lean(tc, tw, th, pat, tg.src, tg.real_row_ptr,
-                                    tg.real_col_ptr, tg.src_perm)
+                                    tg.real_col_ptr, tg.dst_csc)
     s.backward(torch.from_numpy(ct))
 
     _, vjp = jax.vjp(
@@ -124,8 +124,10 @@ def test_fused_aggregate_grads_match_xla(graphs, aggs):
 
 
 def test_edge_program_lean_bwd_reference_matches_autograd(graphs):
-    """``dc``/``dW``/``payload`` against torch autograd of the plain forward;
-    ``payload`` is the gradient of the edge's own gathered ``h[src]`` row."""
+    """The per-edge form (``edge_program_lean_payload_reference``, the JAX
+    kernel's contract): ``dc``/``dW``/``payload`` against torch autograd of
+    the plain forward; ``payload`` is the gradient of the edge's own
+    gathered ``h[src]`` row."""
     _, tg, n = graphs
     f, k = 8, 3
     h, _, c, w_bot, ct = _program_inputs(tg.n_node, f, k, seed=4)
@@ -133,7 +135,7 @@ def test_edge_program_lean_bwd_reference_matches_autograd(graphs):
                                "new_sigmoid", True, f, "cpu")
     row_ptr = tg.real_row_ptr
     hi = int(row_ptr[-1])
-    dc, dw, payload = fused_mma.edge_program_lean_bwd_reference(
+    dc, dw, payload = fused_mma.edge_program_lean_payload_reference(
         torch.from_numpy(c), torch.from_numpy(w_bot), torch.from_numpy(h), pat, tg.src,
         row_ptr, torch.from_numpy(ct))
 
@@ -150,6 +152,33 @@ def test_edge_program_lean_bwd_reference_matches_autograd(graphs):
                                atol=1e-5 * tw.grad.abs().max().item())
     np.testing.assert_allclose(payload[:hi].numpy(), h_src.grad.numpy(), **tol)
     assert (payload[hi:] == 0).all()  # padding edges
+
+
+@pytest.mark.parametrize("aggs", [("mean", "max", "sum"), ("mean", "mean2")])
+def test_edge_program_lean_bwd_reference_dh_matches_autograd(graphs, aggs):
+    """``edge_program_lean_bwd_reference``'s ``(dc, dW_bot, dh)`` against
+    torch autograd of the plain forward with a leaf ``h``: ``dh`` is the
+    gradient of both uses of ``h`` (the logits and the tiled message),
+    which the per-edge payload summed by source must give; padding rows
+    get none."""
+    _, tg, n = graphs
+    f, k = 8, len(aggs)
+    h, _, c, w_bot, ct = _program_inputs(tg.n_node, f, k, seed=6)
+    pat = sigmoid_lane_pattern([get_agg_spec(a) for a in aggs], "new_sigmoid", True, f, "cpu")
+    row_ptr, col_ptr = tg.real_row_ptr, tg.real_col_ptr
+    dc, dw, dh = fused_mma.edge_program_lean_bwd_reference(
+        torch.from_numpy(c), torch.from_numpy(w_bot), torch.from_numpy(h), pat, tg.src,
+        row_ptr, col_ptr, tg.dst_csc, torch.from_numpy(ct))
+
+    tc, tw, th = _leaf(c), _leaf(w_bot), _leaf(h)
+    fused_mma.edge_program_lean_reference(tc, tw, th, pat, tg.src, row_ptr).backward(
+        torch.from_numpy(ct))
+    tol = dict(rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(dc.numpy(), tc.grad.numpy(), **tol)
+    np.testing.assert_allclose(dw.numpy(), tw.grad.numpy(), rtol=1e-5,
+                               atol=1e-5 * tw.grad.abs().max().item())
+    np.testing.assert_allclose(dh.numpy(), th.grad.numpy(), **tol)
+    assert (dh[n:] == 0).all()  # no real edge leaves a padding node
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])

@@ -66,7 +66,7 @@ def test_edge_program_kernel_matches_plain(cuda, graph, f, aggs):
     w_bot = torch.from_numpy((rs.randn(f, k * f) / np.sqrt(f)).astype(np.float32)).to(cuda)
     pat = sigmoid_lane_pattern([get_agg_spec(a) for a in aggs], "new_sigmoid", True, f, cuda)
     args = (c, w_bot, h, pat, graph.src, graph.row_ptr)
-    csc = (graph.col_ptr, graph.src_perm)
+    csc = (graph.col_ptr, graph.dst_csc)
     before = fused_mma.LAUNCHES["edge_program_lean"]
     got = fused_mma.edge_program_lean(*args, *csc)
     torch.cuda.synchronize()
@@ -91,7 +91,7 @@ def test_kernels_reject_what_they_do_not_take(cuda, graph):
         fused_mma.edge_program_lean(torch.zeros(graph.n_node, f, device=cuda),
                                     torch.zeros(f, f, device=cuda), h,
                                     torch.zeros(f, device=cuda), graph.src, graph.row_ptr,
-                                    graph.col_ptr, graph.src_perm)
+                                    graph.col_ptr, graph.dst_csc)
 
 
 def test_node_classifier_on_card_matches_cpu(cuda, graph):
@@ -292,8 +292,9 @@ def test_edge_program_lean_replays_in_a_cuda_graph(cuda, chunk_graph):
 
 def test_edge_program_lean_alignment(cuda, graph):
     """Kernel 2's edge pass reads ``h`` and ``pattern`` in 16-byte slots, so
-    the forward refuses them unaligned; kernel 3, its backward, reads them
-    a float at a time and takes the same unaligned tensors."""
+    the forward refuses them unaligned; kernel 3, its backward, whose
+    passes read them in 16-byte slots too, copies them to a 16-byte
+    boundary and takes the same unaligned tensors."""
     n, f, kf = graph.n_node, 64, 128
     c, w_bot, h, pat, _ = _lean_inputs(cuda, np.random.RandomState(5), n, 1, f, kf)
 
@@ -302,24 +303,41 @@ def test_edge_program_lean_alignment(cuda, graph):
         return torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape).copy_(t)
 
     args = (c, w_bot, h, pat, graph.src, graph.row_ptr)
-    csc = (graph.col_ptr, graph.src_perm)
+    csc = (graph.col_ptr, graph.dst_csc)
     for i in (2, 3):  # h, pattern
         bad = args[:i] + (unaligned(args[i]),) + args[i + 1:]
         assert bad[i].is_contiguous() and bad[i].data_ptr() % 16
         with pytest.raises(ValueError, match="16-byte aligned"):
             fused_mma.edge_program_lean(*bad, *csc)
         ct = torch.from_numpy(np.random.RandomState(i).randn(n, kf).astype(np.float32)).to(cuda)
-        got = fused_mma.edge_program_lean_bwd(*bad, ct)
-        for g, w in zip(got, fused_mma.edge_program_lean_bwd_reference(*args, ct)):
+        got = fused_mma.edge_program_lean_bwd(*bad, *csc, ct)
+        for g, w in zip(got, fused_mma.edge_program_lean_bwd_reference(*args, *csc, ct)):
             _close(g, w)
 
 
+@pytest.fixture(scope="module")
+def hub_src_graph(cuda):
+    """300 nodes: node 0 the source of 3,000 edges (a CSC column that
+    kernel 3's src pass splits across edge chunks), the last 40 without
+    in-edges."""
+    rs = np.random.RandomState(8)
+    n = 300
+    src = np.concatenate([np.zeros(3000, np.int32), rs.randint(1, n, 1000)]).astype(np.int32)
+    return graph_from_edges(src, rs.randint(0, n - 40, 4000).astype(np.int32), n, device=cuda)
+
+
+@pytest.mark.parametrize("which", ["graph", "hub_src_graph"])
 @pytest.mark.parametrize("f,aggs", [(12, ("mean", "max", "sum")), (16, ("mean", "max")),
                                     (64, ("mean", "mean2")), (96, ("mean", "max")),
                                     (128, ("sum", "max", "min", "mean"))])
-def test_edge_program_bwd_kernel_matches_plain(cuda, graph, f, aggs):
-    """Kernel 3 against its plain version, bitwise equal run to run; K·F
-    above 128 (F=96 and 128 here) takes several lane tiles."""
+def test_edge_program_bwd_kernel_matches_plain(request, cuda, which, f, aggs):
+    """Kernel 3 (``D``, the dst pass, the src pass, the node pass) against
+    its plain version, ``(dc, dW_bot, dh)``, bitwise equal run to run
+    (``dW_bot`` too: its slabs are fixed by N); K·F above 128 (F=96 and
+    128 here) takes several lane tiles and two slots a lane, F=12 and 16
+    the narrow node-pass layouts. ``hub_src_graph`` has a 3,000-edge
+    source; ``graph`` heavy destinations."""
+    graph = request.getfixturevalue(which)
     rs = np.random.RandomState(2)
     k = len(aggs)
     h = torch.from_numpy(rs.randn(graph.n_node, f).astype(np.float32)).to(cuda)
@@ -327,7 +345,8 @@ def test_edge_program_bwd_kernel_matches_plain(cuda, graph, f, aggs):
     ct = torch.from_numpy(rs.randn(graph.n_node, k * f).astype(np.float32)).to(cuda)
     w_bot = torch.from_numpy((rs.randn(f, k * f) / np.sqrt(f)).astype(np.float32)).to(cuda)
     pat = sigmoid_lane_pattern([get_agg_spec(a) for a in aggs], "new_sigmoid", True, f, cuda)
-    args = (c, w_bot, h, pat, graph.src, graph.real_row_ptr, ct)
+    args = (c, w_bot, h, pat, graph.src, graph.real_row_ptr, graph.real_col_ptr,
+            graph.dst_csc, ct)
     before = fused_mma.LAUNCHES["edge_program_lean_bwd"]
     got = fused_mma.edge_program_lean_bwd(*args)
     torch.cuda.synchronize()
@@ -337,9 +356,110 @@ def test_edge_program_bwd_kernel_matches_plain(cuda, graph, f, aggs):
         _close(g, w)
     again = fused_mma.edge_program_lean_bwd(*args)
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # deterministic
-    dc, _, payload = got
+    dc, dw, dh = got
+    assert torch.equal(dw, again[1])  # dW_bot's slab sums, bit for bit
     assert (dc[260:] == 0).all()  # rows without edges
-    assert (payload[int(graph.real_row_ptr[-1]):] == 0).all()  # padding edges
+    assert (dh[300:] == 0).all()  # padding nodes: no real edge leaves them
+
+
+def _csc_of(ptr_np, index_np, n_edges):
+    """The transpose of the edges that a CSR ``ptr_np`` covers, whose other
+    endpoint is ``index_np[e]``: ``(ptr, index)`` over the same rows, the
+    index padded to ``n_edges`` positions. Its transpose is the CSR again."""
+    n = len(ptr_np) - 1
+    lo, hi = int(ptr_np[0]), int(ptr_np[-1])
+    rows = np.repeat(np.arange(n), np.diff(ptr_np))
+    other = index_np[lo:hi]
+    order = np.lexsort((rows, other))
+    ptr = np.concatenate([[0], np.cumsum(np.bincount(other, minlength=n))]).astype(np.int32)
+    index = np.zeros(n_edges, np.int32)
+    index[:hi - lo] = rows[order]
+    return ptr, index
+
+
+def _lean_bwd_f64(c, w_bot, h, pattern, src, row_ptr, ct):
+    """``edge_program_lean_bwd_reference``'s formula in float64, as
+    ``_lean_f64`` is kernel 2's: ``(dc, dW_bot, dh)``."""
+    f, kf = w_bot.shape
+    ids = fused_mma._row_ids(row_ptr)
+    lo, hi = int(row_ptr[0]), int(row_ptr[-1])
+    s = src[lo:hi].long()
+    h_src, w = h.double()[s], w_bot.double()
+    mask, dmask = fused_mma._mask_chain(c.double()[ids] + h_src @ w, pattern)
+    ge = ct.double()[ids]
+    dlog = ge * h_src.repeat(1, kf // f) * dmask
+    zeros = lambda *shape: torch.zeros(shape, dtype=torch.float64, device=c.device)  # noqa: E731
+    dh_e = (ge * mask).reshape(-1, kf // f, f).sum(dim=1) + dlog @ w.t()
+    return (zeros(c.shape[0], kf).index_add_(0, ids, dlog), h_src.t() @ dlog,
+            zeros(*h.shape).index_add_(0, s, dh_e))
+
+
+@pytest.mark.parametrize("orient", ["csr", "csc"])
+@pytest.mark.parametrize("f,kf", [(16, 32), (16, 512), (64, 128), (64, 384), (128, 256),
+                                  (128, 512)])
+def test_edge_program_lean_bwd_chunks_match_plain(cuda, chunk_graph, f, kf, orient):
+    """Kernel 3 against its formula in float64 (``_lean_bwd_f64``) within
+    1e-5 over kernel 1's chunk cases, taken as the CSR (the dst pass's
+    chunks) or as the CSC (the src pass's), the other order built from it:
+    a row split over many chunks, a row on a chunk boundary, empty rows
+    inside and at both ends, a slice, a graph under one chunk, nothing
+    covered and one row among long runs of empty rows. One launch counted
+    a call, bitwise equal run to run, empty rows of dc and dh 0."""
+    rs = np.random.RandomState(f + kf)
+    for what, (ptr_np, n_edges) in chunk_graph.items():
+        n = len(ptr_np) - 1
+        index_np = rs.randint(0, n, n_edges).astype(np.int32)
+        other_np, other_index = _csc_of(ptr_np, index_np, n_edges)
+        if orient == "csr":
+            rp_np, src_np, cp_np, dst_np = ptr_np, index_np, other_np, other_index
+        else:
+            rp_np, src_np, cp_np, dst_np = other_np, other_index, ptr_np, index_np
+        rp, src, cp, dst_csc = (torch.from_numpy(a).to(cuda)
+                                for a in (rp_np, src_np, cp_np, dst_np))
+        c, w_bot, h, pat, _ = _lean_inputs(cuda, rs, n, 1, f, kf)
+        ct = torch.from_numpy(rs.randn(n, kf).astype(np.float32)).to(cuda)
+        args = (c, w_bot, h, pat, src, rp, cp, dst_csc, ct)
+        before = fused_mma.LAUNCHES["edge_program_lean_bwd"]
+        got = fused_mma.edge_program_lean_bwd(*args)
+        torch.cuda.synchronize()
+        assert fused_mma.LAUNCHES["edge_program_lean_bwd"] == before + 1, what
+        for name, g, w in zip(("dc", "dW_bot", "dh"), got,
+                              _lean_bwd_f64(c, w_bot, h, pat, src, rp, ct)):
+            torch.testing.assert_close(g.double(), w, rtol=1e-5,
+                                       atol=1e-5 * w.abs().max().item(),
+                                       msg=f"{what} {orient} {name}")
+        again = fused_mma.edge_program_lean_bwd(*args)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), what
+        no_in = torch.from_numpy(rp_np[1:] == rp_np[:-1]).to(cuda)
+        no_out = torch.from_numpy(cp_np[1:] == cp_np[:-1]).to(cuda)
+        assert (got[0][no_in] == 0).all() and (got[2][no_out] == 0).all(), what
+
+
+def test_edge_program_lean_bwd_replays_in_a_cuda_graph(cuda, chunk_graph):
+    """One kernel-3 call (eight launches) captured in a CUDA graph and
+    replayed gives the eager result: the wrapper sizes its grids, slabs and
+    scratch from shapes and never reads a pointer array on the host."""
+    rp_np, n_edges = chunk_graph["hub"]
+    rs = np.random.RandomState(13)
+    n = len(rp_np) - 1
+    src_np = rs.randint(0, n, n_edges).astype(np.int32)
+    cp_np, dst_np = _csc_of(rp_np, src_np, n_edges)
+    c, w_bot, h, pat, _ = _lean_inputs(cuda, rs, n, 1, 64, 128)
+    ct = torch.from_numpy(rs.randn(n, 128).astype(np.float32)).to(cuda)
+    args = (c, w_bot, h, pat, *(torch.from_numpy(a).to(cuda) for a in (src_np, rp_np, cp_np,
+                                                                         dst_np)), ct)
+    eager = fused_mma.edge_program_lean_bwd(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused_mma.edge_program_lean_bwd(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fused_mma.edge_program_lean_bwd(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(captured, eager))
 
 
 def _grads(fn, *inputs):
@@ -369,7 +489,7 @@ def test_autograd_functions_on_card_match_cpu(cuda, graph):
                 c_, w_, h_,
                 sigmoid_lane_pattern([get_agg_spec(a) for a in aggs], "new_sigmoid", True, f,
                                      g.src.device),
-                g.src, g.real_row_ptr, g.real_col_ptr, g.src_perm)),
+                g.src, g.real_row_ptr, g.real_col_ptr, g.dst_csc)),
             (c, w_bot, h)),
         "segment_sum_csr": (lambda g: (lambda d: fused_mma.segment_sum_csr(d, g.real_row_ptr)),
                             (e_data,)),

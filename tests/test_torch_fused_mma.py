@@ -64,6 +64,18 @@ def hub_graphs():
     return jax_graph_from_edges(src, dst, n), graph_from_edges(src, dst, n, device="cpu"), n
 
 
+@pytest.fixture(scope="module")
+def hub_src_graphs():
+    """300 nodes: node 0 is the source of 3,000 edges (the heavy CSC column
+    that the card's src pass splits across edge chunks), the last 40 take
+    no edges."""
+    rs = np.random.RandomState(6)
+    n = 300
+    src = np.concatenate([np.zeros(3000, np.int32), rs.randint(1, n, 2400)]).astype(np.int32)
+    dst = rs.randint(0, n - 40, 5400).astype(np.int32)
+    return jax_graph_from_edges(src, dst, n), graph_from_edges(src, dst, n, device="cpu"), n
+
+
 @pytest.mark.parametrize("which", ["graphs", "hub_graphs"])
 def test_segment_sum_reference_matches_pallas_kernel(request, which):
     jg, tg, _ = request.getfixturevalue(which)
@@ -106,7 +118,7 @@ def test_edge_program_lean_reference_matches_jax(request, which, aggs):
 
     got = fused_mma.edge_program_lean(
         torch.from_numpy(c), torch.from_numpy(w_bot), torch.from_numpy(h), pat,
-        tg.src, tg.row_ptr, tg.col_ptr, tg.src_perm,
+        tg.src, tg.row_ptr, tg.col_ptr, tg.dst_csc,
     ).numpy()
 
     pallas = np.asarray(fused_mma_edge_program_lean(
@@ -120,6 +132,53 @@ def test_edge_program_lean_reference_matches_jax(request, which, aggs):
     xla = np.asarray(jax_segment_sum(msgs, jg.dst, jg.n_node))
     np.testing.assert_allclose(got[:n], xla[:n], rtol=1e-5, atol=1e-5)
     assert np.all(got[260:n] == 0.0)  # empty rows give 0
+
+
+@pytest.mark.parametrize("which", ["graphs", "hub_graphs", "hub_src_graphs"])
+def test_edge_program_lean_bwd_reference_matches_jax(request, which):
+    """``edge_program_lean_bwd_reference``'s ``(dc, dW_bot, dh)`` against
+    ``jax.vjp`` of the Pallas lean program with respect to ``(c, W_bot,
+    h)`` (``_program_bwd_lean_kernel`` in interpret mode, bf16-split
+    "high": 2e-3) and ``jax.grad`` of the XLA formulation (1e-5), on the
+    mixed sigmoid / raw lanes of ("mean", "max"). ``hub_graphs`` has a
+    3,000-edge destination row, ``hub_src_graphs`` a 3,000-edge source,
+    the rows the card's dst and src passes split across chunks. Each
+    tolerance is relative, with a floor of the same fraction of the
+    output's largest value: a 3,000-term f32 sum taken in another order
+    differs by a few ulps of its largest partial sums."""
+    jg, tg, n = request.getfixturevalue(which)
+    aggs, f = ("mean", "max"), 16
+    k = len(aggs)
+    h, _, c, w_bot = _program_inputs(jg.n_node, f, k)
+    ct = np.random.RandomState(2).randn(jg.n_node, k * f).astype(np.float32)
+    ct[n:] = 0.0  # padding rows: the Pallas forward sums the padding edges there
+    jpat = jax_lane_pattern([jax_get_agg_spec(a) for a in aggs], "new_sigmoid", True, f)
+    pat = sigmoid_lane_pattern([get_agg_spec(a) for a in aggs], "new_sigmoid", True, f, "cpu")
+    args = (torch.from_numpy(c), torch.from_numpy(w_bot), torch.from_numpy(h), pat, tg.src,
+            tg.real_row_ptr, tg.real_col_ptr, tg.dst_csc, torch.from_numpy(ct))
+    got = [t.numpy() for t in fused_mma.edge_program_lean_bwd_reference(*args)]
+    # Through the wrapper, CPU tensors take the same plain version.
+    for a, b in zip(fused_mma.edge_program_lean_bwd(*args), got):
+        np.testing.assert_array_equal(a.numpy(), b)
+    jargs = (jnp.asarray(c), jnp.asarray(w_bot), jnp.asarray(h))
+
+    _, vjp = jax.vjp(lambda c_, w_, h_: fused_mma_edge_program_lean(c_, w_, h_, jpat, jg, k),
+                     *jargs)
+    pallas = [np.asarray(g) for g in vjp(jnp.asarray(ct))]
+
+    def xla(c_, w_, h_):
+        h_src = h_[jg.src]
+        logits = c_[jg.dst] + h_src @ w_
+        msgs = jnp.where(jpat[None, :], jax.nn.sigmoid(logits), logits) * jnp.tile(h_src, (1, k))
+        msgs = jnp.where(jg.edge_mask[:, None], msgs, 0.0)
+        return jnp.sum(jax_segment_sum(msgs, jg.dst, jg.n_node) * jnp.asarray(ct))
+
+    exact = [np.asarray(g) for g in jax.grad(xla, argnums=(0, 1, 2))(*jargs)]
+    for want, tol in ((pallas, 2e-3), (exact, 1e-5)):
+        for name, g, w in zip(("dc", "dW_bot", "dh"), got, want):
+            rows = slice(None) if name == "dW_bot" else slice(0, n)
+            np.testing.assert_allclose(g[rows], w[rows], rtol=tol,
+                                       atol=tol * np.abs(w[rows]).max(), err_msg=name)
 
 
 def test_mask_projections_match_jax():
@@ -143,7 +202,8 @@ def test_kernel_path_raises_off_the_card_and_counts_nothing():
     with pytest.raises(ValueError, match="CUDA tensors"):
         fused_mma.edge_program_lean(*args, row_ptr, args[4])
     with pytest.raises(ValueError, match="CUDA tensors"):
-        fused_mma.edge_program_lean_bwd(*args, torch.zeros(2, 8, device="meta"))
+        fused_mma.edge_program_lean_bwd(*args, row_ptr, args[4],
+                                        torch.zeros(2, 8, device="meta"))
     # Inputs that require grad take the same route, through the autograd
     # Functions; the indexed form is backward machinery and refuses them.
     with pytest.raises(ValueError, match="CUDA tensors"):

@@ -111,7 +111,7 @@ def test_mask_dropout_rate_zero_is_the_fused_route(graphs):
     half = fused_mma.segment_sum_csr(msgs, tg.real_row_ptr)
     fused = fused_mma.edge_program_lean(h @ _flat_lanes(mw[:, :f]), _flat_lanes(mw[:, f:]),
                                         h, pat, tg.src, tg.real_row_ptr, tg.real_col_ptr,
-                                        tg.src_perm)
+                                        tg.dst_csc)
     torch.testing.assert_close(half, fused, rtol=1e-5, atol=1e-5)
 
 
