@@ -74,8 +74,9 @@
    pass and edge pass alone, its heaviest row alone (as a whole call and
    through the edge pass alone) and at Cora's shape; kernel 3 also as its
    four parts alone (``D``, the dst pass, the src pass, the node pass),
-   each edge pass on its heaviest row alone and at Cora's shape; kernels
-   4-8 on the tensors the
+   each edge pass on its heaviest row alone and at Cora's shape; kernels 9
+   and 10, both payload modes, also on the heaviest row alone as a whole
+   call; kernels 4-8 on the tensors the
    ZINC train steps gave them at the flagship batch, 4-7 for one and two
    ops, with dropout on and off): the
    error against the plain version (kernels 4 and 6, and the routed
@@ -1218,7 +1219,7 @@ def main() -> int:
         ddg = fused_mma._lean_bwd_src_pass(c, ct3, pat, d_tab, h, dst_csc, cp)
 
         def hold_dst(row_ptr, what):
-            compare(fused_mma._lean_bwd_dst_pass(c, ct3, pat, d_tab, h, src, row_ptr),
+            compare(fused_mma._lean_bwd_dst_pass(c, ct3, pat, d_tab, h, src, row_ptr)[0],
                     fused_mma.edge_program_bwd_reference(c, d_tab, h, pat, src, row_ptr, ct3,
                                                          emit_payload=False)[0],
                     1e-5, f"edge_program_lean_bwd dst pass{what} vs plain")
@@ -1332,11 +1333,47 @@ def main() -> int:
             4 * (4 * n_rows * kf + n_rows * f + kf + e_cov + (n_rows + 1)
                  + big.n_edge * (kf + f)),
             8 * e_cov * kf, 4 * e_cov * (kf + f), iters=15)
-        no_payload_ms = device_ms(lambda: fused_mma.edge_program_bwd(*fwd, ct,
-                                                                     emit_payload=False),
-                                  iters=15)
-        print(f"edge_program_bwd without the payload (csc_gather's use): ms {no_payload_ms:.4f}")
-        kernels["edge_program_bwd"]["ms_without_payload"] = no_payload_ms
+        k10 = kernels["edge_program_bwd"]
+        k10["ms_without_payload"] = device_ms(
+            lambda: fused_mma.edge_program_bwd(*fwd, ct, emit_payload=False), iters=15)
+        # Without the payload (csc_gather's use) the output is dc alone, and
+        # per edge and lane about 6 operations (the mask chain, dlog, dc).
+        k10["bound_without_payload"] = bound(
+            4 * (4 * n_rows * kf + n_rows * f + kf + e_cov + (n_rows + 1)), 6 * e_cov * kf)
+        print(f"edge_program_bwd without the payload (csc_gather's use): ms "
+              f"{k10['ms_without_payload']:.4f} bound_ms "
+              f"{k10['bound_without_payload']['bound_ms']:.4f} "
+              f"({k10['bound_without_payload']['bound_by']})")
+        # Skew: kernels 9 and 10 alone on the heaviest row, each as a whole
+        # call on a CSR of N rows that covers that row's edges only (its
+        # edges split over chunks, joined by the fixup; every other payload
+        # row zeroed).
+        deg = rp[1:] - rp[:-1]
+        top = int(torch.argmax(deg))
+        only_top = rp.clamp(int(rp[top]), int(rp[top + 1]))
+        heavy = (c, d, h, pat, src, only_top)
+        compare(fused_mma.edge_program_fwd(*heavy), fused_mma.edge_program_fwd_reference(*heavy),
+                1e-5, "edge_program_fwd heaviest row alone vs plain")
+        kernels["edge_program_fwd"]["heaviest_row_call_ms"] = device_ms(
+            lambda: fused_mma.edge_program_fwd(*heavy))
+        for emit in (False, True):
+            got = fused_mma.edge_program_bwd(*heavy, ct, emit_payload=emit)
+            want = fused_mma.edge_program_bwd_reference(*heavy, ct, emit_payload=emit)
+            for name, g_, w_ in zip(("dc", "payload"), got, want):
+                if w_ is not None:
+                    compare(g_, w_, 1e-5, f"edge_program_bwd heaviest row alone {name} "
+                            f"(emit_payload={emit}) vs plain")
+            if not all(a is None or torch.equal(a, b) for a, b in zip(
+                    got, fused_mma.edge_program_bwd(*heavy, ct, emit_payload=emit))):
+                raise AssertionError("edge_program_bwd heaviest row alone differs run to run")
+            del got, want
+            k10["heaviest_row_call_ms" + ("" if emit else "_without_payload")] = device_ms(
+                lambda: fused_mma.edge_program_bwd(*heavy, ct, emit_payload=emit), iters=15)
+        print(f"edge_program_fwd / _bwd without / with the payload: the heaviest row alone "
+              f"({int(deg[top])} edges, N={n_rows}), whole call ms "
+              f"{kernels['edge_program_fwd']['heaviest_row_call_ms']:.4f} / "
+              f"{k10['heaviest_row_call_ms_without_payload']:.4f} / "
+              f"{k10['heaviest_row_call_ms']:.4f}")
         csc_args = (c, d, h, pat, dst_csc, cp, ct)
         # Bytes: c, d, ct, h, the pattern, dst_csc and the CSC read once,
         # [dd ‖ dh] written once; per edge it gathers c and ct of the dst.

@@ -258,14 +258,21 @@ __device__ __forceinline__ void zero_empty_rows(const int32_t* __restrict__ row_
 //   Edge load(r, cv, slot): the loads of data row r, issued for several
 //                       edges before any of them is added (none(): no edge);
 //   add(acc, edge, slot): the edge's message added into acc[0 .. kSums);
+//   kEmits: whether the message also writes a row per edge. If so,
+//                       chunk_pass calls emit(acc, edges, slots, e, ...) in
+//                       place of add for each edge it loads, with the edge's
+//                       position e (-1: no edge), warp-uniformly, and
+//                       zero_uncovered(a, b, lo, hi) once per chunk [a, b);
 // and in_flight<TILES>(), the edges whose loads a lane issues before it
 // adds them. RowsOf is kernel 1's (the data row itself); LeanMessage,
-// kernel 2's, and LeanDcMessage and LeanSrcMessage, kernel 3's, are below
-// with those kernels.
+// kernels 2 and 9's, LeanDcMessage, kernels 3 and 10's, LeanSrcMessage,
+// kernel 3's, and LeanDcPayloadMessage, kernel 10's with its per-edge
+// payload, are below with those kernels.
 template <int VEC_>
 struct RowsOf {
   static constexpr int VEC = VEC_;
   static constexpr int kSums = 1;
+  static constexpr bool kEmits = false;
   // About 32 floats in flight a lane.
   template <int TILES>
   __host__ __device__ static constexpr int in_flight() {
@@ -290,8 +297,8 @@ struct RowsOf {
 };
 
 // Pass 1, for any message type Msg: the body of kernel 1's
-// segment_sum_chunk_kernel, of kernel 2's lean_edge_kernel and of kernel
-// 3's lean_bwd_edge_kernel. TILES: the lane's channel slots
+// segment_sum_chunk_kernel, of kernels 2 and 9's lean_edge_kernel and of
+// kernels 3 and 10's lean_bwd_edge_kernel. TILES: the lane's channel slots
 // per edge (a compile-time bound on `tiles`; wider rows take several
 // rounds over the row's edges). U: edges a group loads before it adds
 // them. n_vec counts the slots of one sum; an output row (and a partial)
@@ -335,6 +342,7 @@ __device__ __forceinline__ void chunk_pass(const Msg& msg, const int32_t* __rest
   const bool head = i0 > 0 && __ldg(rp_i0) > a && __ldg(rp_i0) - __ldg(rp_i0 - 1) > split;
   const bool tail = i1 > i0 && __ldg(rp_i1) > b && __ldg(rp_i1) - __ldg(rp_i1 - 1) > split;
   if (lane == 0) tail_row[c] = tail ? i1 - 1 : -1;
+  if constexpr (Msg::kEmits) msg.zero_uncovered(a, b, __ldg(row_ptr), hi);
 
   T* outv = reinterpret_cast<T*>(out);
   T* head_slot = reinterpret_cast<T*>(part) + static_cast<int64_t>(c) * 2 * row_vec;
@@ -407,8 +415,13 @@ __device__ __forceinline__ void chunk_pass(const Msg& msg, const int32_t* __rest
           for (int u = 0; u < U; ++u) src[u] = edge_row(index, rs + j + U + u, re);
 #pragma unroll
           for (int u = 0; u < U; ++u) {
+            if constexpr (Msg::kEmits) {
+              const int64_t pos = rs + j + u < re ? rs + j + u : -1;  // re = rs = 0 unless mine
+              msg.template emit<TILES>(acc, v[u], sl, pos, t0, lpe, li);
+            } else {
 #pragma unroll
-            for (int t = 0; t < TILES; ++t) Msg::add(acc[t], v[u][t], sl[t]);
+              for (int t = 0; t < TILES; ++t) Msg::add(acc[t], v[u][t], sl[t]);
+            }
           }
         }
         if (mine >= 0) {
@@ -472,8 +485,13 @@ __device__ __forceinline__ void chunk_pass(const Msg& msg, const int32_t* __rest
           }
 #pragma unroll
           for (int u = 0; u < U; ++u) {
+            if constexpr (Msg::kEmits) {
+              const int64_t ee = e0 + u * groups + g;
+              msg.template emit<TILES>(acc, v[u], sl, u < uu && ee < re ? ee : -1, t0, lpe, li);
+            } else {
 #pragma unroll
-            for (int t = 0; t < TILES; ++t) Msg::add(acc[t], v[u][t], sl[t]);
+              for (int t = 0; t < TILES; ++t) Msg::add(acc[t], v[u][t], sl[t]);
+            }
           }
         }
         if (rs < re) {
@@ -732,6 +750,7 @@ lean_node_kernel(const float* __restrict__ h, const float* __restrict__ w_bot,
 struct LeanMessage {
   static constexpr int VEC = 4;
   static constexpr int kSums = 1;
+  static constexpr bool kEmits = false;
   // Two edges' D and h slots in flight (see lean_edge_kernel).
   template <int TILES>
   __host__ __device__ static constexpr int in_flight() {
@@ -770,7 +789,8 @@ struct LeanMessage {
   }
 };
 
-// Pass 1 of the edge pass. Two edges in flight and at most 64 registers,
+// Pass 1 of the edge pass (of kernel 9 too, with the caller's d). Two edges
+// in flight and at most 64 registers,
 // so that four blocks (32 warps) share an SM: chosen on the card over 4
 // and 8 edges in flight and over 2 or 3 blocks per SM, because the
 // sigmoids of one warp's edges then run while other warps wait on their
@@ -864,6 +884,7 @@ cudaError_t launch_lean_edges(const LeanMessage& msg, const void* row_ptr, const
 struct LeanDcMessage {
   static constexpr int VEC = 4;
   static constexpr int kSums = 1;
+  static constexpr bool kEmits = false;
   static constexpr int kMinBlocks = 4;  // blocks an SM: 64 registers
   template <int TILES>
   __host__ __device__ static constexpr int in_flight() {
@@ -907,11 +928,119 @@ struct LeanDcMessage {
   }
 };
 
+// Kernel 10's dst pass with its per-edge payload: LeanDcMessage's sums
+// into dc (the same bits), and at each covered edge's CSR position e the
+// payload row [dlog_e || fold_K(ct[i] * mask_e)] of n_vec + f_vec slots,
+// written by the edge's lane group with streaming 16-byte stores from the
+// loads the sums already made. The K-fold adds the slots cv, cv + f_vec,
+// ... of a feature slot:
+//   - butterfly (lpe % f_vec == 0, the main path's K*F = 128, F = 64): every
+//     slot of a lane is its feature li mod f_vec, so the lane adds its
+//     slots, then the group adds across lanes f_vec apart by shuffles, and
+//     lanes li < f_vec store;
+//   - otherwise (F = 12, 96, ...) the group stages the round's slots in
+//     shared memory and lane li adds the slots of features li, li + lpe, ...
+//     in k order.
+// Where a row takes several rounds (K*F > 256: TILES = 2 slots a lane a
+// round), a round adds its part of the fold to what the earlier rounds
+// stored: the same lane owns the same feature of the same edge in every
+// round, so it reads back its own store. Positions the CSR does not cover
+// get zero rows from the chunk that holds them (zero_uncovered).
+struct LeanDcPayloadMessage : LeanDcMessage {
+  static constexpr bool kEmits = true;
+  // 80 registers (3 blocks an SM) and LeanDcMessage's two edges in flight:
+  // on the card, 2 or 4 blocks an SM and four edges in flight all came
+  // within 5% of it, since the payload's stores, not the gathers' latency,
+  // set the time. A different in_flight would also change which rows a
+  // narrow K*F sums by group, and so dc's bits against the pass without
+  // the payload.
+  static constexpr int kMinBlocks = 3;
+  float4* payload;    // (n_edges, n_vec + f_vec) slots
+  int64_t n_edges;
+  bool butterfly;     // lpe % f_vec == 0
+
+  // Zero payload rows for the positions of [a, b) outside [lo, hi).
+  __device__ void zero_uncovered(int64_t a, int64_t b, int64_t lo, int64_t hi) const {
+    const int64_t width = n_vec + f_vec;
+    const int64_t end = b < n_edges ? b : n_edges;
+    const int64_t from[2] = {a, a > hi ? a : hi};
+    const int64_t to[2] = {end < lo ? end : lo, end};
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      for (int64_t i = from[k] * width + threadIdx.x % kWarp; i < to[k] * width; i += kWarp) {
+        __stcs(payload + i, Vec<4>::zero());
+      }
+    }
+  }
+
+  // One slot's lanes: dl = dlog_e, gm = ct[i] * mask_e, and acc as
+  // LeanDcMessage adds. dl and gm take rounded products that the compiler
+  // may not share with term's expression or fuse: term then compiles as
+  // it does alone, and dc has the same bits with or without the payload.
+  __device__ static void terms(float& acc, float& dl, float& gm, float c, float ct, float p,
+                               float d, float h) {
+    acc = term(acc, c, ct, p, d, h);
+    float m, dm;
+    mask_chain(c + d, p, m, dm);
+    dl = __fmul_rn(__fmul_rn(ct, h), dm);
+    gm = __fmul_rn(ct, m);
+  }
+
+  // The fold's slot: v, plus what earlier rounds stored there.
+  __device__ static void store_fold(float4* q, float4 v, bool later_round) {
+    if (later_round) {
+      const float4 before = *q;
+      v = make_float4(before.x + v.x, before.y + v.y, before.z + v.z, before.w + v.w);
+    }
+    __stcs(q, v);
+  }
+
+  template <int TILES>
+  __device__ void emit(float4 (&acc)[TILES][1], const Edge (&ed)[TILES], const Slot (&sl)[TILES],
+                       int64_t e, int t0, int lpe, int li) const {
+    __shared__ float4 stage[kSumWarps][kWarp * TILES];  // the round's gm slots, per group
+    float4* prow = payload + (e < 0 ? 0 : e) * (n_vec + f_vec);
+    float4 gm[TILES];
+    float4 fold = Vec<4>::zero();
+#pragma unroll
+    for (int t = 0; t < TILES; ++t) {
+      float4 dl;
+      terms(acc[t][0].x, dl.x, gm[t].x, sl[t].c.x, sl[t].ct.x, sl[t].p.x, ed[t].d.x, ed[t].h.x);
+      terms(acc[t][0].y, dl.y, gm[t].y, sl[t].c.y, sl[t].ct.y, sl[t].p.y, ed[t].d.y, ed[t].h.y);
+      terms(acc[t][0].z, dl.z, gm[t].z, sl[t].c.z, sl[t].ct.z, sl[t].p.z, ed[t].d.z, ed[t].h.z);
+      terms(acc[t][0].w, dl.w, gm[t].w, sl[t].c.w, sl[t].ct.w, sl[t].p.w, ed[t].d.w, ed[t].h.w);
+      const int cv = (t0 + t) * lpe + li;
+      if (e >= 0 && cv < n_vec) __stcs(prow + cv, dl);
+      Vec<4>::add(fold, gm[t]);  // slots past the row hold 0
+    }
+    if (butterfly) {
+      for (int off = f_vec; off < lpe; off <<= 1) Vec<4>::add(fold, Vec<4>::shfl_xor(fold, off));
+      if (e >= 0 && li < f_vec) store_fold(prow + n_vec + li, fold, t0 > 0);
+      return;
+    }
+    float4* grp = stage[threadIdx.x / kWarp] + (threadIdx.x % kWarp - li) * TILES;
+#pragma unroll
+    for (int t = 0; t < TILES; ++t) grp[t * lpe + li] = gm[t];
+    __syncwarp();
+    if (e >= 0) {
+      for (int j = li; j < f_vec; j += lpe) {
+        float4 sum = Vec<4>::zero();
+        for (int q = j - t0 * lpe; q < TILES * lpe; q += f_vec) {
+          if (q >= 0) Vec<4>::add(sum, grp[q]);
+        }
+        store_fold(prow + n_vec + j, sum, t0 > 0);
+      }
+    }
+    __syncwarp();  // the stage is read before the next edge overwrites it
+  }
+};
+
 // The src pass's message: on 16-byte slots of a K*F row, dlog_e into the
 // row's dD block and gm_e into its G block.
 struct LeanSrcMessage {
   static constexpr int VEC = 4;
   static constexpr int kSums = 2;
+  static constexpr bool kEmits = false;
   static constexpr int kMinBlocks = 3;  // blocks an SM: 80 registers
   template <int TILES>
   __host__ __device__ static constexpr int in_flight() {
@@ -953,7 +1082,8 @@ struct LeanSrcMessage {
   }
 };
 
-// Pass 1 of the dst pass (Msg = LeanDcMessage) and of the src pass
+// Pass 1 of the dst pass (Msg = LeanDcMessage; kernel 10 with the caller's
+// d, and with its payload LeanDcPayloadMessage) and of the src pass
 // (LeanSrcMessage), each at its message's launch bounds.
 template <class Msg, int TILES, int MIN_BLOCKS>
 __global__ void __launch_bounds__(kSumWarps* kWarp, MIN_BLOCKS)
@@ -1346,26 +1476,40 @@ __global__ void segment_sum_sq_kernel(const float* __restrict__ data,
 //   kernel 9:  S[i] = sum_{e in row i} mask_e * tile(h[s], K)
 //   kernel 10: dc[i] = sum_{e in row i} dlog_e, dlog_e = ct[i] * tile(h[s], K) * dmask_e,
 //              and optionally payload[e] = [dlog_e || sum_k (ct[i] * mask_e)_k]
-//              (E, K*F+F), 0 for edges outside the CSR;
+//              (E, K*F+F) at the edge's CSR position, 0 for positions outside
+//              [row_ptr[0], row_ptr[n]);
 //   kernel 11: out[s] = [sum_{e: src=s} dlog_e || sum_{e: src=s} sum_k (ct[i] * mask_e)_k]
 //              over the CSC, i = dst_csc[e].
 //
-// Bound on this card: bytes. Per edge each kernel reads a K*F + F-wide
-// node row (768 B at F=64, K=2) or two K*F-wide ones at random and does
-// about 4-8 operations per lane. Counted as each input read once, the
-// bound is small; the random row reads (E x the row width) set the time.
-// Design: one warp per row (a destination row for 9-10, a source row for
-// 11), 8 warps a block. A thread owns 4 consecutive lanes of each 128-lane
-// tile of the K*F row (NT = ceil(K*F / 128) tiles, K*F <= 512) and keeps
-// the row's own node data in registers: c[i] (and ct[i]) for 9-10, d[s]
-// and h[s] for 11. Per edge it gathers the other endpoint's rows as
-// 16-byte loads straight from the node tables (no gathered (E, K*F+F)
-// table as the TPU wrapper builds), issuing the next edge's loads before
-// the current edge's arithmetic. The sum over k of the K aggregator blocks
-// (the dh part) crosses threads: the warp stages its ct * mask lanes in
-// shared memory and each thread adds k = 0..K-1 for its 4 output features
-// in that fixed order. Every output row is written once by its warp, edges
-// in CSR / CSC order: no atomics, bitwise equal run to run.
+// Bound on this card: bytes. Each input read once and each output written
+// once is small for kernels 9 and 11 and for kernel 10 without the payload
+// (0.07-0.1 ms at the synthetic-large graph); kernel 10's payload, E x (K*F
+// + F) x 4 B = 1.61 GB at F = 64, K = 2, is written once: 0.48 ms at 3.35
+// TB/s. What sets the time is the random node rows gathered per edge, E x
+// 768 B (d and h by src; c and ct by dst for kernel 11), less what the 50
+// MB L2 keeps of the tables.
+//
+// Kernels 9 and 10 are the edge-balanced chunk pass of kernels 1-3, with
+// the caller's d in place of kernel 2's D = h @ W_bot: kernel 9 is kernel
+// 2's edge pass (lean_edge_kernel with LeanMessage, then kernel 1's fixup),
+// kernel 10 kernel 3's dst pass (lean_bwd_edge_kernel<LeanDcMessage>, then
+// the fixup), and with the payload the same pass with
+// LeanDcPayloadMessage, which writes each edge's payload row in the pass
+// that already gathers d[s] and h[s]. So skew, determinism and the empty
+// rows are kernel 1's: chunks fixed by E, long rows split and joined in
+// chunk order, every output row and payload row written once, no atomics,
+// no host sync.
+//
+// Kernel 11: one warp per source row, 8 warps a block. A thread owns 4
+// consecutive lanes of each 128-lane tile of the K*F row (NT = ceil(K*F /
+// 128) tiles, K*F <= 512) and keeps d[s] and h[s] in registers. Per edge it
+// gathers c[i] and ct[i] as 16-byte loads straight from the node tables,
+// issuing the next edge's loads before the current edge's arithmetic. The
+// sum over k of the K aggregator blocks (the dh part) crosses threads: the
+// warp stages its ct * mask lanes in shared memory and each thread adds k =
+// 0..K-1 for its 4 output features in that fixed order. Every output row
+// is written once by its warp, edges in CSC order: no atomics, bitwise
+// equal run to run.
 // ---------------------------------------------------------------------------
 
 constexpr int kWideWarps = 8;
@@ -1440,129 +1584,6 @@ __device__ __forceinline__ void sum_blocks(float* __restrict__ out,
     s[0] += g.x; s[1] += g.y; s[2] += g.z; s[3] += g.w;
   }
   store4(out + ff, s);
-}
-
-template <int NT>
-__global__ void __launch_bounds__(kWideWarps * kWarp)
-edge_program_fwd_kernel(const float* __restrict__ c, const float* __restrict__ d,
-                        const float* __restrict__ h, const float* __restrict__ pat,
-                        const int32_t* __restrict__ src,
-                        const int32_t* __restrict__ row_ptr, float* __restrict__ out,
-                        int n_rows, int f, int kf) {
-  const int row = blockIdx.x * kWideWarps + threadIdx.x / kWarp;
-  if (row >= n_rows) return;  // whole warps leave together
-  const WideLanes<NT> ln(pat, threadIdx.x % kWarp, f, kf);
-  float cv[NT][4], acc[NT][4] = {};
-  ln.row(cv, c, row, kf);
-  const int start = row_ptr[row];
-  const int end = row_ptr[row + 1];
-  float dn[NT][4], hn[NT][4];
-  if (start < end) {
-    const int64_t s = __ldg(src + start);
-    ln.row(dn, d, s, kf);
-    ln.hrow(hn, h, s, f);
-  }
-  for (int e = start; e < end; ++e) {
-    float dv[NT][4], hv[NT][4];
-    copy_lanes(dv, dn);
-    copy_lanes(hv, hn);
-    if (e + 1 < end) {  // the next edge's rows, in flight below
-      const int64_t s = __ldg(src + e + 1);
-      ln.row(dn, d, s, kf);
-      ln.hrow(hn, h, s, f);
-    }
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float x = cv[t][q] + dv[t][q];
-        const float m = ln.pat[t][q] != 0.f ? sigmoidf(x) : x;
-        acc[t][q] = fmaf(m, hv[t][q], acc[t][q]);
-      }
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    if (ln.on[t]) store4(out + static_cast<int64_t>(row) * kf + ln.l0[t], acc[t]);
-  }
-}
-
-template <int NT>
-__global__ void __launch_bounds__(kWideWarps * kWarp)
-edge_program_bwd_kernel(const float* __restrict__ c, const float* __restrict__ d,
-                        const float* __restrict__ h, const float* __restrict__ pat,
-                        const int32_t* __restrict__ src,
-                        const int32_t* __restrict__ row_ptr, const float* __restrict__ ct,
-                        float* __restrict__ dc, float* __restrict__ payload, int n_rows,
-                        int n_edges, int f, int kf) {
-  __shared__ __align__(16) float gm_all[kWideWarps * kMaxKF];
-  const int width = kf + f;  // payload row: [dlog || dh_e]
-  if (payload != nullptr) {  // edges no row covers get payload 0
-    const int64_t lo = static_cast<int64_t>(row_ptr[0]) * width;
-    const int64_t hi = static_cast<int64_t>(row_ptr[n_rows]) * width;
-    const int64_t all = static_cast<int64_t>(n_edges) * width;
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-    for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-         i < all - hi + lo; i += stride) {
-      payload[i < lo ? i : hi + (i - lo)] = 0.f;
-    }
-  }
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int row = blockIdx.x * kWideWarps + warp;
-  if (row >= n_rows) return;  // whole warps leave together
-  float* gm_s = gm_all + warp * kMaxKF;
-  const WideLanes<NT> ln(pat, lane, f, kf);
-  float cv[NT][4], ctv[NT][4], acc[NT][4] = {};
-  ln.row(cv, c, row, kf);
-  ln.row(ctv, ct, row, kf);
-  const int start = row_ptr[row];
-  const int end = row_ptr[row + 1];
-  float dn[NT][4], hn[NT][4];
-  if (start < end) {
-    const int64_t s = __ldg(src + start);
-    ln.row(dn, d, s, kf);
-    ln.hrow(hn, h, s, f);
-  }
-  for (int e = start; e < end; ++e) {
-    float dv[NT][4], hv[NT][4];
-    copy_lanes(dv, dn);
-    copy_lanes(hv, hn);
-    if (e + 1 < end) {
-      const int64_t s = __ldg(src + e + 1);
-      ln.row(dn, d, s, kf);
-      ln.hrow(hn, h, s, f);
-    }
-    float dl[NT][4], gm[NT][4];
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float m, dm;
-        mask_chain(cv[t][q] + dv[t][q], ln.pat[t][q], m, dm);
-        dl[t][q] = ctv[t][q] * hv[t][q] * dm;
-        gm[t][q] = ctv[t][q] * m;
-        acc[t][q] += dl[t][q];  // edges in CSR order
-      }
-    }
-    if (payload != nullptr) {
-      float* prow = payload + static_cast<int64_t>(e) * width;
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        if (ln.on[t]) {
-          store4(prow + ln.l0[t], dl[t]);
-          store4(gm_s + ln.l0[t], gm[t]);
-        }
-      }
-      __syncwarp();
-      sum_blocks(prow + kf, gm_s, lane, f, kf);
-      __syncwarp();  // gm_s is read before the next edge overwrites it
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    if (ln.on[t]) store4(dc + static_cast<int64_t>(row) * kf + ln.l0[t], acc[t]);
-  }
 }
 
 template <int NT>
@@ -1829,9 +1850,10 @@ int mma_edge_program_lean_node(const void* h, const void* w_bot, void* d, int n_
   return static_cast<int>(cudaGetLastError());
 }
 
-// Kernel 2's edge pass: out[i] = sum_{e in row i} act(c[i] + d[src_e]) *
-// tile(h[src_e], K). c (n_rows, kf), pat (kf,) 0/1 f32; node tables d (R,
-// kf) and h (R, f) f32, R any row count above every src;
+// Kernel 2's edge pass, and kernel 9: out[i] = sum_{e in row i} act(c[i] +
+// d[src_e]) * tile(h[src_e], K). c (n_rows, kf), pat (kf,) 0/1 f32; node
+// tables d (R, kf) (kernel 2: h @ w_bot; kernel 9: the caller's) and h (R,
+// f) f32, R any row count above every src;
 // src (n_edges,) i32, row_ptr (n_rows+1,) i32 with row_ptr[n_rows] <=
 // n_edges, out (n_rows, kf) f32; scratch part (n_chunks, 2, kf) f32 and
 // tail_row (n_chunks,) i32, n_chunks = mma_segment_sum_n_chunks(n_edges).
@@ -1859,23 +1881,33 @@ int mma_edge_program_lean_edges(const void* c, const void* pat, const void* d, c
   return static_cast<int>(err);
 }
 
-// Kernel 3's dst pass: dc[i] = sum_{e in row i} dlog_e. c, ct (n_rows,
-// kf), pat (kf,) 0/1 f32; node tables d = h @ w_bot (R, kf) and h (R, f)
-// f32, R above every src; src (n_edges,) i32, row_ptr (n_rows+1,) i32 with
-// row_ptr[n_rows] <= n_edges, dc (n_rows, kf) f32; scratch part (n_chunks,
-// 2, kf) f32 and tail_row (n_chunks,) i32, n_chunks =
-// mma_segment_sum_n_chunks(n_edges). Requires f % 4 == 0, kf % f == 0 and
-// 16-byte aligned c, ct, pat, d, h and dc.
+// The dst pass of kernels 3 and 10: dc[i] = sum_{e in row i} dlog_e. c, ct
+// (n_rows, kf), pat (kf,) 0/1 f32; node tables d (R, kf) (kernel 3: h @
+// w_bot; kernel 10: the caller's) and h (R, f) f32, R above every src; src
+// (n_edges,) i32, row_ptr (n_rows+1,) i32 with row_ptr[n_rows] <= n_edges,
+// dc (n_rows, kf) f32; scratch part (n_chunks, 2, kf) f32 and tail_row
+// (n_chunks,) i32, n_chunks = mma_segment_sum_n_chunks(n_edges). Unless
+// payload is null, also kernel 10's payload (n_edges, kf + f) f32: row e
+// is [dlog_e || sum_k (ct[i] * mask_e)_k] for the positions the CSR covers
+// and 0 for the others. Requires f % 4 == 0, kf % f == 0 and 16-byte
+// aligned c, ct, pat, d, h, dc and payload.
 int mma_edge_program_lean_bwd_dst(const void* c, const void* ct, const void* pat, const void* d,
                                   const void* h, const void* src, const void* row_ptr, void* dc,
-                                  void* part, void* tail_row, int n_rows, int f, int kf,
-                                  int n_edges, void* stream) {
-  if (n_rows <= 0) return static_cast<int>(cudaSuccess);
+                                  void* payload, void* part, void* tail_row, int n_rows, int f,
+                                  int kf, int n_edges, void* stream) {
+  if (n_rows <= 0 && payload == nullptr) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const LeanDcMessage msg{static_cast<const float4*>(c),   static_cast<const float4*>(ct),
                           static_cast<const float4*>(pat), static_cast<const float4*>(d),
                           static_cast<const float4*>(h),   kf / 4, f / 4};
-  return static_cast<int>(launch_lean_bwd_edges(msg, row_ptr, src, dc, part, tail_row, n_rows,
-                                                kf, n_edges, static_cast<cudaStream_t>(stream)));
+  if (payload == nullptr) {
+    return static_cast<int>(
+        launch_lean_bwd_edges(msg, row_ptr, src, dc, part, tail_row, n_rows, kf, n_edges, s));
+  }
+  const LeanDcPayloadMessage pmsg{msg, static_cast<float4*>(payload), n_edges,
+                                  lanes_per_edge(kf / 4) % (f / 4) == 0};
+  return static_cast<int>(
+      launch_lean_bwd_edges(pmsg, row_ptr, src, dc, part, tail_row, n_rows, kf, n_edges, s));
 }
 
 // Kernel 3's src pass over the CSC: out[s] = [dD[s] || G[s]] (n_rows, 2
@@ -1948,46 +1980,9 @@ int mma_segment_sum_sq_csr(const void* data, const void* row_ptr, void* out, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// c, d (n_rows, kf), h (n_rows, f), pat (kf,) 0/1 f32, src (E,) i32,
-// row_ptr (n_rows+1,) i32, out (n_rows, kf) f32. Requires f % 4 == 0,
-// f <= 128, kf % f == 0, kf <= 512 and 16-byte aligned c, d, h, out.
-int mma_edge_program_fwd(const void* c, const void* d, const void* h, const void* pat,
-                         const void* src, const void* row_ptr, void* out, int n_rows,
-                         int f, int kf, void* stream) {
-  if (n_rows <= 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(by_tiles(kf, [&](auto nt) {
-    edge_program_fwd_kernel<decltype(nt)::value><<<wide_blocks(n_rows), kWideWarps * kWarp,
-                                                    0, s>>>(
-        static_cast<const float*>(c), static_cast<const float*>(d),
-        static_cast<const float*>(h), static_cast<const float*>(pat),
-        static_cast<const int32_t*>(src), static_cast<const int32_t*>(row_ptr),
-        static_cast<float*>(out), n_rows, f, kf);
-  }));
-}
-
-// As mma_edge_program_fwd, plus ct (n_rows, kf). Outputs: dc (n_rows, kf)
-// and, unless payload is null, payload (n_edges, kf + f), 16-byte aligned.
-int mma_edge_program_bwd(const void* c, const void* d, const void* h, const void* pat,
-                         const void* src, const void* row_ptr, const void* ct, void* dc,
-                         void* payload, int n_rows, int n_edges, int f, int kf,
-                         void* stream) {
-  if (n_rows <= 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(by_tiles(kf, [&](auto nt) {
-    edge_program_bwd_kernel<decltype(nt)::value><<<wide_blocks(n_rows), kWideWarps * kWarp,
-                                                    0, s>>>(
-        static_cast<const float*>(c), static_cast<const float*>(d),
-        static_cast<const float*>(h), static_cast<const float*>(pat),
-        static_cast<const int32_t*>(src), static_cast<const int32_t*>(row_ptr),
-        static_cast<const float*>(ct), static_cast<float*>(dc),
-        static_cast<float*>(payload), n_rows, n_edges, f, kf);
-  }));
-}
-
-// c, ct, d (n_rows, kf), h (n_rows, f), pat (kf,), dst_csc (E,) i32,
-// col_ptr (n_rows+1,) i32, out (n_rows, kf + f) f32. Same width and
-// alignment requirements as mma_edge_program_fwd.
+// Kernel 11: c, ct, d (n_rows, kf), h (n_rows, f), pat (kf,), dst_csc (E,)
+// i32, col_ptr (n_rows+1,) i32, out (n_rows, kf + f) f32. Requires f % 4 ==
+// 0, f <= 128, kf % f == 0, kf <= 512 and 16-byte aligned c, d, h, ct, out.
 int mma_edge_program_bwd_csc(const void* c, const void* d, const void* h, const void* pat,
                              const void* dst_csc, const void* col_ptr, const void* ct,
                              void* out, int n_rows, int f, int kf, void* stream) {

@@ -26,11 +26,13 @@ its CSC twin:
   per row, the var/std aggregators' input.
 - The wide edge program :func:`edge_program` (``S[i] = Σ_{dst_e=i}
   act(c[i] + d[src_e]) ⊙ tile(h[src_e], K)`` from both projections)
-  replaces ``_program_fwd_kernel`` (:func:`edge_program_fwd`),
+  replaces ``_program_fwd_kernel`` (:func:`edge_program_fwd`: kernel 2's
+  edge pass over the caller's ``d``, two launches),
   ``_program_bwd_kernel`` (:func:`edge_program_bwd`: ``dc`` and an
-  optional per-edge ``[dlogits ‖ dh_e]`` payload) and
-  ``_program_bwd_csc_kernel`` (:func:`edge_program_bwd_csc`: ``[dd ‖ dh]``
-  in CSC order).
+  optional per-edge ``[dlogits ‖ dh_e]`` payload; kernel 3's dst pass over
+  the caller's ``d``, two launches, the payload written in the same pass)
+  and ``_program_bwd_csc_kernel`` (:func:`edge_program_bwd_csc`: ``[dd ‖
+  dh]`` in CSC order).
 - :func:`masked_segment_sum` replaces ``_masked_kernel``: ``S[i] =
   Σ_{dst_e=i} where(pat, σ(l_e), l_e) ⊙ tile(h_src_e, K)`` from
   pre-gathered per-edge logits and source rows, the forward of
@@ -95,19 +97,17 @@ def _lib() -> ctypes.CDLL:
         lib.mma_edge_program_lean_node.restype = _I
         lib.mma_edge_program_lean_edges.argtypes = [_P] * 9 + [_I] * 4 + [_P]
         lib.mma_edge_program_lean_edges.restype = _I
-        for fn in ("mma_edge_program_lean_bwd_dst", "mma_edge_program_lean_bwd_src"):
-            getattr(lib, fn).argtypes = [_P] * 10 + [_I] * 4 + [_P]
+        lib.mma_edge_program_lean_bwd_dst.argtypes = [_P] * 11 + [_I] * 4 + [_P]
+        lib.mma_edge_program_lean_bwd_src.argtypes = [_P] * 10 + [_I] * 4 + [_P]
         lib.mma_edge_program_lean_bwd_n_slabs.argtypes = [_I] * 3
         lib.mma_edge_program_lean_bwd_node.argtypes = [_P] * 6 + [_I] * 3 + [_P]
         lib.mma_segment_sum_sq_csr.argtypes = [_P, _P, _P, _I, _I, _P]
-        lib.mma_edge_program_fwd.argtypes = [_P] * 7 + [_I] * 3 + [_P]
-        lib.mma_edge_program_bwd.argtypes = [_P] * 9 + [_I] * 4 + [_P]
         lib.mma_edge_program_bwd_csc.argtypes = [_P] * 8 + [_I] * 3 + [_P]
         lib.mma_masked_segment_sum.argtypes = [_P] * 5 + [_I] * 4 + [_P]
         for fn in ("mma_edge_program_lean_bwd_dst", "mma_edge_program_lean_bwd_src",
                    "mma_edge_program_lean_bwd_n_slabs", "mma_edge_program_lean_bwd_node",
-                   "mma_segment_sum_sq_csr", "mma_edge_program_fwd", "mma_edge_program_bwd",
-                   "mma_edge_program_bwd_csc", "mma_masked_segment_sum"):
+                   "mma_segment_sum_sq_csr", "mma_edge_program_bwd_csc",
+                   "mma_masked_segment_sum"):
             getattr(lib, fn).restype = _I
         _configured = True
     return lib
@@ -387,24 +387,31 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _lean_bwd_dst_pass(c, ct, pattern, d, h, src, row_ptr):
-    """Kernel 3's dst pass, kernel 1's two launches with the ``dc`` message:
-    ``dc[i] = Σ_{e ∈ row i} ct[i] ⊙ tile(h[src_e], K) ⊙ dmask(c[i] +
-    d[src_e])`` over the CSR ``row_ptr`` (N+1,), with ``c``, ``ct`` (N, K·F)
-    and the node tables ``d`` (R, K·F) and ``h`` (R, F), 16-byte aligned.
-    No host sync."""
+def _lean_bwd_dst_pass(c, ct, pattern, d, h, src, row_ptr, emit_payload=False):
+    """The dst pass of kernels 3 and 10, kernel 1's two launches with the
+    ``dc`` message: ``dc[i] = Σ_{e ∈ row i} dlog_e``, ``dlog_e = ct[i] ⊙
+    tile(h[src_e], K) ⊙ dmask(c[i] + d[src_e])``, over the CSR ``row_ptr``
+    (N+1,), with ``c``, ``ct`` (N, K·F) and the node tables ``d`` (R, K·F)
+    and ``h`` (R, F), 16-byte aligned. With ``emit_payload`` the same pass
+    also writes kernel 10's payload (E, K·F+F), ``[dlog_e ‖ Σ_k (ct[i] ⊙
+    mask_e)_k]`` at each covered edge's position and 0 elsewhere: ``(dc,
+    payload or None)``. No host sync."""
     n, kf, f = row_ptr.shape[0] - 1, c.shape[1], h.shape[1]
+    n_edges = src.shape[0]
     lib = _lib()
     dc = torch.empty((n, kf), dtype=torch.float32, device=c.device)
-    part, tail_row = _chunk_scratch(src.shape[0], kf, c.device)
+    payload = (torch.empty((n_edges, kf + f), dtype=torch.float32, device=c.device)
+               if emit_payload else None)
+    part, tail_row = _chunk_scratch(n_edges, kf, c.device)
     with torch.cuda.device(c.device):
         err = lib.mma_edge_program_lean_bwd_dst(
             c.data_ptr(), ct.data_ptr(), pattern.data_ptr(), d.data_ptr(), h.data_ptr(),
-            src.data_ptr(), row_ptr.data_ptr(), dc.data_ptr(), part.data_ptr(),
-            tail_row.data_ptr(), n, f, kf, src.shape[0], _stream(),
+            src.data_ptr(), row_ptr.data_ptr(), dc.data_ptr(),
+            None if payload is None else payload.data_ptr(), part.data_ptr(),
+            tail_row.data_ptr(), n, f, kf, n_edges, _stream(),
         )
-    _check_launch(lib, err, "edge_program_lean_bwd dst pass")
-    return dc
+    _check_launch(lib, err, "edge program dst pass")
+    return dc, payload
 
 
 def _lean_bwd_src_pass(c, ct, pattern, d, h, dst_csc, col_ptr):
@@ -462,7 +469,7 @@ def _edge_program_lean_bwd_kernel(c, w_bot, h, pattern, src, row_ptr, col_ptr, d
     # The passes read h, the pattern and W_bot in 16-byte pieces.
     h, pattern, w_bot = _aligned(h), _aligned(pattern), _aligned(w_bot)
     d = _lean_node_pass(h, w_bot)
-    dc = _lean_bwd_dst_pass(c, ct, pattern, d, h, src, row_ptr)
+    dc, _ = _lean_bwd_dst_pass(c, ct, pattern, d, h, src, row_ptr)
     ddg = _lean_bwd_src_pass(c, ct, pattern, d, h, dst_csc, col_ptr)
     dh, dw = _lean_bwd_node_pass(ddg, h, w_bot)
     LAUNCHES["edge_program_lean_bwd"] += 1
@@ -654,16 +661,10 @@ def edge_program_fwd_reference(c, d, h, pattern, src, row_ptr):
 
 
 def _edge_program_fwd_kernel(c, d, h, pattern, src, row_ptr):
-    name = "edge_program_fwd"
-    n, f, kf = _check_wide_inputs(name, c, d, h, pattern, src, row_ptr)
-    out = torch.empty((n, kf), dtype=torch.float32, device=c.device)
-    lib = _lib()
-    with torch.cuda.device(c.device):
-        err = lib.mma_edge_program_fwd(
-            c.data_ptr(), d.data_ptr(), h.data_ptr(), pattern.data_ptr(), src.data_ptr(),
-            row_ptr.data_ptr(), out.data_ptr(), n, f, kf, _stream(),
-        )
-    _check_launch(lib, err, name)
+    """Kernel 9 on the card: kernel 2's edge pass (two launches) over the
+    caller's ``d``."""
+    _check_wide_inputs("edge_program_fwd", c, d, h, pattern, src, row_ptr)
+    out = _lean_edge_pass(c, _aligned(pattern), d, h, src, row_ptr)
     LAUNCHES["edge_program_fwd"] += 1
     return out
 
@@ -699,22 +700,12 @@ def edge_program_bwd_reference(c, d, h, pattern, src, row_ptr, ct, emit_payload=
 
 
 def _edge_program_bwd_kernel(c, d, h, pattern, src, row_ptr, ct, emit_payload=True):
-    name = "edge_program_bwd"
-    n, f, kf = _check_wide_inputs(name, c, d, h, pattern, src, row_ptr, ct)
-    n_edges = src.shape[0]
-    dc = torch.empty((n, kf), dtype=torch.float32, device=c.device)
-    payload = (torch.empty((n_edges, kf + f), dtype=torch.float32, device=c.device)
-               if emit_payload else None)
-    lib = _lib()
-    with torch.cuda.device(c.device):
-        err = lib.mma_edge_program_bwd(
-            c.data_ptr(), d.data_ptr(), h.data_ptr(), pattern.data_ptr(), src.data_ptr(),
-            row_ptr.data_ptr(), ct.data_ptr(), dc.data_ptr(),
-            None if payload is None else payload.data_ptr(), n, n_edges, f, kf, _stream(),
-        )
-    _check_launch(lib, err, name)
+    """Kernel 10 on the card: kernel 3's dst pass (two launches) over the
+    caller's ``d``, writing the payload in the same pass."""
+    _check_wide_inputs("edge_program_bwd", c, d, h, pattern, src, row_ptr, ct)
+    out = _lean_bwd_dst_pass(c, ct, _aligned(pattern), d, h, src, row_ptr, emit_payload)
     LAUNCHES["edge_program_bwd"] += 1
-    return dc, payload
+    return out
 
 
 def edge_program_bwd(c: torch.Tensor, d: torch.Tensor, h: torch.Tensor,
@@ -730,7 +721,9 @@ def edge_program_bwd(c: torch.Tensor, d: torch.Tensor, h: torch.Tensor,
     row i} dlog_e`` and, with ``emit_payload``, the per-edge payload (E,
     K·F+F) = ``[dlog_e ‖ Σ_k (ct[i] ⊙ mask_e)_k]`` for the edges the CSR
     covers, 0 for the others (else None). ``[dd ‖ dh]`` is the payload
-    summed by source.
+    summed by source. On the card it also takes a ``pattern`` off a 16-byte
+    boundary (it is copied to one); ``c``, ``d``, ``h`` and ``ct`` must be
+    16-byte aligned. Deterministic: no atomics, chunks fixed by E.
     """
     tensors = (c, d, h, pattern, src, row_ptr, ct)
     if _on_cpu(*tensors):

@@ -720,6 +720,105 @@ def test_wide_edge_program_kernels_match_plain(cuda, graph, f, k):
     assert (payload[int(rp[-1]):] == 0).all()  # padding edges
 
 
+def _wide_f64(c, d, h, pattern, src, row_ptr, ct):
+    """The plain versions of kernels 9 and 10 (``edge_program_fwd_reference``,
+    ``edge_program_bwd_reference``) in float64, as ``_lean_f64`` is kernel
+    2's: ``(S, dc, payload)``, the payload 0 outside ``[row_ptr[0],
+    row_ptr[-1])``."""
+    kf, f = c.shape[1], h.shape[1]
+    ids = fused_mma._row_ids(row_ptr)
+    lo, hi = int(row_ptr[0]), int(row_ptr[-1])
+    s = src[lo:hi].long()
+    h_src = h.double()[s].repeat(1, kf // f)
+    mask, dmask = fused_mma._mask_chain(c.double()[ids] + d.double()[s], pattern)
+    ge = ct.double()[ids]
+    dlog = ge * h_src * dmask
+    zeros = lambda *shape: torch.zeros(shape, dtype=torch.float64, device=c.device)  # noqa: E731
+    payload = zeros(src.shape[0], kf + f)
+    payload[lo:hi] = torch.cat([dlog, (ge * mask).reshape(-1, kf // f, f).sum(dim=1)], dim=1)
+    return (zeros(c.shape[0], kf).index_add_(0, ids, mask * h_src),
+            zeros(c.shape[0], kf).index_add_(0, ids, dlog), payload)
+
+
+@pytest.mark.parametrize("f,kf", [(16, 32), (16, 512), (64, 128), (64, 192), (64, 512),
+                                  (128, 512), (12, 36), (96, 192)])
+def test_wide_edge_program_chunks_match_plain(cuda, chunk_graph, f, kf):
+    """Kernel 9 and kernel 10, with and without its payload (kernel 1's
+    chunk pass and fixup with kernels 2 and 3's messages over the caller's
+    ``d``), against their plain versions' formula in float64
+    (``_wide_f64``) within 1e-5 of each tensor's largest value, over kernel
+    1's chunk cases: a row longer than many chunks, a row on a chunk
+    boundary, runs of empty rows inside and at both ends, a slice with
+    ``row_ptr[0] > 0``, padding positions after ``row_ptr[n]`` (whole
+    payload rows of 0), a graph under one chunk, a CSR that covers nothing
+    and one row among long runs of empty rows. The payload's K-fold takes
+    shuffles (F = 16, 64, 128), stays in the thread (K·F = 192 at F = 64:
+    16 lanes an edge) or goes through shared memory (F = 12, 96); K·F above
+    256 takes two rounds. One launch counted a call, ``dc`` the same bits
+    in both modes, bitwise equal run to run, empty rows 0."""
+    rs = np.random.RandomState(f + kf)
+    for what, (rp_np, n_edges) in chunk_graph.items():
+        n = len(rp_np) - 1
+        rp = torch.from_numpy(rp_np).to(cuda)
+
+        def draw(*shape):
+            return torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda)
+
+        c, d, ct, h = draw(n, kf), draw(n, kf), draw(n, kf), draw(n, f)
+        pat = torch.from_numpy((rs.rand(kf) > 0.5).astype(np.float32)).to(cuda)
+        src = torch.from_numpy(rs.randint(0, n, n_edges).astype(np.int32)).to(cuda)
+        fwd = (c, d, h, pat, src, rp)
+        before = dict(fused_mma.LAUNCHES)
+        got = fused_mma.edge_program_fwd(*fwd)
+        dc, payload = fused_mma.edge_program_bwd(*fwd, ct)
+        dc_only, none = fused_mma.edge_program_bwd(*fwd, ct, emit_payload=False)
+        torch.cuda.synchronize()
+        assert fused_mma.LAUNCHES["edge_program_fwd"] == before["edge_program_fwd"] + 1, what
+        assert fused_mma.LAUNCHES["edge_program_bwd"] == before["edge_program_bwd"] + 2, what
+        assert none is None and torch.equal(dc_only, dc), what
+        for name, g, w in zip(("S", "dc", "payload"), (got, dc, payload),
+                              _wide_f64(c, d, h, pat, src, rp, ct)):
+            torch.testing.assert_close(g.double(), w, rtol=1e-5,
+                                       atol=1e-5 * w.abs().max().item(), msg=f"{what} {name}")
+        assert (payload[:int(rp_np[0])] == 0).all() and (payload[int(rp_np[-1]):] == 0).all()
+        assert torch.equal(got, fused_mma.edge_program_fwd(*fwd)), what
+        again = fused_mma.edge_program_bwd(*fwd, ct)
+        assert torch.equal(dc, again[0]) and torch.equal(payload, again[1]), what
+        empty = torch.from_numpy(rp_np[1:] == rp_np[:-1]).to(cuda)
+        assert (got[empty] == 0).all() and (dc[empty] == 0).all(), what
+
+
+def test_wide_edge_program_replays_in_a_cuda_graph(cuda, chunk_graph):
+    """Kernel 9 and kernel 10 with its payload, captured in one CUDA graph
+    and replayed, give the eager results: the wrappers size grids and
+    scratch from shapes and never read ``row_ptr`` on the host."""
+    rp_np, n_edges = chunk_graph["slice row_ptr[0] > 0"]
+    rs = np.random.RandomState(14)
+    n, f, kf = len(rp_np) - 1, 64, 128
+    rp = torch.from_numpy(rp_np).to(cuda)
+    c, d, ct = (torch.from_numpy(rs.randn(n, kf).astype(np.float32)).to(cuda) for _ in range(3))
+    h = torch.from_numpy(rs.randn(n, f).astype(np.float32)).to(cuda)
+    pat = torch.from_numpy((rs.rand(kf) > 0.5).astype(np.float32)).to(cuda)
+    src = torch.from_numpy(rs.randint(0, n, n_edges).astype(np.int32)).to(cuda)
+    fwd = (c, d, h, pat, src, rp)
+
+    def call():
+        return (fused_mma.edge_program_fwd(*fwd), *fused_mma.edge_program_bwd(*fwd, ct))
+
+    eager = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(captured, eager))
+
+
 @pytest.mark.parametrize("bwd_mode", ["payload_permute", "csc_gather"])
 def test_wide_edge_program_on_card_matches_cpu(cuda, graph, bwd_mode):
     """``edge_program``'s forward and its three gradients on the card

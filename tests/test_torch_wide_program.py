@@ -8,6 +8,10 @@ The JAX side runs its Pallas kernels in interpret mode. Tolerances:
   on the real nodes: 1e-5 forward and 2e-5 gradients, as the JAX package
   holds its own kernels against XLA
   (``tests/test_graph_and_native.py:189-242``);
+- ``edge_program_fwd`` and ``edge_program_bwd`` (both payload modes) on a
+  skewed graph against the same JAX function's output and gradients:
+  relative 2e-5 with a floor of 2e-5 times the tensor's largest value
+  (f32 sums of up to 320 terms, taken in another order);
 - ``masked_multi_aggregate`` against the JAX package's Pallas route (its
   default ``precision="high"``, two bf16 passes) at the scale-aware
   tolerance of ``tests/test_graph_and_native.py:166-173``, and against the
@@ -21,6 +25,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from mma_tpu.graph.build import graph_from_edges as jax_graph_from_edges
 from mma_tpu.ops.aggregators import get_agg_spec as jax_get_agg_spec
 from mma_tpu.ops.masked_aggregate import masked_multi_aggregate as jax_masked_multi_aggregate
 from mma_tpu.ops.pallas.fused_mma import fused_mma_edge_program
@@ -87,6 +92,76 @@ def test_edge_program_matches_jax(n_agg, n, p, bwd_mode):
                                    err_msg=name)
         assert not g[~nm].any(), name
     assert not got[~nm].any()
+
+
+@pytest.fixture(scope="module")
+def skewed_graphs():
+    """The shape the card's chunk pass is built for, small: 400 nodes, node
+    5 the destination of a 320-edge row, rows 100-159 and the last 30 rows
+    empty, and 70 padding edges past the real ones (the JAX package's
+    graph and the port's over the same edges and padding)."""
+    rs = np.random.RandomState(21)
+    n = 400
+    live = np.setdiff1d(np.arange(n - 30), np.r_[5, 100:160])
+    dst = np.concatenate([np.full(320, 5), rs.choice(live, 2000)]).astype(np.int32)
+    src = rs.randint(0, n, dst.shape[0]).astype(np.int32)
+    n_edge = dst.shape[0] + 70
+    jg = jax_graph_from_edges(src, dst, n, n_edge_pad=n_edge)
+    tg = graph_from_edges(src, dst, n, n_node_pad=jg.n_node, n_edge_pad=n_edge, device="cpu")
+    return jg, tg
+
+
+@pytest.mark.parametrize("emit_payload", [True, False])
+@pytest.mark.parametrize("f,n_agg", [(16, 2), (64, 2), (12, 3)])
+def test_wide_kernels_match_jax_on_a_skewed_graph(skewed_graphs, f, n_agg, emit_payload):
+    """Kernels 9 and 10 through their plain versions, the functions the
+    card's kernels are held against, against the JAX package's
+    ``fused_mma_edge_program`` (``precision="highest"``) on a graph with a
+    320-edge row, runs of empty rows and padding edges: ``S`` against its
+    output; ``dc`` against its ``c`` gradient; the payload summed by source
+    against its ``d`` and ``h`` gradients, and 0 on the padding edges. This
+    closes the chain card → plain version → JAX for the skewed shape."""
+    jg, tg = skewed_graphs
+    rs = np.random.RandomState(f + n_agg)
+    kf = n_agg * f
+    nm = np.asarray(jg.node_mask)
+    c, d, ct = (np.where(nm[:, None], rs.randn(jg.n_node, kf), 0.0).astype(np.float32)
+                for _ in range(3))
+    h = np.where(nm[:, None], rs.randn(jg.n_node, f), 0.0).astype(np.float32)
+    pat = (np.arange(kf) // f % 2 == 0) ^ (rs.rand(kf) > 0.8)  # mixed lanes within a block
+
+    def jfused(c_, d_, h_):
+        out = fused_mma_edge_program(c_, d_, h_, jnp.asarray(pat), jg, n_agg,
+                                     precision="highest", bwd_mode="payload_permute")
+        return jnp.sum(out * ct), out
+
+    (_, want), (want_dc, want_dd, want_dh) = jax.value_and_grad(
+        jfused, argnums=(0, 1, 2), has_aux=True)(jnp.asarray(c), jnp.asarray(d), jnp.asarray(h))
+    t = {k: torch.from_numpy(v) for k, v in dict(c=c, d=d, h=h, ct=ct).items()}
+    tpat = torch.from_numpy(pat.astype(np.float32))
+    rp = tg.real_row_ptr
+    assert int((rp[1:] - rp[:-1]).max()) == 320 and int(rp[-1]) == tg.n_edge - 70
+    fwd = (t["c"], t["d"], t["h"], tpat, tg.src, rp)
+    before = dict(fused_mma.LAUNCHES)
+    got = fused_mma.edge_program_fwd(*fwd)
+    dc, payload = fused_mma.edge_program_bwd(*fwd, t["ct"], emit_payload=emit_payload)
+    assert fused_mma.LAUNCHES == before  # plain versions on the CPU
+
+    def close(got_, want_, what):
+        want_ = np.asarray(want_)[nm]
+        np.testing.assert_allclose(got_.numpy()[nm], want_, rtol=2e-5,
+                                   atol=2e-5 * np.abs(want_).max(), err_msg=what)
+
+    close(got, want, "S")
+    close(dc, want_dc, "dc")
+    if not emit_payload:
+        assert payload is None
+        return
+    assert payload.shape == (tg.n_edge, kf + f)
+    assert not payload[int(rp[-1]):].any()  # padding edges
+    by_src = fused_mma.segment_sum_csr(payload, tg.real_col_ptr, index=tg.src_perm)
+    close(by_src[:, :kf], want_dd, "dd")
+    close(by_src[:, kf:], want_dh, "dh")
 
 
 @pytest.mark.parametrize("n_agg", [1, 3])
