@@ -76,7 +76,8 @@
    four parts alone (``D``, the dst pass, the src pass, the node pass),
    each edge pass on its heaviest row alone and at Cora's shape; kernels 9
    and 10, both payload modes, also on the heaviest row alone as a whole
-   call; kernels 4-8 on the tensors the
+   call, and kernel 11 on the heaviest source alone as a whole call;
+   kernels 4-8 on the tensors the
    ZINC train steps gave them at the flagship batch, 4-7 for one and two
    ops, with dropout on and off): the
    error against the plain version (kernels 4 and 6, and the routed
@@ -1382,6 +1383,24 @@ def main() -> int:
              4 * (3 * n_rows * kf + n_rows * f + kf + e_cov + (n_rows + 1)
                   + n_rows * (kf + f)),
              8 * e_cov * kf, 4 * e_cov * 2 * kf, iters=15)
+        # Skew: kernel 11 alone on the heaviest source, as a whole call on a
+        # CSC of N columns that covers that source's edges only (split over
+        # chunks, joined by the fixup; every other row zeroed).
+        deg = cp[1:] - cp[:-1]
+        top = int(torch.argmax(deg))
+        heavy = (c, d, h, pat, dst_csc, cp.clamp(int(cp[top]), int(cp[top + 1])), ct)
+        got = fused_mma.edge_program_bwd_csc(*heavy)
+        if not torch.equal(got, fused_mma.edge_program_bwd_csc(*heavy)):
+            raise AssertionError("edge_program_bwd_csc heaviest source alone differs run to run")
+        compare(got, fused_mma.edge_program_bwd_csc_reference(*heavy), 1e-5,
+                "edge_program_bwd_csc heaviest source alone vs plain")
+        del got
+        k11 = kernels["edge_program_bwd_csc"]
+        k11["heaviest_row_call_ms"] = device_ms(
+            lambda: fused_mma.edge_program_bwd_csc(*heavy), iters=15)
+        print(f"edge_program_bwd_csc: the heaviest source alone ({int(deg[top])} edges, "
+              f"N={n_rows}), whole call ms {k11['heaviest_row_call_ms']:.4f}; bitwise equal run "
+              "to run")
 
         # Kernel 1 at C = K·F+F: payload_permute's by-source sum of the payload.
         ch = payload.shape[1]

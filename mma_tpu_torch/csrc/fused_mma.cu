@@ -263,16 +263,24 @@ __device__ __forceinline__ void zero_empty_rows(const int32_t* __restrict__ row_
 //                       place of add for each edge it loads, with the edge's
 //                       position e (-1: no edge), warp-uniformly, and
 //                       zero_uncovered(a, b, lo, hi) once per chunk [a, b);
+//   kFolds: whether the output row is [sum 0 || sum 1 folded over its K
+//                       blocks of f_vec slots], n_vec + f_vec slots
+//                       (out_slots). If so, chunk_pass calls store(acc,
+//                       dst, on, t0, lpe, li) with every lane of the warp
+//                       in place of its own stores, `on` for the lanes
+//                       whose group holds the row;
 // and in_flight<TILES>(), the edges whose loads a lane issues before it
 // adds them. RowsOf is kernel 1's (the data row itself); LeanMessage,
 // kernels 2 and 9's, LeanDcMessage, kernels 3 and 10's, LeanSrcMessage,
-// kernel 3's, and LeanDcPayloadMessage, kernel 10's with its per-edge
-// payload, are below with those kernels.
+// kernel 3's, LeanDcPayloadMessage, kernel 10's with its per-edge
+// payload, and LeanSrcFoldMessage, kernel 11's, are below with those
+// kernels.
 template <int VEC_>
 struct RowsOf {
   static constexpr int VEC = VEC_;
   static constexpr int kSums = 1;
   static constexpr bool kEmits = false;
+  static constexpr bool kFolds = false;
   // About 32 floats in flight a lane.
   template <int TILES>
   __host__ __device__ static constexpr int in_flight() {
@@ -296,13 +304,24 @@ struct RowsOf {
   }
 };
 
+// The slots of an output row (and of a partial) of message Msg, whose sums
+// are n_vec slots each.
+template <class Msg>
+__host__ __device__ __forceinline__ int out_slots(const Msg& msg, int n_vec) {
+  if constexpr (Msg::kFolds) {
+    return n_vec + msg.f_vec;
+  } else {
+    return Msg::kSums * n_vec;
+  }
+}
+
 // Pass 1, for any message type Msg: the body of kernel 1's
 // segment_sum_chunk_kernel, of kernels 2 and 9's lean_edge_kernel and of
-// kernels 3 and 10's lean_bwd_edge_kernel. TILES: the lane's channel slots
-// per edge (a compile-time bound on `tiles`; wider rows take several
+// kernels 3, 10 and 11's lean_bwd_edge_kernel. TILES: the lane's channel
+// slots per edge (a compile-time bound on `tiles`; wider rows take several
 // rounds over the row's edges). U: edges a group loads before it adds
 // them. n_vec counts the slots of one sum; an output row (and a partial)
-// holds Msg::kSums of them.
+// holds out_slots(msg, n_vec).
 template <class Msg, int TILES>
 __device__ __forceinline__ void chunk_pass(const Msg& msg, const int32_t* __restrict__ row_ptr,
                                            const int32_t* __restrict__ index,
@@ -315,7 +334,7 @@ __device__ __forceinline__ void chunk_pass(const Msg& msg, const int32_t* __rest
   using Edge = typename Msg::Edge;
   constexpr int U = Msg::template in_flight<TILES>();
   constexpr int A = Msg::kSums;
-  const int row_vec = A * n_vec;
+  const int row_vec = out_slots(msg, n_vec);
   const int c = blockIdx.x * kSumWarps + threadIdx.x / kWarp;
   if (c >= n_chunks) return;  // whole warps leave together
   const int lane = threadIdx.x % kWarp;
@@ -424,7 +443,9 @@ __device__ __forceinline__ void chunk_pass(const Msg& msg, const int32_t* __rest
             }
           }
         }
-        if (mine >= 0) {
+        if constexpr (Msg::kFolds) {
+          msg.template store<TILES>(acc, dst, mine >= 0, t0, lpe, li);
+        } else if (mine >= 0) {
 #pragma unroll
           for (int t = 0; t < TILES; ++t) {
             const int cv = (t0 + t) * lpe + li;
@@ -505,7 +526,9 @@ __device__ __forceinline__ void chunk_pass(const Msg& msg, const int32_t* __rest
             }
           }
         }
-        if (g == 0) {
+        if constexpr (Msg::kFolds) {
+          msg.template store<TILES>(acc, dst, g == 0, t0, lpe, li);
+        } else if (g == 0) {
 #pragma unroll
           for (int t = 0; t < TILES; ++t) {
             const int cv = (t0 + t) * lpe + li;
@@ -751,6 +774,7 @@ struct LeanMessage {
   static constexpr int VEC = 4;
   static constexpr int kSums = 1;
   static constexpr bool kEmits = false;
+  static constexpr bool kFolds = false;
   // Two edges' D and h slots in flight (see lean_edge_kernel).
   template <int TILES>
   __host__ __device__ static constexpr int in_flight() {
@@ -885,6 +909,7 @@ struct LeanDcMessage {
   static constexpr int VEC = 4;
   static constexpr int kSums = 1;
   static constexpr bool kEmits = false;
+  static constexpr bool kFolds = false;
   static constexpr int kMinBlocks = 4;  // blocks an SM: 64 registers
   template <int TILES>
   __host__ __device__ static constexpr int in_flight() {
@@ -928,12 +953,10 @@ struct LeanDcMessage {
   }
 };
 
-// Kernel 10's dst pass with its per-edge payload: LeanDcMessage's sums
-// into dc (the same bits), and at each covered edge's CSR position e the
-// payload row [dlog_e || fold_K(ct[i] * mask_e)] of n_vec + f_vec slots,
-// written by the edge's lane group with streaming 16-byte stores from the
-// loads the sums already made. The K-fold adds the slots cv, cv + f_vec,
-// ... of a feature slot:
+// The K-fold of one round's slots v[t] of a K*F row (slot cv = (t0 + t)
+// lpe + li of the lane's group, 0 past the row) into q[0 .. f_vec): q[j]
+// adds the slots j, j + f_vec, ... Every lane of the warp calls it; the
+// lanes `on` store, with streaming 16-byte stores.
 //   - butterfly (lpe % f_vec == 0, the main path's K*F = 128, F = 64): every
 //     slot of a lane is its feature li mod f_vec, so the lane adds its
 //     slots, then the group adds across lanes f_vec apart by shuffles, and
@@ -943,9 +966,51 @@ struct LeanDcMessage {
 //     in k order.
 // Where a row takes several rounds (K*F > 256: TILES = 2 slots a lane a
 // round), a round adds its part of the fold to what the earlier rounds
-// stored: the same lane owns the same feature of the same edge in every
-// round, so it reads back its own store. Positions the CSR does not cover
-// get zero rows from the chunk that holds them (zero_uncovered).
+// stored: the same lane owns the same feature of the same row in every
+// round, so it reads back its own store.
+__device__ __forceinline__ void store_fold(float4* q, float4 v, bool later_round) {
+  if (later_round) {
+    const float4 before = *q;
+    v = make_float4(before.x + v.x, before.y + v.y, before.z + v.z, before.w + v.w);
+  }
+  __stcs(q, v);
+}
+
+template <int TILES>
+__device__ __forceinline__ void fold_k(const float4 (&v)[TILES], float4* q, bool on, int t0,
+                                       int lpe, int li, int f_vec, bool butterfly) {
+  __shared__ float4 stage[kSumWarps][kWarp * TILES];  // the round's slots, per group
+  if (butterfly) {
+    float4 fold = Vec<4>::zero();
+#pragma unroll
+    for (int t = 0; t < TILES; ++t) Vec<4>::add(fold, v[t]);
+    for (int off = f_vec; off < lpe; off <<= 1) Vec<4>::add(fold, Vec<4>::shfl_xor(fold, off));
+    if (on && li < f_vec) store_fold(q + li, fold, t0 > 0);
+    return;
+  }
+  float4* grp = stage[threadIdx.x / kWarp] + (threadIdx.x % kWarp - li) * TILES;
+#pragma unroll
+  for (int t = 0; t < TILES; ++t) grp[t * lpe + li] = v[t];
+  __syncwarp();
+  if (on) {
+    for (int j = li; j < f_vec; j += lpe) {
+      float4 sum = Vec<4>::zero();
+      for (int k = j - t0 * lpe; k < TILES * lpe; k += f_vec) {
+        if (k >= 0) Vec<4>::add(sum, grp[k]);
+      }
+      store_fold(q + j, sum, t0 > 0);
+    }
+  }
+  __syncwarp();  // the stage is read before the next call overwrites it
+}
+
+// Kernel 10's dst pass with its per-edge payload: LeanDcMessage's sums
+// into dc (the same bits), and at each covered edge's CSR position e the
+// payload row [dlog_e || fold_K(ct[i] * mask_e)] of n_vec + f_vec slots,
+// written by the edge's lane group with streaming 16-byte stores from the
+// loads the sums already made (the K-fold by fold_k). Positions the CSR
+// does not cover get zero rows from the chunk that holds them
+// (zero_uncovered).
 struct LeanDcPayloadMessage : LeanDcMessage {
   static constexpr bool kEmits = true;
   // 80 registers (3 blocks an SM) and LeanDcMessage's two edges in flight:
@@ -986,22 +1051,11 @@ struct LeanDcPayloadMessage : LeanDcMessage {
     gm = __fmul_rn(ct, m);
   }
 
-  // The fold's slot: v, plus what earlier rounds stored there.
-  __device__ static void store_fold(float4* q, float4 v, bool later_round) {
-    if (later_round) {
-      const float4 before = *q;
-      v = make_float4(before.x + v.x, before.y + v.y, before.z + v.z, before.w + v.w);
-    }
-    __stcs(q, v);
-  }
-
   template <int TILES>
   __device__ void emit(float4 (&acc)[TILES][1], const Edge (&ed)[TILES], const Slot (&sl)[TILES],
                        int64_t e, int t0, int lpe, int li) const {
-    __shared__ float4 stage[kSumWarps][kWarp * TILES];  // the round's gm slots, per group
     float4* prow = payload + (e < 0 ? 0 : e) * (n_vec + f_vec);
     float4 gm[TILES];
-    float4 fold = Vec<4>::zero();
 #pragma unroll
     for (int t = 0; t < TILES; ++t) {
       float4 dl;
@@ -1011,27 +1065,8 @@ struct LeanDcPayloadMessage : LeanDcMessage {
       terms(acc[t][0].w, dl.w, gm[t].w, sl[t].c.w, sl[t].ct.w, sl[t].p.w, ed[t].d.w, ed[t].h.w);
       const int cv = (t0 + t) * lpe + li;
       if (e >= 0 && cv < n_vec) __stcs(prow + cv, dl);
-      Vec<4>::add(fold, gm[t]);  // slots past the row hold 0
     }
-    if (butterfly) {
-      for (int off = f_vec; off < lpe; off <<= 1) Vec<4>::add(fold, Vec<4>::shfl_xor(fold, off));
-      if (e >= 0 && li < f_vec) store_fold(prow + n_vec + li, fold, t0 > 0);
-      return;
-    }
-    float4* grp = stage[threadIdx.x / kWarp] + (threadIdx.x % kWarp - li) * TILES;
-#pragma unroll
-    for (int t = 0; t < TILES; ++t) grp[t * lpe + li] = gm[t];
-    __syncwarp();
-    if (e >= 0) {
-      for (int j = li; j < f_vec; j += lpe) {
-        float4 sum = Vec<4>::zero();
-        for (int q = j - t0 * lpe; q < TILES * lpe; q += f_vec) {
-          if (q >= 0) Vec<4>::add(sum, grp[q]);
-        }
-        store_fold(prow + n_vec + j, sum, t0 > 0);
-      }
-    }
-    __syncwarp();  // the stage is read before the next edge overwrites it
+    fold_k<TILES>(gm, prow + n_vec, e >= 0, t0, lpe, li, f_vec, butterfly);
   }
 };
 
@@ -1041,6 +1076,7 @@ struct LeanSrcMessage {
   static constexpr int VEC = 4;
   static constexpr int kSums = 2;
   static constexpr bool kEmits = false;
+  static constexpr bool kFolds = false;
   static constexpr int kMinBlocks = 3;  // blocks an SM: 80 registers
   template <int TILES>
   __host__ __device__ static constexpr int in_flight() {
@@ -1082,9 +1118,42 @@ struct LeanSrcMessage {
   }
 };
 
+// Kernel 11's src pass: LeanSrcMessage's loads and sums over the caller's
+// d, with the G block folded over the K aggregator blocks as it is stored
+// (kFolds): an output row, and a head or tail partial, is [dd || fold_K(G)],
+// n_vec + f_vec slots. The fold is linear, so kernel 1's fixup adds folded
+// partials as they are.
+struct LeanSrcFoldMessage : LeanSrcMessage {
+  static constexpr bool kFolds = true;
+  // 64 registers (4 blocks an SM), with spills, and LeanSrcMessage's two
+  // edges in flight: on the card 2 and 3 blocks an SM were 17-18% slower at
+  // the synthetic-large graph, and four edges in flight slower at 2, 3 and
+  // 4 blocks. 32 warps an SM hide the c and ct gathers' latency better than
+  // fewer spills do.
+  static constexpr int kMinBlocks = 4;
+  bool butterfly;  // lpe % f_vec == 0
+
+  // The round's slots of a row at dst: dd on the lane's own slots, the G
+  // slots through fold_k. Every lane of the warp calls it; `on` for the
+  // lanes whose group holds the row.
+  template <int TILES>
+  __device__ void store(const float4 (&acc)[TILES][2], float4* dst, bool on, int t0, int lpe,
+                        int li) const {
+    float4 g[TILES];
+#pragma unroll
+    for (int t = 0; t < TILES; ++t) {
+      const int cv = (t0 + t) * lpe + li;
+      if (on && cv < n_vec) dst[cv] = acc[t][0];
+      g[t] = acc[t][1];  // 0 past the row
+    }
+    fold_k<TILES>(g, dst + n_vec, on, t0, lpe, li, f_vec, butterfly);
+  }
+};
+
 // Pass 1 of the dst pass (Msg = LeanDcMessage; kernel 10 with the caller's
 // d, and with its payload LeanDcPayloadMessage) and of the src pass
-// (LeanSrcMessage), each at its message's launch bounds.
+// (LeanSrcMessage; kernel 11 with the caller's d, LeanSrcFoldMessage),
+// each at its message's launch bounds.
 template <class Msg, int TILES, int MIN_BLOCKS>
 __global__ void __launch_bounds__(kSumWarps* kWarp, MIN_BLOCKS)
 lean_bwd_edge_kernel(const Msg msg, const int32_t* __restrict__ ptr,
@@ -1097,7 +1166,7 @@ lean_bwd_edge_kernel(const Msg msg, const int32_t* __restrict__ ptr,
 
 // Both passes of a dst or src pass over n_edges edge positions of the CSR
 // (or CSC) ptr, reading the other endpoint through index; out holds
-// Msg::kSums * kf floats a row, part as many a slot.
+// out_slots(msg, kf / 4) 16-byte slots a row, part as many a slot.
 template <class Msg>
 cudaError_t launch_lean_bwd_edges(const Msg& msg, const void* ptr, const void* index, void* out,
                                   void* part, void* tail_row, int n_rows, int kf, int n_edges,
@@ -1120,8 +1189,8 @@ cudaError_t launch_lean_bwd_edges(const Msg& msg, const void* ptr, const void* i
   } else {
     launch(std::integral_constant<int, 2>());  // two slots a lane, several rounds past 256 lanes
   }
-  return launch_fixup<4>(ptr, part, tail_row, out, n_rows, Msg::kSums * n_vec, chunk, n_chunks,
-                         s);
+  return launch_fixup<4>(ptr, part, tail_row, out, n_rows, out_slots(msg, n_vec), chunk,
+                         n_chunks, s);
 }
 
 // The node pass. lean_dh_kernel: a thread owns kDhRowsPerThread rows and
@@ -1486,8 +1555,8 @@ __global__ void segment_sum_sq_kernel(const float* __restrict__ data,
 // (0.07-0.1 ms at the synthetic-large graph); kernel 10's payload, E x (K*F
 // + F) x 4 B = 1.61 GB at F = 64, K = 2, is written once: 0.48 ms at 3.35
 // TB/s. What sets the time is the random node rows gathered per edge, E x
-// 768 B (d and h by src; c and ct by dst for kernel 11), less what the 50
-// MB L2 keeps of the tables.
+// 768 B (d and h by src; kernel 11: c and ct by dst, E x 1,024 B), less
+// what the 50 MB L2 keeps of the tables.
 //
 // Kernels 9 and 10 are the edge-balanced chunk pass of kernels 1-3, with
 // the caller's d in place of kernel 2's D = h @ W_bot: kernel 9 is kernel
@@ -1500,166 +1569,16 @@ __global__ void segment_sum_sq_kernel(const float* __restrict__ data,
 // chunk order, every output row and payload row written once, no atomics,
 // no host sync.
 //
-// Kernel 11: one warp per source row, 8 warps a block. A thread owns 4
-// consecutive lanes of each 128-lane tile of the K*F row (NT = ceil(K*F /
-// 128) tiles, K*F <= 512) and keeps d[s] and h[s] in registers. Per edge it
-// gathers c[i] and ct[i] as 16-byte loads straight from the node tables,
-// issuing the next edge's loads before the current edge's arithmetic. The
-// sum over k of the K aggregator blocks (the dh part) crosses threads: the
-// warp stages its ct * mask lanes in shared memory and each thread adds k =
-// 0..K-1 for its 4 output features in that fixed order. Every output row
-// is written once by its warp, edges in CSC order: no atomics, bitwise
-// equal run to run.
+// Kernel 11 is kernel 3's src pass over the caller's d, and writes its
+// [dd || dh] row as it stores: lean_bwd_edge_kernel<LeanSrcFoldMessage>,
+// then kernel 1's fixup. The chunk pass runs over the CSC, gathering
+// c[i] and ct[i] through dst_csc per edge, with d[s], tile(h[s], K) and the
+// pattern loaded once per row segment; a slot keeps dd and G = sum ct[i] *
+// mask_e, and G's K blocks are folded as the row (or a chunk's partial) is
+// stored, so rows and partials are K*F + F wide, not 2 K*F. The power-law
+// graph's heaviest source (1,448 edges) is split over chunks and joined
+// by the fixup in chunk order, as the other passes' heavy rows are.
 // ---------------------------------------------------------------------------
-
-constexpr int kWideWarps = 8;
-constexpr int kMaxKF = 512;
-
-__device__ __forceinline__ void load4(float (&v)[4], const float* p, bool on) {
-  if (on) {
-    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-  } else {
-    v[0] = v[1] = v[2] = v[3] = 0.f;
-  }
-}
-
-__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-// A thread's lanes of a K*F-wide row: l0[t] = 128 t + 4 lane in tile t,
-// on[t] when they exist, hoff[t] = l0[t] mod F (the same lanes of h).
-template <int NT>
-struct WideLanes {
-  int l0[NT];
-  int hoff[NT];
-  bool on[NT];
-  float pat[NT][4];
-
-  __device__ WideLanes(const float* __restrict__ pattern, int lane, int f, int kf) {
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      l0[t] = t * kLaneTile + 4 * lane;
-      on[t] = l0[t] < kf;  // kf % 4 == 0, so all 4 lanes or none
-      hoff[t] = on[t] ? l0[t] % f : 0;
-      load4(pat[t], pattern + l0[t], on[t]);
-    }
-  }
-
-  // v[t] = row[r, l0[t] .. l0[t] + 3] of a (rows, kf) table.
-  __device__ void row(float (&v)[NT][4], const float* __restrict__ table, int64_t r,
-                      int kf) const {
-#pragma unroll
-    for (int t = 0; t < NT; ++t) load4(v[t], table + r * kf + l0[t], on[t]);
-  }
-
-  // v[t] = h[r, hoff[t] .. hoff[t] + 3]: tile(h[r], K) on this thread's lanes.
-  __device__ void hrow(float (&v)[NT][4], const float* __restrict__ h, int64_t r,
-                       int f) const {
-#pragma unroll
-    for (int t = 0; t < NT; ++t) load4(v[t], h + r * f + hoff[t], on[t]);
-  }
-};
-
-template <int NT>
-__device__ __forceinline__ void copy_lanes(float (&dst)[NT][4], const float (&src)[NT][4]) {
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) dst[t][q] = src[t][q];
-  }
-}
-
-// The warp's dh part: out[ff] = sum_{k < kf / f} gm_s[k f + ff] for this
-// thread's 4 features ff = 4 lane .. 4 lane + 3 (f <= 128), k in order.
-__device__ __forceinline__ void sum_blocks(float* __restrict__ out,
-                                           const float* __restrict__ gm_s, int lane, int f,
-                                           int kf) {
-  const int ff = 4 * lane;
-  if (ff >= f) return;
-  float s[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k = 0; k < kf; k += f) {
-    const float4 g = *reinterpret_cast<const float4*>(gm_s + k + ff);
-    s[0] += g.x; s[1] += g.y; s[2] += g.z; s[3] += g.w;
-  }
-  store4(out + ff, s);
-}
-
-template <int NT>
-__global__ void __launch_bounds__(kWideWarps * kWarp)
-edge_program_bwd_csc_kernel(const float* __restrict__ c, const float* __restrict__ d,
-                            const float* __restrict__ h, const float* __restrict__ pat,
-                            const int32_t* __restrict__ dst_csc,
-                            const int32_t* __restrict__ col_ptr,
-                            const float* __restrict__ ct, float* __restrict__ out,
-                            int n_rows, int f, int kf) {
-  __shared__ __align__(16) float gm_all[kWideWarps * kMaxKF];
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int row = blockIdx.x * kWideWarps + warp;  // a source node
-  if (row >= n_rows) return;  // whole warps leave together
-  float* gm_s = gm_all + warp * kMaxKF;
-  const WideLanes<NT> ln(pat, lane, f, kf);
-  float dv[NT][4], hv[NT][4], dd[NT][4] = {}, gsum[NT][4] = {};
-  ln.row(dv, d, row, kf);
-  ln.hrow(hv, h, row, f);
-  const int start = col_ptr[row];
-  const int end = col_ptr[row + 1];
-  float cn[NT][4], ctn[NT][4];
-  if (start < end) {
-    const int64_t i = __ldg(dst_csc + start);
-    ln.row(cn, c, i, kf);
-    ln.row(ctn, ct, i, kf);
-  }
-  for (int e = start; e < end; ++e) {
-    float cv[NT][4], ctv[NT][4];
-    copy_lanes(cv, cn);
-    copy_lanes(ctv, ctn);
-    if (e + 1 < end) {
-      const int64_t i = __ldg(dst_csc + e + 1);
-      ln.row(cn, c, i, kf);
-      ln.row(ctn, ct, i, kf);
-    }
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float m, dm;
-        mask_chain(cv[t][q] + dv[t][q], ln.pat[t][q], m, dm);
-        dd[t][q] += ctv[t][q] * hv[t][q] * dm;  // edges in CSC order
-        gsum[t][q] += ctv[t][q] * m;
-      }
-    }
-  }
-  const int width = kf + f;
-  float* orow = out + static_cast<int64_t>(row) * width;
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    if (ln.on[t]) {
-      store4(orow + ln.l0[t], dd[t]);
-      store4(gm_s + ln.l0[t], gsum[t]);
-    }
-  }
-  __syncwarp();
-  sum_blocks(orow + kf, gm_s, lane, f, kf);
-}
-
-// Calls launch(std::integral_constant<int, NT>()) for NT = ceil(kf / 128)
-// in 1..4 and returns the launch's error.
-template <typename Launch>
-cudaError_t by_tiles(int kf, Launch launch) {
-  switch ((kf + kLaneTile - 1) / kLaneTile) {
-    case 1: launch(std::integral_constant<int, 1>()); break;
-    case 2: launch(std::integral_constant<int, 2>()); break;
-    case 3: launch(std::integral_constant<int, 3>()); break;
-    case 4: launch(std::integral_constant<int, 4>()); break;
-    default: return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
-
-int wide_blocks(int n_rows) { return (n_rows + kWideWarps - 1) / kWideWarps; }
 
 // ---------------------------------------------------------------------------
 // Kernel 12: masked_segment_sum
@@ -1689,6 +1608,34 @@ int wide_blocks(int n_rows) { return (n_rows + kWideWarps - 1) / kWideWarps; }
 // ---------------------------------------------------------------------------
 
 constexpr int kMaskedWarps = 8;
+constexpr int kMaxKF = 512;
+
+__device__ __forceinline__ void load4(float (&v)[4], const float* p, bool on) {
+  if (on) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  } else {
+    v[0] = v[1] = v[2] = v[3] = 0.f;
+  }
+}
+
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Calls launch(std::integral_constant<int, NT>()) for NT = ceil(kf / 128)
+// in 1..4 and returns the launch's error.
+template <typename Launch>
+cudaError_t by_tiles(int kf, Launch launch) {
+  switch ((kf + kLaneTile - 1) / kLaneTile) {
+    case 1: launch(std::integral_constant<int, 1>()); break;
+    case 2: launch(std::integral_constant<int, 2>()); break;
+    case 3: launch(std::integral_constant<int, 3>()); break;
+    case 4: launch(std::integral_constant<int, 4>()); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
 
 template <int VEC>
 __device__ __forceinline__ void load_lanes(float (&v)[VEC], const float* p, bool on) {
@@ -1929,6 +1876,24 @@ int mma_edge_program_lean_bwd_src(const void* c, const void* ct, const void* pat
                                                 static_cast<cudaStream_t>(stream)));
 }
 
+// Kernel 11, the src pass with G's K blocks folded as it stores: out[s] =
+// [dd[s] || dh[s]] (n_rows, kf + f) f32, scratch part (n_chunks, 2, kf + f)
+// f32; the other arguments and requirements as
+// mma_edge_program_lean_bwd_src's, with the caller's d.
+int mma_edge_program_bwd_csc(const void* c, const void* ct, const void* pat, const void* d,
+                             const void* h, const void* dst_csc, const void* col_ptr, void* out,
+                             void* part, void* tail_row, int n_rows, int f, int kf, int n_edges,
+                             void* stream) {
+  if (n_rows <= 0) return static_cast<int>(cudaSuccess);
+  const LeanSrcMessage src{static_cast<const float4*>(c),   static_cast<const float4*>(ct),
+                           static_cast<const float4*>(pat), static_cast<const float4*>(d),
+                           static_cast<const float4*>(h),   kf / 4, f / 4};
+  const LeanSrcFoldMessage msg{src, lanes_per_edge(kf / 4) % (f / 4) == 0};
+  return static_cast<int>(launch_lean_bwd_edges(msg, col_ptr, dst_csc, out, part, tail_row,
+                                                n_rows, kf, n_edges,
+                                                static_cast<cudaStream_t>(stream)));
+}
+
 // The slab count of mma_edge_program_lean_bwd_node; the caller sizes the
 // (n_slabs, f, kf) f32 dW_bot partials from it.
 int mma_edge_program_lean_bwd_n_slabs(int n_rows, int f, int kf) {
@@ -1978,24 +1943,6 @@ int mma_segment_sum_sq_csr(const void* data, const void* row_ptr, void* out, int
       static_cast<const float*>(data), static_cast<const int32_t*>(row_ptr),
       static_cast<float*>(out), n_rows, n_chan);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Kernel 11: c, ct, d (n_rows, kf), h (n_rows, f), pat (kf,), dst_csc (E,)
-// i32, col_ptr (n_rows+1,) i32, out (n_rows, kf + f) f32. Requires f % 4 ==
-// 0, f <= 128, kf % f == 0, kf <= 512 and 16-byte aligned c, d, h, ct, out.
-int mma_edge_program_bwd_csc(const void* c, const void* d, const void* h, const void* pat,
-                             const void* dst_csc, const void* col_ptr, const void* ct,
-                             void* out, int n_rows, int f, int kf, void* stream) {
-  if (n_rows <= 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(by_tiles(kf, [&](auto nt) {
-    edge_program_bwd_csc_kernel<decltype(nt)::value><<<wide_blocks(n_rows),
-                                                        kWideWarps * kWarp, 0, s>>>(
-        static_cast<const float*>(c), static_cast<const float*>(d),
-        static_cast<const float*>(h), static_cast<const float*>(pat),
-        static_cast<const int32_t*>(dst_csc), static_cast<const int32_t*>(col_ptr),
-        static_cast<const float*>(ct), static_cast<float*>(out), n_rows, f, kf);
-  }));
 }
 
 // logits (E, kf), h_src (E, f), pat (kf,) 0/1 f32, row_ptr (n_rows+1,) i32,

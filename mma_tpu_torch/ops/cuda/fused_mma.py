@@ -32,7 +32,8 @@ its CSC twin:
   optional per-edge ``[dlogits ‖ dh_e]`` payload; kernel 3's dst pass over
   the caller's ``d``, two launches, the payload written in the same pass)
   and ``_program_bwd_csc_kernel`` (:func:`edge_program_bwd_csc`: ``[dd ‖
-  dh]`` in CSC order).
+  dh]`` in CSC order; kernel 3's src pass over the caller's ``d``, two
+  launches, ``G``'s K blocks folded into ``dh`` as it stores).
 - :func:`masked_segment_sum` replaces ``_masked_kernel``: ``S[i] =
   Σ_{dst_e=i} where(pat, σ(l_e), l_e) ⊙ tile(h_src_e, K)`` from
   pre-gathered per-edge logits and source rows, the forward of
@@ -73,8 +74,9 @@ EDGE_BWD_MODE = "payload_permute"
 EDGE_BWD_MODES = ("payload_permute", "csc_gather")
 
 # Widths the edge-program kernels take: the lean node passes keep W_bot's
-# 128-lane tile (or a slice of it) in shared memory; every edge-program
-# kernel gives each thread 4 lanes of each 128-lane tile.
+# 128-lane tile (or a slice of it) in shared memory; the chunk passes give a
+# lane at most two rounds of two 16-byte slots of a K·F row, and kernel 12 a
+# thread 4 lanes of each of at most four 128-lane tiles.
 MAX_F = 128
 MAX_KF = 512
 
@@ -102,7 +104,7 @@ def _lib() -> ctypes.CDLL:
         lib.mma_edge_program_lean_bwd_n_slabs.argtypes = [_I] * 3
         lib.mma_edge_program_lean_bwd_node.argtypes = [_P] * 6 + [_I] * 3 + [_P]
         lib.mma_segment_sum_sq_csr.argtypes = [_P, _P, _P, _I, _I, _P]
-        lib.mma_edge_program_bwd_csc.argtypes = [_P] * 8 + [_I] * 3 + [_P]
+        lib.mma_edge_program_bwd_csc.argtypes = [_P] * 10 + [_I] * 4 + [_P]
         lib.mma_masked_segment_sum.argtypes = [_P] * 5 + [_I] * 4 + [_P]
         for fn in ("mma_edge_program_lean_bwd_dst", "mma_edge_program_lean_bwd_src",
                    "mma_edge_program_lean_bwd_n_slabs", "mma_edge_program_lean_bwd_node",
@@ -414,24 +416,27 @@ def _lean_bwd_dst_pass(c, ct, pattern, d, h, src, row_ptr, emit_payload=False):
     return dc, payload
 
 
-def _lean_bwd_src_pass(c, ct, pattern, d, h, dst_csc, col_ptr):
-    """Kernel 3's src pass, kernel 1's two launches with the ``[dD ‖ G]``
-    message over the CSC ``col_ptr`` (N+1,), reading each edge's
-    destination through ``dst_csc``: row ``s`` is ``[Σ dlog_e ‖ Σ ct[i] ⊙
-    mask_e]`` over the edges ``e = (s → i)`` it covers, (N, 2·K·F). ``c``,
-    ``ct`` are node tables (R, K·F), ``d`` (N, K·F), ``h`` (N, F). No host
-    sync."""
+def _lean_bwd_src_pass(c, ct, pattern, d, h, dst_csc, col_ptr, fold=False):
+    """The src pass of kernels 3 and 11, kernel 1's two launches with the
+    ``[dD ‖ G]`` message over the CSC ``col_ptr`` (N+1,), reading each
+    edge's destination through ``dst_csc``: row ``s`` is ``[Σ dlog_e ‖ Σ
+    ct[i] ⊙ mask_e]`` over the edges ``e = (s → i)`` it covers, (N,
+    2·K·F). With ``fold`` kernel 11's row ``[dd ‖ dh]`` instead, ``G``'s K
+    blocks added as it is stored, (N, K·F+F). ``c``, ``ct`` are node tables
+    (R, K·F), ``d`` (N, K·F), ``h`` (N, F). No host sync."""
     n, kf, f = col_ptr.shape[0] - 1, d.shape[1], h.shape[1]
+    width = kf + f if fold else 2 * kf
     lib = _lib()
-    out = torch.empty((n, 2 * kf), dtype=torch.float32, device=d.device)
-    part, tail_row = _chunk_scratch(dst_csc.shape[0], 2 * kf, d.device)
+    out = torch.empty((n, width), dtype=torch.float32, device=d.device)
+    part, tail_row = _chunk_scratch(dst_csc.shape[0], width, d.device)
+    entry = lib.mma_edge_program_bwd_csc if fold else lib.mma_edge_program_lean_bwd_src
     with torch.cuda.device(d.device):
-        err = lib.mma_edge_program_lean_bwd_src(
+        err = entry(
             c.data_ptr(), ct.data_ptr(), pattern.data_ptr(), d.data_ptr(), h.data_ptr(),
             dst_csc.data_ptr(), col_ptr.data_ptr(), out.data_ptr(), part.data_ptr(),
             tail_row.data_ptr(), n, f, kf, dst_csc.shape[0], _stream(),
         )
-    _check_launch(lib, err, "edge_program_lean_bwd src pass")
+    _check_launch(lib, err, "edge program src pass")
     return out
 
 
@@ -747,16 +752,10 @@ def edge_program_bwd_csc_reference(c, d, h, pattern, dst_csc, col_ptr, ct):
 
 
 def _edge_program_bwd_csc_kernel(c, d, h, pattern, dst_csc, col_ptr, ct):
-    name = "edge_program_bwd_csc"
-    n, f, kf = _check_wide_inputs(name, c, d, h, pattern, dst_csc, col_ptr, ct)
-    out = torch.empty((n, kf + f), dtype=torch.float32, device=c.device)
-    lib = _lib()
-    with torch.cuda.device(c.device):
-        err = lib.mma_edge_program_bwd_csc(
-            c.data_ptr(), d.data_ptr(), h.data_ptr(), pattern.data_ptr(), dst_csc.data_ptr(),
-            col_ptr.data_ptr(), ct.data_ptr(), out.data_ptr(), n, f, kf, _stream(),
-        )
-    _check_launch(lib, err, name)
+    """Kernel 11 on the card: kernel 3's src pass (two launches) over the
+    caller's ``d``, folding ``G``'s K blocks into ``dh`` as it stores."""
+    _check_wide_inputs("edge_program_bwd_csc", c, d, h, pattern, dst_csc, col_ptr, ct)
+    out = _lean_bwd_src_pass(c, ct, _aligned(pattern), d, h, dst_csc, col_ptr, fold=True)
     LAUNCHES["edge_program_bwd_csc"] += 1
     return out
 
@@ -768,7 +767,10 @@ def edge_program_bwd_csc(c: torch.Tensor, d: torch.Tensor, h: torch.Tensor,
     dh]`` (N, K·F+F) with ``dd[s] = Σ_{e: src=s} dlog_e`` and ``dh[s] =
     Σ_{e: src=s} Σ_k (ct[i] ⊙ mask_e)_k``, ``i = dst_csc[e]``, over the
     CSC ``col_ptr``. The kernel gathers ``c[i]`` and ``ct[i]`` itself and
-    recomputes the mask chain; no per-edge table is stored.
+    recomputes the mask chain; no per-edge table is stored. On the card it
+    also takes a ``pattern`` off a 16-byte boundary (it is copied to one);
+    ``c``, ``d``, ``h`` and ``ct`` must be 16-byte aligned. Deterministic:
+    no atomics, chunks fixed by E.
     """
     tensors = (c, d, h, pattern, dst_csc, col_ptr, ct)
     if _on_cpu(*tensors):

@@ -15,11 +15,14 @@ time of one call (``chip_smoke``'s CUDA-event timer): the forward (kernel
 2), or with ``--backward`` the forward and the backward through autograd
 to ``c``, ``W_bot`` and ``h`` (kernels 2 and 3, and whatever else the
 checkout's backward launches). ``--wide`` times the wide program's kernels
-instead, through ``edge_program_fwd`` and ``edge_program_bwd``'s public
-signatures with random ``d``: kernel 9, and kernel 10 without and with its
-per-edge payload, on the same graphs and on the synthetic-large graph's
-heaviest row alone (a CSR of all its rows that covers that row's edges
-only).
+instead, through ``edge_program_fwd``, ``edge_program_bwd`` and
+``edge_program_bwd_csc``'s public signatures with random ``d``: kernel 9,
+kernel 10 without and with its per-edge payload, and kernel 11 over the
+same rows taken as CSC columns (``row_ptr`` as ``col_ptr``, ``src`` as
+``dst_csc``: the same row lengths and gathers; the graphs are symmetric, so
+for synthetic-large and Cora these are their CSCs up to the order within
+a row), on the same graphs and on the synthetic-large graph's heaviest row
+alone (a CSR of all its rows that covers that row's edges only).
 """
 
 from __future__ import annotations
@@ -41,7 +44,8 @@ def main() -> int:
     mode.add_argument("--backward", action="store_true",
                       help="time the forward and the backward through autograd")
     mode.add_argument("--wide", action="store_true",
-                      help="time kernels 9 and 10 (with and without the payload) instead")
+                      help="time kernels 9, 10 (with and without the payload) and 11 "
+                      "instead")
     opts = ap.parse_args()
     backward, wide = opts.backward, opts.wide
     if not torch.cuda.is_available():
@@ -67,14 +71,15 @@ def main() -> int:
         for emit in (False, True):
             times.append(device_ms(
                 lambda: fused_mma.edge_program_bwd(*fwd, ct, emit_payload=emit), iters=15))
+        times.append(device_ms(lambda: fused_mma.edge_program_bwd_csc(*fwd, ct), iters=15))
         # A yardstick for the payload's stores: zeros written over a tensor
         # of its shape, (E, K·F+F), by one PyTorch call.
         payload = torch.empty((graph.src.shape[0], kf + f), device="cuda")
         times.append(device_ms(payload.zero_, iters=15))
         print(f"{name}: E={int(rp[-1] - rp[0])} max in-degree {int((rp[1:] - rp[:-1]).max())} "
               f"N={graph.n_node}: kernel 9 {times[0]:.4f} ms, kernel 10 without the payload "
-              f"{times[1]:.4f} ms, with it {times[2]:.4f} ms; zero_ of the payload's shape "
-              f"{times[3]:.4f} ms")
+              f"{times[1]:.4f} ms, with it {times[2]:.4f} ms; kernel 11 {times[3]:.4f} ms; "
+              f"zero_ of the payload's shape {times[4]:.4f} ms")
 
     def run(name, graph, f=64, k=2):
         if wide:

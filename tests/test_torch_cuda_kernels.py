@@ -317,9 +317,9 @@ def test_edge_program_lean_alignment(cuda, graph):
 
 @pytest.fixture(scope="module")
 def hub_src_graph(cuda):
-    """300 nodes: node 0 the source of 3,000 edges (a CSC column that
-    kernel 3's src pass splits across edge chunks), the last 40 without
-    in-edges."""
+    """300 nodes: node 0 the source of 3,000 edges (a CSC column that the
+    src passes of kernels 3 and 11 split across edge chunks), the last 40
+    without in-edges."""
     rs = np.random.RandomState(8)
     n = 300
     src = np.concatenate([np.zeros(3000, np.int32), rs.randint(1, n, 1000)]).astype(np.int32)
@@ -683,11 +683,15 @@ def test_segment_sum_sq_kernel_matches_plain(cuda, graph, channels):
     assert (got[260:] == 0).all()
 
 
+@pytest.mark.parametrize("which", ["graph", "hub_src_graph"])
 @pytest.mark.parametrize("f,k", [(12, 3), (16, 2), (64, 2), (96, 2), (128, 4)])
-def test_wide_edge_program_kernels_match_plain(cuda, graph, f, k):
+def test_wide_edge_program_kernels_match_plain(request, cuda, which, f, k):
     """Kernels 9, 10 (with and without the payload) and 11 against their
     plain versions within 1e-5 of the largest value, bitwise equal run to
-    run; K·F of 36 to 512 takes one to four lane tiles."""
+    run; K·F of 36 to 512 takes one to four lane tiles. ``hub_src_graph``
+    has a 3,000-edge source, a CSC column that kernel 11 splits across edge
+    chunks; ``graph`` heavy destinations."""
+    graph = request.getfixturevalue(which)
     rs = np.random.RandomState(6)
     n = graph.n_node
     c, d, ct = (torch.from_numpy(rs.randn(n, k * f).astype(np.float32)).to(cuda)
@@ -740,6 +744,21 @@ def _wide_f64(c, d, h, pattern, src, row_ptr, ct):
             zeros(c.shape[0], kf).index_add_(0, ids, dlog), payload)
 
 
+def _csc_f64(c, d, h, pattern, dst_csc, col_ptr, ct):
+    """The plain version of kernel 11 (``edge_program_bwd_csc_reference``)
+    in float64: ``[dd ‖ dh]`` (N, K·F+F)."""
+    kf, f = c.shape[1], h.shape[1]
+    js = fused_mma._row_ids(col_ptr)
+    lo, hi = int(col_ptr[0]), int(col_ptr[-1])
+    i = dst_csc[lo:hi].long()
+    mask, dmask = fused_mma._mask_chain(c.double()[i] + d.double()[js], pattern)
+    ge = ct.double()[i]
+    dlog = ge * h.double()[js].repeat(1, kf // f) * dmask
+    dh_e = (ge * mask).reshape(-1, kf // f, f).sum(dim=1)
+    out = torch.zeros((c.shape[0], kf + f), dtype=torch.float64, device=c.device)
+    return out.index_add_(0, js, torch.cat([dlog, dh_e], dim=1))
+
+
 @pytest.mark.parametrize("f,kf", [(16, 32), (16, 512), (64, 128), (64, 192), (64, 512),
                                   (128, 512), (12, 36), (96, 192)])
 def test_wide_edge_program_chunks_match_plain(cuda, chunk_graph, f, kf):
@@ -755,7 +774,10 @@ def test_wide_edge_program_chunks_match_plain(cuda, chunk_graph, f, kf):
     shuffles (F = 16, 64, 128), stays in the thread (K·F = 192 at F = 64:
     16 lanes an edge) or goes through shared memory (F = 12, 96); K·F above
     256 takes two rounds. One launch counted a call, ``dc`` the same bits
-    in both modes, bitwise equal run to run, empty rows 0."""
+    in both modes, bitwise equal run to run, empty rows 0. Kernel 11 takes
+    each CSR as a CSC (its index as ``dst_csc``) against ``_csc_f64``, its
+    K-fold by the same three ways, as rows and as the split rows' chunk
+    partials."""
     rs = np.random.RandomState(f + kf)
     for what, (rp_np, n_edges) in chunk_graph.items():
         n = len(rp_np) - 1
@@ -787,11 +809,23 @@ def test_wide_edge_program_chunks_match_plain(cuda, chunk_graph, f, kf):
         empty = torch.from_numpy(rp_np[1:] == rp_np[:-1]).to(cuda)
         assert (got[empty] == 0).all() and (dc[empty] == 0).all(), what
 
+        csc_args = (c, d, h, pat, src, rp, ct)  # the CSR taken as a CSC
+        csc = fused_mma.edge_program_bwd_csc(*csc_args)
+        torch.cuda.synchronize()
+        assert (fused_mma.LAUNCHES["edge_program_bwd_csc"]
+                == before["edge_program_bwd_csc"] + 1), what
+        want = _csc_f64(*csc_args)
+        torch.testing.assert_close(csc.double(), want, rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item(), msg=f"{what} [dd ‖ dh]")
+        assert torch.equal(csc, fused_mma.edge_program_bwd_csc(*csc_args)), what
+        assert (csc[empty] == 0).all(), what
+
 
 def test_wide_edge_program_replays_in_a_cuda_graph(cuda, chunk_graph):
-    """Kernel 9 and kernel 10 with its payload, captured in one CUDA graph
-    and replayed, give the eager results: the wrappers size grids and
-    scratch from shapes and never read ``row_ptr`` on the host."""
+    """Kernel 9, kernel 10 with its payload and kernel 11 (over the CSR
+    taken as a CSC), captured in one CUDA graph and replayed, give the
+    eager results: the wrappers size grids and scratch from shapes and
+    never read ``row_ptr`` on the host."""
     rp_np, n_edges = chunk_graph["slice row_ptr[0] > 0"]
     rs = np.random.RandomState(14)
     n, f, kf = len(rp_np) - 1, 64, 128
@@ -803,7 +837,8 @@ def test_wide_edge_program_replays_in_a_cuda_graph(cuda, chunk_graph):
     fwd = (c, d, h, pat, src, rp)
 
     def call():
-        return (fused_mma.edge_program_fwd(*fwd), *fused_mma.edge_program_bwd(*fwd, ct))
+        return (fused_mma.edge_program_fwd(*fwd), *fused_mma.edge_program_bwd(*fwd, ct),
+                fused_mma.edge_program_bwd_csc(*fwd, ct))
 
     eager = call()
     side = torch.cuda.Stream()

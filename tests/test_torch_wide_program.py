@@ -9,9 +9,10 @@ The JAX side runs its Pallas kernels in interpret mode. Tolerances:
   holds its own kernels against XLA
   (``tests/test_graph_and_native.py:189-242``);
 - ``edge_program_fwd`` and ``edge_program_bwd`` (both payload modes) on a
-  skewed graph against the same JAX function's output and gradients:
-  relative 2e-5 with a floor of 2e-5 times the tensor's largest value
-  (f32 sums of up to 320 terms, taken in another order);
+  skewed graph, and ``edge_program_bwd_csc`` on its transpose, against
+  the same JAX function's output and gradients: relative 2e-5 with a
+  floor of 2e-5 times the tensor's largest value (f32 sums of up to 320
+  terms, taken in another order);
 - ``masked_multi_aggregate`` against the JAX package's Pallas route (its
   default ``precision="high"``, two bf16 passes) at the scale-aware
   tolerance of ``tests/test_graph_and_native.py:166-173``, and against the
@@ -94,21 +95,58 @@ def test_edge_program_matches_jax(n_agg, n, p, bwd_mode):
     assert not got[~nm].any()
 
 
-@pytest.fixture(scope="module")
-def skewed_graphs():
-    """The shape the card's chunk pass is built for, small: 400 nodes, node
-    5 the destination of a 320-edge row, rows 100-159 and the last 30 rows
-    empty, and 70 padding edges past the real ones (the JAX package's
-    graph and the port's over the same edges and padding)."""
+def _skewed(transpose):
+    """400 nodes, node 5 the destination of a 320-edge row, rows 100-159 and
+    the last 30 rows empty, and 70 padding edges past the real ones (the
+    JAX package's graph and the port's over the same edges and padding);
+    with ``transpose`` the same edges reversed: node 5 the source of 320
+    edges, and those CSC columns empty."""
     rs = np.random.RandomState(21)
     n = 400
     live = np.setdiff1d(np.arange(n - 30), np.r_[5, 100:160])
     dst = np.concatenate([np.full(320, 5), rs.choice(live, 2000)]).astype(np.int32)
     src = rs.randint(0, n, dst.shape[0]).astype(np.int32)
+    if transpose:
+        src, dst = dst, src
     n_edge = dst.shape[0] + 70
     jg = jax_graph_from_edges(src, dst, n, n_edge_pad=n_edge)
     tg = graph_from_edges(src, dst, n, n_node_pad=jg.n_node, n_edge_pad=n_edge, device="cpu")
     return jg, tg
+
+
+@pytest.fixture(scope="module")
+def skewed_graphs():
+    """The shape the card's chunk pass is built for, small: a 320-edge row
+    among runs of empty rows, and padding edges (``_skewed``)."""
+    return _skewed(transpose=False)
+
+
+@pytest.fixture(scope="module")
+def hub_src_graphs():
+    """The same edges reversed: a 320-edge source, the CSC column that
+    kernel 11's chunk pass splits, among runs of empty columns."""
+    return _skewed(transpose=True)
+
+
+def _wide_inputs(jg, f, n_agg):
+    """``c``, ``d``, ``ct`` (N, K·F) and ``h`` (N, F), 0 on padding nodes, and
+    a pattern with sigmoid and identity lanes mixed within a block."""
+    rs = np.random.RandomState(f + n_agg)
+    kf = n_agg * f
+    nm = np.asarray(jg.node_mask)
+    c, d, ct = (np.where(nm[:, None], rs.randn(jg.n_node, kf), 0.0).astype(np.float32)
+                for _ in range(3))
+    h = np.where(nm[:, None], rs.randn(jg.n_node, f), 0.0).astype(np.float32)
+    pat = (np.arange(kf) // f % 2 == 0) ^ (rs.rand(kf) > 0.8)
+    return c, d, ct, h, pat
+
+
+def _close_on_real(got, want, nm, what):
+    """Relative 2e-5 with a floor of 2e-5 times the largest value, on the
+    real nodes ``nm``."""
+    want = np.asarray(want)[nm]
+    np.testing.assert_allclose(got.numpy()[nm], want, rtol=2e-5,
+                               atol=2e-5 * np.abs(want).max(), err_msg=what)
 
 
 @pytest.mark.parametrize("emit_payload", [True, False])
@@ -122,13 +160,9 @@ def test_wide_kernels_match_jax_on_a_skewed_graph(skewed_graphs, f, n_agg, emit_
     against its ``d`` and ``h`` gradients, and 0 on the padding edges. This
     closes the chain card → plain version → JAX for the skewed shape."""
     jg, tg = skewed_graphs
-    rs = np.random.RandomState(f + n_agg)
+    c, d, ct, h, pat = _wide_inputs(jg, f, n_agg)
     kf = n_agg * f
     nm = np.asarray(jg.node_mask)
-    c, d, ct = (np.where(nm[:, None], rs.randn(jg.n_node, kf), 0.0).astype(np.float32)
-                for _ in range(3))
-    h = np.where(nm[:, None], rs.randn(jg.n_node, f), 0.0).astype(np.float32)
-    pat = (np.arange(kf) // f % 2 == 0) ^ (rs.rand(kf) > 0.8)  # mixed lanes within a block
 
     def jfused(c_, d_, h_):
         out = fused_mma_edge_program(c_, d_, h_, jnp.asarray(pat), jg, n_agg,
@@ -147,21 +181,51 @@ def test_wide_kernels_match_jax_on_a_skewed_graph(skewed_graphs, f, n_agg, emit_
     dc, payload = fused_mma.edge_program_bwd(*fwd, t["ct"], emit_payload=emit_payload)
     assert fused_mma.LAUNCHES == before  # plain versions on the CPU
 
-    def close(got_, want_, what):
-        want_ = np.asarray(want_)[nm]
-        np.testing.assert_allclose(got_.numpy()[nm], want_, rtol=2e-5,
-                                   atol=2e-5 * np.abs(want_).max(), err_msg=what)
-
-    close(got, want, "S")
-    close(dc, want_dc, "dc")
+    _close_on_real(got, want, nm, "S")
+    _close_on_real(dc, want_dc, nm, "dc")
     if not emit_payload:
         assert payload is None
         return
     assert payload.shape == (tg.n_edge, kf + f)
     assert not payload[int(rp[-1]):].any()  # padding edges
     by_src = fused_mma.segment_sum_csr(payload, tg.real_col_ptr, index=tg.src_perm)
-    close(by_src[:, :kf], want_dd, "dd")
-    close(by_src[:, kf:], want_dh, "dh")
+    _close_on_real(by_src[:, :kf], want_dd, nm, "dd")
+    _close_on_real(by_src[:, kf:], want_dh, nm, "dh")
+
+
+@pytest.mark.parametrize("f,n_agg", [(16, 2), (64, 2), (12, 3)])
+def test_csc_kernel_matches_jax_on_a_hub_source(hub_src_graphs, f, n_agg):
+    """Kernel 11 through its plain version, the function the card's kernel
+    is held against, against the ``d`` and ``h`` gradients of the JAX
+    package's ``fused_mma_edge_program(bwd_mode="csc_gather",
+    precision="highest")`` on a graph with a 320-edge source, runs of
+    sources without edges and padding edges: ``[dd ‖ dh]`` on the real
+    nodes, 0 on the padding node. This closes the chain card → plain
+    version → JAX for kernel 11's skewed shape."""
+    jg, tg = hub_src_graphs
+    c, d, ct, h, pat = _wide_inputs(jg, f, n_agg)
+    kf = n_agg * f
+    nm = np.asarray(jg.node_mask)
+
+    def jfused(c_, d_, h_):
+        out = fused_mma_edge_program(c_, d_, h_, jnp.asarray(pat), jg, n_agg,
+                                     precision="highest", bwd_mode="csc_gather")
+        return jnp.sum(out * ct)
+
+    _, want_dd, want_dh = jax.grad(jfused, argnums=(0, 1, 2))(
+        jnp.asarray(c), jnp.asarray(d), jnp.asarray(h))
+    cp = tg.real_col_ptr
+    deg = (cp[1:] - cp[:-1]).numpy()
+    assert deg.max() == 320 and not deg[100:160].any() and int(cp[-1]) == tg.n_edge - 70
+    args = tuple(torch.from_numpy(v) for v in (c, d, h))
+    before = dict(fused_mma.LAUNCHES)
+    got = fused_mma.edge_program_bwd_csc(*args, torch.from_numpy(pat.astype(np.float32)),
+                                         tg.dst_csc, cp, torch.from_numpy(ct))
+    assert fused_mma.LAUNCHES == before  # the plain version on the CPU
+    assert got.shape == (tg.n_node, kf + f)
+    _close_on_real(got[:, :kf], want_dd, nm, "dd")
+    _close_on_real(got[:, kf:], want_dh, nm, "dh")
+    assert not got[~nm].any()  # the padding node: no real edge leaves it
 
 
 @pytest.mark.parametrize("n_agg", [1, 3])
