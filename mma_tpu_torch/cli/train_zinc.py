@@ -4,8 +4,12 @@
 
 The run goes on the GPU unless ``--device cpu`` is given (the kernels'
 plain PyTorch versions). ``--use-pallas`` is accepted and does nothing:
-the device decides. ``--max-degree-hint`` is accepted and does nothing
-(the kernels need no scan bound). ``--edge-format ell``, ``--remat``,
+the device decides. ``--edge-format ell`` takes the degree-exact ELL
+collate and the ELL route (the default ``auto`` keeps the plain collate
+and the CSR kernels, which the H100 runs faster; ``ZincConfig``);
+``--max-degree-hint`` sizes the single slot width where a batch carries
+no degree buckets.
+``--remat`` recomputes each conv in the backward pass.
 ``--compute-dtype bfloat16|auto`` and ``--checkpoint-dir`` are not ported
 yet and raise.
 
@@ -44,10 +48,11 @@ def build_parser():
     p.add_argument("--compute-dtype", type=str, default="float32",
                    help="conv edge-pipeline dtype: float32 (bfloat16|auto not ported yet)")
     p.add_argument("--edge-format", type=str, default="auto",
-                   help="conv edge layout: auto|csr (ell not ported yet)")
+                   help="conv edge layout: auto|csr|ell")
     p.add_argument("--max-degree-hint", type=int, default=4,
-                   help="compatibility no-op (static in-degree bound); 0 disables")
-    p.add_argument("--remat", action="store_true", help="not ported yet")
+                   help="static in-degree bound: the ELL slot width; 0 disables")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize conv layers (memory for FLOPs)")
     p.add_argument("--matmul_precision", type=str, default="highest",
                    help="float32 matmul precision (highest|high|default)")
     p.add_argument("--device", type=str, default="cuda",

@@ -36,9 +36,13 @@ class Graph:
     col_ptr: Optional[torch.Tensor] = None  # (N+1,) int32 — CSC offsets
     src_csc: Optional[torch.Tensor] = None  # (E,) int32 — src, CSC order
     dst_csc: Optional[torch.Tensor] = None  # (E,) int32 — dst, CSC order
-    # Static metadata kept under the JAX package's names. ``chunk_hint``
-    # is the TPU kernel grid bound and the ELL fields describe layouts
-    # that no port module builds yet: all stay unset.
+    # Static metadata under the JAX package's names. ``chunk_hint`` (the
+    # TPU kernels' grid bound) stays None in the port. The degree-exact
+    # collate sets the ELL fields: ``ell_hint`` ``((bound, width), ...)``
+    # the degree buckets (``mma_tpu_torch.ops.ell.EllSpec``);
+    # ``ell_exact`` every bucket row has exactly its width in edges, so
+    # the flat slot index is the edge index; ``csc_ell_exact`` the CSC
+    # order is degree-exact under the same buckets (symmetric graphs).
     chunk_hint: Optional[tuple] = None
     ell_hint: Optional[tuple] = None
     ell_exact: bool = False
@@ -66,7 +70,10 @@ class Graph:
         """``row_ptr`` with the last (padding) node's row emptied.
 
         Every padding edge points at the last node, and no real edge does,
-        so a reduction over this CSR skips exactly the padding edges. On a
+        so a reduction over this CSR skips exactly the padding edges. The
+        degree-exact layout breaks that rule: its bucket-padding rows hold
+        masked self-loops (``ell_exact``), and the callers that reduce over
+        such a graph zero those rows' results (``MultiMaskConv``). On a
         small graph the padding edges are the longest row (Cora: 708 of
         11,264), which would otherwise hold one warp for the whole launch.
         """
@@ -117,6 +124,11 @@ class BatchedGraphs:
     graph_ptr: Optional[torch.Tensor] = None
     # True when each graph's nodes are contiguous (node_to_graph ascending).
     nodes_grouped: bool = True
+    # (N,) int32 — the node ids stably sorted by graph, which ``graph_ptr``
+    # then covers; set when ``nodes_grouped`` is False (the degree-exact
+    # collate), so that the pooled readout is the segment-sum kernel's
+    # index form, with no float atomics. The port's own field.
+    node_order: Optional[torch.Tensor] = None
 
     @property
     def n_graph(self) -> int:

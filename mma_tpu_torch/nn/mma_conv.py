@@ -2,26 +2,44 @@
 
 The port of the JAX package's ``mma_tpu/nn/mma_conv.py`` (itself a
 re-design of the reference's PyG ``MessagePassing`` conv,
-``graph_regression/mma_conv.py:20-201``) on its CSR routes:
+``graph_regression/mma_conv.py:20-201``). Messages decompose: the
+reference's per-edge pre-NN ``Linear([x_i ‖ x_j ‖ e])`` splits into
+``x @ W_dst`` and ``x @ W_src`` once per node and tower, plus
+``e @ W_edge`` per edge. Three routes, chosen as the JAX package chooses
+them with ``use_pallas=True`` (the port has no other mode: CUDA tensors
+take the kernels, CPU tensors their plain versions):
 
-- Messages decompose: the reference's per-edge pre-NN
-  ``Linear([x_i ‖ x_j ‖ e])`` splits into ``x @ W_dst`` and ``x @ W_src``
-  once per node and tower, plus ``e @ W_edge`` per edge, gathered per edge
-  (:func:`~mma_tpu_torch.ops.gather.gather_by_dst` /
-  :func:`~mma_tpu_torch.ops.gather.gather_by_src`, whose VJPs are kernel 1).
+- **ELL** (``mma_tpu_torch.ops.ell``; one pre-NN layer, ``edge_format``
+  not ``"csr"``, and a slot layout: the graph's ``ell_hint``, which the
+  degree-exact collate sets, or ``edge_format="ell"`` with
+  ``max_degree_hint``, a single width over all rows). ``hg = p_src[src] +
+  b0 + e @ W_edge`` per edge is laid out in neighbour slots ``(rows,
+  W·C)`` (a reshape on degree-exact graphs, a gather otherwise), the dst
+  projection is tiled over each bucket's slots, the N2 dropout is the
+  position hash of kernel 6 keyed on (row, slot lane), and every reduce
+  is a masked reduce over the slot axis in plain PyTorch: min/max with
+  first-hit routing, sums slot by slot. No kernel runs but kernel 1 in
+  ``gather_by_src``'s VJP when the CSC order is not degree-exact. The JAX
+  package also skips this route on a graph without ``chunk_hint`` (its
+  sharded slices); the port's ``chunk_hint`` is always None and the port
+  shards nothing (``axis_name`` raises), so the route is keyed on the slot
+  layout alone.
 - **Fused min/max edge program** (aggregators ⊆ {min, max}, one pre-NN
-  layer): ``hg = p_src[src] + b0 + e @ W_edge`` per edge, then kernel 6
-  adds the dst projection, applies the N2 dropout mask and reduces; kernel
-  7 is its backward. The JAX package also requires ``use_pallas`` and a
-  ``chunk_hint``; the port's ``Graph`` has no ``chunk_hint``, so the route
-  is keyed on ``not graph.ell_exact``, and CPU tensors take the kernels'
-  plain versions.
+  layer, no slot layout): kernel 6 adds the dst projection to ``hg``,
+  applies the N2 dropout mask and reduces; kernel 7 is its backward.
 - **General CSR route** (anything else): materialised (E, T·F) messages,
   ``torch.Generator`` dropout, min/max through kernels 4-5 (one paired
   pass when parity shares the messages), sum/mean through kernel 1 and
   var/std through kernel 8 (``[Σx ‖ Σx²]`` in one pass, as the JAX
   package's ``use_pallas`` route, ``mma_tpu/nn/mma_conv.py:501-517``),
   all over ``Graph.real_row_ptr``.
+
+On a degree-exact graph the bucket-padding rows carry masked self-loops,
+which every route reduces like real edges; their rows' aggregates are
+zeroed by one node-mask select before the scalers, as the JAX package's
+exact ELL path does (``mma_tpu/nn/mma_conv.py:425-432``). The rows' values
+then reach no real row and their cotangents are 0, so the synthetic edges
+move no gradient.
 
 Parity knobs (SURVEY §5), as in the JAX package:
 
@@ -34,9 +52,8 @@ Parity knobs (SURVEY §5), as in the JAX package:
 - **N2**: message dropout (0.5) whenever the caller asks for it.
 - Empty rows give 0 for every reduce (``torch_scatter``'s fill).
 
-Not ported yet (raise ``NotImplementedError``): ``edge_format="ell"`` and
-degree-exact graphs (the ELL slice), ``compute_dtype`` other than float32,
-and ``axis_name``.
+Not ported yet (raise ``NotImplementedError``): ``compute_dtype`` other
+than float32, and ``axis_name``.
 """
 
 from __future__ import annotations
@@ -52,14 +69,24 @@ from mma_tpu_torch.graph.container import Graph
 from mma_tpu_torch.nn.layers import Dense, dropout
 from mma_tpu_torch.ops.cuda.fused_mma import segment_sum_csr, segment_sum_sq_csr
 from mma_tpu_torch.ops.cuda.segment_minmax import (
+    dropout_keep,
     fused_minmax_edge_program,
     fused_segment_minmax,
+)
+from mma_tpu_torch.ops.ell import (
+    EllSpec,
+    ell_expand,
+    ell_expand_exact,
+    ell_valid,
+    masked_minmax_firsthit,
+    masked_slot_sum,
+    pad_rows,
+    single_width_spec,
 )
 from mma_tpu_torch.ops.gather import gather_by_dst, gather_by_src
 
 GR_AGGREGATORS = ("sum", "mean", "min", "max", "var", "std")
 GR_SCALERS = ("identity", "amplification", "attenuation", "linear", "inverse_linear")
-_ELL_SLICE = "the ELL / degree-exact slice of the port"
 
 Seed = Union[int, Sequence[int], torch.Tensor]
 
@@ -98,7 +125,9 @@ class MultiMaskConv(nn.Module):
     Parameters, named as the JAX package's tree: ``edge_encoder`` (Dense
     edge_dim→F, when ``edge_dim``), ``pre_nns[k][t][l]`` (K aggregators × T
     towers × pre_layers Dense; the first (msg_in, F)), ``post_nns[t][l]``
-    and ``lin``.
+    and ``lin``. ``max_degree_hint`` (a static bound on in-degree, ZINC ≤ 4)
+    sets the slot width of ``edge_format="ell"`` on graphs without an
+    ``ell_hint``; the CUDA kernels need no scan bound.
     """
 
     def __init__(
@@ -117,6 +146,7 @@ class MultiMaskConv(nn.Module):
         parity: bool = True,
         compute_dtype: str = "float32",
         edge_format: str = "auto",
+        max_degree_hint: Optional[int] = None,
         *,
         device: DeviceLike = None,
         generator: Optional[torch.Generator] = None,
@@ -133,8 +163,6 @@ class MultiMaskConv(nn.Module):
                 raise ValueError(f'Unknown scaler "{s}".')
         if edge_format not in ("auto", "csr", "ell"):
             raise ValueError(f'Unknown edge_format "{edge_format}".')
-        if edge_format == "ell":
-            raise NotImplementedError(f"edge_format='ell' is not ported yet ({_ELL_SLICE})")
         check_compute_dtype(compute_dtype)
         if divide_input and in_channels % towers:
             raise ValueError(f"in_channels={in_channels} must divide by towers={towers}")
@@ -146,6 +174,7 @@ class MultiMaskConv(nn.Module):
         self.pre_layers, self.post_layers = pre_layers, post_layers
         self.divide_input, self.dropout_rate, self.parity = divide_input, dropout_rate, parity
         self.compute_dtype, self.edge_format = compute_dtype, edge_format
+        self.max_degree_hint = max_degree_hint
 
         t, f, k = towers, self.f_in, len(self.aggregators)
         kw = dict(device=dev, generator=generator)
@@ -294,13 +323,22 @@ class MultiMaskConv(nn.Module):
 
     # ---- forward -------------------------------------------------------
 
-    def _fused_route(self, graph: Graph) -> bool:
-        return (self.pre_layers == 1
-                and all(a in ("min", "max") for a in self.aggregators)
-                and not graph.ell_exact)
+    def _fused_route(self) -> bool:
+        return self.pre_layers == 1 and all(a in ("min", "max") for a in self.aggregators)
+
+    def _ell_spec(self, graph: Graph) -> Optional[EllSpec]:
+        """The slot layout of the ELL route for this graph, or None for the
+        CSR routes (see the module docstring)."""
+        if self.pre_layers != 1 or self.edge_format == "csr":
+            return None
+        if graph.ell_hint is not None:
+            return EllSpec.from_hint(graph.ell_hint)
+        if self.edge_format == "ell" and self.max_degree_hint is not None:
+            return single_width_spec(graph.n_node, self.max_degree_hint)
+        return None
 
     def _seeds(self, count: int, generator, seed, device) -> List[Optional[torch.Tensor]]:
-        """``count`` (1,) int32 hash seeds for the fused route: ``seed`` as
+        """``count`` (1,) int32 hash seeds for the hashed dropout: ``seed`` as
         given, else drawn from ``generator`` in ``[0, 2³¹ - 1)`` (the JAX
         package's ``randint`` range); ``None`` each without dropout."""
         if self.dropout_rate <= 0.0 or (seed is None and generator is None):
@@ -324,15 +362,14 @@ class MultiMaskConv(nn.Module):
         axis_name: Optional[str] = None,
     ) -> torch.Tensor:
         """Message dropout (N2) is on when ``generator`` or ``seed`` is
-        given. The fused route's mask is the position hash of one seed per
-        message set (one under parity, one per aggregator otherwise):
-        ``seed`` gives them (an int or a sequence, so that a test can feed
-        the JAX package's seeds), else they are drawn from ``generator``.
-        The general route draws its mask from ``generator``."""
+        given. The ELL and fused routes' masks are position hashes of one
+        seed per message set (one under parity, one per aggregator
+        otherwise): ``seed`` gives them (an int or a sequence, so that a
+        test can feed the JAX package's seeds), else they are drawn from
+        ``generator``. The general route draws its mask from
+        ``generator``."""
         if axis_name is not None:
             raise NotImplementedError("edge-sharded convs (axis_name) are not ported yet")
-        if graph.ell_exact:
-            raise NotImplementedError(f"degree-exact graphs are not ported yet ({_ELL_SLICE})")
         n = x.shape[0]
         t, f = self.towers, self.f_in
         x_flat = x.reshape(n, t * f) if self.divide_input else x.repeat(1, t)
@@ -344,10 +381,18 @@ class MultiMaskConv(nn.Module):
         deg = torch.clamp(graph.deg, min=1.0)[:, None]
 
         k = len(self.aggregators)
-        if self._fused_route(graph):
+        spec = self._ell_spec(graph)
+        if spec is not None or self._fused_route():
             seeds = self._seeds(1 if self.parity else k, generator, seed, x.device)
             runs = ([(k - 1, self.aggregators, seeds[0])] if self.parity  # N6
                     else [(ki, (a,), seeds[ki]) for ki, a in enumerate(self.aggregators)])
+        if spec is not None:
+            valids = None if graph.ell_exact else ell_valid(graph, spec)
+            reds = []
+            for ki, aggs, sd in runs:
+                xs = self._ell_messages(ki, x_flat, e_feat, graph, spec, sd)
+                reds += self._ell_reduce(xs, graph, spec, valids, deg, aggs)
+        elif self._fused_route():
             reds = []
             for ki, ops, sd in runs:
                 p_dst, hg = self._message_parts(ki, x_flat, e_feat, graph)
@@ -355,19 +400,80 @@ class MultiMaskConv(nn.Module):
                                                   rate=self.dropout_rate)
                 c = hg.shape[1]
                 reds += [fused[:, pi * c:(pi + 1) * c] for pi in range(len(ops))]
-            return self._post(x_flat, reds, deg)
-
-        if self.parity:
-            # N6: every aggregator consumes the LAST aggregator's messages.
-            msgs = self._messages_for_aggregator(k - 1, x_flat, e_feat, graph)
-            msgs = dropout(msgs, self.dropout_rate, generator)
-            per_agg = {a: msgs for a in self.aggregators}
         else:
-            per_agg = {a: dropout(self._messages_for_aggregator(ki, x_flat, e_feat, graph),
-                                  self.dropout_rate, generator)
-                       for ki, a in enumerate(self.aggregators)}
-        reds = self._reduce_all(per_agg, graph, deg, shared_messages=self.parity)
+            if self.parity:
+                # N6: every aggregator consumes the LAST aggregator's messages.
+                msgs = self._messages_for_aggregator(k - 1, x_flat, e_feat, graph)
+                msgs = dropout(msgs, self.dropout_rate, generator)
+                per_agg = {a: msgs for a in self.aggregators}
+            else:
+                per_agg = {a: dropout(self._messages_for_aggregator(ki, x_flat, e_feat, graph),
+                                      self.dropout_rate, generator)
+                           for ki, a in enumerate(self.aggregators)}
+            reds = self._reduce_all(per_agg, graph, deg, shared_messages=self.parity)
+        if graph.ell_exact:
+            # The bucket-padding rows' synthetic self-loops (module docstring).
+            reds = [torch.where(graph.node_mask[:, None], r, 0.0) for r in reds]
         return self._post(x_flat, reds, deg)
+
+    # ---- ELL route -----------------------------------------------------
+
+    def _ell_messages(self, k, x_flat, e_feat, graph: Graph, spec: EllSpec, seed):
+        """Aggregator ``k``'s messages as per-bucket slot blocks ``(R_b,
+        W_b·T·F)``, N2 dropout applied: the JAX package's hash of (seed, row,
+        slot lane), bit for bit."""
+        p_dst, hg = self._message_parts(k, x_flat, e_feat, graph)
+        parts = ell_expand_exact(hg, spec) if graph.ell_exact else ell_expand(hg, graph, spec)
+        xs = []
+        for part, s, b, w in zip(parts, spec.starts, spec.bounds, spec.widths):
+            xb = part + p_dst[s:b].repeat(1, w)
+            if seed is not None:
+                rows = torch.arange(s, b, device=xb.device)[:, None]
+                lanes = torch.arange(xb.shape[1], device=xb.device)[None, :]
+                xb = xb * dropout_keep(seed, rows, lanes, self.dropout_rate)
+            xs.append(xb)
+        return xs
+
+    def _ell_reduce(self, xs, graph: Graph, spec: EllSpec, valids, deg, wanted):
+        """The reduces ``wanted`` of one message set as ``(N, T·F)`` each:
+        masked reduces over each bucket's slot axis, concatenated and
+        zero-padded past the buckets (degree-0 and padding rows)."""
+        need = set()
+        for a in wanted:
+            need.update({a} if a in ("min", "max") else {"s1"} if a in ("sum", "mean")
+                        else {"s1", "s2"})
+        raw = {key: [] for key in need}
+        minmax = tuple(a for a in ("min", "max") if a in need)
+        for bi, (xb, w) in enumerate(zip(xs, spec.widths)):
+            vb = None if valids is None else valids[bi]
+            if minmax:
+                for a, r in zip(minmax, masked_minmax_firsthit(xb, vb, minmax, w)):
+                    raw[a].append(r)
+            if "s1" in need:
+                raw["s1"].append(masked_slot_sum(xb, vb, w))
+            if "s2" in need:
+                raw["s2"].append(masked_slot_sum(xb * xb, vb, w))
+        n = graph.n_node
+        cat = {key: pad_rows(torch.cat(v, dim=0), n) for key, v in raw.items()}
+        if minmax and valids is not None:
+            # Rows without a valid slot hold the ±inf neutral: select on the
+            # slots themselves, not on deg (a sampled layout's deg holds
+            # full-graph degrees).
+            row_has_slot = pad_rows(torch.cat([v.any(dim=1, keepdim=True) for v in valids])
+                                    .float(), n) > 0
+        outs = []
+        for a in wanted:
+            if a in ("min", "max"):
+                outs.append(cat[a] if valids is None else torch.where(row_has_slot, cat[a], 0.0))
+            elif a == "sum":
+                outs.append(cat["s1"])
+            elif a == "mean":
+                outs.append(cat["s1"] / deg)
+            else:
+                mean = cat["s1"] / deg
+                var = cat["s2"] / deg - mean * mean
+                outs.append(var if a == "var" else torch.sqrt(torch.relu(var) + 1e-5))
+        return outs
 
     def _post(self, x_flat, reds, deg):
         """Scalers, the per-tower post-NNs and the final ``lin``.

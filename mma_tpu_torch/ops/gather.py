@@ -8,7 +8,10 @@ takes its Pallas segment sum:
 
 - :func:`gather_by_dst`: a dst-keyed sum over ``Graph.real_row_ptr``;
 - :func:`gather_by_src`: a src-keyed sum over ``Graph.real_col_ptr``,
-  reading the edge rows through ``src_perm``;
+  reading the edge rows through ``src_perm``; on a graph whose CSC order
+  is degree-exact (``Graph.csc_ell_exact``) a permute and per-bucket lane
+  sums instead, with no kernel (the JAX package's
+  ``_csc_exact_segment_sum``);
 - :func:`gather_rows`: a lookup ``table[idx]`` in a small table (the
   embeddings), whose VJP is a one-hot product.
 
@@ -23,6 +26,7 @@ import torch
 
 from mma_tpu_torch.graph.container import Graph
 from mma_tpu_torch.ops.cuda.fused_mma import segment_sum_csr
+from mma_tpu_torch.ops.ell import EllSpec, ell_expand_exact, masked_slot_sum, pad_rows
 
 
 class _GatherByDst(torch.autograd.Function):
@@ -39,14 +43,33 @@ class _GatherByDst(torch.autograd.Function):
 
 class _GatherBySrc(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, src, col_ptr, src_perm):
+    def forward(ctx, x, src, col_ptr, src_perm, exact_hint):
         ctx.save_for_backward(col_ptr, src_perm)
+        ctx.exact_hint, ctx.n_node = exact_hint, x.shape[0]
         return x.index_select(0, src)
 
     @staticmethod
     def backward(ctx, ct):
         col_ptr, src_perm = ctx.saved_tensors
-        return segment_sum_csr(ct.contiguous(), col_ptr, index=src_perm), None, None, None
+        if ctx.exact_hint is not None:
+            dx = _csc_exact_segment_sum(ct, src_perm, ctx.exact_hint, ctx.n_node)
+        else:
+            dx = segment_sum_csr(ct.contiguous(), col_ptr, index=src_perm)
+        return dx, None, None, None, None
+
+
+def _csc_exact_segment_sum(ct: torch.Tensor, src_perm: torch.Tensor, ell_hint,
+                           n_node: int) -> torch.Tensor:
+    """Src-keyed float32 segment sum on a symmetric degree-exact graph: after
+    the CSC permute the edge stream is degree-exact under the same buckets
+    (every bucket row has exactly its width in out-edges), so the sum is
+    per-bucket lane-slice sums of a ``(rows, W·C)`` reshape, slot by slot
+    in order. One permute gather, no kernel, no scatter. The rows past the
+    buckets (degree-0 and padding rows) get 0."""
+    spec = EllSpec.from_hint(ell_hint)
+    blocks = ell_expand_exact(ct.index_select(0, src_perm.long()), spec)
+    return pad_rows(torch.cat([masked_slot_sum(b, None, w) for b, w in zip(blocks, spec.widths)]),
+                    n_node)
 
 
 def gather_by_dst(x: torch.Tensor, graph: Graph) -> torch.Tensor:
@@ -55,10 +78,10 @@ def gather_by_dst(x: torch.Tensor, graph: Graph) -> torch.Tensor:
 
 
 def gather_by_src(x: torch.Tensor, graph: Graph) -> torch.Tensor:
-    """``x[graph.src]`` (N, C) → (E, C); VJP = kernel 1 over the CSC."""
-    if graph.csc_ell_exact:
-        raise NotImplementedError("the degree-exact CSC reduce is not ported yet (ZINC)")
-    return _GatherBySrc.apply(x, graph.src, graph.real_col_ptr, graph.src_perm)
+    """``x[graph.src]`` (N, C) → (E, C); VJP = kernel 1 over the CSC, or
+    lane sums when the CSC order is degree-exact."""
+    return _GatherBySrc.apply(x, graph.src, graph.real_col_ptr, graph.src_perm,
+                              graph.ell_hint if graph.csc_ell_exact else None)
 
 
 class _GatherRows(torch.autograd.Function):

@@ -13,12 +13,19 @@ run in both packages. Fields that read differently:
   counterpart of the JAX package's full-f32 MXU passes; ``"high"`` allows
   TF32 and ``"default"`` bf16-class products; ``None`` leaves the
   process's setting alone.
-- ``ZincConfig.max_degree_hint`` does nothing (the CUDA kernels need no
-  scan bound). ``edge_format="auto"`` and ``batch_layout="auto"`` resolve
-  to the CSR route and the plain collate, where the JAX package takes the
-  degree-exact ELL layout; without dropout both compute the same
-  function. ``"ell"``, ``"degree_exact"``, ``remat`` and a
-  ``compute_dtype`` other than float32 are not ported yet and raise.
+- ``ZincConfig.max_degree_hint`` sets the slot width of
+  ``edge_format="ell"`` on the plain collate (a single width over all
+  rows), as in the JAX package; the CUDA kernels need no scan bound.
+- ``batch_layout="auto"`` takes the degree-exact ELL collate only with
+  ``edge_format="ell"``; the JAX package takes it unless
+  ``edge_format="csr"`` (``mma_tpu/train/loops.py:249-251``). On an H100
+  the ELL route lost to the CSR route at the 1,024-molecule flagship
+  batch in both timing runs of ``chip_smoke.py`` (NVIDIA H100 80GB HBM3,
+  700 W: the ``min,max`` train step 74.3 / 60.3 ms against 39.3 / 28.6;
+  PERF.md §5), so the defaults keep the plain collate and the CSR kernels
+  (``mma_tpu_torch.train.loops.zinc_layout``). ``"plain"`` keeps the
+  plain collate, ``"degree_exact"`` forces the exact one. A
+  ``compute_dtype`` other than float32 is not ported yet and raises.
 
 Checkpointing (``checkpoint_dir``, ``checkpoint_every``, ``resume``) is
 not ported yet; a run that asks for it raises.

@@ -7,7 +7,8 @@
   test evaluation.
 - :func:`train_zinc`: batched L1 regression (reference
   ``graph_regression/mma.py:139-200``; ``mma_tpu/train/loops.py:165-354``):
-  the same padding budgets, loss, plateau schedule and per-epoch record.
+  the same batch layout and padding budgets (:func:`zinc_layout`), loss,
+  plateau schedule and per-epoch record.
 
 PyTorch runs eagerly, so each step is a plain function
 (:func:`node_train_step`, :func:`zinc_train_step`) where the JAX package
@@ -31,6 +32,7 @@ import torch
 
 from mma_tpu_torch.convert import node_classifier_to_numpy, zinc_net_to_numpy
 from mma_tpu_torch.data import load_planetoid, load_zinc
+from mma_tpu_torch.data.batching import degree_budgets
 from mma_tpu_torch.device import DeviceLike, resolve_device
 from mma_tpu_torch.graph.container import BatchedGraphs, Graph
 from mma_tpu_torch.models import NodeClassifier, ZincNet
@@ -221,6 +223,39 @@ def zinc_padding(cfg: ZincConfig, splits: Sequence) -> tuple:
     return n_node, n_edge
 
 
+def zinc_layout(cfg: ZincConfig, splits: Sequence) -> tuple:
+    """``(n_node, n_edge, ell_degree_budgets)`` of every batch.
+
+    ``batch_layout="degree_exact"``, or ``"auto"`` with
+    ``edge_format="ell"``, takes the degree-exact collate: the guaranteed
+    worst-case budgets of every split (no shuffled epoch can overflow
+    them), the pads grown to hold their rows and slots
+    (``mma_tpu/train/loops.py:244-271``). Otherwise the plain collate
+    (``ell_degree_budgets`` None), padded as :func:`zinc_padding`.
+
+    ``"auto"`` departs from the JAX package's rule (the exact layout
+    unless ``edge_format="csr"``) for ``edge_format="auto"``: on an H100
+    (80GB HBM3, 700 W) the ELL route's step took 74.3 / 60.3 ms against
+    the CSR route's 39.3 / 28.6 in two timing runs at the 1,024-molecule
+    flagship batch (``min,max``, dropout on; PERF.md §5), so the default
+    keeps the plain collate and the CSR kernels."""
+    if cfg.batch_layout not in ("auto", "plain", "degree_exact"):
+        raise ValueError(f"unknown batch_layout {cfg.batch_layout!r}; "
+                         "valid: 'auto', 'plain', 'degree_exact'")
+    n_node, n_edge = zinc_padding(cfg, splits)
+    if not (cfg.batch_layout == "degree_exact"
+            or (cfg.batch_layout == "auto" and cfg.edge_format == "ell")):
+        return n_node, n_edge, None
+    per_split = [degree_budgets([int(n) for n in d.num_nodes], d.edge_src, d.edge_dst,
+                                cfg.batch_size, worst_case=True, include_zero=True)
+                 for d in splits]
+    w = max(len(b) for b, _ in per_split)
+    budgets = tuple(max(b[i] if i < len(b) else 0 for b, _ in per_split) for i in range(w))
+    rows = sum(budgets) + max(z for _, z in per_split) + 1
+    slots = sum(b * (i + 1) for i, b in enumerate(budgets))
+    return max(n_node, -(-rows // 256) * 256), max(n_edge, -(-slots // 256) * 256), budgets
+
+
 def train_zinc(cfg: ZincConfig, datasets: Optional[Dict] = None, *,
                device: DeviceLike = None):
     """Train ``ZincNet`` on ZINC (``datasets``: ``{"train", "val", "test"}``
@@ -233,10 +268,6 @@ def train_zinc(cfg: ZincConfig, datasets: Optional[Dict] = None, *,
     """
     if cfg.checkpoint_dir or cfg.resume:
         raise NotImplementedError("checkpoint/resume is not ported yet")
-    if cfg.batch_layout not in ("auto", "plain"):
-        raise NotImplementedError(
-            f"batch_layout={cfg.batch_layout!r} is not ported yet (the ELL / degree-exact "
-            "slice of the port); 'auto' and 'plain' take the plain collate")
     dev = resolve_device(device)
     with matmul_precision(cfg.matmul_precision):
         return _train_zinc(cfg, datasets, dev)
@@ -254,18 +285,19 @@ def _train_zinc(cfg: ZincConfig, datasets, dev: torch.device):
         num_layers=cfg.num_layers, hidden=cfg.hidden, edge_hidden=cfg.edge_hidden,
         towers=cfg.towers, pre_layers=cfg.pre_layers, post_layers=cfg.post_layers,
         mlp_sizes=cfg.mlp_sizes, parity=cfg.parity, remat=cfg.remat,
-        compute_dtype=cfg.compute_dtype,
+        max_degree_hint=cfg.max_degree_hint, compute_dtype=cfg.compute_dtype,
         edge_format=cfg.edge_format, device=dev,
         generator=torch.Generator().manual_seed(cfg.seed),
     )
     opt = make_optimizer(model.parameters(), cfg.lr, cfg.weight_decay)
     sched = ReduceLROnPlateau(lr=cfg.lr, factor=cfg.lr_factor, patience=cfg.lr_patience,
                               min_lr=cfg.min_lr)
-    n_node, n_edge = zinc_padding(cfg, (train_ds, val_ds, test_ds))
+    n_node, n_edge, budgets = zinc_layout(cfg, (train_ds, val_ds, test_ds))
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
 
     def batches(ds, **kw):
-        return ds.batches(cfg.batch_size, n_node=n_node, n_edge=n_edge, device=dev, **kw)
+        return ds.batches(cfg.batch_size, n_node=n_node, n_edge=n_edge,
+                          ell_degree_budgets=budgets, device=dev, **kw)
 
     # The eval splits are not shuffled: collate them once.
     eval_sets = {"val": list(batches(val_ds)), "test": list(batches(test_ds))}

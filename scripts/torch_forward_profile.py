@@ -5,7 +5,7 @@ or a train step.
     python3 scripts/torch_forward_profile.py
         [--graph synthetic-large|cora|zinc|zinc-default|zinc-pna]
         [--mode forward|train|wide|masked] [--bwd-mode payload_permute|csc_gather]
-        [--iters 5] [--batch 1024]
+        [--iters 5] [--batch 1024] [--layout plain|exact]
 
 Builds the kernels, runs the work once to warm up, then traces ``--iters``
 runs with ``torch.profiler`` and prints the device time per kernel (sum
@@ -19,8 +19,11 @@ program, kernels 6-7) and ``zinc-default`` at the command line's default
 ``mean,max,min`` (the general route, kernels 1, 4, 5), ``zinc-pna`` at
 the PNA set ``mean,min,max,std`` (kernels 1, 4, 5 and 8), on the first
 ``--batch`` synthetic train molecules padded to the next 1,024 nodes and
-edges (``chip_smoke.py``'s flagship batch at 1,024); ``--mode train``
-runs ``zinc_train_step`` with message dropout on. ``--mode wide`` runs
+edges (``chip_smoke.py``'s flagship batch at 1,024); ``--layout exact``
+collates them degree-exact instead, budgeted and padded as
+``chip_smoke.py``'s zinc-exact paths (the ELL route: plain PyTorch slot
+reductions, kernel 1 for the pool); ``--mode train`` runs
+``zinc_train_step`` with message dropout on. ``--mode wide`` runs
 ``chip_smoke.py``'s large-wide work on synthetic-large: the forward and
 backward of ``masked_multi_aggregate`` (F=64, ``mean,mean2``) with
 ``pallas_bwd_mode=--bwd-mode`` (kernels 9, 10 and 1 or 11). ``--mode
@@ -53,6 +56,8 @@ def main() -> int:
                     default="payload_permute")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--batch", type=int, default=1024, help="ZINC molecules per batch")
+    ap.add_argument("--layout", choices=("plain", "exact"), default="plain",
+                    help="ZINC collate: plain or degree-exact")
     args = ap.parse_args()
     if args.mode in ("wide", "masked") and args.graph != "synthetic-large":
         ap.error(f"--mode {args.mode} runs on --graph synthetic-large")
@@ -78,8 +83,19 @@ def main() -> int:
         ds = load_zinc("train", subset_size=args.batch)
         n_need = int(ds.num_nodes.sum()) + 1
         e_need = int(sum(len(s) for s in ds.edge_src))
-        batch = next(ds.batches(args.batch, n_node=-(-n_need // 1024) * 1024,
-                                n_edge=-(-e_need // 1024) * 1024))
+        n_node, n_edge, budgets = -(-n_need // 1024) * 1024, -(-e_need // 1024) * 1024, None
+        if args.layout == "exact":
+            from mma_tpu_torch.data.batching import degree_budgets
+
+            budgets, zero_worst = degree_budgets([int(n) for n in ds.num_nodes], ds.edge_src,
+                                                 ds.edge_dst, args.batch, margin=0.0,
+                                                 include_zero=True)
+            rows = sum(budgets) + zero_worst + 1
+            slots = sum(b * (i + 1) for i, b in enumerate(budgets))
+            n_node = max(n_node, -(-rows // 1024) * 1024)
+            n_edge = max(n_edge, -(-slots // 1024) * 1024)
+        batch = next(ds.batches(args.batch, n_node=n_node, n_edge=n_edge,
+                                ell_degree_budgets=budgets))
         aggs, scalers = {
             "zinc": (("min", "max"), ("identity", "amplification", "linear")),
             "zinc-default": (("mean", "max", "min"), ("identity", "amplification", "attenuation")),
@@ -171,7 +187,8 @@ def main() -> int:
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     mode = f"wide {args.bwd_mode}" if args.mode == "wide" else args.mode
-    print(f"graph {args.graph}, {mode}: host-clock time per run (ms): "
+    layout = f" ({args.layout} layout)" if args.graph.startswith("zinc") else ""
+    print(f"graph {args.graph}{layout}, {mode}: host-clock time per run (ms): "
           f"{' '.join(f'{v:.3f}' for v in lat)}")
     print(f"traced window {window_ms / args.iters:.3f} ms per run (host clock), "
           f"device busy {busy:.3f} ms per run, busy share {busy / (window_ms / args.iters):.3f}, "

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from mma_tpu.data import load_zinc as jax_load_zinc
+from mma_tpu.data.batching import degree_budgets as jax_degree_budgets
 from mma_tpu.nn.mma_conv import compute_avg_deg as jax_compute_avg_deg
 
 from mma_tpu_torch.data import batch_graphs, load_zinc
@@ -94,11 +95,17 @@ def test_batch_graphs_checks_its_budgets():
         batch_graphs([4], src, dst, n_node=4, n_edge=8, device="cpu", **kw)
     with pytest.raises(ValueError, match="edges"):
         batch_graphs([4], src, dst, n_node=8, n_edge=1, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="degree-exact"):
-        batch_graphs([4], src, dst, n_node=8, n_edge=8, ell_degree_budgets=(4,),
+    # The degree-exact collate and its budgets (ported; held against the
+    # JAX package field for field in tests/test_torch_ell.py).
+    assert degree_budgets([4], src, dst, 2) == jax_degree_budgets([4], src, dst, 2) == (8,)
+    exact = batch_graphs([4], src, dst, n_node=8, n_edge=8, ell_degree_budgets=(4,),
+                         device="cpu", **kw)
+    g = exact.graph
+    assert g.ell_exact and g.csc_ell_exact and g.ell_hint == ((4, 1),)
+    assert g.row_ptr.tolist() == [0, 1, 2, 3, 4, 4, 4, 4, 8] and not exact.nodes_grouped
+    with pytest.raises(ValueError, match="global padding row"):
+        batch_graphs([4], src, dst, n_node=6, n_edge=8, ell_degree_budgets=(4,),
                      device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="degree-exact"):
-        degree_budgets([4], src, dst, 2)
 
 
 def test_degree_histogram_equals_jax():

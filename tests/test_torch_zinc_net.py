@@ -46,8 +46,8 @@ from mma_tpu_torch.graph import graph_from_edges
 from mma_tpu_torch.models import ZincNet
 from mma_tpu_torch.nn.mma_conv import MultiMaskConv
 from mma_tpu_torch.ops.cuda import segment_minmax as mm
-from mma_tpu_torch.train import make_optimizer
-from mma_tpu_torch.train.loops import l1_loss, zinc_train_step
+from mma_tpu_torch.train import ZincConfig, make_optimizer
+from mma_tpu_torch.train.loops import l1_loss, zinc_layout, zinc_train_step
 
 N, F, EDGE_DIM, TOWERS = 24, 8, 6, 2
 AVG_DEG = {"lin": 2.1, "log": 1.05, "exp": 9.3}
@@ -397,17 +397,35 @@ def test_unported_requests_raise(graphs):
         out = MultiMaskConv(F, F, aggs, ("identity",), AVG_DEG, **kw)(
             torch.from_numpy(x), tg, torch.from_numpy(e))
         assert out.shape == (tg.n_node, F) and torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError, match="ell"):
-        MultiMaskConv(F, F, ("min",), ("identity",), AVG_DEG, edge_format="ell", **kw)
+    # edge_format="ell" (ported): the single-width slot layout of
+    # max_degree_hint gives the CSR route's output; without the hint the
+    # conv keeps the CSR route.
+    conv = MultiMaskConv(F, F, ("min", "max"), ("identity",), AVG_DEG, **kw)
+    for hint in (int(tg.deg.max()), None):
+        ell_conv = MultiMaskConv(F, F, ("min", "max"), ("identity",), AVG_DEG, edge_format="ell",
+                                 max_degree_hint=hint, **kw)
+        ell_conv.load_state_dict(conv.state_dict())
+        torch.testing.assert_close(ell_conv(torch.from_numpy(x), tg, torch.from_numpy(e))[:N],
+                                   conv(torch.from_numpy(x), tg, torch.from_numpy(e))[:N],
+                                   rtol=1e-6, atol=1e-6)
     with pytest.raises(NotImplementedError, match="compute_dtype"):
         MultiMaskConv(F, F, ("min",), ("identity",), AVG_DEG, compute_dtype="bfloat16", **kw)
-    conv = MultiMaskConv(F, F, ("min", "max"), ("identity",), AVG_DEG, **kw)
-    with pytest.raises(NotImplementedError, match="degree-exact"):
-        conv(torch.from_numpy(x), dataclasses.replace(tg, ell_exact=True), torch.from_numpy(e))
     with pytest.raises(NotImplementedError, match="axis_name"):
         conv(torch.from_numpy(x), tg, torch.from_numpy(e), axis_name="edges")
-    with pytest.raises(NotImplementedError, match="remat"):
-        ZincNet(("min", "max"), ("identity",), AVG_DEG, remat=True, device="cpu", **SMALL_NET)
-    with pytest.raises(NotImplementedError, match="degree-exact"):
-        next(load_zinc("val", subset_size=4).batches(4, n_node=160, n_edge=400, device="cpu",
-                                                     ell_degree_budgets=(8, 8, 8, 8)))
+    # Degree-exact graphs and degree-ordered batches, and remat (ported):
+    # the same molecules collated both ways give the same predictions, and
+    # a remat training step runs on the exact batch.
+    ds = load_zinc("val", subset_size=4)
+    cfg = ZincConfig(batch_size=4, batch_layout="degree_exact")
+    n_node, n_edge, budgets = zinc_layout(cfg, [ds])
+    plain = next(ds.batches(4, n_node=n_node, n_edge=n_edge, device="cpu"))
+    exact = next(ds.batches(4, n_node=n_node, n_edge=n_edge, device="cpu",
+                            ell_degree_budgets=budgets))
+    assert exact.graph.ell_exact and not exact.nodes_grouped
+    net = ZincNet(("min", "max"), ("identity",), AVG_DEG, remat=True, device="cpu", **SMALL_NET)
+    with torch.no_grad():
+        torch.testing.assert_close(net(exact), net(plain), rtol=1e-5, atol=1e-5)
+    loss = l1_loss(net(exact, training=True), exact)
+    loss.backward()
+    assert torch.isfinite(loss) and all(torch.isfinite(p.grad).all()
+                                        for p in net.parameters() if p.grad is not None)

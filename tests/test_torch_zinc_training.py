@@ -72,10 +72,15 @@ def test_padding_budgets_follow_the_jax_formula(splits):
 
 
 def test_train_zinc_raises_on_what_is_not_ported(splits):
-    for kw in (dict(batch_layout="degree_exact"), dict(checkpoint_dir="/nonexistent"),
-               dict(edge_format="ell"), dict(remat=True), dict(compute_dtype="bfloat16")):
+    for kw in (dict(checkpoint_dir="/nonexistent"), dict(compute_dtype="bfloat16")):
         with pytest.raises(NotImplementedError):
             train_zinc(ZincConfig(epochs=1, **SMALL, **kw), datasets=splits, device="cpu")
+    # Ported: the degree-exact layout, the ELL route on the plain collate
+    # (max_degree_hint's single width) and remat each train an epoch.
+    for kw in (dict(batch_layout="degree_exact"), dict(batch_layout="plain", edge_format="ell"),
+               dict(remat=True)):
+        res = train_zinc(ZincConfig(epochs=1, **SMALL, **kw), datasets=splits, device="cpu")
+        assert np.isfinite([v for r in res["history"] for v in r.values()]).all(), kw
 
 
 def test_cli_parses_the_jax_flags():
