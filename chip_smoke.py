@@ -4,7 +4,7 @@
 1. Prints the card's name and power limit (``nvidia-smi``), then builds
    every CUDA kernel of the port from ``mma_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together).
-2. Thirteen main paths, each with the kernels' launch counters set to 0 just
+2. Eighteen main paths, each with the kernels' launch counters set to 0 just
    before it and read just after:
 
    - **serve**: the node classifier's eval forward answers 3 requests on
@@ -55,6 +55,19 @@
      of the PNA set ``mean,min,max,std`` (``identity,amplification,
      attenuation``, the command line's other defaults) at the flagship
      batch: kernels 1, 4, 5 and 8; the ELL route: kernel 1.
+   - **sampled-train**: ``mma_tpu_torch.cli.train_sampled.main`` at its
+     defaults (a 200,000-node power-law graph from the seed, ``--avg-deg
+     25``, batch 512, fanouts 10,10,5, hidden 64, 100 features, 47
+     classes, ``mean,mean2``, dropout 0.5, the ``device_finish``
+     pipeline) for 20 steps: the half-fused route, kernel 1.
+     **sampled-train-lean**: ``--dropout 0``, 5 steps (kernels 1, 2, 3).
+     **sampled-train-ell**: ``--use-ell``, 10 steps (the ELL route; kernel
+     1 for the products and the slot gather's VJP).
+     **sampled-train-hostbuilt**: ``--host-built``, 5 steps (kernel 1).
+   - **sampled-quality**: the community graph of
+     ``tests/test_sampling.py:260-345`` on the card, sampled training
+     against full-graph training (full accuracy above 0.6, sampled within
+     0.08 of it).
 
    Each path's launch counts are derived from the code and checked.
 3. Checks every output (finite log-probs of the expected shape whose rows
@@ -79,7 +92,16 @@
    collate without dropout (per-graph predictions and every parameter
    gradient; serving's first request too). The host-clock medians of
    the exact and CSR requests and steps print side by side, the README
-   preset's train step timed on both layouts in turns.
+   preset's train step timed on both layouts in turns. For the sampled
+   paths: the native library built; the device-finished graph equal to
+   the host-built one field for field (both layouts) with full-graph
+   degrees; one train step per route (half-fused, lean, ELL) on one batch
+   against the all-plain step (loss, log-probs, every gradient at 1e-5);
+   the ELL route's predictions against the CSR route's on a hopped batch
+   (dropout off, 1e-5); hole rows moving no seed output and taking no
+   gradient; per phase the step's host-clock and CUDA-event medians, the
+   pipeline time a batch, both sampled-edges/s rates and the calibrated
+   pads; a profiled step per route; the host sampling time a batch.
 4. Per kernel, at the shapes of the main paths (kernels 1-3 and 9-12 at
    synthetic-large, kernel 1 at the widths of both products, C=64 and
    C=16, and of the wide payload, C=192, and also its heaviest row alone at
@@ -102,7 +124,8 @@
    the last line ``{"ok": true, "device": {...}}``.
 
 The per-epoch training logs go to ``artifacts/chip_smoke_train.log`` and
-``artifacts/chip_smoke_zinc_train*.log``.
+``artifacts/chip_smoke_zinc_train*.log``, the sampled command line's to
+``artifacts/chip_smoke_sampled.log``.
 Any failed check raises, so the script exits non-zero and prints no
 result; so does a host without a GPU, or a directory without the port.
 """
@@ -112,6 +135,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import math
 import os
@@ -126,6 +150,7 @@ import warnings
 # takes cuBLAS's deterministic workspace setting.
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 SEED = 0
@@ -771,6 +796,285 @@ def run_zinc(dev, paths: dict) -> dict:
     return kernels
 
 
+# ------------------------------------------------------------ sampled paths
+
+# The sampled CLI's phases: (path, extra flags, steps) at the command line's
+# defaults otherwise (200,000 nodes, --avg-deg 25, batch 512, fanouts
+# 10,10,5, hidden 64, 100 features, 47 classes, mean,mean2, dropout 0.5).
+SAMPLED_PHASES = (
+    ("sampled-train", [], 20),
+    ("sampled-train-lean", ["--dropout", "0"], 5),
+    ("sampled-train-ell", ["--use-ell"], 10),
+    ("sampled-train-hostbuilt", ["--host-built"], 5),
+)
+# Kernel calls per train step on each route. Half-fused (mask dropout on, the
+# CSR): kernel 1 x3 forward (two binary_spmm, the message sum) and x5
+# backward (two binary_spmm, the gathers of c by dst and of d and h by src).
+# Lean (dropout 0): kernel 1 x2 and kernel 2 forward, kernel 1 x2 and
+# kernel 3 backward. ELL (mask dropout on, hopped layout): kernel 1 x2
+# forward (binary_spmm; the slot sums are plain) and x3 backward (binary_spmm,
+# the [d ‖ h] slot gather's VJP over the CSC).
+SAMPLED_PER_STEP = {
+    "sampled-train": {"segment_sum": 8},
+    "sampled-train-lean": {"segment_sum": 4, "edge_program_lean": 1, "edge_program_lean_bwd": 1},
+    "sampled-train-ell": {"segment_sum": 5},
+    "sampled-train-hostbuilt": {"segment_sum": 8},
+}
+# tests/test_sampling.py:343-344: full-graph accuracy above 0.6, sampled
+# within 0.08 of it.
+SAMPLED_FULL_MIN_ACC = 0.6
+SAMPLED_MAX_ACC_GAP = 0.08
+
+
+def profile_steps(run, iters: int = 3) -> dict:
+    """Device busy time per call of ``run`` from ``torch.profiler`` (kernel
+    rows only), the traced window's host clock, and the top kernels."""
+    run()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3 / iters
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA or getattr(
+                ev, "is_user_annotation", False):
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((dev_us / iters / 1e3, ev.count // iters, ev.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    return {"window_ms": window_ms, "busy_ms": busy, "busy_share": busy / window_ms,
+            "launches": sum(r[1] for r in rows), "top": rows[:5]}
+
+
+def run_sampled(dev, paths: dict) -> None:
+    """The sampled-training phases (the command line's four modes and the
+    community-graph quality check), their gates and their timings."""
+    from mma_tpu_torch.cli import train_sampled as cli
+    from mma_tpu_torch.graph import native
+    from mma_tpu_torch.graph.device_build import finish_graph_on_device
+    from mma_tpu_torch.models import NodeClassifier
+    from mma_tpu_torch.train import make_optimizer
+    from mma_tpu_torch.train.sampled import (
+        SampledTrainConfig,
+        sampled_train_step,
+        train_sampled,
+    )
+
+    if not native.available():
+        raise AssertionError("the native graph library did not build: the sampler would "
+                             "run its NumPy backend")
+    print(f"native graph library: {native.library_path()}")
+    runs = {}
+    with open(os.path.join(LOG_DIR, "chip_smoke_sampled.log"), "w") as log:
+        for path, flags, steps in SAMPLED_PHASES:
+            t0 = time.perf_counter()
+            with counted(path, paths), contextlib.redirect_stdout(log):
+                res = cli.main(["--device", str(dev), "--steps", str(steps), *flags])
+            wall = time.perf_counter() - t0
+            s, pads = res["summary"], res["pads"]
+            print(f"{path}: pads {pads}; {steps} steps in {wall:.2f} s (graph build and "
+                  f"calibration included); medians after {cli.WARMUP_STEPS} warm-up steps: "
+                  f"step {s['step_ms']:.4f} ms (host clock), {s['device_ms']:.4f} ms (CUDA "
+                  f"events); pipeline {s['pipeline_ms']:.4f} ms a batch, pipeline / device "
+                  f"{s['pipeline_ms'] / s['device_ms']:.4f}; {s['edges']} sampled edges a "
+                  f"batch: {s['edges_per_s_step']:.4e} edges/s through the step, "
+                  f"{s['edges_per_s_pipeline']:.4e} through the pipeline; losses "
+                  f"{res['losses'][0]:.4f} -> {res['losses'][-1]:.4f}")
+            expect_launches(paths, path, **{k: v * steps for k, v in SAMPLED_PER_STEP[path].items()})
+            if not all(math.isfinite(v) for v in res["losses"]):
+                raise AssertionError(f"{path}: non-finite loss {res['losses']}")
+            runs[path] = res
+
+    base = runs["sampled-train"]
+    sampler, assembler, pads = base["sampler"], base["assembler"], base["pads"]
+    hop_pads = tuple(pads["hop_node_pads"])
+    n_nodes = sampler.num_nodes
+    deg_table = torch.from_numpy(sampler.true_deg).to(dev)
+    # One batch of the command line's size (the seeds' budget is the batch).
+    seeds = np.random.RandomState(SEED + 7).randint(0, n_nodes, hop_pads[0])
+    kw = dict(n_node_pad=pads["n_node_pad"], n_edge_pad=pads["n_edge_pad"])
+
+    def finished(smp, hopped):
+        ar = smp.sample_arrays(seeds, hop_node_pads=hop_pads if hopped else None, **kw)
+        t = {k: torch.from_numpy(getattr(ar, k)).to(dev)
+             for k in ("src", "dst", "node_ids", "src_perm")}
+        g = finish_graph_on_device(t["src"], t["dst"], t["node_ids"], ar.num_edges, deg_table,
+                                   t["src_perm"], ell_hint=ar.ell_hint)
+        return ar, g, assembler.assemble(t["node_ids"], ar.num_seeds)
+
+    # ------------------------- the finished graph equals the host-built one
+    batches = {}
+    for hopped in (False, True):
+        host = copy.deepcopy(sampler).sample(
+            seeds, hop_node_pads=hop_pads if hopped else None, device=dev, **kw)
+        ar, g, xys = finished(copy.deepcopy(sampler), hopped)
+        for f in dataclasses.fields(g):
+            a, b = getattr(g, f.name), getattr(host.graph, f.name)
+            same = (torch.equal(a, b) and a.dtype == b.dtype) if isinstance(a, torch.Tensor) \
+                else a == b
+            if not same:
+                raise AssertionError(f"finished graph (hopped={hopped}) field {f.name} differs "
+                                     "from the host-built graph")
+        real = g.node_mask
+        ids = torch.from_numpy(ar.node_ids).to(dev).long()
+        sampled_deg = (g.row_ptr[1:] - g.row_ptr[:-1]).float()
+        if not torch.equal(g.deg[real], deg_table[ids[real]]) or torch.equal(
+                g.deg[real], sampled_deg[real]):
+            raise AssertionError("the finished graph's deg is not the full-graph degree")
+        holes = int((~real[: g.ell_hint[-1][0]]).sum()) if hopped else 0
+        print(f"finished graph (hopped={hopped}): equal to the host-built graph field for "
+              f"field; {ar.num_nodes} nodes, {ar.num_edges} edges, {holes} hole rows in the "
+              f"hop ranges, ell_hint {g.ell_hint}; deg is the full-graph degree")
+        batches[hopped] = (ar, g, xys)
+
+    # ------------------- one train step per route against the all-plain step
+    model_do = runs["sampled-train"]["model"]
+    model_lean = runs["sampled-train-lean"]["model"]
+    routes = {"half-fused": (model_do, batches[False]), "lean": (model_lean, batches[False]),
+              "ell": (model_do, batches[True])}
+    for route, (model0, (ar, g, (x, y, sm))) in routes.items():
+        steps = []
+        for plain in (False, True):
+            model = copy.deepcopy(model0)
+            opt = make_optimizer(model.parameters(), 3e-3)
+            before = launches()
+            with plain_kernels() if plain else contextlib.nullcontext():
+                loss, logp = sampled_train_step(model, opt, x, g, y, sm,
+                                                torch.Generator(device=dev).manual_seed(SEED))
+            torch.cuda.synchronize()
+            if plain and launches() != before:
+                raise AssertionError(f"sampled {route} step: the plain step launched a kernel")
+            steps.append((loss, logp, grads_of(model)))
+        (loss_k, logp_k, grads_k), (loss_p, logp_p, grads_p) = steps
+        check_log_probs(logp_k[g.node_mask], int(g.node_mask.sum()), logp_k.shape[1],
+                        int(g.node_mask.sum()), f"sampled {route} step")
+        compare(loss_k.reshape(1), loss_p.reshape(1), 1e-5, f"sampled {route} step loss vs plain")
+        compare(logp_k[g.node_mask], logp_p[g.node_mask], 1e-5,
+                f"sampled {route} step log-probs vs plain")
+        for name, gk in grads_k.items():
+            compare(gk, grads_p[name], 1e-5, f"sampled {route} step grad {name} vs plain")
+    del steps
+
+    # ------------- the ELL route against the CSR route, dropout off; holes
+    ar, g, (x, y, sm) = batches[True]
+    holes = ~g.node_mask
+    with torch.no_grad():
+        ell_out = model_lean(x, g)
+        csr_out = model_lean(x, dataclasses.replace(g, ell_hint=None))
+    compare(ell_out[g.node_mask], csr_out[g.node_mask], 1e-5,
+            "sampled ELL route vs CSR route, predictions on a hopped batch (dropout off)")
+    ns = ar.num_seeds
+    for route, graph in (("ell", g), ("csr", dataclasses.replace(g, ell_hint=None))):
+        seed_out = []
+        for fill in (0.0, 1e6):
+            xx = torch.where(holes[:, None], torch.full_like(x, fill), x).requires_grad_()
+            out = model_lean(xx, graph)
+            out[torch.arange(ns, device=dev), y[:ns]].sum().backward()
+            if xx.grad[holes].abs().max().item() != 0.0:
+                raise AssertionError(f"sampled {route}: a hole row has a gradient")
+            seed_out.append(out[:ns].detach())
+        if not torch.equal(seed_out[0], seed_out[1]):
+            raise AssertionError(f"sampled {route}: 1e6 in the hole rows moved a seed output")
+    print(f"sampled hole rows ({int(holes[: g.ell_hint[-1][0]].sum())} in the hop ranges): "
+          "1e6 in them moves no seed output, and their gradient is 0, on both routes")
+
+    # -------------------------------------- where a sampled step's time goes
+    for route, (model0, (ar, g, (x, y, sm))) in routes.items():
+        model = copy.deepcopy(model0)
+        opt = make_optimizer(model.parameters(), 3e-3)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        prof = profile_steps(lambda: sampled_train_step(model, opt, x, g, y, sm, gen))
+        print(f"sampled {route} step profile (fixed batch, {ar.num_edges} edges): traced "
+              f"{prof['window_ms']:.4f} ms a step (host clock), device busy "
+              f"{prof['busy_ms']:.4f} ms, busy share {prof['busy_share']:.4f}, "
+              f"{prof['launches']} device launches and copies a step; top: "
+              + "; ".join(f"{ms:.4f} ms x{c} {k[:60]}" for ms, c, k in prof["top"]))
+    smp = copy.deepcopy(sampler)
+    t_host = []
+    for i in range(5):
+        t0 = time.perf_counter()
+        ar = smp.sample_arrays(seeds, **kw)
+        t_host.append((time.perf_counter() - t0) * 1e3)
+    ar, g, _ = batches[False]
+    t_dev = {k: torch.from_numpy(getattr(ar, k)).to(dev)
+             for k in ("src", "dst", "node_ids", "src_perm")}
+    finish_ms = device_ms(lambda: finish_graph_on_device(
+        t_dev["src"], t_dev["dst"], t_dev["node_ids"], ar.num_edges, deg_table,
+        t_dev["src_perm"]))
+    assemble_ms = device_ms(lambda: assembler.assemble(t_dev["node_ids"], ar.num_seeds))
+    ship_mb = 4 * (3 * kw["n_edge_pad"] + kw["n_node_pad"]) / 2**20
+    print(f"sampled host side: sample_arrays (native sampler, {sampler.n_threads} threads, "
+          f"two counting sorts) median {statistics.median(t_host):.4f} ms a batch of "
+          f"{ar.num_edges} edges; {ship_mb:.2f} MiB shipped a batch (src, dst, CSC "
+          f"permutation, ids); finish_graph_on_device {finish_ms:.4f} ms and the feature "
+          f"gather {assemble_ms:.4f} ms on the card")
+
+    # --------------------------- sampled against full-graph training quality
+    rs = np.random.RandomState(3)
+    n, k = 500, 4
+    comm = rs.randint(0, k, n)
+    edges = set()
+    for i in range(n):
+        for _ in range(6):
+            cand = np.flatnonzero(comm == comm[i]) if rs.rand() < 0.85 else np.arange(n)
+            j = int(cand[rs.randint(len(cand))])
+            if i != j:
+                edges.add((min(i, j), max(i, j)))
+    e = np.array(sorted(edges), np.int32)
+    from mma_tpu_torch import graph_from_edges
+
+    cg = graph_from_edges(np.concatenate([e[:, 0], e[:, 1]]),
+                          np.concatenate([e[:, 1], e[:, 0]]), n, device=dev)
+    feats = (np.eye(k)[comm] + 1.2 * rs.randn(n, k)).astype(np.float32)
+    train_idx, test_idx = np.arange(350), np.arange(350, n)
+    x_full = torch.zeros(cg.n_node, k, device=dev)
+    x_full[:n] = torch.from_numpy(feats).to(dev)
+    y_full = torch.from_numpy(comm.astype(np.int64)).to(dev)
+
+    def accuracy(model):
+        with torch.no_grad():
+            pred = model(x_full, cg).argmax(dim=1).cpu().numpy()[:n]
+        return float((pred[test_idx] == comm[test_idx]).mean())
+
+    full_steps = 60
+    cfg = SampledTrainConfig(aggregators=("mean", "max"), hidden=16, batch_size=64,
+                             fanouts=(4, 4, 4), n_node_pad=512, n_edge_pad=4096, lr=0.01,
+                             dropout=0.0, epochs=12, parity=True, seed=1)
+    with counted("sampled-quality", paths), contextlib.redirect_stdout(io.StringIO()):
+        model = NodeClassifier(k, 16, k, ("mean", "max"), dropout_rate=0.0, device=dev,
+                               generator=torch.Generator().manual_seed(0))
+        opt = make_optimizer(model.parameters(), 0.01)
+        tr = torch.from_numpy(train_idx).to(dev)
+        for _ in range(full_steps):
+            opt.zero_grad()
+            logp = model(x_full, cg)
+            (-logp[tr, y_full[tr]].mean()).backward()
+            opt.step()
+        acc_full = accuracy(model)
+        res = train_sampled(cfg, cg, feats, comm, train_idx, device=dev)
+        acc_sampled = accuracy(res["model"])
+    sampled_steps = sum(r["batches"] for r in res["history"])
+    print(f"sampled-quality: full-graph test accuracy {acc_full:.4f} (must be > "
+          f"{SAMPLED_FULL_MIN_ACC}), sampled {acc_sampled:.4f} (must be > full - "
+          f"{SAMPLED_MAX_ACC_GAP}); {full_steps} full steps, {sampled_steps} sampled steps")
+    # Per step (dropout 0, the lean route): kernel 1 x4, kernels 2 and 3 once;
+    # each accuracy forward kernel 1 x2 and kernel 2 once.
+    steps = full_steps + sampled_steps
+    expect_launches(paths, "sampled-quality", segment_sum=4 * steps + 2 * 2,
+                    edge_program_lean=steps + 2, edge_program_lean_bwd=steps)
+    if not (acc_full > SAMPLED_FULL_MIN_ACC and acc_sampled > acc_full - SAMPLED_MAX_ACC_GAP):
+        raise AssertionError(f"sampled-quality: accuracies full {acc_full:.4f}, sampled "
+                             f"{acc_sampled:.4f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1110,6 +1414,7 @@ def main() -> int:
     del masked, res
 
     zinc_kernels = run_zinc(dev, paths)
+    run_sampled(dev, paths)
 
     # --------------------------------------------- per-kernel, large shapes
     row_ptr = big.real_row_ptr

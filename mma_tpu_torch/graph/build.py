@@ -1,9 +1,12 @@
-"""Host-side (NumPy) graph construction: COO → sorted, padded edge lists.
+"""Host-side graph construction: COO → sorted, padded edge lists.
 
-The NumPy counterpart of the JAX package's ``graph_from_edges`` and of the
-four native graph ops it calls (sort, row pointers, degrees, symmetrize).
-Every sort is a stable ``np.lexsort``, which gives the same order as the
-native two-pass counting sort, duplicate edges included.
+The port of the JAX package's ``graph_from_edges``, which, as there, sorts
+and counts with the native graph library
+(:mod:`mma_tpu_torch.graph.native`: a stable two-pass counting sort,
+O(E + N)) and takes its NumPy fallbacks without it. The NumPy helpers
+below (``sort_edges``, ``build_row_ptr``, ``symmetrize``) serve the other
+builders: every sort is a stable ``np.lexsort``, which gives the counting
+sort's order, duplicate edges included.
 
 Padding policy: node/edge counts round up to ``NODE_PAD_MULTIPLE`` /
 ``EDGE_PAD_MULTIPLE`` and at least one padding node is always added to
@@ -19,6 +22,7 @@ import torch
 
 from mma_tpu_torch.constants import EDGE_PAD_MULTIPLE, NODE_PAD_MULTIPLE
 from mma_tpu_torch.device import DeviceLike, resolve_device
+from mma_tpu_torch.graph import native
 from mma_tpu_torch.graph.container import Graph
 
 
@@ -38,10 +42,6 @@ def build_row_ptr(dst_sorted: np.ndarray, num_nodes: int) -> np.ndarray:
     row_ptr = np.zeros(num_nodes + 1, np.int32)
     np.cumsum(counts, out=row_ptr[1:])
     return row_ptr
-
-
-def degrees(dst: np.ndarray, num_nodes: int) -> np.ndarray:
-    return np.bincount(dst, minlength=num_nodes).astype(np.float32)
 
 
 def symmetrize(src: np.ndarray, dst: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -79,15 +79,15 @@ def graph_from_edges(
         raise ValueError(f"src/dst must be 1-D and equal length, got {src.shape} vs {dst.shape}")
     num_edges = src.shape[0]
 
-    if sort and num_edges > 0:
-        src, dst, _ = sort_edges(src, dst)
-
     n_node = n_node_pad or _round_up(num_nodes + 1, NODE_PAD_MULTIPLE)
     n_edge = n_edge_pad or max(_round_up(num_edges, EDGE_PAD_MULTIPLE), EDGE_PAD_MULTIPLE)
     if n_node <= num_nodes:
         raise ValueError(f"n_node_pad={n_node} must exceed num_nodes={num_nodes} (padding node needed)")
     if n_edge < num_edges:
         raise ValueError(f"n_edge_pad={n_edge} < num_edges={num_edges}")
+
+    if sort and num_edges > 0:
+        src, dst, _ = native.sort_edges(src, dst, n_node)
 
     pad_e = n_edge - num_edges
     pad_node = n_node - 1
@@ -98,13 +98,13 @@ def graph_from_edges(
     node_mask = np.zeros(n_node, bool)
     node_mask[:num_nodes] = True
 
-    deg = degrees(dst, n_node)
+    deg = native.degrees(dst, n_node)
     # CSR offsets over the padded edge list: padding edges land on the
     # padding node's row, which is masked out.
-    row_ptr = build_row_ptr(dst_p, n_node)
+    row_ptr = native.build_row_ptr(dst_p, n_node)
     # Transpose (CSC) order over the padded list.
-    _, src_sorted, src_perm = sort_edges(dst_p, src_p)
-    col_ptr = build_row_ptr(src_sorted, n_node)
+    _, src_sorted, src_perm = native.sort_edges(dst_p, src_p, n_node)
+    col_ptr = native.build_row_ptr(src_sorted, n_node)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)

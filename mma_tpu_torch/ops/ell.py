@@ -182,6 +182,18 @@ def ell_collapse(slot_data: Sequence[torch.Tensor], graph: Graph, spec: EllSpec,
     return _collapse(flat, graph, spec, flat.dtype)
 
 
+def _csc_order(graph: Graph) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The graph's CSC permutation (int64) and offsets; for a graph that
+    carries no CSC view, the same derived on its device: a stable argsort
+    of ``src`` (the list is dst-sorted, so that is the src-major, dst-minor
+    order) and a searchsorted, as ``finish_graph_on_device`` derives them."""
+    if graph.src_perm is not None and graph.col_ptr is not None:
+        return graph.src_perm.long(), graph.col_ptr
+    perm = torch.argsort(graph.src, stable=True)
+    rows = torch.arange(graph.n_node + 1, dtype=graph.src.dtype, device=graph.src.device)
+    return perm, torch.searchsorted(graph.src[perm], rows, out_int32=True)
+
+
 class _EllGatherNodesBySrc(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, graph, spec):
@@ -198,11 +210,11 @@ class _EllGatherNodesBySrc(torch.autograd.Function):
         # are gathered once, then reduce each source's contiguous run with
         # kernel 1.
         slot, ok = _slot_of_edge(g, ctx.spec)
-        perm = g.src_perm.long()
+        perm, col_ptr = _csc_order(g)
         flat = _flat(cts, ctx.c).float()
         rows = flat.index_select(0, slot[perm].clamp(0, flat.shape[0] - 1))
         ct_csc = torch.where(ok[perm][:, None], rows, 0.0)
-        return segment_sum_csr(ct_csc, g.col_ptr).to(cts[0].dtype), None, None
+        return segment_sum_csr(ct_csc, col_ptr).to(cts[0].dtype), None, None
 
 
 def ell_gather_nodes_by_src(x: torch.Tensor, graph: Graph, spec: EllSpec
@@ -213,13 +225,12 @@ def ell_gather_nodes_by_src(x: torch.Tensor, graph: Graph, spec: EllSpec
     The forward is one gather of a gather (slot → edge → source row). The
     backward is a src-keyed segment sum of the slot cotangents: collapsed
     into CSC edge order and reduced by kernel 1 over ``Graph.col_ptr``,
-    never a scatter. Needs the graph's CSC fields. Invalid slots hold
-    arbitrary rows, as in :func:`ell_expand`: callers mask them."""
+    never a scatter. A graph without the CSC fields gets that order derived
+    in the backward (where the JAX package falls back to an XLA scatter).
+    Invalid slots hold arbitrary rows, as in :func:`ell_expand`: callers
+    mask them."""
     if x.ndim != 2 or x.shape[0] != graph.n_node:
         raise ValueError(f"x must be (N={graph.n_node}, C), got {tuple(x.shape)}")
-    if graph.col_ptr is None or graph.src_perm is None:
-        raise ValueError("ell_gather_nodes_by_src needs the graph's CSC view "
-                         "(col_ptr, src_perm)")
     return _EllGatherNodesBySrc.apply(x, graph, spec)
 
 

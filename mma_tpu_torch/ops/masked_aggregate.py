@@ -4,7 +4,7 @@ For every center node ``i`` and neighbor ``j`` the reference computes
 ``mask_ij = act([h_i ‖ h_j] @ W_k)`` and sums ``mask_ij ⊙ h_j`` over ``j``.
 As in the JAX package, ``[h_i ‖ h_j] @ W = h_i @ W_top + h_j @ W_bot``, and
 all K aggregators share one flat ``(N, K·F)`` layout; aggregator ``k``
-owns lanes ``[k·F, (k+1)·F)``. Three routes, chosen as the JAX package
+owns lanes ``[k·F, (k+1)·F)``. Four routes, chosen as the JAX package
 chooses (``mma_tpu/ops/masked_aggregate.py:236-294``):
 
 - **Fused lean** (the default): ``c = h @ W_top`` is one per-node matmul,
@@ -22,6 +22,16 @@ chooses (``mma_tpu/ops/masked_aggregate.py:236-294``):
   need the per-edge masks and messages, so they materialise ``(E, K·F)``
   logits ``c[dst] + d[src]``, mask and messages, and reduce them with
   kernel 1 over the CSR.
+- **ELL** (graphs with ``Graph.ell_hint``: the sampler's hopped layout,
+  every row's in-degree bounded by its bucket's width): one gather of the
+  ``[d ‖ h]`` node table per neighbour slot, then masked slot sums in
+  plain PyTorch, as the JAX package's ``_ell_masked_aggregate``
+  (``mma_tpu/ops/masked_aggregate.py:96-185``), which is XLA there with no
+  Pallas kernel. It covers mask dropout and the ``std``/``moment_3``
+  combines itself. The gather's VJP is kernel 1 over the CSC. The JAX
+  package also asks for a TPU chunk hint, which the port's graphs never
+  carry; the port's gate is the ELL hint alone. The degree-exact ZINC
+  layout (``Graph.ell_exact``) is ``MultiMaskConv``'s and raises here.
 
 Every route reduces over the real edges only (``Graph.real_row_ptr``).
 """
@@ -40,6 +50,7 @@ from mma_tpu_torch.ops.cuda.fused_mma import (
     edge_program_lean,
     segment_sum_csr,
 )
+from mma_tpu_torch.ops.ell import EllSpec, ell_gather_nodes_by_src, ell_valid, pad_rows
 from mma_tpu_torch.ops.gather import gather_by_dst, gather_by_src
 
 _EPS = 1e-5
@@ -89,6 +100,74 @@ def _edge_messages(h, graph, mask_weights, pat, rate, generator):
     return mask * gather_by_src(h, graph).repeat(1, k)
 
 
+def _ell_masked_aggregate(h, mask_weights, pat, graph, spec, generator, rate, need_s2):
+    """K-way masked sums over the ELL slot layout.
+
+    Per slot: ``msg = act(c[dst] + d[src]) ⊙ tile(h[src], K)``, then a
+    masked sum over the slot axis, in slot order. The only random access is
+    one gather of the ``[d ‖ h]`` node table per slot. With a generator,
+    mask dropout draws once per bucket (``(R_b, W_b·K·F)``, in bucket
+    order) and slices per slot, as the JAX package draws.
+
+    Returns ``(s, s2, cent3)``: the K masked sums ``(N, K·F)``; their
+    masked sums of squares (or None); and ``cent3(idx, mean)``, the sum of
+    ``(msg_idx − mean[dst])³`` over each row's slots, for ``moment_3``.
+    Rows past the last bucket (the last hop's leaves, padding) give 0.
+    """
+    n, f = h.shape
+    k = mask_weights.shape[0]
+    kf = k * f
+    t_w = kf + f  # a slot's lanes in the gathered [d ‖ h] table
+    c, d = mma_mask_projections(h, mask_weights)
+    parts = ell_gather_nodes_by_src(torch.cat([d, h], dim=1), graph, spec)
+    valids = ell_valid(graph, spec)
+    ranges = list(zip(spec.starts, spec.bounds))
+    sig = pat.bool()
+    keeps = None
+    if generator is not None:
+        keeps = [torch.rand((p.shape[0], w * kf), generator=generator, device=h.device) >= rate
+                 for p, w in zip(parts, spec.widths)]
+
+    def slot_msg(bi, di):
+        """Slot ``di`` of bucket ``bi``: the ``(R_b, K·F)`` masked message."""
+        s_, b_ = ranges[bi]
+        td = parts[bi][:, di * t_w:(di + 1) * t_w]
+        logits = c[s_:b_] + td[:, :kf]
+        mask = torch.where(sig, torch.sigmoid(logits), logits)
+        if keeps is not None:
+            mask = torch.where(keeps[bi][:, di * kf:(di + 1) * kf], mask / (1.0 - rate), 0.0)
+        return mask * td[:, kf:].repeat(1, k)
+
+    s1_parts, s2_parts = [], []
+    for bi, w in enumerate(spec.widths):
+        s1 = s2 = None
+        for di in range(w):
+            msg = slot_msg(bi, di)
+            vd = valids[bi][:, di:di + 1]
+            term = torch.where(vd, msg, 0.0)
+            s1 = term if s1 is None else s1 + term
+            if need_s2:
+                t2 = torch.where(vd, msg * msg, 0.0)
+                s2 = t2 if s2 is None else s2 + t2
+        s1_parts.append(s1)
+        s2_parts.append(s2)
+    s = pad_rows(torch.cat(s1_parts, dim=0), n)
+    s2 = pad_rows(torch.cat(s2_parts, dim=0), n) if need_s2 else None
+
+    def cent3(idx, mean):
+        outs = []
+        for bi, ((s_, b_), w) in enumerate(zip(ranges, spec.widths)):
+            acc = None
+            for di in range(w):
+                msg_k = slot_msg(bi, di)[:, idx * f:(idx + 1) * f]
+                cent = torch.where(valids[bi][:, di:di + 1], (msg_k - mean[s_:b_]) ** 3, 0.0)
+                acc = cent if acc is None else acc + cent
+            outs.append(acc)
+        return pad_rows(torch.cat(outs, dim=0), n)
+
+    return s, s2, cent3
+
+
 def masked_multi_aggregate(
     h: torch.Tensor,
     graph: Graph,
@@ -110,8 +189,9 @@ def masked_multi_aggregate(
     dropout, drawn from that generator (it must live on ``h``'s device).
     ``pallas_bwd_mode`` (``"payload_permute"`` or ``"csc_gather"``) takes
     the wide edge program with that backward where the lean one would run
-    (no mask dropout, no ``std``/``moment_3``); None keeps the lean one.
-    The name is the JAX package's.
+    (no mask dropout, no ``std``/``moment_3``, no ELL layout); None keeps
+    the lean one. The name is the JAX package's. A graph with an
+    ``ell_hint`` takes the ELL route (module docstring).
     """
     n, f = h.shape
     k = len(specs)
@@ -120,13 +200,22 @@ def masked_multi_aggregate(
     if pallas_bwd_mode is not None and pallas_bwd_mode not in EDGE_BWD_MODES:
         raise ValueError(f"pallas_bwd_mode must be None or one of {EDGE_BWD_MODES}, "
                          f"got {pallas_bwd_mode!r}")
+    if graph.ell_exact:
+        raise ValueError("masked_multi_aggregate does not take the degree-exact ZINC "
+                         "layout (Graph.ell_exact); MultiMaskConv does")
     dropout_on = generator is not None and mask_dropout_rate > 0.0
     need_moments = any(s.combine in ("std", "moment_3") for s in specs)
     pat = sigmoid_lane_pattern(specs, activation, parity, f, h.device)
     row_ptr = graph.real_row_ptr
 
-    msgs = None
-    if dropout_on or need_moments:
+    msgs = ell_ctx = None
+    if graph.ell_hint is not None:
+        s, s2_ell, cent3 = _ell_masked_aggregate(
+            h, mask_weights, pat, graph, EllSpec.from_hint(graph.ell_hint),
+            generator if dropout_on else None, mask_dropout_rate,
+            need_s2=any(sp.combine == "std" for sp in specs))
+        ell_ctx = (s2_ell, cent3)
+    elif dropout_on or need_moments:
         msgs = _edge_messages(h, graph, mask_weights, pat, mask_dropout_rate,
                               generator if dropout_on else None)
         s = segment_sum_csr(msgs, row_ptr)
@@ -143,7 +232,8 @@ def masked_multi_aggregate(
 
     deg = torch.clamp(graph.deg, min=1.0)[:, None]  # (N, 1)
     if any(sp.combine == "std" for sp in specs):
-        s2 = segment_sum_csr(msgs * msgs, row_ptr).reshape(n, k, f)
+        s2 = ell_ctx[0] if ell_ctx is not None else segment_sum_csr(msgs * msgs, row_ptr)
+        s2 = s2.reshape(n, k, f)
     outs = []
     for idx, sp in enumerate(specs):
         sk = s[:, idx, :]
@@ -170,8 +260,11 @@ def masked_multi_aggregate(
             # cancels catastrophically and sign(m)·|m|^(1/3) jumps on
             # rounding noise.
             mean = sk / deg
-            msgs_k = msgs[:, idx * f:(idx + 1) * f]
-            s3 = segment_sum_csr((msgs_k - gather_by_dst(mean, graph)) ** 3, row_ptr)
+            if ell_ctx is not None:
+                s3 = ell_ctx[1](idx, mean)
+            else:
+                msgs_k = msgs[:, idx * f:(idx + 1) * f]
+                s3 = segment_sum_csr((msgs_k - gather_by_dst(mean, graph)) ** 3, row_ptr)
             m3 = s3 / deg
             out = m3 * (m3 * m3 + _EPS) ** (-1.0 / 3.0)
         else:

@@ -7,6 +7,12 @@ the source rows: ``out[i] = Σ_{j ∈ N(i)} x[j]``, which kernel 1 reads
 through the ``src`` index. The transpose is the same sum over the CSC:
 ``dx[j] = Σ_{i: j ∈ N(i)} ct[i]``, read through ``dst_csc``. Neither
 direction uses atomics.
+
+A degree-bounded graph that carries an ELL layout (``Graph.ell_hint``, the
+sampler's hopped layout) and no CSC view takes the JAX package's ELL branch
+(``mma_tpu/ops/spmm.py:33-56``): per-slot source rows, masked slot sums. A
+graph that keeps its CSC takes kernel 1 both ways, as there: the JAX
+package measured the CSR product faster for a plain SpMM.
 """
 
 from __future__ import annotations
@@ -15,6 +21,13 @@ import torch
 
 from mma_tpu_torch.graph.container import Graph
 from mma_tpu_torch.ops.cuda.fused_mma import segment_sum_csr
+from mma_tpu_torch.ops.ell import (
+    EllSpec,
+    ell_gather_nodes_by_src,
+    ell_valid,
+    masked_slot_sum,
+    pad_rows,
+)
 
 
 class _BinarySpmm(torch.autograd.Function):
@@ -37,6 +50,16 @@ def binary_spmm(graph: Graph, x: torch.Tensor) -> torch.Tensor:
     touches a padding node, so padding rows of ``x`` (whatever they hold)
     never reach a real row, and padding rows of the result and of the
     gradient are 0. Returns ``(N, F)`` float32.
+
+    An ELL graph without a CSC (module docstring) sums each row's valid
+    slots in slot order; the gradient is the slot gather's VJP, kernel 1
+    over a CSC order derived on the device.
     """
+    if graph.ell_hint is not None and not graph.ell_exact and graph.src_perm is None:
+        spec = EllSpec.from_hint(graph.ell_hint)
+        parts = ell_gather_nodes_by_src(x, graph, spec)
+        sums = [masked_slot_sum(p, v, w)
+                for p, v, w in zip(parts, ell_valid(graph, spec), spec.widths)]
+        return pad_rows(torch.cat(sums, dim=0), graph.n_node)
     return _BinarySpmm.apply(x.contiguous(), graph.src, graph.real_row_ptr,
                              graph.dst_csc, graph.real_col_ptr)

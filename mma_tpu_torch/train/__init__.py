@@ -1,4 +1,4 @@
-"""Training: the node-classification and ZINC loops, their configs, optimizer and metrics."""
+"""Training: the node-classification, ZINC and sampled loops, their configs, optimizer and metrics."""
 
 from mma_tpu_torch.train.config import (
     NODE_CLS_PRESETS,
@@ -14,18 +14,30 @@ from mma_tpu_torch.train.loops import (
 )
 from mma_tpu_torch.train.metrics import accuracy, mae
 from mma_tpu_torch.train.optim import ReduceLROnPlateau, make_optimizer
+from mma_tpu_torch.train.sampled import (
+    DeviceTableAssembler,
+    SampledTrainConfig,
+    sampled_batch_producer,
+    sampled_train_step,
+    train_sampled,
+)
 
 __all__ = [
+    "DeviceTableAssembler",
     "NODE_CLS_PRESETS",
     "NodeClassificationConfig",
     "ReduceLROnPlateau",
+    "SampledTrainConfig",
     "ZINC_PRESET",
     "ZincConfig",
     "accuracy",
     "mae",
     "make_optimizer",
     "node_train_step",
+    "sampled_batch_producer",
+    "sampled_train_step",
     "train_node_classification",
+    "train_sampled",
     "train_zinc",
     "zinc_train_step",
 ]
