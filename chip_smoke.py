@@ -4,8 +4,8 @@
 1. Prints the card's name and power limit (``nvidia-smi``), then builds
    every CUDA kernel of the port from ``mma_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together).
-2. Eighteen main paths, each with the kernels' launch counters set to 0 just
-   before it and read just after:
+2. Twenty-five main paths, each with the kernels' launch counters set to 0
+   just before it and read just after:
 
    - **serve**: the node classifier's eval forward answers 3 requests on
      Cora at the README preset (1433 features, hidden 64, 7 classes,
@@ -68,6 +68,18 @@
      ``tests/test_sampling.py:260-345`` on the card, sampled training
      against full-graph training (full accuracy above 0.6, sampled within
      0.08 of it).
+   - The bf16 edge pipeline (``compute_dtype="bfloat16"``; kernels 1-3 read
+     bf16 rows and sum in float32, and count under their ``_bf16`` keys):
+     **cora-serve-bf16** and **synthetic-large-serve-bf16**, the serve
+     path's requests and forwards on bf16 twins of its models (the same
+     weights); **synthetic-large-train-bf16**, large-train's 3 Adam steps
+     from its initial weights in bf16 (kernels 1, 2 and 3);
+     **cora-train-bf16**, cora-train in bf16 (the loop's model built with
+     ``compute_dtype="bfloat16"``; the half-fused route's bf16 messages),
+     held to the same 0.834 gate; **sampled-train-bf16** (the sampled
+     command line with ``--compute-dtype bfloat16``, 5 steps, the
+     half-fused route), **sampled-train-lean-bf16** (``--dropout 0``, 5
+     steps) and **sampled-train-ell-bf16** (``--use-ell``, 5 steps).
 
    Each path's launch counts are derived from the code and checked.
 3. Checks every output (finite log-probs of the expected shape whose rows
@@ -101,7 +113,16 @@
    (dropout off, 1e-5); hole rows moving no seed output and taking no
    gradient; per phase the step's host-clock and CUDA-event medians, the
    pipeline time a batch, both sampled-edges/s rates and the calibrated
-   pads; a profiled step per route; the host sampling time a batch.
+   pads; a profiled step per route; the host sampling time a batch. For
+   the bf16 paths: each serving output against the f32 one at the stated
+   bf16-level tolerance (``BF16_SERVE_TOL``) and against the all-plain bf16
+   forward at 1e-5; one bf16 train step per route (synthetic-large's lean
+   route, Cora's and the sampled half-fused route, the sampled lean and ELL
+   routes) against the all-plain bf16 step: loss and log-probs at 1e-5,
+   every gradient at ``BF16_GRAD_TOL`` (2^-8, bf16's resolution: the
+   pipeline rounds the backward's float32 sums to bf16, so sums in another
+   order may round to neighbouring values); the host-clock and CUDA-event
+   medians beside the f32 ones.
 4. Per kernel, at the shapes of the main paths (kernels 1-3 and 9-12 at
    synthetic-large, kernel 1 at the widths of both products, C=64 and
    C=16, and of the wide payload, C=192, and also its heaviest row alone at
@@ -119,11 +140,17 @@
    gradients of 5 and 7, must be equal to it), run-to-run equality, the
    kernel's median time, the plain version's time, the time of one
    PyTorch library call for the same function where there is one, and the
-   least time the card could take (``bound_ms``).
+   least time the card could take (``bound_ms``). The bf16 variants of
+   kernels 1, 2 and 3 the same way, as entries of their own, on the bf16
+   paths' tensors at synthetic-large (kernel 1 at the SpMM widths C=64 and
+   16, the half-fused messages and their gathers' VJP at C=128), each
+   with the f32 kernel's time on the same values in turns, and bounds on
+   the bytes of their bf16 inputs.
 5. Prints one ``kernels`` JSON line, the ``nvidia-smi`` line again, and as
    the last line ``{"ok": true, "device": {...}}``.
 
-The per-epoch training logs go to ``artifacts/chip_smoke_train.log`` and
+The per-epoch training logs go to ``artifacts/chip_smoke_train.log``,
+``artifacts/chip_smoke_train_bf16.log`` and
 ``artifacts/chip_smoke_zinc_train*.log``, the sampled command line's to
 ``artifacts/chip_smoke_sampled.log``.
 Any failed check raises, so the script exits non-zero and prints no
@@ -801,11 +828,15 @@ def run_zinc(dev, paths: dict) -> dict:
 # The sampled CLI's phases: (path, extra flags, steps) at the command line's
 # defaults otherwise (200,000 nodes, --avg-deg 25, batch 512, fanouts
 # 10,10,5, hidden 64, 100 features, 47 classes, mean,mean2, dropout 0.5).
+BF16 = ["--compute-dtype", "bfloat16"]
 SAMPLED_PHASES = (
     ("sampled-train", [], 20),
     ("sampled-train-lean", ["--dropout", "0"], 5),
     ("sampled-train-ell", ["--use-ell"], 10),
     ("sampled-train-hostbuilt", ["--host-built"], 5),
+    ("sampled-train-bf16", BF16, 5),
+    ("sampled-train-lean-bf16", BF16 + ["--dropout", "0"], 5),
+    ("sampled-train-ell-bf16", BF16 + ["--use-ell"], 5),
 )
 # Kernel calls per train step on each route. Half-fused (mask dropout on, the
 # CSR): kernel 1 x3 forward (two binary_spmm, the message sum) and x5
@@ -813,12 +844,19 @@ SAMPLED_PHASES = (
 # Lean (dropout 0): kernel 1 x2 and kernel 2 forward, kernel 1 x2 and
 # kernel 3 backward. ELL (mask dropout on, hopped layout): kernel 1 x2
 # forward (binary_spmm; the slot sums are plain) and x3 backward (binary_spmm,
-# the [d ‖ h] slot gather's VJP over the CSC).
+# the [d ‖ h] slot gather's VJP over the CSC). In bf16 the calls on bf16
+# rows count under the "_bf16" keys: every forward call of kernel 1, the
+# VJPs of the bf16 gathers and slot gather, kernels 2 and 3; the two
+# binary_spmm backward calls sum float32 cotangents.
 SAMPLED_PER_STEP = {
     "sampled-train": {"segment_sum": 8},
     "sampled-train-lean": {"segment_sum": 4, "edge_program_lean": 1, "edge_program_lean_bwd": 1},
     "sampled-train-ell": {"segment_sum": 5},
     "sampled-train-hostbuilt": {"segment_sum": 8},
+    "sampled-train-bf16": {"segment_sum_bf16": 6, "segment_sum": 2},
+    "sampled-train-lean-bf16": {"segment_sum_bf16": 2, "segment_sum": 2,
+                                "edge_program_lean_bf16": 1, "edge_program_lean_bwd_bf16": 1},
+    "sampled-train-ell-bf16": {"segment_sum_bf16": 3, "segment_sum": 2},
 }
 # tests/test_sampling.py:343-344: full-graph accuracy above 0.6, sampled
 # within 0.08 of it.
@@ -938,11 +976,15 @@ def run_sampled(dev, paths: dict) -> None:
     # ------------------- one train step per route against the all-plain step
     model_do = runs["sampled-train"]["model"]
     model_lean = runs["sampled-train-lean"]["model"]
+    model_do16 = runs["sampled-train-bf16"]["model"]
     routes = {"half-fused": (model_do, batches[False]), "lean": (model_lean, batches[False]),
-              "ell": (model_do, batches[True])}
+              "ell": (model_do, batches[True]),
+              "half-fused-bf16": (model_do16, batches[False]),
+              "lean-bf16": (runs["sampled-train-lean-bf16"]["model"], batches[False]),
+              "ell-bf16": (model_do16, batches[True])}
     for route, (model0, (ar, g, (x, y, sm))) in routes.items():
-        steps = []
-        for plain in (False, True):
+
+        def step(plain):
             model = copy.deepcopy(model0)
             opt = make_optimizer(model.parameters(), 3e-3)
             before = launches()
@@ -952,16 +994,18 @@ def run_sampled(dev, paths: dict) -> None:
             torch.cuda.synchronize()
             if plain and launches() != before:
                 raise AssertionError(f"sampled {route} step: the plain step launched a kernel")
-            steps.append((loss, logp, grads_of(model)))
-        (loss_k, logp_k, grads_k), (loss_p, logp_p, grads_p) = steps
+            return loss, logp, grads_of(model)
+
+        (loss_k, logp_k, grads_k), (loss_p, logp_p, grads_p) = (step(p) for p in (False, True))
         check_log_probs(logp_k[g.node_mask], int(g.node_mask.sum()), logp_k.shape[1],
                         int(g.node_mask.sum()), f"sampled {route} step")
         compare(loss_k.reshape(1), loss_p.reshape(1), 1e-5, f"sampled {route} step loss vs plain")
         compare(logp_k[g.node_mask], logp_p[g.node_mask], 1e-5,
                 f"sampled {route} step log-probs vs plain")
+        tol = BF16_GRAD_TOL if route.endswith("bf16") else 1e-5
         for name, gk in grads_k.items():
-            compare(gk, grads_p[name], 1e-5, f"sampled {route} step grad {name} vs plain")
-    del steps
+            compare(gk, grads_p[name], tol, f"sampled {route} step grad {name} vs plain")
+    del grads_k, grads_p
 
     # ------------- the ELL route against the CSR route, dropout off; holes
     ar, g, (x, y, sm) = batches[True]
@@ -1074,6 +1118,383 @@ def run_sampled(dev, paths: dict) -> None:
         raise AssertionError(f"sampled-quality: accuracies full {acc_full:.4f}, sampled "
                              f"{acc_sampled:.4f}")
 
+# Stated bf16-level tolerance of the bf16 serving outputs against the f32
+# ones: relative to the largest |log-prob| (compare's floor), a few bf16
+# ulps (2^-8 = 3.9e-3 each) of the values the two pipelines round apart.
+BF16_SERVE_TOL = 3e-2
+# The bf16 train steps' gradients against the all-plain bf16 step's: bf16's
+# own resolution, half a bf16 ulp of (|element| + the largest |element|).
+# The pipeline rounds float32 sums to bf16 in the backward, as the JAX
+# package's VJPs do (kernel 3's dh and dW_bot cast to their inputs' dtype,
+# the SpMM operands' and the gathers' cotangents, the mask weights'
+# gradient from the bf16 products), so a kernel's sum and the plain
+# version's, taken in another order, can round to neighbouring bf16 values,
+# one ulp (at most 2^-7 of the element) apart, and such a flip carries into
+# the sums after it. On an H100 80GB HBM3 (700 W): 1.3e-5 to 2.5e-5 of the
+# scale on synthetic-large's gc1.w and masks, 2.9e-4 on a sampled lean
+# step's masks (one ulp of an element at 1/20 of the largest), where the
+# float32 steps hold at 1e-5. Loss and log-probs are held at 1e-5.
+BF16_GRAD_TOL = 2.0 ** -8
+
+
+def run_bf16(dev, paths: dict, ctx: dict) -> dict:
+    """The bf16 edge pipeline's main paths (``compute_dtype="bfloat16"``) on
+    the f32 paths' weights and inputs: cora-serve-bf16 and
+    synthetic-large-serve-bf16 (the eval forward), synthetic-large-train-bf16
+    (3 Adam steps, dropout 0: kernels 1-3 in bf16) and cora-train-bf16 (the
+    README preset, the half-fused route's bf16 messages), with their launch
+    counts, holds and times beside the f32 ones. Returns the bf16 models and
+    tensors the per-kernel section times."""
+    import functools
+    from unittest import mock
+
+    from mma_tpu_torch import NodeClassifier
+    from mma_tpu_torch.train import NODE_CLS_PRESETS, loops, make_optimizer
+    from mma_tpu_torch.train.loops import node_train_step
+
+    cora, big, requests, x_big = ctx["cora"], ctx["big"], ctx["requests"], ctx["x_big"]
+    n_big, e_big = ctx["n_big"], ctx["e_big"]
+
+    def twin(model, n_feat, n_class, dropout_rate=0.5):
+        """``model`` with the same weights, in the bf16 pipeline."""
+        m = NodeClassifier(n_feat, 64, n_class, ("mean", "mean2"), dropout_rate=dropout_rate,
+                           compute_dtype="bfloat16", device=dev)
+        m.load_state_dict(model.state_dict())
+        return m
+
+    cora16 = twin(ctx["cora_model"], cora.num_features, cora.num_classes, 0.75)
+    big16 = twin(ctx["big_model"], 64, 16)
+
+    # ------------------------------------------- main paths: serve in bf16
+    # Per forward: kernel 1 on bf16 rows for each binary_spmm (2), kernel 2
+    # with a bf16 h once.
+    with counted("cora-serve-bf16", paths), torch.no_grad():
+        cora_out = [cora16(x, cora.graph) for x in requests]
+    expect_launches(paths, "cora-serve-bf16", segment_sum_bf16=2 * 3, edge_program_lean_bf16=3)
+    with counted("synthetic-large-serve-bf16", paths), torch.no_grad():
+        big_out = [big16(x_big, big) for _ in range(3)]
+    expect_launches(paths, "synthetic-large-serve-bf16", segment_sum_bf16=2 * 3,
+                    edge_program_lean_bf16=3)
+    n = cora.num_nodes
+    with torch.no_grad():
+        for i, out in enumerate(cora_out):
+            check_log_probs(out, cora.graph.n_node, cora.num_classes, n, f"cora bf16 request {i}")
+            compare(out[:n], ctx["cora_out"][i][:n], BF16_SERVE_TOL,
+                    f"cora bf16 request {i} vs the f32 request")
+        for out in big_out:
+            check_log_probs(out, big.n_node, 16, n_big, "synthetic-large bf16 forward")
+        compare(big_out[0][:n_big], ctx["big_out"][:n_big], BF16_SERVE_TOL,
+                "synthetic-large bf16 forward vs the f32 forward")
+        before = launches()
+        with plain_kernels():
+            cora_plain = cora16(requests[0], cora.graph)
+            big_plain = big16(x_big, big)
+        if launches() != before:
+            raise AssertionError("the plain bf16 forward launched a kernel")
+        compare(cora_out[0][:n], cora_plain[:n], 1e-5, "cora bf16 request 0 vs plain on the card")
+        compare(big_out[0][:n_big], big_plain[:n_big], 1e-5,
+                "synthetic-large bf16 forward vs plain on the card")
+        # The f32 and bf16 models in turns (f32, bf16, bf16, f32): host-clock
+        # and CUDA-event medians of one request.
+        serve = {}
+        for what, models, x, g, reps in (
+                ("cora request", (ctx["cora_model"], cora16), requests[0], cora.graph, 10),
+                ("synthetic-large forward", (ctx["big_model"], big16), x_big, big, 5)):
+            t = {"f32": [], "bf16": []}
+            ev = {"f32": [], "bf16": []}
+            for dtype in ("f32", "bf16", "bf16", "f32"):
+                model = models[dtype == "bf16"]
+                t[dtype] += host_ms(lambda: model(x, g), reps)
+                ev[dtype].append(device_ms(lambda: model(x, g), iters=reps))
+            serve[what] = {k: (statistics.median(t[k]), statistics.median(ev[k])) for k in t}
+            print(f"{what} (host clock / CUDA events, medians, in turns): f32 "
+                  f"{serve[what]['f32'][0]:.4f} / {serve[what]['f32'][1]:.4f} ms; bf16 "
+                  f"{serve[what]['bf16'][0]:.4f} / {serve[what]['bf16'][1]:.4f} ms")
+        big_bf16_ms = serve["synthetic-large forward"]["bf16"][0]
+        print(f"synthetic-large-serve-bf16: {e_big / (big_bf16_ms * 1e-3):.4e} edges/s "
+              "(host clock)")
+    del cora_plain, big_plain, big_out
+
+    # -------------------------------- main path: synthetic-large-train-bf16
+    labels, idx_train = ctx["labels"], ctx["idx_train"]
+    train16 = twin(ctx["big_model"], 64, 16, dropout_rate=0.0)
+    train16.load_state_dict(ctx["init_state"])
+    opt = make_optimizer(train16.parameters(), 1e-3)
+    step_gen = torch.Generator(device=dev).manual_seed(SEED)
+    step_ms, step_ev, losses = [], [], []
+    with counted("synthetic-large-train-bf16", paths):
+        for step in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            loss, logp = node_train_step(train16, opt, x_big, big, labels, idx_train, step_gen)
+            end.record()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            step_ev.append(start.elapsed_time(end))
+            losses.append(float(loss))
+            if step == 0:
+                logp1, grads1 = logp.clone(), grads_of(train16)
+                check_log_probs(logp, big.n_node, 16, n_big, "synthetic-large-train-bf16 step 1")
+    print(f"synthetic-large-train-bf16: losses {losses} (f32 {ctx['losses']}); step times "
+          f"(host clock) {step_ms}, median {statistics.median(step_ms):.4f} ms (f32 "
+          f"{statistics.median(ctx['step_ms']):.4f}); CUDA events {step_ev}, median "
+          f"{statistics.median(step_ev):.4f} ms")
+    # Per step: forward kernel 1 on bf16 rows x2 (binary_spmm) and kernel 2
+    # in bf16; backward kernel 1 x2 on the float32 cotangents (binary_spmm)
+    # and kernel 3 in bf16.
+    expect_launches(paths, "synthetic-large-train-bf16", segment_sum_bf16=3 * 2,
+                    segment_sum=3 * 2, edge_program_lean_bf16=3, edge_program_lean_bwd_bf16=3)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"synthetic-large-train-bf16: non-finite loss {losses}")
+    compare(torch.tensor(losses), torch.tensor(ctx["losses"]), BF16_SERVE_TOL,
+            "synthetic-large-train-bf16 losses vs f32")
+
+    def plain_step(x):
+        """Step 1 from the same weights with every kernel plain."""
+        model = twin(ctx["big_model"], 64, 16, dropout_rate=0.0)
+        model.load_state_dict(ctx["init_state"])
+        before = launches()
+        with plain_kernels():
+            loss, logp = node_train_step(model, make_optimizer(model.parameters(), 1e-3), x, big,
+                                         labels, idx_train,
+                                         torch.Generator(device=dev).manual_seed(SEED))
+        if launches() != before:
+            raise AssertionError("the plain bf16 train step launched a kernel")
+        return float(loss), logp, grads_of(model)
+
+    plain_loss, plain_logp, plain_g = plain_step(x_big)
+    compare(torch.tensor([losses[0]]), torch.tensor([plain_loss]), 1e-5,
+            "synthetic-large-train-bf16 step 1 loss vs plain on the card")
+    compare(logp1[:n_big], plain_logp[:n_big], 1e-5,
+            "synthetic-large-train-bf16 step 1 log-probs vs plain on the card")
+    for name, g in plain_g.items():
+        compare(grads1[name], g, BF16_GRAD_TOL,
+                f"synthetic-large-train-bf16 step 1 grad {name} vs plain")
+    del plain_g, grads1, plain_logp
+
+    # ------------------------------------------ main path: cora-train-bf16
+    # The loop builds its model itself (the JAX package's loop has no
+    # compute_dtype either): the same loop, its NodeClassifier in bf16.
+    cfg0 = NODE_CLS_PRESETS["cora"]
+    results = {}
+    model16 = functools.partial(NodeClassifier, compute_dtype="bfloat16")
+    with counted("cora-train-bf16", paths), mock.patch.object(loops, "NodeClassifier", model16), \
+            open(os.path.join(LOG_DIR, "chip_smoke_train_bf16.log"), "w") as log, \
+            contextlib.redirect_stdout(log):
+        for seed in CORA_SEEDS:
+            results[seed] = loops.train_node_classification(
+                dataclasses.replace(cfg0, seed=seed), data=cora, device=dev)
+    accs = [results[s]["acc_test"] for s in CORA_SEEDS]
+    epoch_s = [r["time"] for s in CORA_SEEDS for r in results[s]["history"][1:]]
+    mean_acc = statistics.mean(accs)
+    print("cora-train-bf16: test accuracy per seed "
+          + ", ".join(f"{s}: {a:.4f}" for s, a in zip(CORA_SEEDS, accs))
+          + f"; mean {mean_acc:.4f} (must be >= {CORA_MIN_MEAN_ACC}; f32 {ctx['cora_acc']:.4f});"
+          f" median epoch {statistics.median(epoch_s) * 1e3:.3f} ms (f32 "
+          f"{ctx['cora_epoch_ms']:.3f}; host clock)")
+    # Per epoch: the train forward runs kernel 1 on bf16 rows three times
+    # (2 binary_spmm, the bf16 messages' sum); its backward on bf16
+    # cotangents three times (the gathers of c by dst, of d and h by src)
+    # and on the float32 ones twice (2 binary_spmm); the eval forward kernel
+    # 1 twice and kernel 2 once, in bf16. Each run ends with one more eval
+    # forward.
+    runs, epochs = len(CORA_SEEDS), cfg0.epochs
+    expect_launches(paths, "cora-train-bf16", segment_sum_bf16=runs * (epochs * 8 + 2),
+                    segment_sum=runs * epochs * 2, edge_program_lean_bf16=runs * (epochs + 1))
+    if not mean_acc >= CORA_MIN_MEAN_ACC:
+        raise AssertionError(f"cora-train-bf16: mean test accuracy {mean_acc:.4f} < "
+                             f"{CORA_MIN_MEAN_ACC}")
+    # One more step from seed 0's trained state, with the kernels and with
+    # every kernel plain (the same dropout draws on both sides).
+
+    def cora_step(plain):
+        model = copy.deepcopy(results[CORA_SEEDS[0]]["model"])
+        opt = make_optimizer(model.parameters(), cfg0.lr, cfg0.weight_decay)
+        before = launches()
+        with plain_kernels() if plain else contextlib.nullcontext():
+            loss, logp = node_train_step(model, opt, cora.features, cora.graph,
+                                         cora.labels.long(), cora.idx_train.long(),
+                                         torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        launched = launches()["segment_sum_bf16"] - before["segment_sum_bf16"]
+        if launched != (0 if plain else 6):
+            raise AssertionError(f"cora-train-bf16 step (plain={plain}): {launched} bf16 "
+                                 "kernel-1 launches")
+        return float(loss), logp, grads_of(model)
+
+    (loss_k, logp_k, grads_k), (loss_p, logp_p, grads_p) = (
+        cora_step(plain) for plain in (False, True))
+    compare(torch.tensor([loss_k]), torch.tensor([loss_p]), 1e-5,
+            "cora-train-bf16 step loss vs plain on the card")
+    compare(logp_k[:n], logp_p[:n], 1e-5, "cora-train-bf16 step log-probs vs plain on the card")
+    for name, g in grads_k.items():
+        compare(g, grads_p[name], BF16_GRAD_TOL, f"cora-train-bf16 step grad {name} vs plain")
+    return {"cora16": cora16, "big16": big16, "train16": train16, "step_gen": step_gen}
+
+
+
+def bf16_kernel_entries(dev, big, x_big, big_model, classes, mw0, train16, labels,
+                        idx_train) -> dict:
+    """The bf16 variants of kernels 1, 2 and 3 at synthetic-large, each held
+    against its plain version (1e-5) and run to run (bitwise), timed beside
+    the f32 kernel on the same values (in turns: f32, bf16, bf16, f32), with
+    a bound on the bytes of its bf16 inputs. Kernel 1 at the widths the bf16
+    paths give it: the SpMM forward's C=64 and C=16 (bf16 supports read
+    through src), the half-fused route's (E, 128) bf16 messages and its
+    gathers' VJP over the CSC (bf16 cotangent rows read through src_perm);
+    kernels 2 and 3 on synthetic-large-train-bf16's own arguments and
+    cotangent."""
+    from mma_tpu_torch.ops import get_agg_spec, masked_aggregate
+    from mma_tpu_torch.ops.cuda import fused_mma
+
+    row_ptr, col_ptr = big.real_row_ptr, big.real_col_ptr
+    e_cov, n_rows = int(row_ptr[-1]), big.n_node
+    out = {}
+
+    def in_turns(run_f32, run_bf16, iters=25):
+        t = {"f32": [], "bf16": []}
+        for which in ("f32", "bf16", "bf16", "f32"):
+            t[which].append(device_ms(run_f32 if which == "f32" else run_bf16, iters=iters))
+        return statistics.median(t["bf16"]), statistics.median(t["f32"])
+
+    # ------------------------------------------------------------ kernel 1
+    specs = [get_agg_spec(a) for a in ("mean", "mean2")]
+    pat = masked_aggregate.sigmoid_lane_pattern(specs, "new_sigmoid", True, 64, dev)
+    msgs = masked_aggregate._edge_messages(x_big.bfloat16(), big, mw0.bfloat16(), pat, 0.0, None)
+    uses = {
+        "spmm fwd (index=src) C=64": ((x_big @ big_model.gc1.w).bfloat16(), row_ptr, big.src),
+        "spmm fwd (index=src) C=16": (classes.bfloat16(), row_ptr, big.src),
+        "half-fused messages (no index) C=128": (msgs, row_ptr, None),
+        "gather VJP (CSC, index=src_perm) C=128": (msgs, col_ptr, big.src_perm),
+    }
+    for what, (data, rp, index) in uses.items():
+        ch = data.shape[1]
+        got = fused_mma.segment_sum_csr(data, rp, index)
+        if not torch.equal(got, fused_mma.segment_sum_csr(data, rp, index)):
+            raise AssertionError(f"segment_sum_csr bf16 {what} differs run to run")
+        err = compare(got, fused_mma.segment_sum_reference(data, rp, index), 1e-5,
+                      f"segment_sum_csr bf16 {what} vs plain")
+        data32 = data.float()
+        ms, f32_ms = in_turns(lambda: fused_mma.segment_sum_csr(data32, rp, index),
+                              lambda: fused_mma.segment_sum_csr(data, rp, index))
+        plain_ms = device_ms(lambda: fused_mma.segment_sum_reference(data, rp, index), iters=10)
+        # Bytes: the bf16 rows (the node table when indexed, the edge rows
+        # otherwise) read once, the CSR and index, the float32 output.
+        rows_in = n_rows if index is not None else e_cov
+        nbytes = (2 * rows_in * ch + 4 * ((n_rows + 1) + (e_cov if index is not None else 0)
+                                          + n_rows * ch))
+        entry = {"name": "segment_sum_csr_bf16", "route": "cuda", "source": SOURCE,
+                 "replaces": REPLACES["segment_sum_csr"], "max_abs_err": err["max_abs_err"],
+                 "ms": ms, "plain_ms": plain_ms, **bound(nbytes, e_cov * ch),
+                 # No one PyTorch call sums bf16 rows into float32.
+                 "library_ms": None, "f32_ms": f32_ms,
+                 "shape": f"{what}: E={e_cov} N={n_rows}, bf16 rows"}
+        print(f"segment_sum_csr bf16 {what}: ms {ms:.4f} (the f32 kernel on the same values "
+              f"{f32_ms:.4f}, in turns) plain_ms {plain_ms:.4f} bound_ms {entry['bound_ms']:.4f} "
+              f"({entry['bound_by']}); bitwise equal run to run")
+        if "segment_sum_csr_bf16" in out:
+            out["segment_sum_csr_bf16"].setdefault("uses", {})[what] = {
+                k: entry[k] for k in ("ms", "f32_ms", "plain_ms", "bound_ms", "bound_by",
+                                      "max_abs_err", "shape")}
+        else:
+            out["segment_sum_csr_bf16"] = entry
+    del msgs, uses
+
+    # --------------------------------------------------------- kernels 2, 3
+    step_gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def one_step():
+        with torch.enable_grad():
+            train16.zero_grad(set_to_none=True)
+            o = train16(x_big, big, training=True, generator=step_gen)
+            (-o[idx_train, labels[idx_train]].mean()).backward()
+
+    args, _, ct = capture_call(masked_aggregate, "edge_program_lean", one_step)
+    c, w_bot, h, pat, src, rp, cp, dst_csc = (t.detach() for t in args)
+    if h.dtype != torch.bfloat16:
+        raise AssertionError(f"synthetic-large-train-bf16 gave kernel 2 a {h.dtype} h")
+    f, kf = w_bot.shape
+    fwd_args = (c, w_bot, h, pat, src, rp)
+    h32 = h.float()
+    got = fused_mma.edge_program_lean(*fwd_args, cp, dst_csc)
+    if not torch.equal(got, fused_mma.edge_program_lean(*fwd_args, cp, dst_csc)):
+        raise AssertionError("edge_program_lean_fwd bf16 differs run to run")
+    err = compare(got, fused_mma.edge_program_lean_reference(*fwd_args), 1e-5,
+                  "edge_program_lean_fwd bf16 vs plain")
+    ms, f32_ms = in_turns(lambda: fused_mma.edge_program_lean(c, w_bot, h32, pat, src, rp, cp,
+                                                             dst_csc),
+                          lambda: fused_mma.edge_program_lean(*fwd_args, cp, dst_csc))
+    plain_ms = device_ms(lambda: fused_mma.edge_program_lean_reference(*fwd_args), iters=5)
+    # Bytes: c, W_bot, the pattern, src, the CSR and S as the f32 kernel's,
+    # h in bf16.
+    nbytes = 4 * (n_rows * kf + f * kf + kf + e_cov + (n_rows + 1) + n_rows * kf) + 2 * n_rows * f
+    k2 = out["edge_program_lean_fwd_bf16"] = {
+        "name": "edge_program_lean_fwd_bf16", "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES["edge_program_lean_fwd"], "max_abs_err": err["max_abs_err"],
+        "ms": ms, "plain_ms": plain_ms, **bound(nbytes, 2 * n_rows * f * kf + 3 * e_cov * kf),
+        "library_ms": None, "f32_ms": f32_ms,
+        # The random D (f32) and h (bf16) rows the edge pass gathers.
+        "gather_bound_ms": e_cov * (4 * kf + 2 * f) / PEAK_BYTES_PER_S * 1e3,
+        "shape": f"E={e_cov} N={n_rows} F={f} K·F={kf}, bf16 h"}
+    d_tab = fused_mma._lean_node_pass(h, w_bot)
+    if not torch.equal(d_tab, fused_mma._node_product(h, w_bot)):
+        raise AssertionError("edge_program_lean_fwd bf16 node pass differs from the plain D")
+    k2["node_pass_ms"], k2["f32_node_pass_ms"] = in_turns(
+        lambda: fused_mma._lean_node_pass(h32, w_bot), lambda: fused_mma._lean_node_pass(h, w_bot))
+    k2["edge_pass_ms"], k2["f32_edge_pass_ms"] = in_turns(
+        lambda: fused_mma._lean_edge_pass(c, pat, d_tab, h32, src, rp),
+        lambda: fused_mma._lean_edge_pass(c, pat, d_tab, h, src, rp))
+    print(f"edge_program_lean_fwd bf16: ms {ms:.4f} (f32 {f32_ms:.4f}, in turns) plain_ms "
+          f"{plain_ms:.4f} bound_ms {k2['bound_ms']:.4f} ({k2['bound_by']}); node pass "
+          f"{k2['node_pass_ms']:.4f} (f32 {k2['f32_node_pass_ms']:.4f}), edge pass "
+          f"{k2['edge_pass_ms']:.4f} (f32 {k2['f32_edge_pass_ms']:.4f}) ms; gathered rows alone "
+          f"{k2['gather_bound_ms']:.4f} ms; the node pass equals the plain D bit for bit")
+
+    bwd_args = fwd_args + (cp, dst_csc, ct.contiguous())
+    got = fused_mma.edge_program_lean_bwd(*bwd_args)
+    if not all(torch.equal(a, b) for a, b in zip(got, fused_mma.edge_program_lean_bwd(*bwd_args))):
+        raise AssertionError("edge_program_lean_bwd bf16 differs run to run")
+    errs = [compare(g, w, 1e-5, f"edge_program_lean_bwd bf16 {name} vs plain")
+            for g, w, name in zip(got, fused_mma.edge_program_lean_bwd_reference(*bwd_args),
+                                  ("dc", "dW_bot", "dh"))]
+    del got
+    bwd32 = (c, w_bot, h32) + bwd_args[3:]
+    ms, f32_ms = in_turns(lambda: fused_mma.edge_program_lean_bwd(*bwd32),
+                          lambda: fused_mma.edge_program_lean_bwd(*bwd_args), iters=15)
+    plain_ms = device_ms(lambda: fused_mma.edge_program_lean_bwd_reference(*bwd_args), iters=5)
+    # Bytes: as the f32 kernel's (c, ct, dc; W_bot in and dW_bot out; the
+    # pattern, src, dst_csc and both pointer arrays; dh out in f32), h in bf16.
+    nbytes = (4 * (3 * n_rows * kf + n_rows * f + 2 * f * kf + kf + 2 * e_cov
+                   + 2 * (n_rows + 1)) + 2 * n_rows * f)
+    k3 = out["edge_program_lean_bwd_bf16"] = {
+        "name": "edge_program_lean_bwd_bf16", "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES["edge_program_lean_bwd"],
+        "max_abs_err": max(e["max_abs_err"] for e in errs), "ms": ms, "plain_ms": plain_ms,
+        **bound(nbytes, 6 * n_rows * f * kf + 10 * e_cov * kf), "library_ms": None,
+        "f32_ms": f32_ms,
+        # D (f32) and h (bf16) by src in the dst pass, c and ct by dst in the
+        # src pass.
+        "gather_bound_ms": e_cov * (4 * kf + 2 * f + 8 * kf) / PEAK_BYTES_PER_S * 1e3,
+        "shape": f"E={e_cov} N={n_rows} F={f} K·F={kf}, bf16 h"}
+    ct3 = bwd_args[-1]
+    ddg = fused_mma._lean_bwd_src_pass(c, ct3, pat, d_tab, h, dst_csc, cp)
+    for part, run32, run16 in (
+            ("dst_pass", lambda: fused_mma._lean_bwd_dst_pass(c, ct3, pat, d_tab, h32, src, rp),
+             lambda: fused_mma._lean_bwd_dst_pass(c, ct3, pat, d_tab, h, src, rp)),
+            ("src_pass", lambda: fused_mma._lean_bwd_src_pass(c, ct3, pat, d_tab, h32, dst_csc, cp),
+             lambda: fused_mma._lean_bwd_src_pass(c, ct3, pat, d_tab, h, dst_csc, cp)),
+            ("node_pass", lambda: fused_mma._lean_bwd_node_pass(ddg, h32, w_bot),
+             lambda: fused_mma._lean_bwd_node_pass(ddg, h, w_bot))):
+        k3[f"{part}_ms"], k3[f"f32_{part}_ms"] = in_turns(run32, run16, iters=15)
+    print(f"edge_program_lean_bwd bf16: ms {ms:.4f} (f32 {f32_ms:.4f}, in turns) plain_ms "
+          f"{plain_ms:.4f} bound_ms {k3['bound_ms']:.4f} ({k3['bound_by']}); parts: dst pass "
+          f"{k3['dst_pass_ms']:.4f} (f32 {k3['f32_dst_pass_ms']:.4f}), src pass "
+          f"{k3['src_pass_ms']:.4f} (f32 {k3['f32_src_pass_ms']:.4f}), node pass "
+          f"{k3['node_pass_ms']:.4f} (f32 {k3['f32_node_pass_ms']:.4f}) ms; gathered rows alone "
+          f"{k3['gather_bound_ms']:.4f} ms; bitwise equal run to run")
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1164,6 +1585,7 @@ def main() -> int:
                 "synthetic-large forward vs plain on the card")
         cpu_out = cpu_model(requests[0].cpu(), cora.graph.to("cpu"))
         compare(cora_out[0][:n].cpu(), cpu_out[:n], 1e-5, "cora request 0 vs plain on the CPU")
+    big_ref = big_out[0]
     del cora_plain, big_plain, big_out
 
     def latency_ms(fn, n: int) -> float:
@@ -1413,6 +1835,13 @@ def main() -> int:
     masked_in = (masked["logits"], masked["h_src"])
     del masked, res
 
+    bf16_models = run_bf16(dev, paths, {
+        "cora": cora, "cora_model": cora_model, "requests": requests, "cora_out": cora_out,
+        "cora_acc": mean_acc, "cora_epoch_ms": statistics.median(epoch_s) * 1e3,
+        "big": big, "big_model": big_model, "x_big": x_big, "big_out": big_ref,
+        "n_big": n_big, "e_big": e_big, "labels": labels, "idx_train": idx_train,
+        "init_state": init_state, "losses": losses, "step_ms": step_ms})
+    del big_ref
     zinc_kernels = run_zinc(dev, paths)
     run_sampled(dev, paths)
 
@@ -1882,9 +2311,13 @@ def main() -> int:
         print(f"masked_segment_sum: the heaviest row alone ({int(deg[top])} edges, one warp) "
               f"ms {heavy_ms:.4f}")
         del msg, masked_in, logits, h_src
+        kernels.update(bf16_kernel_entries(dev, big, x_big, big_model, classes, mw0,
+                                           bf16_models["train16"], labels, idx_train))
 
     kernels.update(zinc_kernels)
-    launch_keys = {"segment_sum_csr": "segment_sum", "edge_program_lean_fwd": "edge_program_lean"}
+    launch_keys = {"segment_sum_csr": "segment_sum", "edge_program_lean_fwd": "edge_program_lean",
+                   "segment_sum_csr_bf16": "segment_sum_bf16",
+                   "edge_program_lean_fwd_bf16": "edge_program_lean_bf16"}
     for name, entry in kernels.items():
         entry["launches"] = sum(p[launch_keys.get(name, name)] for p in paths.values())
     print("launches per main path:", json.dumps(paths))

@@ -15,9 +15,10 @@ waits for the port of ``parallel/``.
 With ``--features/--labels/--edges`` (npy/npz arrays) it trains on host
 data instead of the synthetic stand-in.
 
-``--compute-dtype`` defaults to ``float32``: the JAX package's ``auto``
-resolves to float32 off the TPU, and the port's ``auto`` and ``bfloat16``
-raise until they are decided on the GPU.
+``--compute-dtype`` defaults to ``auto``, as the JAX package's does, and
+``auto`` resolves to float32 off a TPU (``mma_tpu_torch.autotune``);
+``--compute-dtype bfloat16`` runs the edge pipeline on bf16 operands
+(kernels 1-3 read them, sums stay float32) on every route.
 
 Every step ends in a device sync so that it can be timed: ``main`` returns
 the per-step host-clock times, CUDA-event times (on the card), pipeline
@@ -37,7 +38,8 @@ import numpy as np
 import torch
 
 from mma_tpu_torch.data.sampling import NeighborSampler
-from mma_tpu_torch.device import check_compute_dtype, resolve_device
+from mma_tpu_torch.autotune import resolve_compute_dtype
+from mma_tpu_torch.device import resolve_device
 from mma_tpu_torch.models import NodeClassifier
 from mma_tpu_torch.train.logger import JsonlLogger
 from mma_tpu_torch.train.optim import make_optimizer
@@ -72,8 +74,8 @@ def build_parser():
     p.add_argument("--lr", type=float, default=3e-3)
     p.add_argument("--dropout", type=float, default=0.5)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--compute-dtype", type=str, default="float32",
-                   help="float32 (auto and bfloat16 are not ported yet)")
+    p.add_argument("--compute-dtype", type=str, default="auto",
+                   help="edge-pipeline dtype: float32, bfloat16 or auto (float32 off a TPU)")
     p.add_argument("--use-ell", action="store_true",
                    help="per-hop ELL bucket layout (the scatter-free ELL route)")
     p.add_argument("--host-built", action="store_true",
@@ -116,7 +118,7 @@ def _median_after_warmup(values):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     dev = resolve_device(args.device)
-    check_compute_dtype(args.compute_dtype)
+    resolve_compute_dtype(args.compute_dtype)  # an unknown name raises before the set-up
 
     rs = np.random.RandomState(args.seed)
     fanouts = tuple(int(f) for f in args.fanouts.split(","))

@@ -10,7 +10,20 @@
 // in a fixed order: each output element is written exactly once, so there
 // are no atomics and the results are deterministic; rows with no edges
 // get 0.
+//
+// Kernels 1, 2 and 3 also read bf16 operands (the edge pipeline's
+// compute_dtype="bfloat16"): kernel 1 bf16 data rows, kernels 2 and 3 a
+// bf16 h. They widen each value to f32 in registers as they use it, and
+// every sum and every output stays f32. Where the JAX package's kernels
+// take bf16 inputs they run each contraction as one MXU pass, which rounds
+// its f32 operands to bf16 (mma_tpu/ops/pallas/fused_mma.py:107-118): the
+// message act(c + D) * h before kernel 2 sums it, ct and dlog in kernel 3.
+// The bf16 variants round at the same places (round_bf16), so that the
+// port computes the JAX package's bf16 function; the f32 kernels are
+// unchanged. Conversions go through the cuda_bf16.h intrinsics alone, so
+// the source also builds under -D__CUDA_NO_BFLOAT16_CONVERSIONS__.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -36,6 +49,9 @@ constexpr int kWarp = 32;
 // E*C*4 B: 537 MB at C=64, 0.160 ms at 3.35 TB/s, and 0.48 ms at C=192.
 // A sum can beat that figure when the table it gathers from stays in the
 // 50 MB L2: the C=64 node table is 33.5 MB, so most gathers hit the L2.
+// bf16 data (segment_sum_chunk_kernel<VEC, TILES, bf16>) halves the rows:
+// 8-byte loads of 4 lanes (C % 4 == 0) or 2-byte scalars, widened to f32 in
+// registers; the partials, the fixup and the output stay f32.
 //
 // Design: an edge-balanced two-pass sum, the card's form of the TPU
 // kernel's grid flattened over (row block, edge chunk). A power-law graph
@@ -157,6 +173,82 @@ struct Vec<1> {
   }
 };
 
+// Slots of VEC lanes of element type E in device memory (Raw) and their f32
+// value in registers (widen): f32 slots are float4 / float, bf16 slots
+// an 8-byte uint2 of 4 lanes / one 16-bit lane, widened where they are
+// used, so a bf16 row in flight holds half the registers of an f32 one.
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float bf16_bits(unsigned int u) {  // the low 16 bits as a bf16
+  return __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(u & 0xffffu)));
+}
+
+template <typename E>
+struct Type {  // a tag: the element type of a launch's operand, chosen at run time
+  using type = E;
+};
+
+template <int VEC, typename E>
+struct Slots;
+template <>
+struct Slots<4, float> {
+  using Raw = float4;
+  __device__ static Raw load(const Raw* p) { return __ldg(p); }
+  __device__ static float4 widen(const Raw& r) { return r; }
+  __device__ static Raw zero() { return Vec<4>::zero(); }
+};
+template <>
+struct Slots<1, float> {
+  using Raw = float;
+  __device__ static Raw load(const Raw* p) { return __ldg(p); }
+  __device__ static float widen(Raw r) { return r; }
+  __device__ static Raw zero() { return 0.f; }
+};
+template <>
+struct Slots<4, bf16> {
+  using Raw = uint2;
+  __device__ static Raw load(const Raw* p) { return __ldg(p); }
+  __device__ static float4 widen(const Raw& r) {
+    return make_float4(bf16_bits(r.x), bf16_bits(r.x >> 16), bf16_bits(r.y), bf16_bits(r.y >> 16));
+  }
+  __device__ static Raw zero() { return make_uint2(0u, 0u); }
+};
+template <>
+struct Slots<1, bf16> {
+  using Raw = unsigned short;
+  __device__ static Raw load(const Raw* p) { return __ldg(p); }
+  __device__ static float widen(Raw r) { return bf16_bits(r); }
+  __device__ static Raw zero() { return 0; }
+};
+
+// Four consecutive values of type E in shared memory (8- or 16-byte
+// aligned), as f32.
+template <typename E>
+__device__ __forceinline__ float4 smem_lanes4(const E* p) {
+  if constexpr (std::is_same<E, float>::value) {
+    return *reinterpret_cast<const float4*>(p);
+  } else {
+    return Slots<4, bf16>::widen(*reinterpret_cast<const uint2*>(p));
+  }
+}
+
+// x rounded to bf16 (to nearest, ties to even) and back: the JAX kernels'
+// one-pass MXU operand on bf16 inputs.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// An operand that the JAX kernel rounds to bf16 when its inputs are bf16
+// (E = bf16), on the 4 lanes of a slot; as it is for f32 inputs.
+template <typename E>
+__device__ __forceinline__ float4 operand4(const float4& v) {
+  if constexpr (std::is_same<E, float>::value) {
+    return v;
+  } else {
+    return make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z), round_bf16(v.w));
+  }
+}
+
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
 }
@@ -275,7 +367,7 @@ __device__ __forceinline__ void zero_empty_rows(const int32_t* __restrict__ row_
 // kernel 3's, LeanDcPayloadMessage, kernel 10's with its per-edge
 // payload, and LeanSrcFoldMessage, kernel 11's, are below with those
 // kernels.
-template <int VEC_>
+template <int VEC_, typename E = float>
 struct RowsOf {
   static constexpr int VEC = VEC_;
   static constexpr int kSums = 1;
@@ -287,20 +379,21 @@ struct RowsOf {
     return TILES * VEC >= 12 ? 2 : (TILES * VEC >= 8 ? 4 : 8);
   }
   using T = typename Vec<VEC>::T;
+  using S = Slots<VEC, E>;
   struct Slot {};
   struct Edge {
-    T v;
+    typename S::Raw v;
   };
-  const T* rows;
+  const typename S::Raw* rows;
   int n_vec;
   __device__ Slot slot(int64_t, int) const { return {}; }
   __device__ static Slot no_slot() { return {}; }
   __device__ Edge load(int64_t r, int cv, const Slot&) const {
-    return {__ldg(rows + r * n_vec + cv)};
+    return {S::load(rows + r * n_vec + cv)};
   }
-  __device__ static Edge none() { return {Vec<VEC>::zero()}; }
+  __device__ static Edge none() { return {S::zero()}; }
   __device__ static void add(T (&acc)[1], const Edge& e, const Slot&) {
-    Vec<VEC>::add(acc[0], e.v);
+    Vec<VEC>::add(acc[0], S::widen(e.v));
   }
 };
 
@@ -575,15 +668,16 @@ segment_sum_fixup_kernel(const int32_t* __restrict__ row_ptr, const float* __res
   }
 }
 
-template <int VEC, int TILES>
+template <int VEC, int TILES, typename E>
 __global__ void __launch_bounds__(kSumWarps* kWarp)
-segment_sum_chunk_kernel(const float* __restrict__ data, const int32_t* __restrict__ row_ptr,
+segment_sum_chunk_kernel(const E* __restrict__ data, const int32_t* __restrict__ row_ptr,
                          const int32_t* __restrict__ index, float* __restrict__ out,
                          float* __restrict__ part, int32_t* __restrict__ tail_row,
                          int n_rows, int n_vec, int lpe, int tiles, int chunk, int n_chunks) {
-  const RowsOf<VEC> rows{reinterpret_cast<const typename Vec<VEC>::T*>(data), n_vec};
-  chunk_pass<RowsOf<VEC>, TILES>(rows, row_ptr, index, out, part, tail_row, n_rows, n_vec, lpe,
-                                 tiles, chunk, n_chunks);
+  using Rows = RowsOf<VEC, E>;
+  const Rows rows{reinterpret_cast<const typename Rows::S::Raw*>(data), n_vec};
+  chunk_pass<Rows, TILES>(rows, row_ptr, index, out, part, tail_row, n_rows, n_vec, lpe, tiles,
+                          chunk, n_chunks);
 }
 
 // Pass 2 (a warp per chunk, then the zeroing warps) after pass 1 has been
@@ -600,13 +694,13 @@ cudaError_t launch_fixup(const void* row_ptr, const void* part, const void* tail
   return cudaGetLastError();
 }
 
-template <int VEC, int TILES>
+template <int VEC, int TILES, typename E>
 cudaError_t launch_segment_sum(const void* data, const void* row_ptr, const void* index,
                                void* out, void* part, void* tail_row, int n_rows, int n_vec,
                                int lpe, int tiles, int chunk, int n_chunks, cudaStream_t s) {
   const int blocks = (n_chunks + kSumWarps - 1) / kSumWarps;
-  segment_sum_chunk_kernel<VEC, TILES><<<blocks, kSumWarps * kWarp, 0, s>>>(
-      static_cast<const float*>(data), static_cast<const int32_t*>(row_ptr),
+  segment_sum_chunk_kernel<VEC, TILES, E><<<blocks, kSumWarps * kWarp, 0, s>>>(
+      static_cast<const E*>(data), static_cast<const int32_t*>(row_ptr),
       static_cast<const int32_t*>(index), static_cast<float*>(out), static_cast<float*>(part),
       static_cast<int32_t*>(tail_row), n_rows, n_vec, lpe, tiles, chunk, n_chunks);
   return launch_fixup<VEC>(row_ptr, part, tail_row, out, n_rows, n_vec, chunk, n_chunks, s);
@@ -661,6 +755,11 @@ cudaError_t launch_segment_sum(const void* data, const void* row_ptr, const void
 // TFLOP/s). The random table rows the edge pass gathers are E x 768 B =
 // 1.61 GB, 0.481 ms, less what the L2 keeps of the 67 MB D and 34 MB h:
 // that sets its time.
+//
+// bf16 h (lean_node_kernel<bf16>, LeanMessage<bf16>): h is read as bf16
+// from device memory, staged by the node pass and gathered by the edge pass
+// 8 bytes a slot; D, c and S stay f32. Of the 768 B a gathered edge row is
+// only h's 256 B halve (640 B), and h in the bound's bytes 33.6 -> 16.8 MB.
 // ---------------------------------------------------------------------------
 
 constexpr int kLaneTile = 128;  // output lanes per block (32 lanes x 4)
@@ -668,10 +767,10 @@ constexpr int kNodeRows = 64;   // node rows per step of the node pass
 constexpr int kNodeWarps = 8;   // warp w takes rows w, w + 8, ..., w + 56
 constexpr int kNodeRowsPerWarp = kNodeRows / kNodeWarps;
 
-size_t node_smem_bytes(int f) {
-  // W_bot's lane tile [f][128] and two row blocks of h [64][f].
-  return sizeof(float) * (static_cast<size_t>(f) * kLaneTile +
-                          2 * static_cast<size_t>(kNodeRows) * f);
+size_t node_smem_bytes(int f, size_t h_elem) {
+  // W_bot's lane tile [f][128] f32 and two row blocks of h [64][f] of h's type.
+  return sizeof(float) * static_cast<size_t>(f) * kLaneTile +
+         2 * static_cast<size_t>(kNodeRows) * f * h_elem;
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
@@ -685,35 +784,58 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// The first `bytes` (a multiple of 8, at most 16) of 16 bytes, the rest
+// filled with zeros.
+__device__ __forceinline__ void cp_async16_part(void* smem, const void* gmem, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes)
+               : "memory");
+}
+
+// Rows [first, first + n_rows) of a row-major table of rows of `row_bytes`
+// bytes (16-byte aligned, rows a multiple of 8 bytes), as the contiguous
+// byte range they are, into dst in 16-byte pieces, with zeros past row
+// `end`: 16-byte copies whatever the row width (a bf16 row of F % 8 == 4
+// values is 8 bytes past a 16-byte multiple), with a part copy at the end.
+__device__ __forceinline__ void stage_rows(void* dst, const void* table, int64_t first,
+                                           int n_rows, int64_t end, int row_bytes) {
+  const char* src = static_cast<const char*>(table) + first * row_bytes;
+  const int64_t have = (end > first ? (end - first < n_rows ? end - first : n_rows) : 0) *
+                       static_cast<int64_t>(row_bytes);
+  const int pieces = n_rows * row_bytes / 16;
+  for (int i = threadIdx.x; i < pieces; i += blockDim.x) {
+    const int64_t off = static_cast<int64_t>(i) * 16;
+    const int64_t left = have - off;
+    const int bytes = left >= 16 ? 16 : (left > 0 ? static_cast<int>(left) : 0);
+    cp_async16_part(static_cast<char*>(dst) + off, bytes > 0 ? src + off : table, bytes);
+  }
+}
+
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// d = h @ w_bot. Grid: (persistent, ceil(kf / 128) lane tiles).
+// d = h @ w_bot, h f32 or bf16 (E), sums and d f32. A bf16 h times a
+// W_bot of bf16 values gives exact f32 products, so d is then the f32 sum of
+// exact products in k order. Grid: (persistent, ceil(kf / 128) lane tiles).
+template <typename E>
 __global__ void __launch_bounds__(kNodeWarps* kWarp)
-lean_node_kernel(const float* __restrict__ h, const float* __restrict__ w_bot,
+lean_node_kernel(const E* __restrict__ h, const float* __restrict__ w_bot,
                  float* __restrict__ d, int n_rows, int f, int kf) {
   extern __shared__ float4 smem4[];
-  float* w_s = reinterpret_cast<float*>(smem4);  // [f][kLaneTile]
-  float* h_s = w_s + f * kLaneTile;              // [2][kNodeRows][f]
+  float* w_s = reinterpret_cast<float*>(smem4);        // [f][kLaneTile]
+  E* h_s = reinterpret_cast<E*>(w_s + f * kLaneTile);  // [2][kNodeRows][f]
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   const int l_base = blockIdx.y * kLaneTile;
   const int l0 = l_base + 4 * lane;  // this thread's 4 lanes
   const int n_blocks = (n_rows + kNodeRows - 1) / kNodeRows;
-  const int block_vec = kNodeRows * f / 4;  // 16-byte pieces of a row block
-  const int64_t h_vec = static_cast<int64_t>(n_rows) * f / 4;
-  const float4* h4 = reinterpret_cast<const float4*>(h);
 
   // The row block b of h into buffer buf, zeros past the last row.
   auto stage = [&](int b, int buf) {
-    float4* dst = reinterpret_cast<float4*>(h_s) + buf * block_vec;
-    const int64_t first = static_cast<int64_t>(b) * block_vec;
-    for (int i = threadIdx.x; i < block_vec; i += blockDim.x) {
-      const bool in = first + i < h_vec;
-      cp_async16(dst + i, in ? h4 + first + i : h4, in);
-    }
+    stage_rows(h_s + buf * kNodeRows * f, h, static_cast<int64_t>(b) * kNodeRows, kNodeRows,
+               n_rows, f * static_cast<int>(sizeof(E)));
     cp_async_commit();
   };
 
@@ -732,7 +854,7 @@ lean_node_kernel(const float* __restrict__ h, const float* __restrict__ w_bot,
       cp_async_wait<0>();
     }
     __syncthreads();  // block b's rows (and W_bot's tile) are in shared memory
-    const float* hb = h_s + buf * kNodeRows * f;
+    const E* hb = h_s + buf * kNodeRows * f;
     float acc[kNodeRowsPerWarp][4] = {};
 #pragma unroll 2
     for (int k = 0; k < f; k += 4) {
@@ -742,8 +864,7 @@ lean_node_kernel(const float* __restrict__ h, const float* __restrict__ w_bot,
 #pragma unroll
       for (int i = 0; i < kNodeRowsPerWarp; ++i) {
         // Every lane of the warp reads the same h row: a broadcast.
-        const float4 hv =
-            *reinterpret_cast<const float4*>(hb + (warp + kNodeWarps * i) * f + k);
+        const float4 hv = smem_lanes4(hb + (warp + kNodeWarps * i) * f + k);
         const float hk[4] = {hv.x, hv.y, hv.z, hv.w};
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
@@ -768,8 +889,10 @@ lean_node_kernel(const float* __restrict__ h, const float* __restrict__ w_bot,
   }
 }
 
-// The edge pass's message: act(c[row] + D[r]) * h[r, l mod F] on 16-byte
-// slots.
+// The edge pass's message: act(c[row] + D[r]) * h[r, l mod F] on slots of 4
+// lanes, h f32 or bf16 (E); with a bf16 h the message is rounded to bf16
+// before it is added, as the JAX kernel's one-pass contraction rounds it.
+template <typename E>
 struct LeanMessage {
   static constexpr int VEC = 4;
   static constexpr int kSums = 1;
@@ -780,17 +903,19 @@ struct LeanMessage {
   __host__ __device__ static constexpr int in_flight() {
     return 2;
   }
+  using HS = Slots<4, E>;
   struct Slot {
     float4 c, p;  // c[row] and the pattern on the slot's 4 lanes
     int hv;       // the slot of h that the lanes read: cv mod F/4
   };
   struct Edge {
-    float4 d, h;
+    float4 d;
+    typename HS::Raw h;
   };
   const float4* c;
   const float4* pat;
   const float4* d;
-  const float4* h;
+  const typename HS::Raw* h;
   int n_vec, f_vec;  // slots of a K*F row (c, D) and of an F row (h)
 
   __device__ Slot slot(int64_t row, int cv) const {
@@ -798,18 +923,23 @@ struct LeanMessage {
   }
   __device__ static Slot no_slot() { return {Vec<4>::zero(), Vec<4>::zero(), 0}; }
   __device__ Edge load(int64_t r, int cv, const Slot& s) const {
-    return {__ldg(d + r * n_vec + cv), __ldg(h + r * f_vec + s.hv)};
+    return {__ldg(d + r * n_vec + cv), HS::load(h + r * f_vec + s.hv)};
   }
-  __device__ static Edge none() { return {Vec<4>::zero(), Vec<4>::zero()}; }
+  __device__ static Edge none() { return {Vec<4>::zero(), HS::zero()}; }
   __device__ static float term(float acc, float c, float p, float d, float h) {
     const float x = c + d;
-    return fmaf(p != 0.f ? sigmoidf(x) : x, h, acc);
+    if constexpr (std::is_same<E, float>::value) {
+      return fmaf(p != 0.f ? sigmoidf(x) : x, h, acc);
+    } else {
+      return acc + round_bf16(__fmul_rn(p != 0.f ? sigmoidf(x) : x, h));
+    }
   }
   __device__ static void add(float4 (&acc)[1], const Edge& e, const Slot& s) {
-    acc[0].x = term(acc[0].x, s.c.x, s.p.x, e.d.x, e.h.x);
-    acc[0].y = term(acc[0].y, s.c.y, s.p.y, e.d.y, e.h.y);
-    acc[0].z = term(acc[0].z, s.c.z, s.p.z, e.d.z, e.h.z);
-    acc[0].w = term(acc[0].w, s.c.w, s.p.w, e.d.w, e.h.w);
+    const float4 h = HS::widen(e.h);
+    acc[0].x = term(acc[0].x, s.c.x, s.p.x, e.d.x, h.x);
+    acc[0].y = term(acc[0].y, s.c.y, s.p.y, e.d.y, h.y);
+    acc[0].z = term(acc[0].z, s.c.z, s.p.z, e.d.z, h.z);
+    acc[0].w = term(acc[0].w, s.c.w, s.p.w, e.d.w, h.w);
   }
 };
 
@@ -819,22 +949,22 @@ struct LeanMessage {
 // and 8 edges in flight and over 2 or 3 blocks per SM, because the
 // sigmoids of one warp's edges then run while other warps wait on their
 // gathers.
-template <int TILES>
+template <int TILES, typename E>
 __global__ void __launch_bounds__(kSumWarps* kWarp, 4)
-lean_edge_kernel(const LeanMessage msg, const int32_t* __restrict__ row_ptr,
+lean_edge_kernel(const LeanMessage<E> msg, const int32_t* __restrict__ row_ptr,
                  const int32_t* __restrict__ src, float* __restrict__ out,
                  float* __restrict__ part, int32_t* __restrict__ tail_row, int n_rows,
                  int n_vec, int lpe, int tiles, int chunk, int n_chunks) {
-  chunk_pass<LeanMessage, TILES>(msg, row_ptr, src, out, part, tail_row, n_rows, n_vec, lpe,
-                                 tiles, chunk, n_chunks);
+  chunk_pass<LeanMessage<E>, TILES>(msg, row_ptr, src, out, part, tail_row, n_rows, n_vec, lpe,
+                                    tiles, chunk, n_chunks);
 }
 
-template <int TILES>
-cudaError_t launch_lean_edges(const LeanMessage& msg, const void* row_ptr, const void* src,
+template <int TILES, typename E>
+cudaError_t launch_lean_edges(const LeanMessage<E>& msg, const void* row_ptr, const void* src,
                               void* out, void* part, void* tail_row, int n_rows, int n_vec,
                               int lpe, int tiles, int chunk, int n_chunks, cudaStream_t s) {
   const int blocks = (n_chunks + kSumWarps - 1) / kSumWarps;
-  lean_edge_kernel<TILES><<<blocks, kSumWarps * kWarp, 0, s>>>(
+  lean_edge_kernel<TILES, E><<<blocks, kSumWarps * kWarp, 0, s>>>(
       msg, static_cast<const int32_t*>(row_ptr), static_cast<const int32_t*>(src),
       static_cast<float*>(out), static_cast<float*>(part), static_cast<int32_t*>(tail_row),
       n_rows, n_vec, lpe, tiles, chunk, n_chunks);
@@ -902,9 +1032,18 @@ cudaError_t launch_lean_edges(const LeanMessage& msg, const void* row_ptr, const
 // the chunks on E, the slabs on N, F and K*F. Every output row is written
 // once, with no atomics and no host sync: bitwise equal run to run, and a
 // call replays in a CUDA graph.
+// With a bf16 h (LeanDcMessage<bf16>, LeanSrcMessage<bf16>, lean_node_kernel
+// and lean_dw_kernel <bf16>) every part that reads h reads it as bf16, ct is
+// rounded to bf16 where it is loaded and dlog_e before it is added (the JAX
+// kernel's one-pass contractions); lean_dh_kernel and sum_slabs_kernel
+// read only f32. dD = sum of the rounded dlog_e, so dW_bot = h^T dD and dD @
+// W_bot^T equal the JAX kernel's per-edge sums of the same rounded values.
 // ---------------------------------------------------------------------------
 
-// The dst pass's message: dlog_e on 16-byte slots of a K*F row of dc.
+// The dst pass's message: dlog_e on slots of 4 lanes of a K*F row of dc, h
+// f32 or bf16 (E). With a bf16 h, ct is rounded to bf16 as it is loaded and
+// dlog_e before it is added, as in the JAX kernel.
+template <typename E>
 struct LeanDcMessage {
   static constexpr int VEC = 4;
   static constexpr int kSums = 1;
@@ -915,41 +1054,48 @@ struct LeanDcMessage {
   __host__ __device__ static constexpr int in_flight() {
     return 2;
   }
+  using HS = Slots<4, E>;
   struct Slot {
     float4 c, ct, p;  // c[row], ct[row] and the pattern on the slot's 4 lanes
     int hv;           // the slot of h that the lanes read: cv mod F/4
   };
   struct Edge {
-    float4 d, h;
+    float4 d;
+    typename HS::Raw h;
   };
   const float4* c;
   const float4* ct;
   const float4* pat;
   const float4* d;
-  const float4* h;
+  const typename HS::Raw* h;
   int n_vec, f_vec;  // slots of a K*F row (c, ct, D) and of an F row (h)
 
   __device__ Slot slot(int64_t row, int cv) const {
-    return {__ldg(c + row * n_vec + cv), __ldg(ct + row * n_vec + cv), __ldg(pat + cv),
-            cv % f_vec};
+    return {__ldg(c + row * n_vec + cv), operand4<E>(__ldg(ct + row * n_vec + cv)),
+            __ldg(pat + cv), cv % f_vec};
   }
   __device__ static Slot no_slot() {
     return {Vec<4>::zero(), Vec<4>::zero(), Vec<4>::zero(), 0};
   }
   __device__ Edge load(int64_t r, int cv, const Slot& s) const {
-    return {__ldg(d + r * n_vec + cv), __ldg(h + r * f_vec + s.hv)};
+    return {__ldg(d + r * n_vec + cv), HS::load(h + r * f_vec + s.hv)};
   }
-  __device__ static Edge none() { return {Vec<4>::zero(), Vec<4>::zero()}; }
+  __device__ static Edge none() { return {Vec<4>::zero(), HS::zero()}; }
   __device__ static float term(float acc, float c, float ct, float p, float d, float h) {
     float m, dm;
     mask_chain(c + d, p, m, dm);
-    return acc + ct * h * dm;
+    if constexpr (std::is_same<E, float>::value) {
+      return acc + ct * h * dm;
+    } else {
+      return acc + round_bf16(__fmul_rn(__fmul_rn(ct, h), dm));
+    }
   }
   __device__ static void add(float4 (&acc)[1], const Edge& e, const Slot& s) {
-    acc[0].x = term(acc[0].x, s.c.x, s.ct.x, s.p.x, e.d.x, e.h.x);
-    acc[0].y = term(acc[0].y, s.c.y, s.ct.y, s.p.y, e.d.y, e.h.y);
-    acc[0].z = term(acc[0].z, s.c.z, s.ct.z, s.p.z, e.d.z, e.h.z);
-    acc[0].w = term(acc[0].w, s.c.w, s.ct.w, s.p.w, e.d.w, e.h.w);
+    const float4 h = HS::widen(e.h);
+    acc[0].x = term(acc[0].x, s.c.x, s.ct.x, s.p.x, e.d.x, h.x);
+    acc[0].y = term(acc[0].y, s.c.y, s.ct.y, s.p.y, e.d.y, h.y);
+    acc[0].z = term(acc[0].z, s.c.z, s.ct.z, s.p.z, e.d.z, h.z);
+    acc[0].w = term(acc[0].w, s.c.w, s.ct.w, s.p.w, e.d.w, h.w);
   }
 };
 
@@ -1011,7 +1157,7 @@ __device__ __forceinline__ void fold_k(const float4 (&v)[TILES], float4* q, bool
 // loads the sums already made (the K-fold by fold_k). Positions the CSR
 // does not cover get zero rows from the chunk that holds them
 // (zero_uncovered).
-struct LeanDcPayloadMessage : LeanDcMessage {
+struct LeanDcPayloadMessage : LeanDcMessage<float> {
   static constexpr bool kEmits = true;
   // 80 registers (3 blocks an SM) and LeanDcMessage's two edges in flight:
   // on the card, 2 or 4 blocks an SM and four edges in flight all came
@@ -1070,8 +1216,10 @@ struct LeanDcPayloadMessage : LeanDcMessage {
   }
 };
 
-// The src pass's message: on 16-byte slots of a K*F row, dlog_e into the
-// row's dD block and gm_e into its G block.
+// The src pass's message: on slots of 4 lanes of a K*F row, dlog_e into the
+// row's dD block and gm_e into its G block; h f32 or bf16 (E), rounded as
+// LeanDcMessage rounds.
+template <typename E>
 struct LeanSrcMessage {
   static constexpr int VEC = 4;
   static constexpr int kSums = 2;
@@ -1082,6 +1230,7 @@ struct LeanSrcMessage {
   __host__ __device__ static constexpr int in_flight() {
     return 2;
   }
+  using HS = Slots<4, E>;
   struct Slot {
     float4 d, h, p;  // D[row], tile(h[row], K) and the pattern on the slot's 4 lanes
   };
@@ -1092,22 +1241,27 @@ struct LeanSrcMessage {
   const float4* ct;
   const float4* pat;
   const float4* d;
-  const float4* h;
+  const typename HS::Raw* h;
   int n_vec, f_vec;
 
   __device__ Slot slot(int64_t row, int cv) const {
-    return {__ldg(d + row * n_vec + cv), __ldg(h + row * f_vec + cv % f_vec), __ldg(pat + cv)};
+    return {__ldg(d + row * n_vec + cv), HS::widen(HS::load(h + row * f_vec + cv % f_vec)),
+            __ldg(pat + cv)};
   }
   __device__ static Slot no_slot() { return {Vec<4>::zero(), Vec<4>::zero(), Vec<4>::zero()}; }
   __device__ Edge load(int64_t r, int cv, const Slot&) const {
-    return {__ldg(c + r * n_vec + cv), __ldg(ct + r * n_vec + cv)};
+    return {__ldg(c + r * n_vec + cv), operand4<E>(__ldg(ct + r * n_vec + cv))};
   }
   __device__ static Edge none() { return {Vec<4>::zero(), Vec<4>::zero()}; }
   __device__ static void term(float& dd, float& g, float c, float ct, float p, float d,
                               float h) {
     float m, dm;
     mask_chain(c + d, p, m, dm);
-    dd += ct * h * dm;
+    if constexpr (std::is_same<E, float>::value) {
+      dd += ct * h * dm;
+    } else {
+      dd += round_bf16(__fmul_rn(__fmul_rn(ct, h), dm));
+    }
     g += ct * m;
   }
   __device__ static void add(float4 (&acc)[2], const Edge& e, const Slot& s) {
@@ -1123,7 +1277,7 @@ struct LeanSrcMessage {
 // (kFolds): an output row, and a head or tail partial, is [dd || fold_K(G)],
 // n_vec + f_vec slots. The fold is linear, so kernel 1's fixup adds folded
 // partials as they are.
-struct LeanSrcFoldMessage : LeanSrcMessage {
+struct LeanSrcFoldMessage : LeanSrcMessage<float> {
   static constexpr bool kFolds = true;
   // 64 registers (4 blocks an SM), with spills, and LeanSrcMessage's two
   // edges in flight: on the card 2 and 3 blocks an SM were 17-18% slower at
@@ -1150,9 +1304,9 @@ struct LeanSrcFoldMessage : LeanSrcMessage {
   }
 };
 
-// Pass 1 of the dst pass (Msg = LeanDcMessage; kernel 10 with the caller's
-// d, and with its payload LeanDcPayloadMessage) and of the src pass
-// (LeanSrcMessage; kernel 11 with the caller's d, LeanSrcFoldMessage),
+// Pass 1 of the dst pass (Msg = LeanDcMessage<E>; kernel 10 with the
+// caller's d, and with its payload LeanDcPayloadMessage) and of the src pass
+// (LeanSrcMessage<E>; kernel 11 with the caller's d, LeanSrcFoldMessage),
 // each at its message's launch bounds.
 template <class Msg, int TILES, int MIN_BLOCKS>
 __global__ void __launch_bounds__(kSumWarps* kWarp, MIN_BLOCKS)
@@ -1346,19 +1500,25 @@ int dw_n_slabs(int n_rows, int f, int kf) {
   return max(1, (n_rows + rows - 1) / rows);
 }
 
-// The h tile is padded past its last row by 8 RF floats: a warp whose
-// features run past F reads them (and drops what it sums).
-__host__ __device__ inline size_t dw_tile_floats(int f, int rf) {
-  return static_cast<size_t>(kDwRows) * (f + kLaneTile) + 8 * rf;
+// The h tile ([kDwRows][f] of h's type E) is padded past its last row by 8
+// RF values: a warp whose features run past F reads them (and drops what it
+// sums). The dD tile ([kDwRows][kLaneTile] f32) follows, 16-byte aligned.
+__host__ __device__ inline size_t dw_h_bytes(int f, int rf, size_t h_elem) {
+  return (static_cast<size_t>(kDwRows) * f + 8 * rf) * h_elem;
 }
 
-template <int RF>
+__host__ __device__ inline size_t dw_tile_bytes(int f, int rf, size_t h_elem) {
+  return dw_h_bytes(f, rf, h_elem) + sizeof(float) * kDwRows * kLaneTile;
+}
+
+template <int RF, typename E>
 __global__ void __launch_bounds__(kNodeWarps* kWarp)
-lean_dw_kernel(const float* __restrict__ ddg, const float* __restrict__ h,
+lean_dw_kernel(const float* __restrict__ ddg, const E* __restrict__ h,
                float* __restrict__ part, int n_rows, int f, int kf, int slab_rows) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int tile = static_cast<int>(dw_tile_floats(f, RF));
+  char* smem = reinterpret_cast<char*>(smem4);
+  const size_t tile = dw_tile_bytes(f, RF, sizeof(E));
+  const size_t h_bytes = dw_h_bytes(f, RF, sizeof(E));
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   const int l_base = blockIdx.y * kLaneTile;
@@ -1366,18 +1526,12 @@ lean_dw_kernel(const float* __restrict__ ddg, const float* __restrict__ h,
   const int row_end = min(n_rows, row_begin + slab_rows);
   const int n_steps = (row_end - row_begin + kDwRows - 1) / kDwRows;
   const int64_t stride = 2 * static_cast<int64_t>(kf);  // a [dD || G] row
-  const int fq = f / 4;
 
   auto stage = [&](int st, int buf) {
-    float* hs = smem + buf * tile;                 // [kDwRows][f] + padding
-    float* ds = hs + kDwRows * f + 8 * RF;         // [kDwRows][kLaneTile]
+    E* hs = reinterpret_cast<E*>(smem + buf * tile);            // [kDwRows][f] + padding
+    float* ds = reinterpret_cast<float*>(smem + buf * tile + h_bytes);  // [kDwRows][kLaneTile]
     const int first = row_begin + st * kDwRows;
-    for (int i = threadIdx.x; i < kDwRows * fq; i += blockDim.x) {
-      const int r = i / fq, q = i % fq;
-      const bool in = first + r < row_end;
-      cp_async16(hs + r * f + 4 * q, in ? h + static_cast<int64_t>(first + r) * f + 4 * q : h,
-                 in);
-    }
+    stage_rows(hs, h, first, kDwRows, row_end, f * static_cast<int>(sizeof(E)));
     for (int i = threadIdx.x; i < kDwRows * (kLaneTile / 4); i += blockDim.x) {
       const int r = i / (kLaneTile / 4), l = l_base + 4 * (i % (kLaneTile / 4));
       const bool in = first + r < row_end && l < kf;
@@ -1397,16 +1551,15 @@ lean_dw_kernel(const float* __restrict__ ddg, const float* __restrict__ h,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* hs = smem + buf * tile + RF * warp;
-    const float4* d4 = reinterpret_cast<const float4*>(smem + buf * tile + kDwRows * f + 8 * RF) +
-                       lane;
+    const E* hs = reinterpret_cast<const E*>(smem + buf * tile) + RF * warp;
+    const float4* d4 = reinterpret_cast<const float4*>(smem + buf * tile + h_bytes) + lane;
 #pragma unroll 2
     for (int n = 0; n < kDwRows; ++n) {
       const float4 dv = d4[n * (kLaneTile / 4)];
 #pragma unroll
       for (int r4 = 0; r4 < RF; r4 += 4) {
         // Every lane of the warp reads the same h features: a broadcast.
-        const float4 hv = *reinterpret_cast<const float4*>(hs + n * f + r4);
+        const float4 hv = smem_lanes4(hs + n * f + r4);
         const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
@@ -1482,16 +1635,16 @@ cudaError_t launch_dh(const float* ddg, const float* w_bot, float* dh, int n_row
   return cudaGetLastError();
 }
 
-template <int RF>
-cudaError_t launch_dw(const float* ddg, const float* h, float* part, int n_rows, int f, int kf,
+template <int RF, typename E>
+cudaError_t launch_dw(const float* ddg, const E* h, float* part, int n_rows, int f, int kf,
                       cudaStream_t s) {
-  const size_t smem = sizeof(float) * dw_tile_floats(f, RF) * 2;
+  const size_t smem = dw_tile_bytes(f, RF, sizeof(E)) * 2;
   cudaError_t err = cudaFuncSetAttribute(
-      lean_dw_kernel<RF>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      lean_dw_kernel<RF, E>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   dim3 grid(dw_n_slabs(n_rows, f, kf), (kf + kLaneTile - 1) / kLaneTile);
-  lean_dw_kernel<RF><<<grid, kNodeWarps * kWarp, smem, s>>>(ddg, h, part, n_rows, f, kf,
-                                                            dw_slab_rows(n_rows, f, kf));
+  lean_dw_kernel<RF, E><<<grid, kNodeWarps * kWarp, smem, s>>>(ddg, h, part, n_rows, f, kf,
+                                                               dw_slab_rows(n_rows, f, kf));
   return cudaGetLastError();
 }
 
@@ -1744,14 +1897,15 @@ const char* mma_cuda_error_string(int err) {
 // (n_chunks, 2, C) f32 partials and the (n_chunks,) i32 tail rows from it.
 int mma_segment_sum_n_chunks(int n_edges) { return sum_n_chunks(n_edges); }
 
-// data (R, C) f32, row_ptr (n_rows+1,) i32 with row_ptr[n_rows] <= n_edges,
-// index (n_edges,) i32 or null (then R = n_edges), out (n_rows, C) f32;
-// scratch part (n_chunks, 2, C) f32 and tail_row (n_chunks,) i32. Row e of
-// the CSR reads data[index[e]] (data[e] without an index). vec4 != 0
-// requires C % 4 == 0 and 16-byte aligned data/out/part.
+// data (R, C) f32 (bf16 when data_bf16 != 0), row_ptr (n_rows+1,) i32 with
+// row_ptr[n_rows] <= n_edges, index (n_edges,) i32 or null (then R =
+// n_edges), out (n_rows, C) f32; scratch part (n_chunks, 2, C) f32 and
+// tail_row (n_chunks,) i32. Row e of the CSR reads data[index[e]] (data[e]
+// without an index). vec4 != 0 requires C % 4 == 0, 16-byte aligned out and
+// part, and data aligned to 4 of its elements (16 bytes f32, 8 bf16).
 int mma_segment_sum_csr(const void* data, const void* row_ptr, const void* index,
                         void* out, void* part, void* tail_row, int n_rows, int n_chan,
-                        int n_edges, int vec4, void* stream) {
+                        int n_edges, int vec4, int data_bf16, void* stream) {
   if (n_rows <= 0 || n_chan <= 0) return static_cast<int>(cudaSuccess);
   const int n_vec = vec4 ? n_chan / 4 : n_chan;
   const int lpe = lanes_per_edge(n_vec);
@@ -1762,70 +1916,80 @@ int mma_segment_sum_csr(const void* data, const void* row_ptr, const void* index
   cudaError_t err;
 #define MMA_SUM_ARGS \
   data, row_ptr, index, out, part, tail_row, n_rows, n_vec, lpe, tiles, chunk, n_chunks, s
-  if (vec4) {
-    err = tiles <= 1   ? launch_segment_sum<4, 1>(MMA_SUM_ARGS)
-          : tiles <= 2 ? launch_segment_sum<4, 2>(MMA_SUM_ARGS)
-          : tiles <= 3 ? launch_segment_sum<4, 3>(MMA_SUM_ARGS)
-                       : launch_segment_sum<4, 4>(MMA_SUM_ARGS);
-  } else {
-    err = tiles <= 1   ? launch_segment_sum<1, 1>(MMA_SUM_ARGS)
-          : tiles <= 4 ? launch_segment_sum<1, 4>(MMA_SUM_ARGS)
-                       : launch_segment_sum<1, 16>(MMA_SUM_ARGS);
-  }
+  auto by_width = [&](auto elem) {
+    using E = typename decltype(elem)::type;
+    if (vec4) {
+      return tiles <= 1   ? launch_segment_sum<4, 1, E>(MMA_SUM_ARGS)
+             : tiles <= 2 ? launch_segment_sum<4, 2, E>(MMA_SUM_ARGS)
+             : tiles <= 3 ? launch_segment_sum<4, 3, E>(MMA_SUM_ARGS)
+                          : launch_segment_sum<4, 4, E>(MMA_SUM_ARGS);
+    }
+    return tiles <= 1   ? launch_segment_sum<1, 1, E>(MMA_SUM_ARGS)
+           : tiles <= 4 ? launch_segment_sum<1, 4, E>(MMA_SUM_ARGS)
+                        : launch_segment_sum<1, 16, E>(MMA_SUM_ARGS);
+  };
+  err = data_bf16 ? by_width(Type<bf16>()) : by_width(Type<float>());
 #undef MMA_SUM_ARGS
   return static_cast<int>(err);
 }
 
-// Kernel 2's node pass: d = h @ w_bot. h (n_rows, f), w_bot (f, kf), d
-// (n_rows, kf) f32. Requires f % 4 == 0, f <= 128, kf % 4 == 0, kf <= 512
-// and 16-byte aligned h and d.
+// Kernel 2's node pass: d = h @ w_bot. h (n_rows, f) f32 (bf16 when h_bf16
+// != 0), w_bot (f, kf) and d (n_rows, kf) f32. Requires f % 4 == 0, f <=
+// 128, kf % 4 == 0, kf <= 512 and 16-byte aligned h and d.
 int mma_edge_program_lean_node(const void* h, const void* w_bot, void* d, int n_rows, int f,
-                               int kf, void* stream) {
+                               int kf, int h_bf16, void* stream) {
   if (n_rows <= 0) return static_cast<int>(cudaSuccess);
-  const size_t smem = node_smem_bytes(f);
-  // Persistent grid: as many blocks as fit on the card at once, spread over
-  // the lane tiles, but no more than the row blocks need.
-  int resident = 0;
-  const cudaError_t err = resident_blocks(lean_node_kernel, smem, &resident);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (kf + kLaneTile - 1) / kLaneTile;
-  const int row_blocks = (n_rows + kNodeRows - 1) / kNodeRows;
-  dim3 grid(min(row_blocks, max(1, resident / tiles)), tiles);
-  lean_node_kernel<<<grid, kNodeWarps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(h), static_cast<const float*>(w_bot),
-      static_cast<float*>(d), n_rows, f, kf);
-  return static_cast<int>(cudaGetLastError());
+  auto launch = [&](auto elem) {
+    using E = typename decltype(elem)::type;
+    const size_t smem = node_smem_bytes(f, sizeof(E));
+    // Persistent grid: as many blocks as fit on the card at once, spread
+    // over the lane tiles, but no more than the row blocks need.
+    int resident = 0;
+    const cudaError_t err = resident_blocks(lean_node_kernel<E>, smem, &resident);
+    if (err != cudaSuccess) return err;
+    const int tiles = (kf + kLaneTile - 1) / kLaneTile;
+    const int row_blocks = (n_rows + kNodeRows - 1) / kNodeRows;
+    dim3 grid(min(row_blocks, max(1, resident / tiles)), tiles);
+    lean_node_kernel<E><<<grid, kNodeWarps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const E*>(h), static_cast<const float*>(w_bot), static_cast<float*>(d),
+        n_rows, f, kf);
+    return cudaGetLastError();
+  };
+  return static_cast<int>(h_bf16 ? launch(Type<bf16>()) : launch(Type<float>()));
 }
 
 // Kernel 2's edge pass, and kernel 9: out[i] = sum_{e in row i} act(c[i] +
 // d[src_e]) * tile(h[src_e], K). c (n_rows, kf), pat (kf,) 0/1 f32; node
 // tables d (R, kf) (kernel 2: h @ w_bot; kernel 9: the caller's) and h (R,
-// f) f32, R any row count above every src;
-// src (n_edges,) i32, row_ptr (n_rows+1,) i32 with row_ptr[n_rows] <=
+// f) f32 (bf16 when h_bf16 != 0: kernel 2 only), R any row count above every
+// src; src (n_edges,) i32, row_ptr (n_rows+1,) i32 with row_ptr[n_rows] <=
 // n_edges, out (n_rows, kf) f32; scratch part (n_chunks, 2, kf) f32 and
 // tail_row (n_chunks,) i32, n_chunks = mma_segment_sum_n_chunks(n_edges).
-// Requires f % 4 == 0, kf % f == 0 and 16-byte aligned c, pat, d, h and
-// out.
+// Requires f % 4 == 0, kf % f == 0, 16-byte aligned c, pat, d and out, and
+// h aligned to 4 of its elements.
 int mma_edge_program_lean_edges(const void* c, const void* pat, const void* d, const void* h,
                                 const void* src, const void* row_ptr,
                                 void* out, void* part, void* tail_row, int n_rows, int f,
-                                int kf, int n_edges, void* stream) {
+                                int kf, int n_edges, int h_bf16, void* stream) {
   if (n_rows <= 0) return static_cast<int>(cudaSuccess);
   const int n_vec = kf / 4;
-  const LeanMessage msg{static_cast<const float4*>(c), static_cast<const float4*>(pat),
-                        static_cast<const float4*>(d), static_cast<const float4*>(h),
-                        n_vec, f / 4};
   const int lpe = lanes_per_edge(n_vec);
   const int tiles = (n_vec + lpe - 1) / lpe;
   const int chunk = sum_chunk_edges(n_edges);
   const int n_chunks = sum_n_chunks(n_edges);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      tiles <= 1 ? launch_lean_edges<1>(msg, row_ptr, src, out, part, tail_row, n_rows, n_vec,
-                                        lpe, tiles, chunk, n_chunks, s)
-                 : launch_lean_edges<2>(msg, row_ptr, src, out, part, tail_row, n_rows, n_vec,
-                                        lpe, tiles, chunk, n_chunks, s);
-  return static_cast<int>(err);
+  auto launch = [&](auto elem) {
+    using E = typename decltype(elem)::type;
+    using Msg = LeanMessage<E>;
+    const Msg msg{static_cast<const float4*>(c), static_cast<const float4*>(pat),
+                  static_cast<const float4*>(d), static_cast<const typename Msg::HS::Raw*>(h),
+                  n_vec, f / 4};
+    return tiles <= 1 ? launch_lean_edges<1, E>(msg, row_ptr, src, out, part, tail_row, n_rows,
+                                                n_vec, lpe, tiles, chunk, n_chunks, s)
+                      : launch_lean_edges<2, E>(msg, row_ptr, src, out, part, tail_row, n_rows,
+                                                n_vec, lpe, tiles, chunk, n_chunks, s);
+  };
+  return static_cast<int>(h_bf16 ? launch(Type<bf16>()) : launch(Type<float>()));
 }
 
 // The dst pass of kernels 3 and 10: dc[i] = sum_{e in row i} dlog_e. c, ct
@@ -1836,17 +2000,27 @@ int mma_edge_program_lean_edges(const void* c, const void* pat, const void* d, c
 // (n_chunks,) i32, n_chunks = mma_segment_sum_n_chunks(n_edges). Unless
 // payload is null, also kernel 10's payload (n_edges, kf + f) f32: row e
 // is [dlog_e || sum_k (ct[i] * mask_e)_k] for the positions the CSR covers
-// and 0 for the others. Requires f % 4 == 0, kf % f == 0 and 16-byte
-// aligned c, ct, pat, d, h, dc and payload.
+// and 0 for the others. h_bf16 != 0 (kernel 3 only, no payload): h is
+// bf16. Requires f % 4 == 0, kf % f == 0, 16-byte aligned c, ct, pat, d, dc
+// and payload, and h aligned to 4 of its elements.
 int mma_edge_program_lean_bwd_dst(const void* c, const void* ct, const void* pat, const void* d,
                                   const void* h, const void* src, const void* row_ptr, void* dc,
                                   void* payload, void* part, void* tail_row, int n_rows, int f,
-                                  int kf, int n_edges, void* stream) {
+                                  int kf, int n_edges, int h_bf16, void* stream) {
+  if (h_bf16 && payload != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows <= 0 && payload == nullptr) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const LeanDcMessage msg{static_cast<const float4*>(c),   static_cast<const float4*>(ct),
-                          static_cast<const float4*>(pat), static_cast<const float4*>(d),
-                          static_cast<const float4*>(h),   kf / 4, f / 4};
+  if (h_bf16) {
+    const LeanDcMessage<bf16> msg{
+        static_cast<const float4*>(c), static_cast<const float4*>(ct),
+        static_cast<const float4*>(pat), static_cast<const float4*>(d),
+        static_cast<const uint2*>(h), kf / 4, f / 4};
+    return static_cast<int>(
+        launch_lean_bwd_edges(msg, row_ptr, src, dc, part, tail_row, n_rows, kf, n_edges, s));
+  }
+  const LeanDcMessage<float> msg{static_cast<const float4*>(c),   static_cast<const float4*>(ct),
+                                 static_cast<const float4*>(pat), static_cast<const float4*>(d),
+                                 static_cast<const float4*>(h),   kf / 4, f / 4};
   if (payload == nullptr) {
     return static_cast<int>(
         launch_lean_bwd_edges(msg, row_ptr, src, dc, part, tail_row, n_rows, kf, n_edges, s));
@@ -1861,19 +2035,24 @@ int mma_edge_program_lean_bwd_dst(const void* c, const void* ct, const void* pat
 // kf) f32. Node tables c, ct (R, kf) gathered through dst_csc (n_edges,)
 // i32, R above every dst_csc; d (n_rows, kf), h (n_rows, f), pat (kf,);
 // col_ptr (n_rows+1,) i32 with col_ptr[n_rows] <= n_edges; scratch part
-// (n_chunks, 2, 2 kf) f32 and tail_row (n_chunks,) i32. Same width and
-// alignment requirements as mma_edge_program_lean_bwd_dst.
+// (n_chunks, 2, 2 kf) f32 and tail_row (n_chunks,) i32; h bf16 when h_bf16
+// != 0. Same width and alignment requirements as
+// mma_edge_program_lean_bwd_dst.
 int mma_edge_program_lean_bwd_src(const void* c, const void* ct, const void* pat, const void* d,
                                   const void* h, const void* dst_csc, const void* col_ptr,
                                   void* out, void* part, void* tail_row, int n_rows, int f,
-                                  int kf, int n_edges, void* stream) {
+                                  int kf, int n_edges, int h_bf16, void* stream) {
   if (n_rows <= 0) return static_cast<int>(cudaSuccess);
-  const LeanSrcMessage msg{static_cast<const float4*>(c),   static_cast<const float4*>(ct),
-                           static_cast<const float4*>(pat), static_cast<const float4*>(d),
-                           static_cast<const float4*>(h),   kf / 4, f / 4};
-  return static_cast<int>(launch_lean_bwd_edges(msg, col_ptr, dst_csc, out, part, tail_row,
-                                                n_rows, kf, n_edges,
-                                                static_cast<cudaStream_t>(stream)));
+  auto launch = [&](auto elem) {
+    using E = typename decltype(elem)::type;
+    using Msg = LeanSrcMessage<E>;
+    const Msg msg{static_cast<const float4*>(c),   static_cast<const float4*>(ct),
+                  static_cast<const float4*>(pat), static_cast<const float4*>(d),
+                  static_cast<const typename Msg::HS::Raw*>(h), kf / 4, f / 4};
+    return launch_lean_bwd_edges(msg, col_ptr, dst_csc, out, part, tail_row, n_rows, kf,
+                                 n_edges, static_cast<cudaStream_t>(stream));
+  };
+  return static_cast<int>(h_bf16 ? launch(Type<bf16>()) : launch(Type<float>()));
 }
 
 // Kernel 11, the src pass with G's K blocks folded as it stores: out[s] =
@@ -1885,9 +2064,10 @@ int mma_edge_program_bwd_csc(const void* c, const void* ct, const void* pat, con
                              void* part, void* tail_row, int n_rows, int f, int kf, int n_edges,
                              void* stream) {
   if (n_rows <= 0) return static_cast<int>(cudaSuccess);
-  const LeanSrcMessage src{static_cast<const float4*>(c),   static_cast<const float4*>(ct),
-                           static_cast<const float4*>(pat), static_cast<const float4*>(d),
-                           static_cast<const float4*>(h),   kf / 4, f / 4};
+  const LeanSrcMessage<float> src{
+      static_cast<const float4*>(c),   static_cast<const float4*>(ct),
+      static_cast<const float4*>(pat), static_cast<const float4*>(d),
+      static_cast<const float4*>(h),   kf / 4, f / 4};
   const LeanSrcFoldMessage msg{src, lanes_per_edge(kf / 4) % (f / 4) == 0};
   return static_cast<int>(launch_lean_bwd_edges(msg, col_ptr, dst_csc, out, part, tail_row,
                                                 n_rows, kf, n_edges,
@@ -1901,16 +2081,15 @@ int mma_edge_program_lean_bwd_n_slabs(int n_rows, int f, int kf) {
 }
 
 // Kernel 3's node pass: dh = fold_K(G) + dD @ w_bot^T (n_rows, f) and dw =
-// h^T dD (f, kf), from ddg (n_rows, 2 kf) = [dD || G], h (n_rows, f) and
-// w_bot (f, kf) f32; scratch dw_part (n_slabs, f, kf) f32. Requires f % 4
-// == 0, f <= 128, kf % f == 0, kf <= 512 and 16-byte aligned ddg, h and
-// w_bot.
+// h^T dD (f, kf), from ddg (n_rows, 2 kf) = [dD || G], h (n_rows, f) f32
+// (bf16 when h_bf16 != 0) and w_bot (f, kf) f32; dh and dw f32; scratch
+// dw_part (n_slabs, f, kf) f32. Requires f % 4 == 0, f <= 128, kf % f == 0,
+// kf <= 512 and 16-byte aligned ddg, h and w_bot.
 int mma_edge_program_lean_bwd_node(const void* ddg, const void* h, const void* w_bot, void* dh,
                                    void* dw, void* dw_part, int n_rows, int f, int kf,
-                                   void* stream) {
+                                   int h_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* dd = static_cast<const float*>(ddg);
-  const float* hp = static_cast<const float*>(h);
   float* part = static_cast<float*>(dw_part);
   const int64_t len = static_cast<int64_t>(f) * kf;
   if (n_rows <= 0) {  // no rows: dW_bot is 0
@@ -1922,8 +2101,13 @@ int mma_edge_program_lean_bwd_node(const void* ddg, const void* h, const void* w
                     : f <= 64 ? launch_dh<16>(dd, w, out, n_rows, f, kf, s)
                               : launch_dh<32>(dd, w, out, n_rows, f, kf, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = f <= 64 ? launch_dw<8>(dd, hp, part, n_rows, f, kf, s)
-                : launch_dw<16>(dd, hp, part, n_rows, f, kf, s);
+  auto dw_pass = [&](auto elem) {
+    using E = typename decltype(elem)::type;
+    const E* hp = static_cast<const E*>(h);
+    return f <= 64 ? launch_dw<8, E>(dd, hp, part, n_rows, f, kf, s)
+                   : launch_dw<16, E>(dd, hp, part, n_rows, f, kf, s);
+  };
+  err = h_bf16 ? dw_pass(Type<bf16>()) : dw_pass(Type<float>());
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_sum_slabs(part, dw_n_slabs(n_rows, f, kf), len,
                                            static_cast<float*>(dw), s));

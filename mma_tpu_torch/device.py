@@ -23,18 +23,3 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         )
     return dev
 
-
-def check_compute_dtype(requested: str) -> None:
-    """Validate the edge-pipeline compute dtype of a layer's config.
-
-    Only ``"float32"`` is ported. ``"bfloat16"`` and ``"auto"`` raise: the
-    JAX package's ``auto`` rule was measured on a TPU and does not carry
-    over to the GPU.
-    """
-    if requested == "float32":
-        return
-    if requested in ("bfloat16", "auto"):
-        raise NotImplementedError(
-            f"compute_dtype={requested!r} is not ported yet; use 'float32'"
-        )
-    raise ValueError(f"unknown compute_dtype {requested!r}")

@@ -1,6 +1,8 @@
 """2-layer node-classification model: GCN → ReLU → dropout → MMA → log-softmax.
 
-Reference: ``node_classification/models.py:12-68``.
+Reference: ``node_classification/models.py:12-68``. ``compute_dtype`` is
+both layers' edge-pipeline dtype (``"float32"``, ``"bfloat16"`` or
+``"auto"``; see :class:`~mma_tpu_torch.nn.MMALayer`).
 """
 
 from __future__ import annotations

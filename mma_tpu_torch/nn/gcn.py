@@ -2,6 +2,11 @@
 
 Reference: ``node_classification/layers.py:12-51``. The adjacency is the
 raw binary matrix — no normalization, no self-loops.
+
+``compute_dtype`` (``"float32"``, ``"bfloat16"`` or ``"auto"``, resolved by
+:func:`mma_tpu_torch.autotune.resolve_compute_dtype` on the layer's device)
+is the SpMM operand's dtype: ``X W`` is cast to it after the float32
+product, and the sum stays float32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -11,7 +16,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from mma_tpu_torch.device import DeviceLike, check_compute_dtype, resolve_device
+from mma_tpu_torch.autotune import torch_compute_dtype
+from mma_tpu_torch.device import DeviceLike, resolve_device
 from mma_tpu_torch.graph.container import Graph
 from mma_tpu_torch.nn import init as inits
 from mma_tpu_torch.ops.spmm import binary_spmm
@@ -25,9 +31,9 @@ class GraphConvolution(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         dev = resolve_device(device)
-        check_compute_dtype(compute_dtype)
         self.in_features, self.out_features = in_features, out_features
         self.compute_dtype = compute_dtype
+        self.edge_dtype = torch_compute_dtype(compute_dtype, dev)
         # pygcn init: stdv = 1/√weight.size(1) (layers.py:32-36).
         self.w = nn.Parameter(
             inits.uniform_fan_out((in_features, out_features), generator).to(dev))
@@ -36,7 +42,7 @@ class GraphConvolution(nn.Module):
             if bias else None)
 
     def forward(self, x: torch.Tensor, graph: Graph) -> torch.Tensor:
-        out = binary_spmm(graph, x @ self.w)
+        out = binary_spmm(graph, (x @ self.w).to(self.edge_dtype))
         if self.b is not None:
             out = out + self.b
         return out

@@ -52,8 +52,9 @@ Parity knobs (SURVEY §5), as in the JAX package:
 - **N2**: message dropout (0.5) whenever the caller asks for it.
 - Empty rows give 0 for every reduce (``torch_scatter``'s fill).
 
-Not ported yet (raise ``NotImplementedError``): ``compute_dtype`` other
-than float32, and ``axis_name``.
+Not ported yet (raise ``NotImplementedError``): ``compute_dtype`` that
+resolves to bfloat16 (``ROADMAP.md`` item 28; ``"auto"`` is float32 off a
+TPU), and ``axis_name``.
 """
 
 from __future__ import annotations
@@ -64,7 +65,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from mma_tpu_torch.device import DeviceLike, check_compute_dtype, resolve_device
+from mma_tpu_torch.autotune import resolve_compute_dtype
+from mma_tpu_torch.device import DeviceLike, resolve_device
 from mma_tpu_torch.graph.container import Graph
 from mma_tpu_torch.nn.layers import Dense, dropout
 from mma_tpu_torch.ops.cuda.fused_mma import segment_sum_csr, segment_sum_sq_csr
@@ -163,7 +165,10 @@ class MultiMaskConv(nn.Module):
                 raise ValueError(f'Unknown scaler "{s}".')
         if edge_format not in ("auto", "csr", "ell"):
             raise ValueError(f'Unknown edge_format "{edge_format}".')
-        check_compute_dtype(compute_dtype)
+        if resolve_compute_dtype(compute_dtype, dev) == "bfloat16":
+            raise NotImplementedError(
+                "MultiMaskConv with compute_dtype='bfloat16' (the ZINC bf16 edge pipeline: "
+                "the conv's message build and kernels 4-8) is not ported yet: ROADMAP.md item 28")
         if divide_input and in_channels % towers:
             raise ValueError(f"in_channels={in_channels} must divide by towers={towers}")
         if out_channels % towers:

@@ -8,6 +8,12 @@ collapses, by linearity of the scalers and the shared W, to
 which is what this layer computes: one K-way masked aggregation, the
 scaler stage, one dense projection and one SpMM. Only the selected
 aggregators' masks are allocated (N10).
+
+``compute_dtype`` (``"float32"``, ``"bfloat16"`` or ``"auto"``, resolved by
+:func:`mma_tpu_torch.autotune.resolve_compute_dtype` on the layer's device)
+is the edge pipeline's dtype: the masked aggregation's operands and the
+SpMM operand ``scaled @ W``, cast after the float32 product. Parameters,
+sums and the output stay float32.
 """
 
 from __future__ import annotations
@@ -17,7 +23,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from mma_tpu_torch.device import DeviceLike, check_compute_dtype, resolve_device
+from mma_tpu_torch.autotune import torch_compute_dtype
+from mma_tpu_torch.device import DeviceLike, resolve_device
 from mma_tpu_torch.graph.container import Graph
 from mma_tpu_torch.nn import init as inits
 from mma_tpu_torch.ops.aggregators import get_agg_spec
@@ -48,7 +55,6 @@ class MMALayer(nn.Module):
     ):
         super().__init__()
         dev = resolve_device(device)
-        check_compute_dtype(compute_dtype)
         self.in_features, self.out_features = in_features, out_features
         self.aggregators = tuple(aggregators)
         self.scalers = tuple(scalers)
@@ -57,6 +63,7 @@ class MMALayer(nn.Module):
         self.mask_dropout = mask_dropout
         self.parity = parity
         self.compute_dtype = compute_dtype
+        self.edge_dtype = torch_compute_dtype(compute_dtype, dev)
         self.specs = tuple(get_agg_spec(a) for a in self.aggregators)
         if parity:
             for s in self.specs:
@@ -80,11 +87,12 @@ class MMALayer(nn.Module):
             h, graph, self.masks, self.specs,
             activation=self.activation, parity=self.parity,
             mask_dropout_rate=self.mask_dropout, generator=generator,
+            compute_dtype=self.edge_dtype,
         )  # (N, K, F)
         scaled = apply_scalers(
             m.sum(dim=1), graph.deg, graph.node_mask, self.scalers, parity=self.parity
         )
-        out = binary_spmm(graph, scaled @ self.w)
+        out = binary_spmm(graph, (scaled @ self.w).to(self.edge_dtype))
         if self.b is not None:
             out = out + self.b
         return out

@@ -9,12 +9,14 @@ its CSC twin:
   ``data[index[e]]`` with an index (the CSC, by-src and gather-VJP uses).
   Two kernels a call: fixed-size edge chunks, one warp each, then a fixup
   of the rows longer than a chunk, which are split across warps.
-  ``LAUNCHES["segment_sum"]`` counts calls.
+  ``LAUNCHES["segment_sum"]`` counts calls, ``"segment_sum_bf16"`` those on
+  bf16 rows.
 - :func:`edge_program_lean` replaces ``_program_fwd_lean_kernel``:
   ``S[i] = Σ_{dst_e=i} act(c[i] + h[src_e] @ W_bot) ⊙ tile(h[src_e], K)``.
   Three kernels a call: a node pass ``D = h @ W_bot``, then kernel 1's two
   passes summing the messages from ``D`` and ``h``.
-  ``LAUNCHES["edge_program_lean"]`` counts calls.
+  ``LAUNCHES["edge_program_lean"]`` counts calls (``"..._bf16"`` those with
+  a bf16 ``h``; the same for kernel 3's ``"edge_program_lean_bwd"``).
 - Its backward, :func:`edge_program_lean_bwd`, replaces
   ``_program_bwd_lean_kernel``: ``dc``, ``dW_bot`` and ``dh``. Eight
   kernels a call and no per-edge tensor: kernel 2's node pass ``D = h @
@@ -39,6 +41,19 @@ its CSC twin:
   pre-gathered per-edge logits and source rows, the forward of
   :func:`fused_masked_aggregate`.
 
+Kernels 1, 2 and 3 also take bf16 operands, the edge pipeline's
+``compute_dtype="bfloat16"``: :func:`segment_sum_csr` bf16 ``data``,
+:func:`edge_program_lean` and :func:`edge_program_lean_bwd` a bf16 ``h``
+(``c``, ``w_bot``, ``pattern``, ``ct`` and every output stay float32). The
+kernels read the bf16 values from device memory and sum in float32. With a
+bf16 ``h`` the JAX package's lean kernels run each contraction as one MXU
+pass, which rounds its float32 operands to bf16
+(``mma_tpu/ops/pallas/fused_mma.py:107-118``, ``:1498``): the message
+before the forward sums it, the cotangent ``ct`` and ``dlog`` in the
+backward. Kernels 2 and 3 and their plain versions round at the same
+places, so the port computes the JAX package's bf16 function. The other
+kernels take float32 only.
+
 Each function takes the plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors; any other device, dtype, shape or layout
 raises. :func:`segment_sum_csr` (without an index),
@@ -61,9 +76,11 @@ import torch
 
 from mma_tpu_torch.ops.cuda import build
 
+# The bf16 variants of kernels 1-3 count under their own "_bf16" keys.
 LAUNCHES = {"segment_sum": 0, "edge_program_lean": 0, "edge_program_lean_bwd": 0,
             "segment_sum_sq": 0, "edge_program_fwd": 0, "edge_program_bwd": 0,
-            "edge_program_bwd_csc": 0, "masked_segment_sum": 0}
+            "edge_program_bwd_csc": 0, "masked_segment_sum": 0, "segment_sum_bf16": 0,
+            "edge_program_lean_bf16": 0, "edge_program_lean_bwd_bf16": 0}
 
 # The wide program's src-keyed backward strategies, as the JAX package's
 # EDGE_BWD_MODE (mma_tpu/ops/pallas/fused_mma.py:47-58): "payload_permute"
@@ -93,16 +110,16 @@ def _lib() -> ctypes.CDLL:
         lib.mma_cuda_error_string.restype = ctypes.c_char_p
         lib.mma_segment_sum_n_chunks.argtypes = [_I]
         lib.mma_segment_sum_n_chunks.restype = _I
-        lib.mma_segment_sum_csr.argtypes = [_P] * 6 + [_I] * 4 + [_P]
+        lib.mma_segment_sum_csr.argtypes = [_P] * 6 + [_I] * 5 + [_P]
         lib.mma_segment_sum_csr.restype = _I
-        lib.mma_edge_program_lean_node.argtypes = [_P, _P, _P] + [_I] * 3 + [_P]
+        lib.mma_edge_program_lean_node.argtypes = [_P, _P, _P] + [_I] * 4 + [_P]
         lib.mma_edge_program_lean_node.restype = _I
-        lib.mma_edge_program_lean_edges.argtypes = [_P] * 9 + [_I] * 4 + [_P]
+        lib.mma_edge_program_lean_edges.argtypes = [_P] * 9 + [_I] * 5 + [_P]
         lib.mma_edge_program_lean_edges.restype = _I
-        lib.mma_edge_program_lean_bwd_dst.argtypes = [_P] * 11 + [_I] * 4 + [_P]
-        lib.mma_edge_program_lean_bwd_src.argtypes = [_P] * 10 + [_I] * 4 + [_P]
+        lib.mma_edge_program_lean_bwd_dst.argtypes = [_P] * 11 + [_I] * 5 + [_P]
+        lib.mma_edge_program_lean_bwd_src.argtypes = [_P] * 10 + [_I] * 5 + [_P]
         lib.mma_edge_program_lean_bwd_n_slabs.argtypes = [_I] * 3
-        lib.mma_edge_program_lean_bwd_node.argtypes = [_P] * 6 + [_I] * 3 + [_P]
+        lib.mma_edge_program_lean_bwd_node.argtypes = [_P] * 6 + [_I] * 4 + [_P]
         lib.mma_segment_sum_sq_csr.argtypes = [_P, _P, _P, _I, _I, _P]
         lib.mma_edge_program_bwd_csc.argtypes = [_P] * 10 + [_I] * 4 + [_P]
         lib.mma_masked_segment_sum.argtypes = [_P] * 5 + [_I] * 4 + [_P]
@@ -135,9 +152,20 @@ def _check_cuda_inputs(name: str, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: {arg} must be contiguous")
 
 
-def _check_dtype(name: str, arg: str, t: torch.Tensor, dtype: torch.dtype) -> None:
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
+def _check_dtype(name: str, arg: str, t: torch.Tensor, *dtypes: torch.dtype) -> None:
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: {arg} must be {' or '.join(map(str, dtypes))}, got {t.dtype}")
+
+
+def _bf16(t: torch.Tensor) -> int:
+    """The kernels' element-type flag: 1 for a bf16 operand, 0 for float32."""
+    return int(t.dtype == torch.bfloat16)
+
+
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (to nearest, ties to even) and back to float32:
+    the JAX lean kernels' one-pass MXU operand on bf16 inputs."""
+    return x.bfloat16().float()
 
 
 def _on_cpu(*tensors: Optional[torch.Tensor]) -> bool:
@@ -161,7 +189,8 @@ def _stream() -> int:
 
 def segment_sum_reference(data: torch.Tensor, row_ptr: torch.Tensor,
                           index: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version of :func:`segment_sum_csr`: ``(N, C)`` float32."""
+    """Plain version of :func:`segment_sum_csr`: ``(N, C)`` float32 (bf16
+    rows are summed as the float32 values they are)."""
     n = row_ptr.shape[0] - 1
     lo, hi = int(row_ptr[0]), int(row_ptr[-1])
     rows = data[lo:hi] if index is None else data.index_select(0, index[lo:hi].long())
@@ -182,7 +211,7 @@ def _segment_sum_kernel(data: torch.Tensor, row_ptr: torch.Tensor,
     name = "segment_sum_csr"
     extra = {} if index is None else {"index": index}
     _check_cuda_inputs(name, data=data, row_ptr=row_ptr, **extra)
-    _check_dtype(name, "data", data, torch.float32)
+    _check_dtype(name, "data", data, torch.float32, torch.bfloat16)
     _check_dtype(name, "row_ptr", row_ptr, torch.int32)
     if index is not None:
         _check_dtype(name, "index", index, torch.int32)
@@ -196,15 +225,16 @@ def _segment_sum_kernel(data: torch.Tensor, row_ptr: torch.Tensor,
     lib = _lib()
     out = torch.empty((n, ch), dtype=torch.float32, device=dev)
     part, tail_row = _chunk_scratch(n_edges, ch, dev)
-    vec4 = ch % 4 == 0 and data.data_ptr() % 16 == 0
+    # 4-lane slots: 16-byte float32 loads, 8-byte bf16 ones.
+    vec4 = ch % 4 == 0 and data.data_ptr() % (4 * data.element_size()) == 0
     with torch.cuda.device(dev):
         err = lib.mma_segment_sum_csr(
             data.data_ptr(), row_ptr.data_ptr(),
             None if index is None else index.data_ptr(), out.data_ptr(), part.data_ptr(),
-            tail_row.data_ptr(), n, ch, n_edges, int(vec4), _stream(),
+            tail_row.data_ptr(), n, ch, n_edges, int(vec4), _bf16(data), _stream(),
         )
     _check_launch(lib, err, name)
-    LAUNCHES["segment_sum"] += 1
+    LAUNCHES["segment_sum_bf16" if _bf16(data) else "segment_sum"] += 1
     return out
 
 
@@ -229,18 +259,20 @@ class _SegmentSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, row_ptr):
         ctx.save_for_backward(row_ptr)
-        ctx.n_edges = data.shape[0]
+        ctx.n_edges, ctx.dtype = data.shape[0], data.dtype
         return _segment_sum(data, row_ptr)
 
     @staticmethod
     def backward(ctx, ct):
+        # ct[dst] in the data's dtype, as the JAX package's VJP casts it.
         (row_ptr,) = ctx.saved_tensors
-        return _expand_rows(ct, row_ptr, ctx.n_edges), None
+        return _expand_rows(ct, row_ptr, ctx.n_edges).to(ctx.dtype), None
 
 
 def segment_sum_csr(data: torch.Tensor, row_ptr: torch.Tensor,
                     index: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Sum ``data`` over each CSR row of ``row_ptr`` → (N, C) float32.
+    """Sum ``data`` (float32 or bf16) over each CSR row of ``row_ptr`` → (N,
+    C) float32.
 
     Without ``index`` row ``i`` sums ``data[e]`` (``data`` is (E, C)) for
     ``e ∈ [row_ptr[i], row_ptr[i+1])``, and the result is differentiable
@@ -249,7 +281,8 @@ def segment_sum_csr(data: torch.Tensor, row_ptr: torch.Tensor,
     form is backward machinery and not differentiable. ``row_ptr`` (N+1,)
     int32 must be non-decreasing with ``row_ptr[-1] <= E`` and every index
     in range (a graph builder's CSR; the kernel does not check the values).
-    Deterministic; rows without edges give 0.
+    Deterministic; rows without edges give 0. bf16 rows are summed in
+    float32 (each value exact); the gradient of bf16 ``data`` is bf16.
     """
     if index is None:
         return _SegmentSum.apply(data, row_ptr)
@@ -272,8 +305,9 @@ def _check_program_inputs(name, c, w_bot, h, pattern, src, row_ptr, ct=None):
     extra = {} if ct is None else {"ct": ct}
     _check_cuda_inputs(name, c=c, w_bot=w_bot, h=h, pattern=pattern, src=src,
                        row_ptr=row_ptr, **extra)
-    for arg, t in (("c", c), ("w_bot", w_bot), ("h", h), ("pattern", pattern), *extra.items()):
+    for arg, t in (("c", c), ("w_bot", w_bot), ("pattern", pattern), *extra.items()):
         _check_dtype(name, arg, t, torch.float32)
+    _check_dtype(name, "h", h, torch.float32, torch.bfloat16)
     for arg, t in (("src", src), ("row_ptr", row_ptr)):
         _check_dtype(name, arg, t, torch.int32)
     n, f = h.shape
@@ -295,27 +329,58 @@ def _check_program_inputs(name, c, w_bot, h, pattern, src, row_ptr, ct=None):
     return n, f, kf
 
 
-def edge_program_lean_reference(c, w_bot, h, pattern, src, row_ptr):
-    """Plain version of :func:`edge_program_lean`: ``(N, K·F)`` float32."""
-    f, kf = w_bot.shape
+def _node_product(h, w_bot):
+    """``D = h @ W_bot`` (N, K·F) float32 for a bf16 ``h``, as the card's node
+    pass sums it: the products ``h[:, k] W_bot[k]`` of bf16 values are exact
+    in float32 and are added in k order, so the two agree bit for bit."""
+    h = h.float()
+    d = torch.zeros((h.shape[0], w_bot.shape[1]), dtype=torch.float32, device=h.device)
+    for k in range(h.shape[1]):
+        d = d + h[:, k:k + 1] * w_bot[k]
+    return d
+
+
+def _lean_edges(c, w_bot, h, pattern, src, row_ptr):
+    """The per-edge values of kernels 2 and 3's plain versions, over the
+    edges the CSR covers: ``(ids, h_src, mask, dmask)`` with each edge's row,
+    its float32 source row and the activation and its derivative at ``c[ids]
+    + h_src @ W_bot``. A bf16 ``h`` takes ``D`` per node
+    (:func:`_node_product`)."""
     ids = _row_ids(row_ptr)
     lo, hi = int(row_ptr[0]), int(row_ptr[-1])
-    h_src = h[src[lo:hi].long()]  # (E, F)
-    mask, _ = _mask_chain(c[ids] + h_src @ w_bot, pattern)  # (E, K·F)
+    s = src[lo:hi].long()
+    if h.dtype == torch.bfloat16:
+        d_src = _node_product(h, w_bot)[s]
+        h_src = h[s].float()
+    else:
+        h_src = h[s]  # (E, F)
+        d_src = h_src @ w_bot
+    mask, dmask = _mask_chain(c[ids] + d_src, pattern)  # (E, K·F)
+    return ids, h_src, mask, dmask
+
+
+def edge_program_lean_reference(c, w_bot, h, pattern, src, row_ptr):
+    """Plain version of :func:`edge_program_lean`: ``(N, K·F)`` float32. With
+    a bf16 ``h`` each message is rounded to bf16 before the float32 sum."""
+    f, kf = w_bot.shape
+    ids, h_src, mask, _ = _lean_edges(c, w_bot, h, pattern, src, row_ptr)
     msg = mask * h_src.repeat(1, kf // f)
+    if h.dtype == torch.bfloat16:
+        msg = _round_bf16(msg)
     out = torch.zeros((c.shape[0], kf), dtype=torch.float32, device=c.device)
-    return out.index_add_(0, ids, msg.float())
+    return out.index_add_(0, ids, msg)
 
 
 def _lean_node_pass(h, w_bot):
-    """Kernel 2's node pass, one launch: ``D = h @ W_bot`` (N, K·F)."""
+    """Kernel 2's node pass, one launch: ``D = h @ W_bot`` (N, K·F) float32
+    from a float32 or bf16 ``h``."""
     n, f = h.shape
     kf = w_bot.shape[1]
     d = torch.empty((n, kf), dtype=torch.float32, device=h.device)
     lib = _lib()
     with torch.cuda.device(h.device):
         err = lib.mma_edge_program_lean_node(h.data_ptr(), w_bot.data_ptr(), d.data_ptr(), n, f,
-                                             kf, _stream())
+                                             kf, _bf16(h), _stream())
     _check_launch(lib, err, "edge_program_lean_fwd node pass")
     return d
 
@@ -324,10 +389,10 @@ def _lean_edge_pass(c, pattern, d, h, src, row_ptr):
     """Kernel 2's edge pass, kernel 1's two launches with the lean message:
     ``S[i] = Σ_{e ∈ row i} act(c[i] + d[src_e]) ⊙ tile(h[src_e], K)`` over
     the CSR ``row_ptr`` (N+1,), with ``c`` (N, K·F) and the node tables
-    ``d`` (R, K·F) and ``h`` (R, F), as :func:`_edge_program_lean_kernel`
-    checks them (``c`` may be a slice of rows of a checked one). The
-    partition, scratch and grid come from ``src.shape`` alone: no host
-    sync."""
+    ``d`` (R, K·F) and ``h`` (R, F; float32, or bf16 with each message
+    rounded to bf16), as :func:`_edge_program_lean_kernel` checks them
+    (``c`` may be a slice of rows of a checked one). The partition, scratch
+    and grid come from ``src.shape`` alone: no host sync."""
     n, kf, f = row_ptr.shape[0] - 1, c.shape[1], h.shape[1]
     n_edges = src.shape[0]
     lib = _lib()
@@ -337,7 +402,7 @@ def _lean_edge_pass(c, pattern, d, h, src, row_ptr):
         err = lib.mma_edge_program_lean_edges(
             c.data_ptr(), pattern.data_ptr(), d.data_ptr(), h.data_ptr(), src.data_ptr(),
             row_ptr.data_ptr(), out.data_ptr(), part.data_ptr(), tail_row.data_ptr(), n, f, kf,
-            n_edges, _stream(),
+            n_edges, _bf16(h), _stream(),
         )
     _check_launch(lib, err, "edge_program_lean_fwd edge pass")
     return out
@@ -350,21 +415,23 @@ def _edge_program_lean_kernel(c, w_bot, h, pattern, src, row_ptr):
     if h.data_ptr() % 16 or pattern.data_ptr() % 16:
         raise ValueError(f"{name}: h and pattern must be 16-byte aligned")
     out = _lean_edge_pass(c, pattern, _lean_node_pass(h, w_bot), h, src, row_ptr)
-    LAUNCHES["edge_program_lean"] += 1
+    LAUNCHES["edge_program_lean_bf16" if _bf16(h) else "edge_program_lean"] += 1
     return out
 
 
 def edge_program_lean_payload_reference(c, w_bot, h, pattern, src, row_ptr, ct):
     """The JAX kernel's own contract, with explicit per-edge tensors:
     ``(dc, dW_bot, payload)``, the payload ``(E, F)`` being each edge's
-    ``Σ_k (ct[i] ⊙ mask_e)_k + dlog_e @ W_botᵀ`` (0 on edges the CSR skips)."""
+    ``Σ_k (ct[i] ⊙ mask_e)_k + dlog_e @ W_botᵀ`` (0 on edges the CSR skips).
+    With a bf16 ``h``, ``ct`` and each ``dlog_e`` are rounded to bf16."""
     f, kf = w_bot.shape
-    ids = _row_ids(row_ptr)
+    bf16 = h.dtype == torch.bfloat16
+    ids, h_src, mask, dmask = _lean_edges(c, w_bot, h, pattern, src, row_ptr)
     lo, hi = int(row_ptr[0]), int(row_ptr[-1])
-    h_src = h[src[lo:hi].long()]  # (E, F)
-    mask, dmask = _mask_chain(c[ids] + h_src @ w_bot, pattern)  # (E, K·F)
-    ge = ct[ids]
+    ge = (_round_bf16(ct) if bf16 else ct)[ids]
     dlog = ge * h_src.repeat(1, kf // f) * dmask
+    if bf16:
+        dlog = _round_bf16(dlog)
     dc = torch.zeros((c.shape[0], kf), dtype=torch.float32, device=c.device)
     dc.index_add_(0, ids, dlog)
     dw = h_src.t() @ dlog
@@ -410,7 +477,7 @@ def _lean_bwd_dst_pass(c, ct, pattern, d, h, src, row_ptr, emit_payload=False):
             c.data_ptr(), ct.data_ptr(), pattern.data_ptr(), d.data_ptr(), h.data_ptr(),
             src.data_ptr(), row_ptr.data_ptr(), dc.data_ptr(),
             None if payload is None else payload.data_ptr(), part.data_ptr(),
-            tail_row.data_ptr(), n, f, kf, n_edges, _stream(),
+            tail_row.data_ptr(), n, f, kf, n_edges, _bf16(h), _stream(),
         )
     _check_launch(lib, err, "edge program dst pass")
     return dc, payload
@@ -429,13 +496,14 @@ def _lean_bwd_src_pass(c, ct, pattern, d, h, dst_csc, col_ptr, fold=False):
     lib = _lib()
     out = torch.empty((n, width), dtype=torch.float32, device=d.device)
     part, tail_row = _chunk_scratch(dst_csc.shape[0], width, d.device)
-    entry = lib.mma_edge_program_bwd_csc if fold else lib.mma_edge_program_lean_bwd_src
-    with torch.cuda.device(d.device):
-        err = entry(
-            c.data_ptr(), ct.data_ptr(), pattern.data_ptr(), d.data_ptr(), h.data_ptr(),
+    args = [c.data_ptr(), ct.data_ptr(), pattern.data_ptr(), d.data_ptr(), h.data_ptr(),
             dst_csc.data_ptr(), col_ptr.data_ptr(), out.data_ptr(), part.data_ptr(),
-            tail_row.data_ptr(), n, f, kf, dst_csc.shape[0], _stream(),
-        )
+            tail_row.data_ptr(), n, f, kf, dst_csc.shape[0]]
+    with torch.cuda.device(d.device):
+        if fold:  # kernel 11: float32 only
+            err = lib.mma_edge_program_bwd_csc(*args, _stream())
+        else:
+            err = lib.mma_edge_program_lean_bwd_src(*args, _bf16(h), _stream())
     _check_launch(lib, err, "edge program src pass")
     return out
 
@@ -455,7 +523,7 @@ def _lean_bwd_node_pass(ddg, h, w_bot):
     with torch.cuda.device(h.device):
         err = lib.mma_edge_program_lean_bwd_node(
             ddg.data_ptr(), h.data_ptr(), w_bot.data_ptr(), dh.data_ptr(), dw.data_ptr(),
-            dw_part.data_ptr(), n, f, kf, _stream(),
+            dw_part.data_ptr(), n, f, kf, _bf16(h), _stream(),
         )
     _check_launch(lib, err, "edge_program_lean_bwd node pass")
     return dh, dw
@@ -477,7 +545,7 @@ def _edge_program_lean_bwd_kernel(c, w_bot, h, pattern, src, row_ptr, col_ptr, d
     dc, _ = _lean_bwd_dst_pass(c, ct, pattern, d, h, src, row_ptr)
     ddg = _lean_bwd_src_pass(c, ct, pattern, d, h, dst_csc, col_ptr)
     dh, dw = _lean_bwd_node_pass(ddg, h, w_bot)
-    LAUNCHES["edge_program_lean_bwd"] += 1
+    LAUNCHES["edge_program_lean_bwd_bf16" if _bf16(h) else "edge_program_lean_bwd"] += 1
     return dc, dw, dh
 
 
@@ -495,6 +563,10 @@ def edge_program_lean_bwd(c: torch.Tensor, w_bot: torch.Tensor, h: torch.Tensor,
     - ``dW_bot`` (F, K·F): ``Σ_e h[s]ᵀ dlog_e``;
     - ``dh`` (N, F): ``Σ_{e: src=s} (Σ_k (ct[i] ⊙ mask_e)_k + dlog_e @
       W_botᵀ)``, the gradient of both uses of ``h``.
+
+    All three are float32. ``h`` may be bf16, the rest is float32; then
+    ``ct`` and each ``dlog_e`` are rounded to bf16 first, as the JAX
+    package's one-pass kernel rounds them.
 
     ``col_ptr`` (N+1,) and ``dst_csc`` (E,) int32 are the CSC that covers
     the same edges as ``row_ptr`` (``Graph.real_col_ptr`` and
@@ -523,8 +595,11 @@ class _EdgeProgramLean(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct):
+        c, w_bot, h = ctx.saved_tensors[:3]
         dc, dw, dh = edge_program_lean_bwd(*ctx.saved_tensors, ct.contiguous())
-        return dc, dw, dh, None, None, None, None, None
+        # Each gradient in its input's dtype, as the JAX VJP casts them.
+        return (dc.to(c.dtype), dw.to(w_bot.dtype), dh.to(h.dtype),
+                None, None, None, None, None)
 
 
 def edge_program_lean(c: torch.Tensor, w_bot: torch.Tensor, h: torch.Tensor,
@@ -538,7 +613,10 @@ def edge_program_lean(c: torch.Tensor, w_bot: torch.Tensor, h: torch.Tensor,
     ``pattern``: (K·F,) float 0/1; ``src``: (E,) int32; ``row_ptr``:
     (N+1,) int32, non-decreasing, with every ``src`` it covers in ``[0, N)``
     (a graph builder's CSR; the kernel does not check the values).
-    Aggregator ``k`` owns lanes ``[k·F, (k+1)·F)``. On the card a node pass
+    Aggregator ``k`` owns lanes ``[k·F, (k+1)·F)``. ``h`` may be bf16 (the
+    rest is float32): the kernels then read it as bf16, round each message
+    to bf16 before the float32 sum, as the JAX package's one-pass kernel
+    does, and the gradient of ``h`` is bf16. On the card a node pass
     computes ``D = h @ W_bot`` once per node, and an edge-balanced pass sums
     the messages from ``D`` and ``h``; no (E, K·F) tensor is stored. On the
     card it takes F % 4 == 0, F <= 128, K·F <= 512 and a 16-byte aligned
@@ -884,8 +962,10 @@ def masked_segment_sum(logits: torch.Tensor, h_src: torch.Tensor, pattern: torch
     and ``pattern`` (K·F,) float 0/1. Lane ``k·F + j`` multiplies
     ``h_src[e, j]``; rows without edges give 0. Takes F <= 128 and K·F <=
     512. Deterministic. Not differentiable (:func:`fused_masked_aggregate`
-    is)."""
+    is). Other dtypes raise on every device: the plain version does not run
+    a bf16 request in float32."""
     if _on_cpu(logits, h_src, pattern, row_ptr):
+        _check_masked_inputs("masked_segment_sum", logits, h_src, pattern, row_ptr)
         return masked_segment_sum_reference(logits, h_src, pattern, row_ptr)
     return _masked_segment_sum_kernel(logits, h_src, pattern, row_ptr)
 
@@ -924,9 +1004,14 @@ def fused_masked_aggregate(logits: torch.Tensor, h_src: torch.Tensor,
 
     The port computes in float32 natively, so the JAX wrapper's TPU knobs
     (``block_r``, ``block_b``, ``precision``) have no counterpart. Inputs
-    are float32; the JAX wrapper's single-pass bfloat16 form waits for the
-    port's ``compute_dtype``. Takes F <= 128 and K·F <= 512 on any device.
+    are float32: the JAX wrapper's single-pass bfloat16 form is
+    ``ROADMAP.md`` item 29 and raises ``NotImplementedError``. Takes F <= 128
+    and K·F <= 512 on any device.
     """
+    if torch.bfloat16 in (logits.dtype, h_src.dtype):
+        raise NotImplementedError(
+            "fused_masked_aggregate with bfloat16 inputs (kernel 12's bf16 form) is not "
+            "ported yet: ROADMAP.md item 29")
     if logits.ndim != 2 or logits.shape[0] != graph.n_edge or logits.shape[1] % n_agg:
         raise ValueError(f"fused_masked_aggregate: logits {tuple(logits.shape)} must be "
                          f"(graph.n_edge={graph.n_edge}, K·F) with K={n_agg}")

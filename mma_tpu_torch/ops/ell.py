@@ -197,7 +197,7 @@ def _csc_order(graph: Graph) -> Tuple[torch.Tensor, torch.Tensor]:
 class _EllGatherNodesBySrc(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, graph, spec):
-        ctx.graph, ctx.spec, ctx.c = graph, spec, x.shape[1]
+        ctx.graph, ctx.spec, ctx.c, ctx.dtype = graph, spec, x.shape[1], x.dtype
         src = graph.src.long()
         return tuple(x.index_select(0, src[ids.reshape(-1)]).reshape(ids.shape[0], -1)
                      for ids, _ in _bucket_ids(graph, spec))
@@ -209,12 +209,14 @@ class _EllGatherNodesBySrc(torch.autograd.Function):
         # with the CSC permutation, one integer gather), so the wide rows
         # are gathered once, then reduce each source's contiguous run with
         # kernel 1.
+        # The rows keep the table's dtype (a bf16 table's go to kernel 1's
+        # bf16 form); the sums are float32, cast back as the JAX VJP does.
         slot, ok = _slot_of_edge(g, ctx.spec)
         perm, col_ptr = _csc_order(g)
-        flat = _flat(cts, ctx.c).float()
+        flat = _flat(cts, ctx.c).to(ctx.dtype)
         rows = flat.index_select(0, slot[perm].clamp(0, flat.shape[0] - 1))
         ct_csc = torch.where(ok[perm][:, None], rows, 0.0)
-        return segment_sum_csr(ct_csc, col_ptr).to(cts[0].dtype), None, None
+        return segment_sum_csr(ct_csc, col_ptr).to(ctx.dtype), None, None
 
 
 def ell_gather_nodes_by_src(x: torch.Tensor, graph: Graph, spec: EllSpec

@@ -17,7 +17,9 @@ takes its Pallas segment sum:
 
 Both reduce over the real edges only: padding edges get no gradient to
 give, where the JAX package's XLA scatter lands it on the padding row.
-Padding rows of the result are 0.
+Padding rows of the result are 0. The sums are float32 and the gradient
+comes back in ``x``'s dtype (a bf16 table's cotangent rows are summed by
+kernel 1's bf16 form), as the JAX package's VJPs cast it.
 """
 
 from __future__ import annotations
@@ -33,19 +35,20 @@ class _GatherByDst(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dst, row_ptr):
         ctx.save_for_backward(row_ptr)
+        ctx.dtype = x.dtype
         return x.index_select(0, dst)
 
     @staticmethod
     def backward(ctx, ct):
         (row_ptr,) = ctx.saved_tensors
-        return segment_sum_csr(ct.contiguous(), row_ptr), None, None
+        return segment_sum_csr(ct.contiguous(), row_ptr).to(ctx.dtype), None, None
 
 
 class _GatherBySrc(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, src, col_ptr, src_perm, exact_hint):
         ctx.save_for_backward(col_ptr, src_perm)
-        ctx.exact_hint, ctx.n_node = exact_hint, x.shape[0]
+        ctx.exact_hint, ctx.n_node, ctx.dtype = exact_hint, x.shape[0], x.dtype
         return x.index_select(0, src)
 
     @staticmethod
@@ -55,7 +58,7 @@ class _GatherBySrc(torch.autograd.Function):
             dx = _csc_exact_segment_sum(ct, src_perm, ctx.exact_hint, ctx.n_node)
         else:
             dx = segment_sum_csr(ct.contiguous(), col_ptr, index=src_perm)
-        return dx, None, None, None, None
+        return dx.to(ctx.dtype), None, None, None, None
 
 
 def _csc_exact_segment_sum(ct: torch.Tensor, src_perm: torch.Tensor, ell_hint,

@@ -34,6 +34,15 @@ chooses (``mma_tpu/ops/masked_aggregate.py:236-294``):
   layout (``Graph.ell_exact``) is ``MultiMaskConv``'s and raises here.
 
 Every route reduces over the real edges only (``Graph.real_row_ptr``).
+
+``compute_dtype=torch.bfloat16`` runs the edge pipeline on bf16 operands,
+as the JAX package's Pallas path does (``mma_tpu/ops/masked_aggregate.py:
+218-316``): ``h`` and the mask weights enter as bf16, the lean route's
+``c = h @ W_top`` is a bf16 product handed to kernels 2-3 as float32 (with
+``W_bot``), the half-fused route's logits, masks and messages are bf16 and
+kernel 1 sums them in float32, and the ELL route gathers a bf16 ``[d ‖ h]``
+table and computes its slot messages in float32. The combines use the
+float32 ``h``. The wide route does not take bf16 (``ROADMAP.md`` item 29).
 """
 
 from __future__ import annotations
@@ -120,6 +129,7 @@ def _ell_masked_aggregate(h, mask_weights, pat, graph, spec, generator, rate, ne
     t_w = kf + f  # a slot's lanes in the gathered [d ‖ h] table
     c, d = mma_mask_projections(h, mask_weights)
     parts = ell_gather_nodes_by_src(torch.cat([d, h], dim=1), graph, spec)
+    c = c.float()  # bf16 projections: the slot messages are float32
     valids = ell_valid(graph, spec)
     ranges = list(zip(spec.starts, spec.bounds))
     sig = pat.bool()
@@ -131,7 +141,7 @@ def _ell_masked_aggregate(h, mask_weights, pat, graph, spec, generator, rate, ne
     def slot_msg(bi, di):
         """Slot ``di`` of bucket ``bi``: the ``(R_b, K·F)`` masked message."""
         s_, b_ = ranges[bi]
-        td = parts[bi][:, di * t_w:(di + 1) * t_w]
+        td = parts[bi][:, di * t_w:(di + 1) * t_w].float()
         logits = c[s_:b_] + td[:, :kf]
         mask = torch.where(sig, torch.sigmoid(logits), logits)
         if keeps is not None:
@@ -179,6 +189,7 @@ def masked_multi_aggregate(
     mask_dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
     pallas_bwd_mode: Optional[str] = None,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """K-way masked aggregation: returns ``(N, K, F)`` combined outputs.
 
@@ -191,7 +202,9 @@ def masked_multi_aggregate(
     the wide edge program with that backward where the lean one would run
     (no mask dropout, no ``std``/``moment_3``, no ELL layout); None keeps
     the lean one. The name is the JAX package's. A graph with an
-    ``ell_hint`` takes the ELL route (module docstring).
+    ``ell_hint`` takes the ELL route (module docstring). ``compute_dtype``
+    (``torch.float32`` or ``torch.bfloat16``) is the edge pipeline's dtype
+    (module docstring); sums and the result stay float32.
     """
     n, f = h.shape
     k = len(specs)
@@ -203,20 +216,29 @@ def masked_multi_aggregate(
     if graph.ell_exact:
         raise ValueError("masked_multi_aggregate does not take the degree-exact ZINC "
                          "layout (Graph.ell_exact); MultiMaskConv does")
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be torch.float32 or torch.bfloat16, "
+                         f"got {compute_dtype}")
+    if compute_dtype == torch.bfloat16 and pallas_bwd_mode is not None:
+        raise NotImplementedError(
+            "masked_multi_aggregate(pallas_bwd_mode=...) in bfloat16 (the wide edge program, "
+            "kernels 9-11) is not ported yet: ROADMAP.md item 29")
     dropout_on = generator is not None and mask_dropout_rate > 0.0
     need_moments = any(s.combine in ("std", "moment_3") for s in specs)
     pat = sigmoid_lane_pattern(specs, activation, parity, f, h.device)
     row_ptr = graph.real_row_ptr
+    # The edge pipeline's operands; the combines below use the float32 h.
+    h_c, mw = h.to(compute_dtype), mask_weights.to(compute_dtype)
 
     msgs = ell_ctx = None
     if graph.ell_hint is not None:
         s, s2_ell, cent3 = _ell_masked_aggregate(
-            h, mask_weights, pat, graph, EllSpec.from_hint(graph.ell_hint),
+            h_c, mw, pat, graph, EllSpec.from_hint(graph.ell_hint),
             generator if dropout_on else None, mask_dropout_rate,
             need_s2=any(sp.combine == "std" for sp in specs))
         ell_ctx = (s2_ell, cent3)
     elif dropout_on or need_moments:
-        msgs = _edge_messages(h, graph, mask_weights, pat, mask_dropout_rate,
+        msgs = _edge_messages(h_c, graph, mw, pat, mask_dropout_rate,
                               generator if dropout_on else None)
         s = segment_sum_csr(msgs, row_ptr)
     elif pallas_bwd_mode is not None:
@@ -224,10 +246,12 @@ def masked_multi_aggregate(
         s = edge_program(c, d, h.contiguous(), pat, graph.src, row_ptr, graph.real_col_ptr,
                          graph.src_perm, graph.dst_csc, pallas_bwd_mode)
     else:
-        w_top = _flat_lanes(mask_weights[:, :f, :])
-        w_bot = _flat_lanes(mask_weights[:, f:, :]).contiguous()
-        s = edge_program_lean(h @ w_top, w_bot, h.contiguous(), pat, graph.src, row_ptr,
-                              graph.real_col_ptr, graph.dst_csc)
+        # c = h_c @ W_top is a product in the pipeline's dtype; kernels 2-3
+        # take it and W_bot as float32 copies, and read h_c as it is.
+        w_top = _flat_lanes(mw[:, :f, :])
+        w_bot = _flat_lanes(mw[:, f:, :]).contiguous()
+        s = edge_program_lean((h_c @ w_top).float(), w_bot.float(), h_c.contiguous(), pat,
+                              graph.src, row_ptr, graph.real_col_ptr, graph.dst_csc)
     s = s.reshape(n, k, f)
 
     deg = torch.clamp(graph.deg, min=1.0)[:, None]  # (N, 1)

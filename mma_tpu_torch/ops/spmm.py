@@ -8,6 +8,11 @@ through the ``src`` index. The transpose is the same sum over the CSC:
 ``dx[j] = Σ_{i: j ∈ N(i)} ct[i]``, read through ``dst_csc``. Neither
 direction uses atomics.
 
+A bf16 ``x`` (the edge pipeline's ``compute_dtype="bfloat16"``) is summed
+in float32 by kernel 1's bf16 form, and its gradient, a float32 sum over
+the CSC, comes back as bf16, as in the JAX package
+(``mma_tpu/ops/spmm.py:95-131``).
+
 A degree-bounded graph that carries an ELL layout (``Graph.ell_hint``, the
 sampler's hopped layout) and no CSC view takes the JAX package's ELL branch
 (``mma_tpu/ops/spmm.py:33-56``): per-slot source rows, masked slot sums. A
@@ -34,16 +39,19 @@ class _BinarySpmm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, src, row_ptr, dst_csc, col_ptr):
         ctx.save_for_backward(dst_csc, col_ptr)
+        ctx.dtype = x.dtype
         return segment_sum_csr(x, row_ptr, index=src)
 
     @staticmethod
     def backward(ctx, ct):
         dst_csc, col_ptr = ctx.saved_tensors
-        return segment_sum_csr(ct.contiguous(), col_ptr, index=dst_csc), None, None, None, None
+        dx = segment_sum_csr(ct.contiguous(), col_ptr, index=dst_csc).to(ctx.dtype)
+        return dx, None, None, None, None
 
 
 def binary_spmm(graph: Graph, x: torch.Tensor) -> torch.Tensor:
-    """``A @ x`` for the graph's binary adjacency; ``x`` is ``(N, F)``.
+    """``A @ x`` for the graph's binary adjacency; ``x`` is ``(N, F)``
+    float32 or bf16.
 
     Both directions reduce over the real edges only
     (``Graph.real_row_ptr`` / ``Graph.real_col_ptr``), and no real edge

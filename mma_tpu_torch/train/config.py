@@ -24,8 +24,9 @@ run in both packages. Fields that read differently:
   700 W: the ``min,max`` train step 74.3 / 60.3 ms against 39.3 / 28.6;
   PERF.md §5), so the defaults keep the plain collate and the CSR kernels
   (``mma_tpu_torch.train.loops.zinc_layout``). ``"plain"`` keeps the
-  plain collate, ``"degree_exact"`` forces the exact one. A
-  ``compute_dtype`` other than float32 is not ported yet and raises.
+  plain collate, ``"degree_exact"`` forces the exact one.
+  ``compute_dtype="auto"`` resolves to float32 off a TPU; ``"bfloat16"``
+  is not ported yet for ZINC and raises (``ROADMAP.md`` item 28).
 
 Checkpointing (``checkpoint_dir``, ``checkpoint_every``, ``resume``) is
 not ported yet; a run that asks for it raises.

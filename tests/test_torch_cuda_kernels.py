@@ -462,6 +462,173 @@ def test_edge_program_lean_bwd_replays_in_a_cuda_graph(cuda, chunk_graph):
     assert all(torch.equal(a, b) for a, b in zip(captured, eager))
 
 
+# ------------------------------------------------------- bf16 variants (1-3)
+
+def _sum_f64(data, row_ptr, index=None):
+    """Kernel 1's sum in float64: exact for bf16 rows, so the kernel's float32
+    sums are held against the exact value."""
+    n = row_ptr.shape[0] - 1
+    lo, hi = int(row_ptr[0]), int(row_ptr[-1])
+    rows = data[lo:hi] if index is None else data.index_select(0, index[lo:hi].long())
+    out = torch.zeros((n, data.shape[1]), dtype=torch.float64, device=data.device)
+    return out.index_add_(0, fused_mma._row_ids(row_ptr), rows.double())
+
+
+@pytest.mark.parametrize("indexed", [False, True])
+@pytest.mark.parametrize("channels", [7, 16, 47, 64, 128, 192, 200, 640])
+def test_bf16_segment_sum_chunks_match_plain(cuda, chunk_graph, channels, indexed):
+    """Kernel 1 on bf16 rows (8-byte loads of 4 lanes where C % 4 == 0, 2-byte
+    scalars for C = 7 and 47) over kernel 1's chunk cases, against the exact
+    sum and the plain version within 1e-5; one launch counted
+    under ``segment_sum_bf16`` a call, bitwise equal run to run, empty rows
+    0, the output float32."""
+    rs = np.random.RandomState(channels + 1)
+    for what, (rp_np, n_edges) in chunk_graph.items():
+        rp = torch.from_numpy(rp_np).to(cuda)
+        rows = 97 if indexed else n_edges
+        data = torch.from_numpy(rs.randn(rows, channels).astype(np.float32)).to(cuda).bfloat16()
+        index = (torch.from_numpy(rs.randint(0, 97, n_edges).astype(np.int32)).to(cuda)
+                 if indexed else None)
+        before = dict(fused_mma.LAUNCHES)
+        got = fused_mma.segment_sum_csr(data, rp, index)
+        torch.cuda.synchronize()
+        assert fused_mma.LAUNCHES["segment_sum_bf16"] == before["segment_sum_bf16"] + 1, what
+        assert fused_mma.LAUNCHES["segment_sum"] == before["segment_sum"], what
+        assert got.dtype == torch.float32
+        want = _sum_f64(data, rp, index)
+        torch.testing.assert_close(got.double(), want, rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item(), msg=what)
+        _close(got, fused_mma.segment_sum_reference(data, rp, index))
+        assert torch.equal(got, fused_mma.segment_sum_csr(data, rp, index)), what
+        empty = torch.from_numpy(rp_np[1:] == rp_np[:-1]).to(cuda)
+        assert (got[empty] == 0).all(), what
+
+
+def _bf16_lean_inputs(cuda, rs, n, n_edges, f, kf):
+    """``_lean_inputs`` with a bf16 ``h`` and a ``W_bot`` of bf16 values, as
+    ``masked_multi_aggregate`` hands them to kernels 2-3 in bf16."""
+    c, w_bot, h, pat, src = _lean_inputs(cuda, rs, n, n_edges, f, kf)
+    return c, w_bot.bfloat16().float(), h.bfloat16(), pat, src
+
+
+def _lean_bf16_f64(c, w_bot, h, pattern, src, row_ptr):
+    """The bf16 plain version's messages (``D`` per node, the mask and the
+    product in float32, then rounded to bf16: the kernel's bits) summed in
+    float64, so that the kernel is held against the exact sum of the same
+    rounded messages."""
+    f, kf = w_bot.shape
+    ids, h_src, mask, _ = fused_mma._lean_edges(c, w_bot, h, pattern, src, row_ptr)
+    msg = fused_mma._round_bf16(mask * h_src.repeat(1, kf // f)).double()
+    out = torch.zeros((c.shape[0], kf), dtype=torch.float64, device=c.device)
+    return out.index_add_(0, ids, msg)
+
+
+@pytest.mark.parametrize("f,kf", [(12, 24), (16, 32), (16, 384), (64, 128), (64, 384),
+                                  (128, 512)])
+def test_bf16_edge_program_lean_chunks_match_plain(cuda, chunk_graph, f, kf):
+    """Kernel 2 with a bf16 ``h`` over kernel 1's chunk cases: its node pass
+    (bf16 rows staged by 16-byte copies, F = 12 ending 8 bytes past a
+    16-byte multiple) equal bit for bit to the plain ``D`` per node; the
+    call within 1e-5 of the exact sum of the plain version's bf16-rounded
+    messages and of the plain version; one launch counted under
+    ``edge_program_lean_bf16``, bitwise equal run to run, empty rows 0."""
+    rs = np.random.RandomState(f + kf + 1)
+    for what, (rp_np, n_edges) in chunk_graph.items():
+        n = len(rp_np) - 1
+        rp = torch.from_numpy(rp_np).to(cuda)
+        c, w_bot, h, pat, src = _bf16_lean_inputs(cuda, rs, n, n_edges, f, kf)
+        args = (c, w_bot, h, pat, src, rp)
+        assert torch.equal(fused_mma._lean_node_pass(h, w_bot),
+                           fused_mma._node_product(h, w_bot)), what
+        before = dict(fused_mma.LAUNCHES)
+        got = fused_mma.edge_program_lean(*args, rp, src)
+        torch.cuda.synchronize()
+        assert fused_mma.LAUNCHES["edge_program_lean_bf16"] == \
+            before["edge_program_lean_bf16"] + 1, what
+        assert fused_mma.LAUNCHES["edge_program_lean"] == before["edge_program_lean"], what
+        want = _lean_bf16_f64(*args)
+        torch.testing.assert_close(got.double(), want, rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item(), msg=what)
+        assert torch.equal(got, fused_mma.edge_program_lean(*args, rp, src)), what
+        empty = torch.from_numpy(rp_np[1:] == rp_np[:-1]).to(cuda)
+        assert (got[empty] == 0).all(), what
+
+
+def _lean_bwd_bf16_f64(c, w_bot, h, pattern, src, row_ptr, ct):
+    """The bf16 plain version's per-edge values (``ct`` and ``dlog_e`` rounded
+    to bf16 in float32, the kernel's bits) with every sum in float64:
+    ``(dc, dW_bot, dh)``."""
+    f, kf = w_bot.shape
+    ids, h_src, mask, dmask = fused_mma._lean_edges(c, w_bot, h, pattern, src, row_ptr)
+    lo, hi = int(row_ptr[0]), int(row_ptr[-1])
+    ge = fused_mma._round_bf16(ct)[ids]
+    dlog = fused_mma._round_bf16(ge * h_src.repeat(1, kf // f) * dmask).double()
+    gm = (ge.double() * mask.double()).reshape(-1, kf // f, f).sum(dim=1)
+    zeros = lambda *shape: torch.zeros(shape, dtype=torch.float64, device=c.device)  # noqa: E731
+    return (zeros(c.shape[0], kf).index_add_(0, ids, dlog), h_src.double().t() @ dlog,
+            zeros(*h.shape).index_add_(0, src[lo:hi].long(), gm + dlog @ w_bot.double().t()))
+
+
+@pytest.mark.parametrize("orient", ["csr", "csc"])
+@pytest.mark.parametrize("f,kf", [(12, 24), (16, 32), (64, 128), (64, 384), (128, 512)])
+def test_bf16_edge_program_lean_bwd_chunks_match_plain(cuda, chunk_graph, f, kf, orient):
+    """Kernel 3 with a bf16 ``h`` over kernel 1's chunk cases, taken as the
+    CSR or as the CSC: ``dc``, ``dW_bot`` and ``dh`` (float32) within 1e-5 of
+    the float64 sums of the plain version's rounded per-edge values (the
+    float32 plain version is itself 2e-5 off on the 3,000-edge rows, as
+    ``_lean_f64`` says of kernel 2's); one launch counted under
+    ``edge_program_lean_bwd_bf16``, bitwise equal run to run, empty rows of
+    dc and dh 0."""
+    rs = np.random.RandomState(f + kf + 2)
+    for what, (ptr_np, n_edges) in chunk_graph.items():
+        n = len(ptr_np) - 1
+        index_np = rs.randint(0, n, n_edges).astype(np.int32)
+        other_np, other_index = _csc_of(ptr_np, index_np, n_edges)
+        if orient == "csr":
+            rp_np, src_np, cp_np, dst_np = ptr_np, index_np, other_np, other_index
+        else:
+            rp_np, src_np, cp_np, dst_np = other_np, other_index, ptr_np, index_np
+        rp, src, cp, dst_csc = (torch.from_numpy(a).to(cuda)
+                                for a in (rp_np, src_np, cp_np, dst_np))
+        c, w_bot, h, pat, _ = _bf16_lean_inputs(cuda, rs, n, 1, f, kf)
+        ct = torch.from_numpy(rs.randn(n, kf).astype(np.float32)).to(cuda)
+        args = (c, w_bot, h, pat, src, rp, cp, dst_csc, ct)
+        before = dict(fused_mma.LAUNCHES)
+        got = fused_mma.edge_program_lean_bwd(*args)
+        torch.cuda.synchronize()
+        assert fused_mma.LAUNCHES["edge_program_lean_bwd_bf16"] == \
+            before["edge_program_lean_bwd_bf16"] + 1, what
+        assert all(g.dtype == torch.float32 for g in got), what
+        for name, g, w in zip(("dc", "dW_bot", "dh"), got,
+                              _lean_bwd_bf16_f64(c, w_bot, h, pat, src, rp, ct)):
+            torch.testing.assert_close(g.double(), w, rtol=1e-5,
+                                       atol=1e-5 * w.abs().max().item(),
+                                       msg=f"{what} {orient} {name}")
+        again = fused_mma.edge_program_lean_bwd(*args)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), what
+        no_in = torch.from_numpy(rp_np[1:] == rp_np[:-1]).to(cuda)
+        no_out = torch.from_numpy(cp_np[1:] == cp_np[:-1]).to(cuda)
+        assert (got[0][no_in] == 0).all() and (got[2][no_out] == 0).all(), what
+
+
+def test_bf16_kernels_reject_what_they_do_not_take(cuda, graph):
+    """bf16 goes to kernel 1's rows and kernels 2-3's ``h`` only: a bf16
+    ``c``, a bf16 ``h`` for the wide kernels 9-11 and bf16 logits for kernel
+    12 raise before any launch."""
+    n, f, kf = graph.n_node, 16, 32
+    c, w_bot, h, pat, src = _bf16_lean_inputs(cuda, np.random.RandomState(1), n, 1, f, kf)
+    before = dict(fused_mma.LAUNCHES)
+    with pytest.raises(ValueError, match="float32"):
+        fused_mma.edge_program_lean(c.bfloat16(), w_bot, h, pat, graph.src, graph.row_ptr,
+                                    graph.col_ptr, graph.dst_csc)
+    with pytest.raises(ValueError, match="float32"):
+        fused_mma.edge_program_fwd(c, c, h, pat, graph.src, graph.row_ptr)
+    with pytest.raises(ValueError, match="float32"):
+        fused_mma.segment_sum_csr(torch.zeros(graph.n_edge, 8, device=cuda).half(),
+                                  graph.row_ptr)
+    assert fused_mma.LAUNCHES == before
+
+
 def _grads(fn, *inputs):
     leaves = [t.detach().clone().requires_grad_() for t in inputs]
     out = fn(*leaves)

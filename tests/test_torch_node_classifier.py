@@ -25,6 +25,9 @@ from mma_tpu_torch import (
     load_planetoid,
 )
 from mma_tpu_torch.convert import node_classifier_from_jax
+from mma_tpu_torch.nn.mma_conv import MultiMaskConv
+from mma_tpu_torch.ops import get_agg_spec, masked_multi_aggregate
+from mma_tpu_torch.ops.cuda import fused_mma
 from mma_tpu_torch.train import NODE_CLS_PRESETS, train_node_classification
 
 # JAX XLA path: f32 with a different summation order; Pallas path: the
@@ -118,11 +121,26 @@ def test_convert_rejects_mismatched_params(small):
 
 
 def test_unported_requests_raise(small):
+    """bf16 requests outside the node-classification slice raise, naming
+    their ROADMAP item (the node classifier's bf16 and ``auto`` run:
+    ``tests/test_torch_bf16.py``); so do checkpoints."""
     _, tg, x, _ = small
-    with pytest.raises(NotImplementedError):
-        MMALayer(16, 8, ("mean",), compute_dtype="bfloat16", device="cpu")
-    with pytest.raises(NotImplementedError):
-        NodeClassifier(24, 16, 5, ("mean",), compute_dtype="auto", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 28"):
+        MultiMaskConv(8, 8, ("min",), ("identity",), {"lin": 1.0, "log": 1.0},
+                      compute_dtype="bfloat16", device="cpu")
+    h = torch.from_numpy(np.ascontiguousarray(x[:, :8]))
+    mw = torch.zeros(2, 16, 8)
+    specs = [get_agg_spec(a) for a in ("mean", "mean2")]
+    with pytest.raises(NotImplementedError, match="item 29"):
+        masked_multi_aggregate(h, tg, mw, specs, pallas_bwd_mode="csc_gather",
+                               compute_dtype=torch.bfloat16)
+    logits = torch.zeros(tg.n_edge, 16, dtype=torch.bfloat16)
+    h_src = torch.zeros(tg.n_edge, 8, dtype=torch.bfloat16)
+    pat = torch.ones(16)
+    with pytest.raises(NotImplementedError, match="item 29"):
+        fused_mma.fused_masked_aggregate(logits, h_src, pat, tg, 2)
+    with pytest.raises(ValueError, match="float32"):
+        fused_mma.masked_segment_sum(logits, h_src, pat, tg.real_row_ptr)
     with pytest.raises(NotImplementedError, match="checkpoint"):
         train_node_classification(
             dataclasses.replace(NODE_CLS_PRESETS["cora"], checkpoint_dir="ckpt"), device="cpu")

@@ -623,8 +623,9 @@ def test_cli_runs_on_the_cpu(flags):
 
 
 def test_entry_points_default_to_the_card():
-    """Without a GPU the entry points raise unless asked for the CPU; the
-    compute dtypes that wait for the GPU rule raise."""
+    """Without a GPU the entry points raise unless asked for the CPU; an
+    unknown compute dtype raises before any set-up (``auto`` and
+    ``bfloat16`` run: ``tests/test_torch_bf16_training.py``)."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
     src, dst, n, _ = _small_graph()
@@ -637,5 +638,5 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         train_sampled(SampledTrainConfig(), graph_from_edges(src, dst, n, device="cpu"),
                       np.zeros((n, 2), np.float32), np.zeros(n, np.int64), np.arange(4))
-    with pytest.raises(NotImplementedError):
-        cli.main(TINY + ["--compute-dtype", "auto"])
+    with pytest.raises(ValueError, match="compute_dtype"):
+        cli.main(TINY + ["--compute-dtype", "float16"])
