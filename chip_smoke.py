@@ -4,7 +4,7 @@
 1. Prints the card's name and power limit (``nvidia-smi``), then builds
    every CUDA kernel of the port from ``mma_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together).
-2. Twenty-five main paths, each with the kernels' launch counters set to 0
+2. Thirty-two main paths, each with the kernels' launch counters set to 0
    just before it and read just after:
 
    - **serve**: the node classifier's eval forward answers 3 requests on
@@ -81,6 +81,30 @@
      half-fused route), **sampled-train-lean-bf16** (``--dropout 0``, 5
      steps) and **sampled-train-ell-bf16** (``--use-ell``, 5 steps).
 
+   - Checkpoint/resume, the resilient runner and the serving export:
+     **cora-train-resume**, cora-train's preset (seed 0) for 100 epochs
+     with a checkpoint every 50, then a fresh call resumed to 200, against
+     200 straight under deterministic algorithms: every record, the test
+     accuracy and every weight bit for bit, with the save and restore
+     times; **zinc-train-resume**, zinc-train's config 3 epochs straight
+     and 2 then a resume to 3: parameters, BatchNorm state and the
+     schedule's lr within 1e-5 (and whether bitwise);
+     **synthetic-large-train-resilient**, ``ResilientRunner`` over 8
+     large-train steps on 8 node halves with an injected bad batch (fails
+     twice, skipped), a transient fault and a raising step, against a
+     clean run without the bad batch within 1e-5, its failure records
+     printed and checked; **cora-serve-export**,
+     **synthetic-large-serve-export**, **synthetic-large-serve-bf16-export**
+     and **zinc-serve-export** (the flagship batch, ``min,max``): each
+     model exported on the card (``mma_tpu_torch.serve``), loaded from the
+     bytes and serving 10 requests, every output within 1e-6 of the eager
+     forward (bitwise equality printed), the artifact's size, the export
+     and load times, and one request served against eager in turns (host
+     clock and CUDA events). Then each ``mma_tpu_torch::*`` operator
+     (kernel 1 with and without an index, f32 and bf16 rows; kernel 2 with
+     f32 and bf16 ``h``; kernels 4, 6 and 8) against its kernel called
+     directly: bitwise equal, one launch each.
+
    Each path's launch counts are derived from the code and checked.
 3. Checks every output (finite log-probs of the expected shape whose rows
    sum to 1) and holds it against the same computation with every kernel,
@@ -150,7 +174,8 @@
    the last line ``{"ok": true, "device": {...}}``.
 
 The per-epoch training logs go to ``artifacts/chip_smoke_train.log``,
-``artifacts/chip_smoke_train_bf16.log`` and
+``artifacts/chip_smoke_train_bf16.log``,
+``artifacts/chip_smoke_train_resume.log`` and
 ``artifacts/chip_smoke_zinc_train*.log``, the sampled command line's to
 ``artifacts/chip_smoke_sampled.log``.
 Any failed check raises, so the script exits non-zero and prints no
@@ -162,6 +187,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -328,14 +354,43 @@ def plain_kernels():
         for launcher, plain in PLAIN[mod.__name__.rsplit(".", 1)[-1]].items():
             saved.append((mod, launcher, getattr(mod, launcher)))
             setattr(mod, launcher, getattr(mod, plain))
-    deterministic = torch.are_deterministic_algorithms_enabled()
+    try:
+        with deterministic():
+            yield
+    finally:
+        for mod, launcher, fn in saved:
+            setattr(mod, launcher, fn)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Run the block under ``torch.use_deterministic_algorithms(True)``."""
+    before = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
     try:
         yield
     finally:
-        torch.use_deterministic_algorithms(deterministic)
-        for mod, launcher, fn in saved:
-            setattr(mod, launcher, fn)
+        torch.use_deterministic_algorithms(before)
+
+
+@contextlib.contextmanager
+def timed(module, name: str, times: list):
+    """Wrap ``module.<name>`` so that each call appends its host-clock
+    milliseconds to ``times``."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            times.append((time.perf_counter() - t0) * 1e3)
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
 
 
 @contextlib.contextmanager
@@ -409,18 +464,12 @@ def grads_of(model) -> dict:
     return {n_: p.grad.clone() for n_, p in model.named_parameters() if p.grad is not None}
 
 
-def run_zinc(dev, paths: dict) -> dict:
-    """The ZINC main paths on both layouts, their checks and the per-kernel
-    holds of kernels 4-8; returns the kernels' JSON entries (without
-    ``launches``)."""
+def zinc_flagship(dev):
+    """``(batch, exact, avg)``: the flagship batch on both layouts and the
+    degree statistics of its molecules."""
     from mma_tpu_torch.data import load_zinc
     from mma_tpu_torch.data.batching import degree_budgets
-    from mma_tpu_torch.models import ZincNet
     from mma_tpu_torch.nn import mma_conv
-    from mma_tpu_torch.ops.cuda import fused_mma
-    from mma_tpu_torch.ops.cuda import segment_minmax as mm
-    from mma_tpu_torch.train import ZincConfig, make_optimizer, train_zinc
-    from mma_tpu_torch.train.loops import l1_loss, zinc_layout, zinc_train_step
 
     # The flagship batch: the first 1,024 train molecules, padded to the
     # next 1,024 nodes and edges as bench.py:654-667 pads them.
@@ -441,12 +490,28 @@ def run_zinc(dev, paths: dict) -> dict:
                             ell_degree_budgets=budgets, device=dev))
     if not (exact.graph.ell_exact and exact.graph.csc_ell_exact):
         raise AssertionError("the degree-exact flagship batch is not csc_ell_exact")
-    avg = mma_conv.compute_avg_deg(ds.degree_histogram(), parity=True)
-    layers = 4
     print(f"zinc flagship batch: 1024 molecules, {int(g.num_nodes)} nodes (padded {g.n_node}), "
           f"{int(g.num_edges)} edges (padded {g.n_edge}), max in-degree {int(g.deg.max())}; "
           f"degree-exact: budgets {budgets}, {exact.graph.n_node} rows, "
           f"{exact.graph.n_edge} edge slots")
+    return batch, exact, mma_conv.compute_avg_deg(ds.degree_histogram(), parity=True)
+
+
+def run_zinc(dev, paths: dict) -> dict:
+    """The ZINC main paths on both layouts, their checks and the per-kernel
+    holds of kernels 4-8; returns the kernels' JSON entries (without
+    ``launches``)."""
+    from mma_tpu_torch.data import load_zinc
+    from mma_tpu_torch.models import ZincNet
+    from mma_tpu_torch.nn import mma_conv
+    from mma_tpu_torch.ops.cuda import fused_mma
+    from mma_tpu_torch.ops.cuda import segment_minmax as mm
+    from mma_tpu_torch.train import ZincConfig, make_optimizer, train_zinc
+    from mma_tpu_torch.train.loops import l1_loss, zinc_layout, zinc_train_step
+
+    batch, exact, avg = zinc_flagship(dev)
+    g = batch.graph
+    layers = 4
 
     def model_of(aggs_scalers, seed, device=dev):
         aggs, scalers = aggs_scalers
@@ -1145,7 +1210,6 @@ def run_bf16(dev, paths: dict, ctx: dict) -> dict:
     README preset, the half-fused route's bf16 messages), with their launch
     counts, holds and times beside the f32 ones. Returns the bf16 models and
     tensors the per-kernel section times."""
-    import functools
     from unittest import mock
 
     from mma_tpu_torch import NodeClassifier
@@ -1496,6 +1560,301 @@ def bf16_kernel_entries(dev, big, x_big, big_model, classes, mw0, train16, label
     return out
 
 
+def records(history) -> list:
+    """A loop's per-epoch records without their host-clock times."""
+    return [{k: v for k, v in r.items() if k != "time"} for r in history]
+
+
+def hold_weights(got: dict, want: dict, rel: float, what: str) -> bool:
+    """Every tensor of ``got`` within ``rel`` of ``want`` (``compare``'s
+    rule); returns whether all are bitwise equal."""
+    if list(got) != list(want):
+        raise AssertionError(f"{what}: tensors {sorted(got)} != {sorted(want)}")
+    worst = 0.0
+    for k in want:
+        worst = max(worst, compare(got[k], want[k], rel, f"{what} {k}", verbose=False)[
+            "max_abs_err"])
+    equal = all(torch.equal(got[k], want[k]) for k in want)
+    print(f"{what}: {len(want)} tensors within {rel:g}, max_abs_err {worst:.3e}, bitwise equal "
+          f"{equal}")
+    return equal
+
+
+def run_resume_and_serving(dev, paths: dict, ctx: dict) -> None:
+    """Checkpoint/resume, the resilient step runner and the exported
+    artifacts: the main paths cora-train-resume, zinc-train-resume,
+    synthetic-large-train-resilient, cora-serve-export,
+    synthetic-large-serve-export, synthetic-large-serve-bf16-export and
+    zinc-serve-export, their checks, launch counts and times, and the holds
+    of the ``mma_tpu_torch::*`` operators against their kernels."""
+    import tempfile
+
+    from mma_tpu_torch import NodeClassifier
+    from mma_tpu_torch.data import load_zinc
+    from mma_tpu_torch.models import ZincNet
+    from mma_tpu_torch.ops.cuda import fused_mma
+    from mma_tpu_torch.ops.cuda import segment_minmax as mm
+    from mma_tpu_torch.serve import export_node_classifier, export_zinc_predictor, load_forward
+    from mma_tpu_torch.train import (NODE_CLS_PRESETS, ResilientRunner, ZincConfig, checkpoint,
+                                     make_optimizer, train_node_classification, train_zinc)
+    from mma_tpu_torch.train.loops import node_train_step, zinc_layout
+
+    cora, big, x_big, n_big = ctx["cora"], ctx["big"], ctx["x_big"], ctx["n_big"]
+    layers = 4
+
+    # ------------------------------------------ main path: cora-train-resume
+    # The README preset 100 epochs with a checkpoint every 50, then a fresh
+    # call resumes to 200, against 200 straight: every record, the test
+    # accuracy and every weight bit for bit (deterministic algorithms).
+    cfg = dataclasses.replace(NODE_CLS_PRESETS["cora"], seed=SEED)
+    io_ms = {"save": [], "restore": []}
+    run_s = {}
+    with tempfile.TemporaryDirectory() as d, counted("cora-train-resume", paths), \
+            deterministic(), timed(checkpoint, "save_checkpoint", io_ms["save"]), \
+            timed(checkpoint, "restore_checkpoint", io_ms["restore"]), \
+            open(os.path.join(LOG_DIR, "chip_smoke_train_resume.log"), "w") as log, \
+            contextlib.redirect_stdout(log):
+        ck = dict(checkpoint_dir=d, checkpoint_every=50)
+        for name, c in (("straight", cfg), ("first", dataclasses.replace(cfg, epochs=100, **ck)),
+                        ("resumed", dataclasses.replace(cfg, resume=True, **ck))):
+            t0 = time.perf_counter()
+            run_s[name] = (train_node_classification(c, data=cora, device=dev),
+                           time.perf_counter() - t0)
+    straight, first, resumed = (run_s[k][0] for k in ("straight", "first", "resumed"))
+    if ([r["epoch"] for r in first["history"]] != list(range(1, 101))
+            or [r["epoch"] for r in resumed["history"]] != list(range(101, 201))):
+        raise AssertionError("cora-train-resume: the runs trained the wrong epochs")
+    if records(resumed["history"]) != records(straight["history"][100:]):
+        raise AssertionError("cora-train-resume: the resumed records differ from the straight run")
+    if (resumed["acc_test"], resumed["loss_test"]) != (straight["acc_test"], straight["loss_test"]):
+        raise AssertionError("cora-train-resume: test accuracy or loss differs")
+    if not hold_weights(resumed["model"].state_dict(), straight["model"].state_dict(), 0.0,
+                        "cora-train-resume weights vs the straight run"):
+        raise AssertionError("cora-train-resume: weights not bitwise equal")
+    print(f"cora-train-resume: 100 + 100 epochs equal 200 straight bit for bit (test accuracy "
+          f"{resumed['acc_test']:.4f}); runs {', '.join(f'{k} {v[1]:.3f} s' for k, v in run_s.items())}"
+          f"; {len(io_ms['save'])} saves, median {statistics.median(io_ms['save']):.3f} ms; "
+          f"{len(io_ms['restore'])} restore, {io_ms['restore'][0]:.3f} ms (host clock)")
+    # 400 epochs over 3 runs, as cora-train counts them (kernel 1 ten times
+    # and kernel 2 once an epoch, one more eval forward a run).
+    expect_launches(paths, "cora-train-resume", segment_sum=400 * 10 + 3 * 2,
+                    edge_program_lean=400 + 3)
+    del run_s, straight, first, resumed
+
+    # ------------------------------------------ main path: zinc-train-resume
+    # zinc-train's config 3 epochs straight, and 2 epochs then a resume to 3.
+    aggs, scalers = ZINC_PRESET_AGGS
+    zcfg = ZincConfig(aggregators=aggs, scalers=scalers, lr=1e-4, weight_decay=3e-4,
+                      batch_size=64, epochs=3, subset_size=2000, seed=SEED)
+    splits = {s_: load_zinc(s_, subset_size=zcfg.subset_size) for s_ in ("train", "val", "test")}
+    if zinc_layout(zcfg, list(splits.values()))[2] is not None:
+        raise AssertionError("zinc-train-resume: expected the plain collate")
+    steps = -(-len(splits["train"]) // zcfg.batch_size)
+    evals = sum(-(-len(splits[s_]) // zcfg.batch_size) for s_ in ("val", "test"))
+    io_ms = {"save": [], "restore": []}
+    with tempfile.TemporaryDirectory() as d, counted("zinc-train-resume", paths), \
+            timed(checkpoint, "save_checkpoint", io_ms["save"]), \
+            timed(checkpoint, "restore_checkpoint", io_ms["restore"]), \
+            open(os.path.join(LOG_DIR, "chip_smoke_zinc_train_resume.log"), "w") as log, \
+            contextlib.redirect_stdout(log):
+        ck = dict(checkpoint_dir=d, checkpoint_every=1)
+        straight = train_zinc(zcfg, datasets=splits, device=dev)
+        train_zinc(dataclasses.replace(zcfg, epochs=2, **ck), datasets=splits, device=dev)
+        resumed = train_zinc(dataclasses.replace(zcfg, resume=True, **ck), datasets=splits,
+                             device=dev)
+    if [r["epoch"] for r in resumed["history"]] != [2]:
+        raise AssertionError("zinc-train-resume: the resumed run trained the wrong epochs")
+    hold_weights(resumed["model"].state_dict(), straight["model"].state_dict(), 1e-5,
+                 "zinc-train-resume params and BatchNorm state vs the straight run")
+    lr_got, lr_want = resumed["history"][-1]["lr"], straight["history"][-1]["lr"]
+    compare(torch.tensor([lr_got]), torch.tensor([lr_want]), 1e-5, "zinc-train-resume lr")
+    print(f"zinc-train-resume: val MAE {resumed['val_mae']:.6f} (straight "
+          f"{straight['val_mae']:.6f}); {len(io_ms['save'])} saves, median "
+          f"{statistics.median(io_ms['save']):.3f} ms; restore {io_ms['restore'][0]:.3f} ms "
+          "(host clock)")
+    # 6 epochs over 3 runs, as zinc-train counts them on the plain collate.
+    expect_launches(paths, "zinc-train-resume", minmax_prog=6 * layers * (steps + evals),
+                    minmax_prog_bwd=6 * layers * steps,
+                    segment_sum=6 * (steps * (layers + 1) + evals))
+    del straight, resumed, splits
+
+    # ------------------------------ main path: synthetic-large-train-resilient
+    # ResilientRunner over 8 train steps of large-train's model, each on its
+    # own half of the nodes: batch 2 fails twice (skipped), batch 5 once
+    # (retried), and the first step on batch 6 raises. Against a clean run
+    # over the same batches without batch 2.
+    labels = ctx["labels"]
+    model = NodeClassifier(64, 64, 16, ("mean", "mean2"), dropout_rate=0.0, device=dev,
+                           generator=torch.Generator().manual_seed(SEED + 3))
+    opt = make_optimizer(model.parameters(), 1e-3)
+    bgen = torch.Generator().manual_seed(SEED + 6)
+    batches = [(i, torch.randperm(n_big, generator=bgen)[: n_big // 2].to(dev)) for i in range(8)]
+    state0 = {"params": {k: v.clone() for k, v in model.state_dict().items()},
+              "opt": copy.deepcopy(opt.state_dict())}
+    ran, calls = [], {}
+
+    def step_fn(state, batch, faults=True):
+        i, idx = batch
+        calls[i] = calls.get(i, 0) + 1
+        if faults and i == 6 and calls[i] == 1:
+            raise RuntimeError("injected device error")
+        model.load_state_dict(state["params"])
+        opt.load_state_dict(copy.deepcopy(state["opt"]))
+        loss, _ = node_train_step(model, opt, x_big, big, labels, idx, None)
+        ran.append(i)
+        return ({"params": {k: v.clone() for k, v in model.state_dict().items()},
+                 "opt": copy.deepcopy(opt.state_dict())}, loss)
+
+    visits = {}
+
+    def inject(i):
+        visits[i] = visits.get(i, 0) + 1
+        return "injected" if (i == 2 and visits[i] <= 2) or (i == 5 and visits[i] == 1) else None
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d, counted("synthetic-large-train-resilient", paths):
+        runner = ResilientRunner(os.path.join(d, "faults"), checkpoint_every=2, max_restarts=5,
+                                 inject_fault=inject)
+        final = runner.run(step_fn, state0, batches)
+        faulty_s = time.perf_counter() - t0
+        calls.clear()
+        clean = ResilientRunner(os.path.join(d, "clean"), checkpoint_every=0).run(
+            functools.partial(step_fn, faults=False), state0,
+            [b for b in batches if b[0] != 2])
+    for f in runner.failures:
+        print(f"synthetic-large-train-resilient: {f}")
+    kinds = [(f.step, f.kind, f.restored_step) for f in runner.failures]
+    if kinds != [(2, "injected", 2), (2, "injected", 2), (5, "injected", 4),
+                 (6, "exception", 6)]:
+        raise AssertionError(f"synthetic-large-train-resilient: failures {kinds}")
+    hold_weights(final["params"], clean["params"], 1e-5,
+                 "synthetic-large-train-resilient weights vs the clean run without batch 2")
+    print(f"synthetic-large-train-resilient: {len(ran)} steps run ({ran}); the run with faults "
+          f"took {faulty_s:.3f} s (host clock)")
+    # Per step run, as large-train: kernel 1 four times, kernels 2 and 3 once.
+    expect_launches(paths, "synthetic-large-train-resilient", segment_sum=4 * len(ran),
+                    edge_program_lean=len(ran), edge_program_lean_bwd=len(ran))
+    del model, opt, final, clean, state0, batches
+
+    # ------------------------------------------ main paths: exported serving
+    zbatch, _, avg = zinc_flagship(dev)
+    zmodel = ZincNet(*ZINC_PRESET_AGGS, avg, num_layers=layers, device=dev,
+                     generator=torch.Generator().manual_seed(SEED))
+    buffers = {k for k, _ in zmodel.named_buffers()}
+    zweights = zmodel.state_dict()
+    zparams = {k: v for k, v in zweights.items() if k not in buffers}
+    zstate = {k: v for k, v in zweights.items() if k in buffers}
+    requests = ctx["requests"]
+    node = {"cora": (ctx["cora_model"], cora.graph, cora.num_nodes),
+            "big": (ctx["big_model"], big, n_big), "big16": (ctx["big16"], big, n_big)}
+
+    def node_case(key, xs):
+        model, g, n = node[key]
+        p = model.state_dict()
+        return (lambda: export_node_classifier(model, p, xs[0], g),
+                [(p, xs[i % len(xs)], g) for i in range(10)],
+                lambda p_, x_, g_: model(x_, g_), n)
+
+    cases = (
+        ("cora-serve-export", node_case("cora", requests), dict(segment_sum=2, edge_program_lean=1)),
+        ("synthetic-large-serve-export", node_case("big", [x_big]),
+         dict(segment_sum=2, edge_program_lean=1)),
+        ("synthetic-large-serve-bf16-export", node_case("big16", [x_big]),
+         dict(segment_sum_bf16=2, edge_program_lean_bf16=1)),
+        ("zinc-serve-export", (lambda: export_zinc_predictor(zmodel, zparams, zstate, zbatch),
+                               [(zparams, zstate, zbatch)] * 10, lambda p_, s_, b_: zmodel(b_),
+                               1024),
+         dict(minmax_prog=layers, segment_sum=1)),
+    )
+    for path, (make_blob, reqs, eager, n_real), per_request in cases:
+        t0 = time.perf_counter()
+        blob = make_blob()
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served = load_forward(blob)
+        load_s = time.perf_counter() - t0
+        with counted(path, paths), torch.no_grad():
+            outs = [served(*r) for r in reqs]
+        # Export and load launch nothing: every launch is a served request's.
+        expect_launches(paths, path, **{k: 10 * v for k, v in per_request.items()})
+        bitwise = True
+        with torch.no_grad():
+            for i, (r, out) in enumerate(zip(reqs, outs)):
+                want = eager(*r)
+                if out.shape != want.shape or not torch.isfinite(out[:n_real]).all():
+                    raise AssertionError(f"{path} request {i}: shape {tuple(out.shape)} or "
+                                         "non-finite output")
+                compare(out[:n_real], want[:n_real], 1e-6, f"{path} request {i} vs eager",
+                        verbose=i == 0)
+                bitwise &= torch.equal(out[:n_real], want[:n_real])
+            # Eager and served in turns (eager, served, served, eager): the
+            # host-clock and CUDA-event medians of one request.
+            t = {"eager": [], "served": []}
+            ev = {"eager": [], "served": []}
+            for which in ("eager", "served", "served", "eager"):
+                fn = eager if which == "eager" else served
+                t[which] += host_ms(lambda: fn(*reqs[0]), 10)
+                ev[which].append(device_ms(lambda: fn(*reqs[0]), iters=10))
+        print(f"{path}: artifact {len(blob)} bytes, export {export_s:.3f} s, load {load_s:.3f} s; "
+              f"10 requests within 1e-6 of eager, bitwise equal {bitwise}; one request (host "
+              f"clock / CUDA events, medians, in turns): served "
+              f"{statistics.median(t['served']):.4f} / {statistics.median(ev['served']):.4f} ms, "
+              f"eager {statistics.median(t['eager']):.4f} / "
+              f"{statistics.median(ev['eager']):.4f} ms")
+
+    # ------------------------------ the operators against their kernels
+    # Each mma_tpu_torch::* operator on the card equals its kernel called
+    # directly, bit for bit, and each call launches once.
+    with torch.no_grad():
+        rp, src = big.real_row_ptr, big.src
+        rows = x_big.index_select(0, src.long())
+        lean_args, _, _ = capture_call(fused_mma, "_edge_program_lean_kernel",
+                                       lambda: ctx["big_model"](x_big, big))
+        lean16_args, _, _ = capture_call(fused_mma, "_edge_program_lean_kernel",
+                                         lambda: ctx["big16"](x_big, big))
+        prog_args, _, _ = capture_call(mm, "_minmax_prog_kernel", lambda: zmodel(zbatch))
+        zrp = zbatch.graph.real_row_ptr
+        zrows = torch.randn((zbatch.graph.n_edge, prog_args[0].shape[1]),
+                            generator=torch.Generator().manual_seed(SEED + 7)).to(dev)
+        ops = torch.ops.mma_tpu_torch
+        holds = (
+            ("segment_sum_csr", "segment_sum", ops.segment_sum_csr, (rows, rp),
+             lambda *a: fused_mma._segment_sum_kernel(*a)),
+            ("segment_sum_csr bf16", "segment_sum_bf16", ops.segment_sum_csr,
+             (rows.bfloat16(), rp), lambda *a: fused_mma._segment_sum_kernel(*a)),
+            ("segment_sum_csr index", "segment_sum", ops.segment_sum_csr, (x_big, rp, src),
+             lambda *a: fused_mma._segment_sum_kernel(*a)),
+            ("segment_sum_csr index bf16", "segment_sum_bf16", ops.segment_sum_csr,
+             (x_big.bfloat16(), rp, src), lambda *a: fused_mma._segment_sum_kernel(*a)),
+            ("edge_program_lean", "edge_program_lean", ops.edge_program_lean, lean_args,
+             lambda *a: fused_mma._edge_program_lean_kernel(*a)),
+            ("edge_program_lean bf16", "edge_program_lean_bf16", ops.edge_program_lean,
+             lean16_args, lambda *a: fused_mma._edge_program_lean_kernel(*a)),
+            ("segment_minmax", "segment_minmax", ops.segment_minmax,
+             (zrows, zrp, ["min", "max"]),
+             lambda d_, r_, o_: mm._segment_minmax_kernel(d_, r_, tuple(o_))),
+            ("minmax_edge_program", "minmax_prog", ops.minmax_edge_program,
+             prog_args[:3] + (list(prog_args[3]),) + prog_args[4:],
+             lambda c_, h_, r_, o_, s_, t_: mm._minmax_prog_kernel(c_, h_, r_, tuple(o_), s_, t_)),
+            ("segment_sum_sq_csr", "segment_sum_sq", ops.segment_sum_sq_csr, (zrows, zrp),
+             lambda *a: fused_mma._segment_sum_sq_kernel(*a)),
+        )
+        for what, key, op, args, direct in holds:
+            before = launches()[key]
+            got = op(*args)
+            torch.cuda.synchronize()
+            mid = launches()[key]
+            want = direct(*args)
+            torch.cuda.synchronize()
+            if (mid - before, launches()[key] - mid) != (1, 1):
+                raise AssertionError(f"operator {what}: launches {mid - before} and "
+                                     f"{launches()[key] - mid}, expected 1 and 1")
+            if not torch.equal(got, want):
+                raise AssertionError(f"operator {what}: differs from its kernel called directly")
+        print(f"mma_tpu_torch operators: {len(holds)} holds, each bitwise equal to its kernel "
+              "called directly, one launch each")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1843,6 +2202,10 @@ def main() -> int:
         "init_state": init_state, "losses": losses, "step_ms": step_ms})
     del big_ref
     zinc_kernels = run_zinc(dev, paths)
+    run_resume_and_serving(dev, paths, {
+        "cora": cora, "cora_model": cora_model, "requests": requests, "big": big,
+        "big_model": big_model, "big16": bf16_models["big16"], "x_big": x_big, "n_big": n_big,
+        "labels": labels})
     run_sampled(dev, paths)
 
     # --------------------------------------------- per-kernel, large shapes

@@ -4,7 +4,8 @@
 
 The run goes on the GPU unless ``--device cpu`` is given (the kernels'
 plain PyTorch versions). ``--use-pallas`` is accepted and does nothing:
-the device decides. ``--checkpoint-dir`` is not ported yet and raises.
+the device decides. ``--checkpoint-dir`` with ``--checkpoint-every N``
+saves a checkpoint every N epochs.
 
 Usage (reproduces README.md:70):
     python -m mma_tpu_torch.cli.train_node --dataset cora \\
@@ -42,8 +43,10 @@ def build_parser():
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a GPU) or cpu")
     p.add_argument("--log", type=str, default=None, help="JSONL log path")
-    p.add_argument("--checkpoint-dir", type=str, default=None, help="not ported yet")
-    p.add_argument("--checkpoint-every", type=int, default=0, help="not ported yet")
+    p.add_argument("--checkpoint-dir", type=str, default=None,
+                   help="directory of the training checkpoints")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="save a checkpoint every N epochs (0: never)")
     # Reference-compat no-ops (parsed-but-ignored there too):
     p.add_argument("--no-cuda", action="store_true", help="compat no-op")
     p.add_argument("--early_stopping", type=int, default=10, help="compat no-op")

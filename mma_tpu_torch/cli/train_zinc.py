@@ -11,8 +11,9 @@ and the CSR kernels, which the H100 runs faster; ``ZincConfig``);
 no degree buckets.
 ``--remat`` recomputes each conv in the backward pass.
 ``--compute-dtype auto`` resolves to float32 off a TPU, as in the JAX
-package; ``--compute-dtype bfloat16`` (``ROADMAP.md`` item 28) and
-``--checkpoint-dir`` are not ported yet and raise.
+package; ``--compute-dtype bfloat16`` is not ported yet and raises
+(``ROADMAP.md`` item 28). ``--checkpoint-dir`` with ``--checkpoint-every
+N`` saves a checkpoint every N epochs.
 
 Usage (reproduces README.md:79):
     python -m mma_tpu_torch.cli.train_zinc --aggregators min,max \\
@@ -60,8 +61,10 @@ def build_parser():
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a GPU) or cpu")
     p.add_argument("--log", type=str, default=None, help="JSONL log path")
-    p.add_argument("--checkpoint-dir", type=str, default=None, help="not ported yet")
-    p.add_argument("--checkpoint-every", type=int, default=0, help="not ported yet")
+    p.add_argument("--checkpoint-dir", type=str, default=None,
+                   help="directory of the training checkpoints")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="save a checkpoint every N epochs (0: never)")
     return p
 
 

@@ -17,9 +17,11 @@ by destination node, with source ascending within each destination.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Optional
 
 import torch
+import torch.utils._pytree as pytree
 
 
 @dataclasses.dataclass
@@ -141,3 +143,58 @@ class BatchedGraphs:
     def to(self, device) -> "BatchedGraphs":
         """A copy with every tensor field (and the graph) on ``device``."""
         return _to(self, device)
+
+
+# ------------------------------------------------------------------ pytrees
+#
+# ``torch.export`` takes a Graph or a BatchedGraphs as an argument, so both
+# are pytree nodes: the tensor fields (and a batch's graph) are children,
+# and the static fields, with the names of the optional fields that are
+# set, are the context. The context is serialized as JSON, so that an
+# artifact's calling convention stays readable and executes no pickled
+# code (the JAX package's ``mma_tpu/serve/__init__.py:41-72`` codec). The
+# static fields are not int leaves: ``torch.export`` would specialize the
+# artifact on their values, where they are the graph's layout, which fixes
+# the traced code.
+
+_STATIC = {Graph: ("chunk_hint", "ell_hint", "ell_exact", "csc_ell_exact"),
+           BatchedGraphs: ("nodes_grouped",)}
+
+
+def _tuples(x):
+    """JSON lists back to the tuples the static fields hold."""
+    return tuple(_tuples(v) for v in x) if isinstance(x, list) else x
+
+
+def _register(cls, serialized_name: str) -> None:
+    static = _STATIC[cls]
+    children = tuple(f.name for f in dataclasses.fields(cls) if f.name not in static)
+
+    def flatten_with_keys(obj):
+        names = tuple(n for n in children if getattr(obj, n) is not None)
+        context = (names, tuple(getattr(obj, n) for n in static))
+        return [(pytree.GetAttrKey(n), getattr(obj, n)) for n in names], context
+
+    def flatten(obj):
+        keyed, context = flatten_with_keys(obj)
+        return [v for _, v in keyed], context
+
+    def unflatten(values, context):
+        names, statics = context
+        return cls(**dict(zip(names, values)), **dict(zip(static, statics)))
+
+    def to_dumpable(context) -> str:
+        return json.dumps(context, default=int)  # numpy ints in a hint
+
+    def from_dumpable(text: str):
+        names, statics = json.loads(text)
+        return tuple(names), tuple(_tuples(v) for v in statics)
+
+    pytree.register_pytree_node(
+        cls, flatten, unflatten, serialized_type_name=serialized_name,
+        to_dumpable_context=to_dumpable, from_dumpable_context=from_dumpable,
+        flatten_with_keys_fn=flatten_with_keys)
+
+
+_register(Graph, "mma_tpu_torch.Graph")
+_register(BatchedGraphs, "mma_tpu_torch.BatchedGraphs")

@@ -65,6 +65,12 @@ CPU, the kernels on the card (the backward of :func:`segment_sum_sq_csr`
 and of :func:`fused_masked_aggregate` is plain elementwise code on both,
 as in the JAX package). ``LAUNCHES`` counts kernel launches, so a run can
 show that its path went through the kernels.
+
+The forwards of kernels 1, 2 and 8 run as the ``torch.library`` operators
+``mma_tpu_torch::segment_sum_csr``, ``edge_program_lean`` and
+``segment_sum_sq_csr`` (``mma_tpu_torch.ops.cuda.library``), so that
+``torch.export`` can trace a forward through them: the operator's CPU
+implementation is the plain version, its CUDA implementation the kernel.
 """
 
 from __future__ import annotations
@@ -74,7 +80,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from mma_tpu_torch.ops.cuda import build
+from mma_tpu_torch.ops.cuda import build, library
 
 # The bf16 variants of kernels 1-3 count under their own "_bf16" keys.
 LAUNCHES = {"segment_sum": 0, "edge_program_lean": 0, "edge_program_lean_bwd": 0,
@@ -239,9 +245,19 @@ def _segment_sum_kernel(data: torch.Tensor, row_ptr: torch.Tensor,
 
 
 def _segment_sum(data, row_ptr, index=None):
+    """The operator's CPU implementation: the plain version for CPU tensors."""
     if _on_cpu(data, row_ptr, index):
         return segment_sum_reference(data, row_ptr, index)
     return _segment_sum_kernel(data, row_ptr, index)
+
+
+_segment_sum_op = library.define(
+    "segment_sum_csr(Tensor data, Tensor row_ptr, Tensor? index=None) -> Tensor",
+    cpu=_segment_sum,
+    cuda=lambda data, row_ptr, index=None: _segment_sum_kernel(data, row_ptr, index),
+    fake=lambda data, row_ptr, index=None: data.new_empty(
+        (row_ptr.shape[0] - 1, data.shape[1]), dtype=torch.float32),
+)
 
 
 def _expand_rows(ct: torch.Tensor, row_ptr: torch.Tensor, n_edges: int) -> torch.Tensor:
@@ -260,7 +276,7 @@ class _SegmentSum(torch.autograd.Function):
     def forward(ctx, data, row_ptr):
         ctx.save_for_backward(row_ptr)
         ctx.n_edges, ctx.dtype = data.shape[0], data.dtype
-        return _segment_sum(data, row_ptr)
+        return _segment_sum_op(data, row_ptr)
 
     @staticmethod
     def backward(ctx, ct):
@@ -288,7 +304,7 @@ def segment_sum_csr(data: torch.Tensor, row_ptr: torch.Tensor,
         return _SegmentSum.apply(data, row_ptr)
     if torch.is_grad_enabled() and data.requires_grad:
         raise ValueError("segment_sum_csr with an index is not differentiable")
-    return _segment_sum(data, row_ptr, index)
+    return _segment_sum_op(data, row_ptr, index)
 
 
 # ------------------------------------------------------------ kernels 2-3
@@ -582,16 +598,27 @@ def edge_program_lean_bwd(c: torch.Tensor, w_bot: torch.Tensor, h: torch.Tensor,
 
 
 def _edge_program_lean(c, w_bot, h, pattern, src, row_ptr):
+    """The operator's CPU implementation: the plain version for CPU tensors."""
     if _on_cpu(c, w_bot, h, pattern, src, row_ptr):
         return edge_program_lean_reference(c, w_bot, h, pattern, src, row_ptr)
     return _edge_program_lean_kernel(c, w_bot, h, pattern, src, row_ptr)
+
+
+_edge_program_lean_op = library.define(
+    "edge_program_lean(Tensor c, Tensor w_bot, Tensor h, Tensor pattern, Tensor src, "
+    "Tensor row_ptr) -> Tensor",
+    cpu=_edge_program_lean,
+    cuda=lambda *args: _edge_program_lean_kernel(*args),
+    fake=lambda c, w_bot, h, pattern, src, row_ptr: c.new_empty(
+        (c.shape[0], w_bot.shape[1]), dtype=torch.float32),
+)
 
 
 class _EdgeProgramLean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, c, w_bot, h, pattern, src, row_ptr, col_ptr, dst_csc):
         ctx.save_for_backward(c, w_bot, h, pattern, src, row_ptr, col_ptr, dst_csc)
-        return _edge_program_lean(c, w_bot, h, pattern, src, row_ptr)
+        return _edge_program_lean_op(c, w_bot, h, pattern, src, row_ptr)
 
     @staticmethod
     def backward(ctx, ct):
@@ -672,13 +699,27 @@ def _segment_sum_sq_kernel(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.T
     return out
 
 
+def _segment_sum_sq(data, row_ptr):
+    """The operator's CPU implementation: the plain version for CPU tensors."""
+    if _on_cpu(data, row_ptr):
+        return segment_sum_sq_reference(data, row_ptr)
+    return _segment_sum_sq_kernel(data, row_ptr)
+
+
+_segment_sum_sq_op = library.define(
+    "segment_sum_sq_csr(Tensor data, Tensor row_ptr) -> Tensor",
+    cpu=_segment_sum_sq,
+    cuda=lambda data, row_ptr: _segment_sum_sq_kernel(data, row_ptr),
+    fake=lambda data, row_ptr: data.new_empty(
+        (row_ptr.shape[0] - 1, 2 * data.shape[1]), dtype=torch.float32),
+)
+
+
 class _SegmentSumSq(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, row_ptr):
         ctx.save_for_backward(data, row_ptr)
-        if _on_cpu(data, row_ptr):
-            return segment_sum_sq_reference(data, row_ptr)
-        return _segment_sum_sq_kernel(data, row_ptr)
+        return _segment_sum_sq_op(data, row_ptr)
 
     @staticmethod
     def backward(ctx, ct):

@@ -21,7 +21,10 @@ callers' ``where(deg > 0, ·, 0)`` of the JAX package is not needed.
 Each kernel has a plain PyTorch version here (``*_reference``); a wrapper
 takes it for CPU tensors and launches the kernel for CUDA tensors, and any
 other device, dtype, shape or layout raises. ``LAUNCHES`` counts kernel
-launches, so a run can show that its path went through the kernels.
+launches, so a run can show that its path went through the kernels. The
+forwards of kernels 4 and 6 run as the ``torch.library`` operators
+``mma_tpu_torch::segment_minmax`` and ``minmax_edge_program``
+(``mma_tpu_torch.ops.cuda.library``).
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from mma_tpu_torch.graph.container import Graph
-from mma_tpu_torch.ops.cuda import build
+from mma_tpu_torch.ops.cuda import build, library
 from mma_tpu_torch.ops.cuda.fused_mma import (
     _check_cuda_inputs,
     _check_dtype,
@@ -316,12 +319,28 @@ def _minmax_prog_bwd_kernel(c, hg, row_ptr, ops, seed, rate, out, ct):
 
 # --------------------------------------------------------------- dispatch
 
-def segment_minmax(data, row_ptr, ops):
-    """Kernel 4, or its plain version for CPU tensors."""
+def _segment_minmax(data, row_ptr, ops):
+    """Kernel 4's operator's CPU implementation: the plain version for CPU
+    tensors."""
     ops = _check_ops(ops)
     if _on_cpu(data, row_ptr):
         return segment_minmax_reference(data, row_ptr, ops)
     return _segment_minmax_kernel(data, row_ptr, ops)
+
+
+_segment_minmax_op = library.define(
+    "segment_minmax(Tensor data, Tensor row_ptr, str[] ops) -> Tensor",
+    cpu=_segment_minmax,
+    cuda=lambda data, row_ptr, ops: _segment_minmax_kernel(data, row_ptr, _check_ops(ops)),
+    fake=lambda data, row_ptr, ops: data.new_empty(
+        (row_ptr.shape[0] - 1, len(ops) * data.shape[1]), dtype=torch.float32),
+)
+
+
+def segment_minmax(data, row_ptr, ops):
+    """Kernel 4 (``mma_tpu_torch::segment_minmax``), or its plain version
+    for CPU tensors."""
+    return _segment_minmax_op(data, row_ptr, list(_check_ops(ops)))
 
 
 def segment_minmax_bwd(data, row_ptr, ops, out, ct):
@@ -332,12 +351,30 @@ def segment_minmax_bwd(data, row_ptr, ops, out, ct):
     return _segment_minmax_bwd_kernel(data, row_ptr, ops, out, ct)
 
 
-def minmax_edge_program(c, hg, row_ptr, ops, seed=None, rate=0.5):
-    """Kernel 6, or its plain version for CPU tensors."""
+def _minmax_edge_program(c, hg, row_ptr, ops, seed=None, rate=0.5):
+    """Kernel 6's operator's CPU implementation: the plain version for CPU
+    tensors."""
     ops = _check_ops(ops)
     if _on_cpu(c, hg, row_ptr, seed):
         return minmax_edge_program_reference(c, hg, row_ptr, ops, seed, rate)
     return _minmax_prog_kernel(c, hg, row_ptr, ops, seed, rate)
+
+
+_minmax_edge_program_op = library.define(
+    "minmax_edge_program(Tensor c, Tensor hg, Tensor row_ptr, str[] ops, Tensor? seed=None, "
+    "float rate=0.5) -> Tensor",
+    cpu=_minmax_edge_program,
+    cuda=lambda c, hg, row_ptr, ops, seed=None, rate=0.5: _minmax_prog_kernel(
+        c, hg, row_ptr, _check_ops(ops), seed, rate),
+    fake=lambda c, hg, row_ptr, ops, seed=None, rate=0.5: c.new_empty(
+        (c.shape[0], len(ops) * c.shape[1]), dtype=torch.float32),
+)
+
+
+def minmax_edge_program(c, hg, row_ptr, ops, seed=None, rate=0.5):
+    """Kernel 6 (``mma_tpu_torch::minmax_edge_program``), or its plain
+    version for CPU tensors."""
+    return _minmax_edge_program_op(c, hg, row_ptr, list(_check_ops(ops)), seed, float(rate))
 
 
 def minmax_edge_program_bwd(c, hg, row_ptr, ops, seed, rate, out, ct):

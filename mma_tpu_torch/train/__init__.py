@@ -1,4 +1,5 @@
-"""Training: the node-classification, ZINC and sampled loops, their configs, optimizer and metrics."""
+"""Training: the node-classification, ZINC and sampled loops, their configs,
+optimizer and metrics, checkpoints and the resilient step runner."""
 
 from mma_tpu_torch.train.config import (
     NODE_CLS_PRESETS,
@@ -14,6 +15,7 @@ from mma_tpu_torch.train.loops import (
 )
 from mma_tpu_torch.train.metrics import accuracy, mae
 from mma_tpu_torch.train.optim import ReduceLROnPlateau, make_optimizer
+from mma_tpu_torch.train.resilience import FailureRecord, ResilientRunner
 from mma_tpu_torch.train.sampled import (
     DeviceTableAssembler,
     SampledTrainConfig,
@@ -24,9 +26,11 @@ from mma_tpu_torch.train.sampled import (
 
 __all__ = [
     "DeviceTableAssembler",
+    "FailureRecord",
     "NODE_CLS_PRESETS",
     "NodeClassificationConfig",
     "ReduceLROnPlateau",
+    "ResilientRunner",
     "SampledTrainConfig",
     "ZINC_PRESET",
     "ZincConfig",

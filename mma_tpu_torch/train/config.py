@@ -28,8 +28,9 @@ run in both packages. Fields that read differently:
   ``compute_dtype="auto"`` resolves to float32 off a TPU; ``"bfloat16"``
   is not ported yet for ZINC and raises (``ROADMAP.md`` item 28).
 
-Checkpointing (``checkpoint_dir``, ``checkpoint_every``, ``resume``) is
-not ported yet; a run that asks for it raises.
+Checkpointing (``checkpoint_dir``, ``checkpoint_every``, ``resume``)
+works as in the JAX package; what a checkpoint holds is in
+``mma_tpu_torch.train.loops``.
 """
 
 from __future__ import annotations

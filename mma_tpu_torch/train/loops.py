@@ -18,6 +18,20 @@ Randomness: the weights are drawn from a CPU generator seeded with
 ``cfg.seed`` (so one seed gives the same weights on any device), and the
 dropout draws from one generator on the run's device, seeded with
 ``cfg.seed``. Its stream differs from JAX's.
+
+Checkpoints (``cfg.checkpoint_dir`` with ``cfg.checkpoint_every`` epochs,
+``mma_tpu/train/loops.py:79-90``, ``:143-149``, ``:206-222``,
+``:336-345``): every ``checkpoint_every`` epochs the loop saves, keyed by
+``epoch + 1``, the payload ``{"params", "opt_state", "key"}``: the
+module's and the optimizer's ``state_dict`` and the dropout generator's
+state, which stands in for the JAX key. ZINC adds ``"state"`` (the
+BatchNorm buffers; ``"params"`` then holds the parameters alone) and
+``"sched"`` (the plateau scheduler's ``[lr, best, num_bad]``).
+``cfg.resume`` restores the latest step, logs ``resumed_from_epoch`` and
+trains the epochs after it. The weights, the optimizer, the generator and
+the scheduler are then where the uninterrupted run had them, and ZINC's
+shuffle is seeded per epoch, so a resumed run repeats the uninterrupted
+one bit for bit on the CPU.
 """
 
 from __future__ import annotations
@@ -37,10 +51,12 @@ from mma_tpu_torch.device import DeviceLike, resolve_device
 from mma_tpu_torch.graph.container import BatchedGraphs, Graph
 from mma_tpu_torch.models import NodeClassifier, ZincNet
 from mma_tpu_torch.nn.mma_conv import compute_avg_deg
+from mma_tpu_torch.train import checkpoint as ckpt
 from mma_tpu_torch.train.config import NodeClassificationConfig, ZincConfig
 from mma_tpu_torch.train.logger import JsonlLogger
 from mma_tpu_torch.train.metrics import accuracy
 from mma_tpu_torch.train.optim import ReduceLROnPlateau, make_optimizer
+from mma_tpu_torch.utils.profiling import trace
 
 # The JAX package's matmul precisions → torch's float32 matmul precision.
 _MATMUL_PRECISION = {"highest": "highest", "high": "high", "default": "medium"}
@@ -89,12 +105,11 @@ def train_node_classification(cfg: NodeClassificationConfig, data=None, *,
 
     ``device=None`` runs on the GPU and raises without one. Returns
     ``{"loss_test", "acc_test", "history", "params", "synthetic_features",
-    "model"}``: ``history`` holds one record per epoch with the JAX
-    package's keys, ``params`` the trained parameters as the JAX package's
-    numpy tree, ``model`` the trained module.
+    "model"}``: ``history`` holds one record per epoch trained by this call
+    with the JAX package's keys, ``params`` the trained parameters as the
+    JAX package's numpy tree, ``model`` the trained module. Checkpointing
+    and resume: the module docstring.
     """
-    if cfg.checkpoint_dir or cfg.resume:
-        raise NotImplementedError("checkpoint/resume is not ported yet")
     dev = resolve_device(device)
     with matmul_precision(cfg.matmul_precision):
         return _train(cfg, data, dev)
@@ -131,6 +146,16 @@ def _train(cfg: NodeClassificationConfig, data, dev: torch.device):
     opt = make_optimizer(model.parameters(), cfg.lr, cfg.weight_decay)
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
 
+    start_epoch = 0
+    if cfg.resume and cfg.checkpoint_dir:
+        step, payload = ckpt.restore_checkpoint(cfg.checkpoint_dir)
+        if step is not None:
+            model.load_state_dict(payload["params"])
+            opt.load_state_dict(payload["opt_state"])
+            gen.set_state(payload["key"])
+            start_epoch = step
+            log.log(resumed_from_epoch=step)
+
     def eval_forward():
         with torch.no_grad():
             return model(x, graph, training=False,
@@ -138,9 +163,9 @@ def _train(cfg: NodeClassificationConfig, data, dev: torch.device):
                          parity_eval_dropout=cfg.parity_eval_dropout)
 
     history = []
-    for epoch in range(cfg.epochs):
+    for epoch in range(start_epoch, cfg.epochs):
         t = time.time()
-        with torch.profiler.record_function("train_step"):
+        with trace("train_step"):
             loss_train, logp_train = node_train_step(model, opt, x, graph, labels,
                                                      idx_train, gen)
         acc_train = accuracy(logp_train[idx_train], labels[idx_train])
@@ -158,6 +183,10 @@ def _train(cfg: NodeClassificationConfig, data, dev: torch.device):
         )
         history.append(rec)
         log.log(**rec)
+        if cfg.checkpoint_dir and cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0:
+            ckpt.save_checkpoint(cfg.checkpoint_dir, epoch + 1, {
+                "params": model.state_dict(), "opt_state": opt.state_dict(),
+                "key": gen.get_state()})
 
     logp = eval_forward()
     results = {
@@ -263,11 +292,10 @@ def train_zinc(cfg: ZincConfig, datasets: Optional[Dict] = None, *,
 
     ``device=None`` runs on the GPU and raises without one. Returns
     ``{"history", "params", "state", "val_mae", "test_mae", "model"}``:
-    ``history`` holds one record per epoch with the JAX package's keys,
-    ``params``/``state`` the trained model as the JAX package's numpy trees.
+    ``history`` holds one record per epoch trained by this call with the
+    JAX package's keys, ``params``/``state`` the trained model as the JAX
+    package's numpy trees. Checkpointing and resume: the module docstring.
     """
-    if cfg.checkpoint_dir or cfg.resume:
-        raise NotImplementedError("checkpoint/resume is not ported yet")
     dev = resolve_device(device)
     with matmul_precision(cfg.matmul_precision):
         return _train_zinc(cfg, datasets, dev)
@@ -294,6 +322,19 @@ def _train_zinc(cfg: ZincConfig, datasets, dev: torch.device):
                               min_lr=cfg.min_lr)
     n_node, n_edge, budgets = zinc_layout(cfg, (train_ds, val_ds, test_ds))
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    buffers = {name for name, _ in model.named_buffers()}
+
+    start_epoch = 0
+    if cfg.resume and cfg.checkpoint_dir:
+        step, payload = ckpt.restore_checkpoint(cfg.checkpoint_dir)
+        if step is not None:
+            model.load_state_dict({**payload["params"], **payload["state"]})
+            opt.load_state_dict(payload["opt_state"])
+            gen.set_state(payload["key"])
+            sched.lr, sched.best, sched.num_bad = payload["sched"]
+            set_learning_rate(opt, sched.lr)
+            start_epoch = step
+            log.log(resumed_from_epoch=step)
 
     def batches(ds, **kw):
         return ds.batches(cfg.batch_size, n_node=n_node, n_edge=n_edge,
@@ -314,12 +355,12 @@ def _train_zinc(cfg: ZincConfig, datasets, dev: torch.device):
         return float(tot) / max(float(cnt), 1.0)
 
     history = []
-    for epoch in range(cfg.epochs):
+    for epoch in range(start_epoch, cfg.epochs):
         t = time.time()
         total_loss = torch.zeros((), device=dev)
         total_graphs = torch.zeros((), device=dev)
         for batch in batches(train_ds, shuffle=True, seed=cfg.seed + epoch):
-            with torch.profiler.record_function("train_step"):
+            with trace("train_step"):
                 loss = zinc_train_step(model, opt, batch, gen)
             ng = batch.graph_mask.sum()
             total_loss += loss * ng
@@ -332,6 +373,13 @@ def _train_zinc(cfg: ZincConfig, datasets, dev: torch.device):
                    val_mae=val_mae, test_mae=test_mae, lr=new_lr, time=time.time() - t)
         history.append(rec)
         log.log(**rec)
+        if cfg.checkpoint_dir and cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0:
+            weights = model.state_dict()
+            ckpt.save_checkpoint(cfg.checkpoint_dir, epoch + 1, {
+                "params": {k: v for k, v in weights.items() if k not in buffers},
+                "state": {k: v for k, v in weights.items() if k in buffers},
+                "opt_state": opt.state_dict(), "key": gen.get_state(),
+                "sched": [sched.lr, sched.best, sched.num_bad]})
     log.close()
     params, state = zinc_net_to_numpy(model)
     return {

@@ -5,7 +5,7 @@ or a train step.
     python3 scripts/torch_forward_profile.py
         [--graph synthetic-large|cora|zinc|zinc-default|zinc-pna]
         [--mode forward|train|wide|masked] [--bwd-mode payload_permute|csc_gather]
-        [--iters 5] [--batch 1024] [--layout plain|exact]
+        [--iters 5] [--batch 1024] [--layout plain|exact] [--served]
 
 Builds the kernels, runs the work once to warm up, then traces ``--iters``
 runs with ``torch.profiler`` and prints the device time per kernel (sum
@@ -30,8 +30,10 @@ backward of ``masked_multi_aggregate`` (F=64, ``mean,mean2``) with
 masked`` runs ``chip_smoke.py``'s large-masked work: the forward and
 backward of ``fused_masked_aggregate`` on the pre-gathered logits ``c[dst]
 + d[src]`` and rows ``h[src]`` (kernel 12, and kernel 1 for the gathers'
-VJPs). Weights,
-features and labels are random from a seed, as in ``chip_smoke.py``.
+VJPs). ``--served`` runs the eval forward through an artifact of
+``mma_tpu_torch.serve`` (exported on the card, loaded from its bytes), as
+``chip_smoke.py``'s -serve-export paths serve it. Weights, features and
+labels are random from a seed, as in ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -58,9 +60,13 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=1024, help="ZINC molecules per batch")
     ap.add_argument("--layout", choices=("plain", "exact"), default="plain",
                     help="ZINC collate: plain or degree-exact")
+    ap.add_argument("--served", action="store_true",
+                    help="the eval forward through an exported artifact (mma_tpu_torch.serve)")
     args = ap.parse_args()
     if args.mode in ("wide", "masked") and args.graph != "synthetic-large":
         ap.error(f"--mode {args.mode} runs on --graph synthetic-large")
+    if args.served and args.mode != "forward":
+        ap.error("--served profiles the eval forward (--mode forward)")
     if not torch.cuda.is_available():
         print("torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -149,14 +155,27 @@ def main() -> int:
                 zinc_train_step(model, opt, batch, step_gen)
             else:
                 node_train_step(model, opt, x, graph, labels, idx, step_gen)
-    elif args.graph.startswith("zinc"):
-        def run():
-            with torch.no_grad():
-                model(batch)
     else:
+        zinc = args.graph.startswith("zinc")
+        params = model.state_dict()
+        inputs, forward = ((params, batch), lambda p, b: model(b)) if zinc else (
+            (params, x, graph), lambda p, x_, g: model(x_, g))
+        if args.served:
+            from mma_tpu_torch.serve import (export_node_classifier, export_zinc_predictor,
+                                             load_forward)
+
+            if zinc:
+                buffers = {k for k, _ in model.named_buffers()}
+                state = {k: v for k, v in params.items() if k in buffers}
+                params = {k: v for k, v in params.items() if k not in buffers}
+                forward = load_forward(export_zinc_predictor(model, params, state, batch))
+                inputs = (params, state, batch)
+            else:
+                forward = load_forward(export_node_classifier(model, params, x, graph))
+
         def run():
             with torch.no_grad():
-                model(x, graph)
+                forward(*inputs)
 
     run()
     torch.cuda.synchronize()
@@ -187,6 +206,7 @@ def main() -> int:
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     mode = f"wide {args.bwd_mode}" if args.mode == "wide" else args.mode
+    mode += " (served)" if args.served else ""
     layout = f" ({args.layout} layout)" if args.graph.startswith("zinc") else ""
     print(f"graph {args.graph}{layout}, {mode}: host-clock time per run (ms): "
           f"{' '.join(f'{v:.3f}' for v in lat)}")

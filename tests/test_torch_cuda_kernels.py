@@ -1136,3 +1136,120 @@ def test_masked_kernel_rejects_what_it_does_not_take(cuda, hub_graph):
     with pytest.raises(ValueError, match="several devices"):
         fused_mma.masked_segment_sum(logits, h_src.cpu(), pat, rp)
     assert fused_mma.LAUNCHES["masked_segment_sum"] == before
+
+
+# ------------------------------------------- the torch.library operators
+
+def _operator_cases(cuda, graph):
+    """``(operator, args, the kernel called directly, its LAUNCHES key)``."""
+    from mma_tpu_torch.ops.cuda import segment_minmax as mm
+
+    rs = np.random.RandomState(11)
+    n, e = graph.n_node, graph.n_edge
+    rp = graph.real_row_ptr
+
+    def draw(*shape):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda)
+
+    lean = _lean_inputs(cuda, rs, n, e, 16, 32) + (rp,)
+    lean16 = _bf16_lean_inputs(cuda, rs, n, e, 16, 32) + (rp,)
+    seed = torch.tensor([777], dtype=torch.int32, device=cuda)
+    k1, k2 = fused_mma._segment_sum_kernel, fused_mma._edge_program_lean_kernel
+    ops = torch.ops.mma_tpu_torch
+    return [
+        (ops.segment_sum_csr, (draw(e, 16), rp), k1, "segment_sum"),
+        (ops.segment_sum_csr, (draw(e, 16).bfloat16(), rp), k1, "segment_sum_bf16"),
+        (ops.segment_sum_csr, (draw(n, 12), rp, graph.src), k1, "segment_sum"),
+        (ops.segment_sum_csr, (draw(n, 12).bfloat16(), rp, graph.src), k1, "segment_sum_bf16"),
+        (ops.edge_program_lean, lean, k2, "edge_program_lean"),
+        (ops.edge_program_lean, lean16, k2, "edge_program_lean_bf16"),
+        (ops.segment_minmax, (draw(e, 37), rp, ["min", "max"]),
+         lambda d, r, o: mm._segment_minmax_kernel(d, r, tuple(o)), "segment_minmax"),
+        (ops.minmax_edge_program, (draw(n, 37), draw(e, 37), rp, ["max", "min"], None, 0.5),
+         lambda c, h, r, o, s, t: mm._minmax_prog_kernel(c, h, r, tuple(o), s, t), "minmax_prog"),
+        (ops.minmax_edge_program, (draw(n, 37), draw(e, 37), rp, ["max"], seed, 0.5),
+         lambda c, h, r, o, s, t: mm._minmax_prog_kernel(c, h, r, tuple(o), s, t), "minmax_prog"),
+        (ops.segment_sum_sq_csr, (draw(e, 16), rp), fused_mma._segment_sum_sq_kernel,
+         "segment_sum_sq"),
+    ]
+
+
+def _launches():
+    from mma_tpu_torch.ops.cuda import segment_minmax as mm
+
+    return {**fused_mma.LAUNCHES, **mm.LAUNCHES}
+
+
+@pytest.mark.parametrize("case", range(10))
+def test_operators_are_their_kernels(cuda, graph, case):
+    """Each ``mma_tpu_torch::*`` operator on the card is the hand-written
+    kernel: bitwise equal to the kernel called directly, one launch a call."""
+    op, args, direct, key = _operator_cases(cuda, graph)[case]
+    before = _launches()[key]
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert _launches()[key] == before + 1
+    assert torch.equal(got, direct(*args))
+    assert _launches()[key] == before + 2
+
+
+def test_exported_forwards_launch_the_kernels(cuda, graph):
+    """A node classifier and a ZincNet exported on the card, loaded from the
+    bytes: the served outputs equal the eager forwards bit for bit, and each
+    request launches kernels 1 and 2 (6 and 1)."""
+    from mma_tpu_torch.data import load_zinc
+    from mma_tpu_torch.models import NodeClassifier, ZincNet
+    from mma_tpu_torch.serve import export_node_classifier, export_zinc_predictor, load_forward
+
+    model = NodeClassifier(24, 16, 5, ("mean", "mean2"), device=cuda,
+                           generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.RandomState(5).randn(graph.n_node, 24).astype(np.float32))
+    x = x.to(cuda)
+    params = model.state_dict()
+    served = load_forward(export_node_classifier(model, params, x, graph))
+    before = _launches()
+    with torch.no_grad():
+        got = served(params, x, graph)
+        torch.cuda.synchronize()
+        after = _launches()
+        assert torch.equal(got, model(x, graph))
+    assert (after["segment_sum"] - before["segment_sum"],
+            after["edge_program_lean"] - before["edge_program_lean"]) == (2, 1)
+    with pytest.raises(ValueError, match="serves on 'cuda'"):
+        served({k: v.cpu() for k, v in params.items()}, x.cpu(), graph.to("cpu"))
+
+    ds = load_zinc("val", subset_size=8)
+    net = ZincNet(("min", "max"), ("identity", "amplification", "linear"),
+                  {"lin": 2.1, "log": 1.05, "exp": 9.3}, num_layers=2, towers=5, device=cuda,
+                  generator=torch.Generator().manual_seed(1))
+    batch = next(ds.batches(4, n_node=160, n_edge=400, device=cuda))
+    buffers = {k for k, _ in net.named_buffers()}
+    weights = net.state_dict()
+    p = {k: v for k, v in weights.items() if k not in buffers}
+    s = {k: v for k, v in weights.items() if k in buffers}
+    served = load_forward(export_zinc_predictor(net, p, s, batch))
+    before = _launches()
+    with torch.no_grad():
+        got = served(p, s, batch)
+        torch.cuda.synchronize()
+        after = _launches()
+        assert torch.equal(got, net(batch))
+    assert (after["minmax_prog"] - before["minmax_prog"],
+            after["segment_sum"] - before["segment_sum"]) == (2, 1)
+
+
+def test_checkpoints_restore_to_the_target_device(cuda, tmp_path):
+    from mma_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    payload = {"w": torch.randn(4, 3, device=cuda), "key": gen.get_state()}
+    save_checkpoint(str(tmp_path), 1, payload)
+    _, same = restore_checkpoint(str(tmp_path))
+    assert same["w"].device.type == "cuda" and torch.equal(same["w"], payload["w"])
+    _, cpu = restore_checkpoint(str(tmp_path), target={"w": torch.zeros(4, 3),
+                                                       "key": gen.get_state()})
+    assert cpu["w"].device.type == "cpu" and torch.equal(cpu["w"], payload["w"].cpu())
+    again = torch.Generator(device=cuda)
+    again.set_state(same["key"])
+    assert torch.equal(torch.rand(5, generator=again, device=cuda),
+                       torch.rand(5, generator=gen, device=cuda))

@@ -120,10 +120,11 @@ def test_convert_rejects_mismatched_params(small):
         node_classifier_from_jax(params, model)
 
 
-def test_unported_requests_raise(small):
+def test_unported_requests_raise(small, tmp_path):
     """bf16 requests outside the node-classification slice raise, naming
     their ROADMAP item (the node classifier's bf16 and ``auto`` run:
-    ``tests/test_torch_bf16.py``); so do checkpoints."""
+    ``tests/test_torch_bf16.py``). Checkpoints are ported and run
+    (``tests/test_torch_checkpoint.py``)."""
     _, tg, x, _ = small
     with pytest.raises(NotImplementedError, match="item 28"):
         MultiMaskConv(8, 8, ("min",), ("identity",), {"lin": 1.0, "log": 1.0},
@@ -141,12 +142,10 @@ def test_unported_requests_raise(small):
         fused_mma.fused_masked_aggregate(logits, h_src, pat, tg, 2)
     with pytest.raises(ValueError, match="float32"):
         fused_mma.masked_segment_sum(logits, h_src, pat, tg.real_row_ptr)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        train_node_classification(
-            dataclasses.replace(NODE_CLS_PRESETS["cora"], checkpoint_dir="ckpt"), device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        train_node_classification(dataclasses.replace(NODE_CLS_PRESETS["cora"], resume=True),
-                                  device="cpu")
+    cfg = dataclasses.replace(NODE_CLS_PRESETS["cora"], epochs=1, checkpoint_dir=str(tmp_path),
+                              checkpoint_every=1, resume=True)
+    res = train_node_classification(cfg, device="cpu")  # nothing to resume: from scratch
+    assert [r["epoch"] for r in res["history"]] == [1] and (tmp_path / "step_00000001").exists()
     # The moment combines and mask dropout run.
     out = MMALayer(16, 8, ("moment_3",), parity=False, device="cpu")(
         torch.from_numpy(np.ascontiguousarray(x[:, :16])), tg)
