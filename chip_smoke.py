@@ -4,8 +4,9 @@
 1. Prints the card's name and power limit (``nvidia-smi``), then builds
    every CUDA kernel of the port from ``mma_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together).
-2. Thirty-two main paths, each with the kernels' launch counters set to 0
-   just before it and read just after:
+2. Thirty-five main paths in this process and four in each rank of a
+   two-rank world, each with the kernels' launch counters set to 0 just
+   before it and read just after:
 
    - **serve**: the node classifier's eval forward answers 3 requests on
      Cora at the README preset (1433 features, hidden 64, 7 classes,
@@ -104,6 +105,29 @@
      (kernel 1 with and without an index, f32 and bf16 rows; kernel 2 with
      f32 and bf16 ``h``; kernels 4, 6 and 8) against its kernel called
      directly: bitwise equal, one launch each.
+
+   - The multi-device regimes (``mma_tpu_torch.parallel``). A world of one
+     on NCCL in this process, each path bitwise equal to its single-device
+     twin under deterministic algorithms and timed beside it in turns:
+     **synthetic-large-edge-sharded** (the large-train model's forward and
+     3 Adam steps on the one shard with its kernel structure: kernels 1-3),
+     **zinc-dp** (3 data-parallel steps of the README preset at the
+     flagship batch, dropout on: kernels 1, 6 and 7) and
+     **sampled-train-dp** (the sampled-train command line with
+     ``--data-parallel``, 3 steps: kernel 1). Then a world of two processes
+     sharing the card over gloo (``two_rank_worker``, spawned once after the
+     build; the ranks load the kernels), whose paths count per rank:
+     **edge-sharded** (synthetic-large's forward and one step on two edge
+     shards, within 1e-5 of the single-device forward and gradients:
+     kernels 1-3 on each rank), **zinc-dp** (one step on two 1,024-molecule
+     micro-batches, the summed gradients within 1e-5 of the two shares
+     computed one after the other), **zinc-dp-edge** (the command line's
+     ``mean,max,min`` on the flagship batch at data x edge mesh 1 x 2, the
+     forward and one step within 1e-5 of the single-device general route:
+     kernels 1, 4 and 5) and **sampled-train-dp** (one step on a sampled
+     subgraph per rank, the summed gradients within 1e-5 of the shares).
+     Replicated results are bitwise equal across the ranks. Two ranks on
+     one card measure correctness, not scaling.
 
    Each path's launch counts are derived from the code and checked.
 3. Checks every output (finite log-probs of the expected shape whose rows
@@ -1855,6 +1879,474 @@ def run_resume_and_serving(dev, paths: dict, ctx: dict) -> None:
               "called directly, one launch each")
 
 
+# ------------------------------------------------------------ parallel paths
+#
+# The multi-device regimes (mma_tpu_torch.parallel). The card is one H100,
+# so they run as a world of one on NCCL in this process, each held bitwise
+# against its single-device twin, then as a world of two processes sharing
+# the card over gloo, held within 1e-5 of single-device computations. Two
+# ranks on one card measure correctness, not scaling: no time of theirs is
+# a multi-card figure.
+
+TWO_RANK_DIR = os.path.join(LOG_DIR, "chip_smoke_two_ranks")
+
+
+def zinc_step_launches(layers: int) -> dict:
+    """Kernel calls of one ZincNet train step of the README preset (min,max)
+    on the plain collate: kernels 6 and 7 once per layer, kernel 1 once per
+    layer (the gather_by_src VJP) and once for the pool."""
+    return {"minmax_prog": layers, "minmax_prog_bwd": layers, "segment_sum": layers + 1}
+
+
+def zinc_general_launches(layers: int, steps: int, evals: int) -> dict:
+    """Kernel calls of ``mean,max,min`` on the general CSR route, as
+    zinc-train-default counts them: per step and layer kernel 4 and kernel 1
+    forward, kernel 5 and kernel 1 twice backward, and kernel 1 for the
+    pool; per eval forward kernel 4 and kernel 1 per layer and the pool."""
+    return {"segment_minmax": layers * (steps + evals), "segment_minmax_bwd": layers * steps,
+            "segment_sum": steps * (3 * layers + 1) + evals * (layers + 1)}
+
+
+def scaled(per_step: dict, n: int) -> dict:
+    return {k: v * n for k, v in per_step.items()}
+
+
+def collective_stats() -> str:
+    from mma_tpu_torch.parallel import collectives
+
+    s = collectives.STATS
+    return ", ".join(f"{op} {s[op + '_calls']} calls / {s[op + '_bytes']} B"
+                     for op in ("all_reduce", "all_gather", "reduce_scatter"))
+
+
+def worst(errs: dict) -> dict:
+    """The largest of several ``compare`` results, by relative error."""
+    name = max(errs, key=lambda k: errs[k]["max_rel_err"])
+    return {"of": name, "tensors": len(errs), **errs[name]}
+
+
+def params_equal(a: torch.nn.Module, b: torch.nn.Module) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a.state_dict().values(),
+                                                 b.state_dict().values()))
+
+
+def in_turns(first, second, n: int = 10):
+    """Host-clock ms of ``n`` calls of each, alternating, each call ended
+    by a sync."""
+    times = ([], [])
+    for _ in range(n):
+        for fn, out in ((first, times[0]), (second, times[1])):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def zinc_micro_batches(dev, count: int, size: int = 1024):
+    """``count`` ZINC train batches of ``size`` molecules each (the first is
+    the flagship batch's molecules), padded alike to the next 1,024 nodes
+    and edges of the largest."""
+    from mma_tpu_torch.data import load_zinc
+    from mma_tpu_torch.nn import mma_conv
+
+    ds = load_zinc("train", subset_size=count * size)
+    nodes = [int(ds.num_nodes[i * size:(i + 1) * size].sum()) + 1 for i in range(count)]
+    edges = [sum(len(s_) for s_ in ds.edge_src[i * size:(i + 1) * size]) for i in range(count)]
+    batches = list(ds.batches(size, n_node=-(-max(nodes) // 1024) * 1024,
+                              n_edge=-(-max(edges) // 1024) * 1024, device=dev))
+    return batches, mma_conv.compute_avg_deg(ds.degree_histogram(), parity=True)
+
+
+def run_parallel(dev, paths: dict, ctx: dict) -> None:
+    """World of one on NCCL in this process: the edge-sharded
+    synthetic-large forward and 3 steps, 3 data-parallel ZINC steps at the
+    flagship batch and 3 data-parallel sampled steps, each bitwise equal to
+    its single-device twin under deterministic algorithms, timed beside it
+    in turns (10 steps each after the checked ones, in the default mode)."""
+    import torch.distributed as dist
+
+    from mma_tpu_torch import NodeClassifier
+    from mma_tpu_torch.cli import train_sampled as cli
+    from mma_tpu_torch.models import ZincNet
+    from mma_tpu_torch.parallel import (
+        collectives,
+        initialize_distributed,
+        make_dp_train_step,
+        make_edge_sharded_forward,
+        make_edge_sharded_train_step,
+        make_mesh,
+        shard_graph,
+        shard_stacked_batch,
+        stack_batches,
+    )
+    from mma_tpu_torch.train import make_optimizer
+    from mma_tpu_torch.train.loops import node_train_step, zinc_train_step
+
+    rank_dev = initialize_distributed(str(dev))
+    print(f"world of one: {dist.get_backend()} on {rank_dev}")
+    try:
+        # ------------------------ main path: synthetic-large-edge-sharded
+        big, x_big, labels, idx_train = ctx["big"], ctx["x_big"], ctx["labels"], ctx["idx_train"]
+        mesh = make_mesh(("edge",))
+
+        def model():
+            m = NodeClassifier(64, 64, 16, ("mean", "mean2"), dropout_rate=0.0, device=dev,
+                               generator=torch.Generator().manual_seed(SEED + 3))
+            m.load_state_dict(ctx["init_state"])
+            return m
+
+        sharded, twin = model(), model()
+        shard = shard_graph(big, mesh, "edge", kernel_structure=True)
+        for f in ("src", "dst", "row_ptr", "src_perm", "col_ptr", "dst_csc"):
+            if not torch.equal(getattr(shard, f), getattr(big, f)):
+                raise AssertionError(f"the one shard's {f} differs from the graph's")
+        opt_s = make_optimizer(sharded.parameters(), 1e-3)
+        opt_t = make_optimizer(twin.parameters(), 1e-3)
+        step = make_edge_sharded_train_step(sharded, opt_s, mesh, labels, idx_train, "edge")
+        losses = ([], [])
+        collectives.reset_stats()
+        with deterministic():
+            with counted("synthetic-large-edge-sharded", paths):
+                with torch.no_grad():
+                    out = make_edge_sharded_forward(sharded, mesh, "edge")(x_big, shard)
+                fwd_stats = collective_stats()
+                collectives.reset_stats()
+                for _ in range(3):
+                    losses[0].append(float(step(x_big, shard)))
+            step_stats = collective_stats()
+            with torch.no_grad():
+                want = twin(x_big, big)
+            for _ in range(3):
+                losses[1].append(float(node_train_step(twin, opt_t, x_big, big, labels,
+                                                       idx_train, None)[0]))
+            same = (torch.equal(out, want) and losses[0] == losses[1]
+                    and params_equal(sharded, twin))
+        ms = in_turns(lambda: step(x_big, shard),
+                      lambda: node_train_step(twin, opt_t, x_big, big, labels, idx_train, None))
+        print(f"synthetic-large-edge-sharded (1 shard, kernel structure): forward and 3 Adam "
+              f"steps bitwise equal to the single-device twin: {same}; losses {losses[0]}; "
+              f"step (host clock, in turns) sharded {ms[0]} ms, median "
+              f"{statistics.median(ms[0]):.4f}; twin {ms[1]} ms, median "
+              f"{statistics.median(ms[1]):.4f}; collectives: forward {fwd_stats}; 3 steps "
+              f"{step_stats}")
+        if not same:
+            raise AssertionError("synthetic-large-edge-sharded differs from its twin")
+        # The forward: kernel 1 x2 and kernel 2; then 3 lean steps.
+        expect_launches(paths, "synthetic-large-edge-sharded", segment_sum=2 + 3 * 4,
+                        edge_program_lean=1 + 3, edge_program_lean_bwd=3)
+        del sharded, twin, shard, opt_s, opt_t, step, out, want
+
+        # --------------------------------------------- main path: zinc-dp
+        layers = 4
+        (batch,), avg = zinc_micro_batches(dev, 1)
+        dmesh = make_mesh(("data",))
+
+        def zmodel():
+            return ZincNet(*ZINC_PRESET_AGGS, avg, num_layers=layers, device=dev,
+                           generator=torch.Generator().manual_seed(SEED + 11))
+
+        dp_model, twin = zmodel(), zmodel()
+        opt_d = make_optimizer(dp_model.parameters(), 1e-4, 3e-4)
+        opt_t = make_optimizer(twin.parameters(), 1e-4, 3e-4)
+        dp_step = make_dp_train_step(dp_model, opt_d, dmesh, "data")
+        piece = shard_stacked_batch(stack_batches([batch]), dmesh)
+        gens = [torch.Generator(device=dev).manual_seed(SEED) for _ in range(2)]
+        losses = ([], [])
+        collectives.reset_stats()
+        with deterministic():
+            with counted("zinc-dp", paths):
+                for _ in range(3):
+                    losses[0].append(float(dp_step(piece, gens[0])))
+            stats = collective_stats()
+            for _ in range(3):
+                losses[1].append(float(zinc_train_step(twin, opt_t, batch, gens[1])))
+            same = losses[0] == losses[1] and params_equal(dp_model, twin)
+        ms = in_turns(lambda: dp_step(piece, gens[0]),
+                      lambda: zinc_train_step(twin, opt_t, batch, gens[1]))
+        print(f"zinc-dp (1 rank, the flagship batch, {'/'.join(ZINC_PRESET_AGGS[0])}, dropout "
+              f"on): 3 steps bitwise equal to zinc_train_step (parameters and BatchNorm "
+              f"buffers): {same}; losses {losses[0]}; step (host clock, in turns) DP {ms[0]} "
+              f"ms, median {statistics.median(ms[0]):.4f}; twin {ms[1]} ms, median "
+              f"{statistics.median(ms[1]):.4f}; collectives over 3 steps: {stats}")
+        if not same:
+            raise AssertionError("zinc-dp differs from its twin")
+        expect_launches(paths, "zinc-dp", **scaled(zinc_step_launches(layers), 3))
+        del dp_model, twin, opt_d, opt_t, dp_step, piece
+
+        # ------------------------------------ main path: sampled-train-dp
+        flags = ["--device", str(dev), "--steps", "3"]
+        with open(os.path.join(LOG_DIR, "chip_smoke_sampled_dp.log"), "w") as log, \
+                contextlib.redirect_stdout(log):
+            with deterministic():
+                with counted("sampled-train-dp", paths):
+                    dp = cli.main(flags + ["--data-parallel"])
+                single = cli.main(flags)
+            # In turns, in the default mode: each run's third step (after
+            # the command line's warm-up steps).
+            step_ms = ([], [])
+            for _ in range(4):
+                for extra, out_ in ((["--data-parallel"], step_ms[0]), ([], step_ms[1])):
+                    out_.append(cli.main(flags + extra)["summary"]["step_ms"])
+        same = dp["losses"] == single["losses"] and params_equal(dp["model"], single["model"])
+        print(f"sampled-train-dp (1 rank, the sampled-train command line with "
+              f"--data-parallel, 3 steps): losses and weights bitwise equal to the "
+              f"single-device command line: {same}; losses {dp['losses']}; step (host clock, "
+              f"the third step of 4 runs each, in turns) DP {step_ms[0]} ms, median "
+              f"{statistics.median(step_ms[0]):.4f}; single {step_ms[1]} ms, median "
+              f"{statistics.median(step_ms[1]):.4f}")
+        if not same:
+            raise AssertionError("sampled-train-dp differs from its twin")
+        expect_launches(paths, "sampled-train-dp", **scaled(SAMPLED_PER_STEP["sampled-train"], 3))
+    finally:
+        dist.destroy_process_group()
+
+
+def two_rank_worker(outdir: str, device: str = "cuda:0") -> None:
+    """One rank of the two-rank world (gloo, both ranks on ``cuda:0``):
+    the edge-sharded synthetic-large forward and one step, one data-parallel
+    ZINC step, one data-parallel sampled step and the 1 x 2 data x edge ZINC
+    forward and step, each held within 1e-5 of single-device computations;
+    writes this rank's results to ``outdir``. Run by ``run_two_ranks``."""
+    import torch.distributed as dist
+
+    from mma_tpu_torch import NodeClassifier, synthetic_powerlaw
+    from mma_tpu_torch.cli import train_sampled as cli
+    from mma_tpu_torch.models import ZincNet
+    from mma_tpu_torch.parallel import (
+        collectives,
+        initialize_distributed,
+        make_dp_edge_forward,
+        make_dp_edge_train_step,
+        make_dp_train_step,
+        make_edge_sharded_forward,
+        make_edge_sharded_train_step,
+        make_mesh,
+        shard_batches_dp_edge,
+        shard_graph,
+        shard_stacked_batch,
+        stack_batches,
+    )
+    from mma_tpu_torch.train import make_optimizer
+    from mma_tpu_torch.train.loops import l1_loss, node_train_step
+    from mma_tpu_torch.train.sampled import make_sampled_dp_step, sampled_batch_producer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # Both ranks share the one card: init_device_mesh sets the device from
+    # LOCAL_RANK, which the launcher numbers per rank.
+    os.environ["LOCAL_RANK"] = "0"
+    dev = initialize_distributed(device, backend="gloo")
+    rank = dist.get_rank()
+    paths, report = {}, {"rank": rank}
+
+    def gather_equal(t: torch.Tensor, what: str) -> None:
+        """Replicated results must be bitwise equal on both ranks."""
+        both = [None, None]
+        dist.all_gather_object(both, t.detach().cpu())
+        if not torch.equal(both[0], both[1]):
+            raise AssertionError(f"{what} differs between the ranks")
+
+    # ------------------------------------------- edge-sharded synthetic-large
+    big = synthetic_powerlaw(131072, avg_deg=16, seed=1, device=dev)
+    x_big = torch.randn((big.n_node, 64), generator=torch.Generator().manual_seed(SEED)).to(dev)
+    x_big = x_big * big.node_mask[:, None]
+    lgen = torch.Generator().manual_seed(SEED + 2)
+    labels = torch.randint(0, 16, (big.n_node,), generator=lgen).to(dev)
+    idx_train = torch.randperm(131072, generator=lgen)[: 131072 // 2].to(dev)
+
+    def node_model():
+        return NodeClassifier(64, 64, 16, ("mean", "mean2"), dropout_rate=0.0, device=dev,
+                              generator=torch.Generator().manual_seed(SEED + 3))
+
+    mesh = make_mesh(("edge",))
+    shard = shard_graph(big, mesh, "edge", kernel_structure=True)
+    model, twin = node_model(), node_model()
+    step = make_edge_sharded_train_step(model, make_optimizer(model.parameters(), 1e-3), mesh,
+                                        labels, idx_train, "edge")
+    collectives.reset_stats()
+    with counted("edge-sharded", paths):
+        with torch.no_grad():
+            out = make_edge_sharded_forward(model, mesh, "edge")(x_big, shard)
+        loss = step(x_big, shard)
+    report["edge_sharded_collectives"] = collective_stats()
+    with torch.no_grad():
+        want = twin(x_big, big)
+    twin_loss, _ = node_train_step(twin, make_optimizer(twin.parameters(), 1e-3), x_big, big,
+                                   labels, idx_train, None)
+    n = 131072
+    report["edge_sharded"] = {
+        "edges_on_rank": int(shard.num_edges),
+        "forward": compare(out[:n], want[:n], 1e-5, f"rank {rank} edge-sharded forward vs "
+                           "single device"),
+        "loss": compare(loss[None], twin_loss[None], 1e-5, f"rank {rank} edge-sharded loss"),
+        "grads": worst({n_: compare(p.grad, dict(twin.named_parameters())[n_].grad, 1e-5,
+                                    f"rank {rank} edge-sharded grad {n_}", verbose=False)
+                        for n_, p in model.named_parameters()}),
+    }
+    gather_equal(out, "edge-sharded forward")
+    expect_launches(paths, "edge-sharded", segment_sum=2 + 4, edge_program_lean=2,
+                    edge_program_lean_bwd=1)
+    del big, x_big, shard, model, twin, step, out, want
+
+    # -------------------------------------------------------------- zinc-dp
+    layers = 4
+    batches, avg = zinc_micro_batches(dev, 2)
+
+    def zmodel(aggs_scalers, seed):
+        return ZincNet(*aggs_scalers, avg, num_layers=layers, device=dev,
+                       generator=torch.Generator().manual_seed(seed))
+
+    init = zmodel(ZINC_PRESET_AGGS, SEED + 11)
+    model = copy.deepcopy(init)
+    dmesh = make_mesh(("data",))
+    dp_step = make_dp_train_step(model, make_optimizer(model.parameters(), 1e-4, 3e-4), dmesh)
+    collectives.reset_stats()
+    with counted("zinc-dp", paths):
+        loss = dp_step(shard_stacked_batch(stack_batches(batches), dmesh))
+    report["zinc_dp_collectives"] = collective_stats()
+    expect_launches(paths, "zinc-dp", **zinc_step_launches(layers))
+    gather_equal(torch.cat([p.grad.flatten() for p in model.parameters()]), "zinc-dp gradients")
+    # The two micro-batches' shares one after the other, each on its own copy.
+    total = sum(float(b.graph_mask.sum()) for b in batches)
+    shares = {n_: torch.zeros_like(p) for n_, p in init.named_parameters()}
+    for b in batches:
+        m = copy.deepcopy(init)
+        pred = m(b, training=True)
+        ((torch.abs(pred - b.target) * b.graph_mask.float()).sum() / total).backward()
+        for n_, p in m.named_parameters():
+            if p.grad is not None:
+                shares[n_] += p.grad
+    grads = {n_: p.grad for n_, p in model.named_parameters()}
+    report["zinc_dp"] = {"loss": float(loss), "grads_vs_shares": worst({
+        n_: compare(grads[n_], shares[n_], 1e-5, f"rank {rank} zinc-dp summed grad {n_} vs the "
+                    "shares one after the other", scale=bn_fed_scale(n_, shares),
+                    verbose=False) for n_ in shares})}
+    del init, model, dp_step
+
+    # --------------------------------------------------------- zinc-dp-edge
+    (batch,) = batches[:1]
+    emesh = make_mesh(("data", "edge"), shape=(1, 2))
+    piece = shard_batches_dp_edge([batch], emesh)
+    init = zmodel(ZINC_DEFAULT_AGGS, SEED + 5)
+    model, twin = copy.deepcopy(init), copy.deepcopy(init)
+    collectives.reset_stats()
+    with counted("zinc-dp-edge", paths):
+        with torch.no_grad():
+            pred = make_dp_edge_forward(model, emesh)(piece)
+        loss = make_dp_edge_train_step(model, make_optimizer(model.parameters(), 1e-4, 3e-4),
+                                       emesh)(piece)
+    report["zinc_dp_edge_collectives"] = collective_stats()
+    expect_launches(paths, "zinc-dp-edge", **zinc_general_launches(layers, 1, 1))
+    with torch.no_grad():
+        want = twin(batch)
+
+    def twin_step(nudge=0.0):
+        """The single-device training forward and L1 gradients, the node
+        embedding table moved by one ulp towards ``nudge`` when given."""
+        m = copy.deepcopy(init)
+        if nudge:
+            with torch.no_grad():
+                m.node_emb.table.copy_(torch.nextafter(m.node_emb.table,
+                                                       torch.tensor(nudge, device=dev)))
+        loss_ = l1_loss(m(batch, training=True), batch)
+        loss_.backward()
+        return loss_.detach(), grads_of(m)
+
+    twin_loss, twin_grads = twin_step()
+    grads = {n_: p.grad for n_, p in model.named_parameters()}
+    # min/max's first-hit gradient jumps where an ulp flips a near-tie, and
+    # the psum-ed means reach the next layer in another summation order: each
+    # gradient is held within 1e-5 plus four times the single-device run's own
+    # change under a one-ulp nudge of the embedding table (the layout check's
+    # allowance in run_zinc).
+    slack = {n_: 0.0 for n_ in twin_grads}
+    for nudge in (math.inf, -math.inf):
+        nudged = twin_step(nudge)[1]
+        slack = {n_: max(v, 4 * (twin_grads[n_] - nudged[n_]).abs().max().item())
+                 for n_, v in slack.items()}
+    report["zinc_dp_edge"] = {
+        "edges_on_rank": int(piece.graph.num_edges),
+        "forward": compare(pred, want, 1e-5, f"rank {rank} zinc-dp-edge forward vs the "
+                           "single-device general route"),
+        "loss": compare(loss[None], twin_loss[None], 1e-5, f"rank {rank} zinc-dp-edge loss"),
+        "grads": worst({n_: compare(grads[n_], g_, 1e-5, f"rank {rank} zinc-dp-edge grad {n_}",
+                                    scale=bn_fed_scale(n_, twin_grads), slack=slack[n_],
+                                    verbose=False) for n_, g_ in twin_grads.items()}),
+        "largest_allowance": max(slack.values())}
+    # The detached pre-NNs (parity, N7) take no gradient on one device and a
+    # zero one from psum_grads.
+    if any(grads[n_].any() for n_ in set(grads) - set(twin_grads)):
+        raise AssertionError("zinc-dp-edge: a gradient the single-device run does not have")
+    gather_equal(pred, "zinc-dp-edge forward")
+    del batches, batch, piece, init, model, twin
+
+    # ----------------------------------------------------- sampled-train-dp
+    res = cli.main(["--device", str(dev), "--steps", "0"])  # data-parallel: WORLD_SIZE is set
+    sampler, pads = res["sampler"], res["pads"]
+    seeds = np.random.RandomState(SEED + 7).randint(0, sampler.num_nodes,
+                                                    (2, pads["hop_node_pads"][0]))
+    kw = dict(n_node_pad=pads["n_node_pad"], n_edge_pad=pads["n_edge_pad"], device_finish=True,
+              deg_table=torch.from_numpy(sampler.true_deg).to(dev))
+    (x, g, y, sm), = sampled_batch_producer(sampler, iter([seeds]), res["assembler"], rank=rank,
+                                            **kw)
+    init = res["model"]
+    model = copy.deepcopy(init)
+    dp_step = make_sampled_dp_step(model, make_optimizer(model.parameters(), 3e-3), dmesh)
+    collectives.reset_stats()
+    with counted("sampled-train-dp", paths):
+        loss = dp_step(x, g, y, sm, torch.Generator(device=dev).manual_seed(SEED + rank))
+    report["sampled_dp_collectives"] = collective_stats()
+    expect_launches(paths, "sampled-train-dp", **SAMPLED_PER_STEP["sampled-train"])
+    gather_equal(torch.cat([p.grad.flatten() for p in model.parameters()]),
+                 "sampled-train-dp gradients")
+    pieces = [None, None]
+    dist.all_gather_object(pieces, (x.cpu(), g.to("cpu"), y.cpu(), sm.cpu()))
+    if rank == 0:
+        total = sum(float(p_[3].sum()) for p_ in pieces)
+        shares = {n_: torch.zeros_like(p) for n_, p in init.named_parameters()}
+        for r, (px, pg, py, psm) in enumerate(pieces):
+            m = copy.deepcopy(init)
+            px, pg, py, psm = px.to(dev), pg.to(dev), py.to(dev), psm.to(dev)
+            logp = m(px, pg, training=True,
+                     generator=torch.Generator(device=dev).manual_seed(SEED + r))
+            ((-logp[torch.arange(py.shape[0], device=dev), py] * psm).sum() / total).backward()
+            for n_, p in m.named_parameters():
+                shares[n_] += p.grad
+        report["sampled_dp"] = {"loss": float(loss), "edges_per_rank": [
+            int(p_[1].num_edges) for p_ in pieces], "grads_vs_shares": worst({
+                n_: compare(p.grad, shares[n_], 1e-5, f"sampled-train-dp summed grad {n_} vs "
+                            "the shares one after the other", verbose=False)
+                for n_, p in model.named_parameters()})}
+    report["paths"] = paths
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def run_two_ranks(paths: dict) -> None:
+    """The two-rank world: two processes on this card over gloo, spawned once
+    after this process built the kernels (the ranks load them). Their launch
+    counts join ``paths`` as ``<path>@rank<r>``."""
+    from mma_tpu_torch.parallel import launch_local
+
+    os.makedirs(TWO_RANK_DIR, exist_ok=True)
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    launch_local("chip_smoke:two_rank_worker", 2, [os.path.abspath(TWO_RANK_DIR)], cwd=here,
+                 env={"PYTHONPATH": os.pathsep.join([here, os.environ.get("PYTHONPATH", "")])},
+                 timeout=600)
+    print(f"two-rank world (gloo, both ranks on cuda:0): {time.perf_counter() - t0:.2f} s; "
+          "collectives staged through host memory: none (gloo ran all_reduce, "
+          "all_gather_into_tensor and reduce_scatter_tensor on the CUDA tensors)")
+    for rank in range(2):
+        with open(os.path.join(TWO_RANK_DIR, f"rank{rank}.json")) as f:
+            report = json.load(f)
+        for path, counts in report.pop("paths").items():
+            paths[f"{path}@rank{rank}"] = counts
+        print(f"two-rank world, rank {rank}: {json.dumps(report)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2207,6 +2699,9 @@ def main() -> int:
         "big_model": big_model, "big16": bf16_models["big16"], "x_big": x_big, "n_big": n_big,
         "labels": labels})
     run_sampled(dev, paths)
+    run_parallel(dev, paths, {"big": big, "x_big": x_big, "labels": labels,
+                              "idx_train": idx_train, "init_state": init_state})
+    run_two_ranks(paths)
 
     # --------------------------------------------- per-kernel, large shapes
     row_ptr = big.real_row_ptr

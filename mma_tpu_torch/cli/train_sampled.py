@@ -6,11 +6,25 @@ native multithreaded sampler feeds subgraphs from a producer thread,
 features and labels live in device-resident tables gathered by node id,
 and one step trains per batch. ``--device cpu`` runs the plain PyTorch
 versions on the CPU; the default is the card, and a host without one
-raises. The JAX package's data-parallel mode (one subgraph per device)
-waits for the port of ``parallel/``.
+raises.
 
     python -m mma_tpu_torch.cli.train_sampled --nodes 200000 --avg-deg 25 \\
         --batch-size 512 --fanouts 10,10,5 --steps 50
+
+The JAX package's multi-device mode (``mma_tpu/cli/train_sampled.py:113-129``:
+one sampled subgraph per device, the seed-weighted NLL over all of them)
+runs one process per rank over ``torch.distributed``
+(``mma_tpu_torch.train.sampled.make_sampled_dp_step``):
+
+    torchrun --nproc-per-node N -m mma_tpu_torch.cli.train_sampled ...
+
+or, without ``torchrun``, ``--data-parallel`` as a world of one. Every rank
+builds the same graph, pads and model from ``--seed`` and draws the same
+``(N, batch)`` seed batches; rank ``r`` samples row ``r`` (rank 0 with the
+sampler's stream of one device, rank ``r > 0`` with a stream seeded by
+``(seed, r)`` after the calibration) and its dropout from ``seed + 1 +
+r``. Rank 0 prints and returns; a world of one computes exactly the
+one-device run.
 
 With ``--features/--labels/--edges`` (npy/npz arrays) it trains on host
 data instead of the synthetic stand-in.
@@ -31,20 +45,24 @@ calibrated pads, so that a caller can sample more batches of the same run.
 from __future__ import annotations
 
 import argparse
+import os
 import statistics
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mma_tpu_torch.data.sampling import NeighborSampler
 from mma_tpu_torch.autotune import resolve_compute_dtype
 from mma_tpu_torch.device import resolve_device
 from mma_tpu_torch.models import NodeClassifier
+from mma_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
 from mma_tpu_torch.train.logger import JsonlLogger
 from mma_tpu_torch.train.optim import make_optimizer
 from mma_tpu_torch.train.sampled import (
     DeviceTableAssembler,
+    make_sampled_dp_step,
     sampled_batch_producer,
     sampled_train_step,
 )
@@ -84,6 +102,9 @@ def build_parser():
                         "structure derived on the device)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a GPU) or cpu")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="data-parallel mode (implied under torchrun): one sampled "
+                        "subgraph per rank")
     p.add_argument("--log", type=str, default=None)
     return p
 
@@ -117,8 +138,28 @@ def _median_after_warmup(values):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    dev = resolve_device(args.device)
     resolve_compute_dtype(args.compute_dtype)  # an unknown name raises before the set-up
+    data_parallel = args.data_parallel or "WORLD_SIZE" in os.environ
+    if not data_parallel:
+        return _run(args, resolve_device(args.device), 0, 1, None)
+    joined = not dist.is_initialized()  # a caller's process group is used as it is
+    if joined:
+        dev = initialize_distributed(args.device)
+    else:
+        dev = resolve_device(args.device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    try:
+        return _run(args, dev, dist.get_rank(), dist.get_world_size(), make_mesh(("data",)))
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _run(args, dev, rank: int, n_dev: int, mesh):
+    def say(text):
+        if rank == 0:
+            print(text, flush=True)
 
     rs = np.random.RandomState(args.seed)
     fanouts = tuple(int(f) for f in args.fanouts.split(","))
@@ -145,8 +186,9 @@ def main(argv=None):
 
     hop_pads, n_node_pad, n_edge_pad = calibrate_pads(sampler, rs, n, args.batch_size)
     pads = {"hop_node_pads": list(hop_pads), "n_node_pad": n_node_pad, "n_edge_pad": n_edge_pad}
-    print(f"calibrated pads: hops {list(hop_pads)}, nodes {n_node_pad}, edges {n_edge_pad}",
-          flush=True)
+    say(f"calibrated pads: hops {list(hop_pads)}, nodes {n_node_pad}, edges {n_edge_pad}")
+    if rank:
+        sampler.rs = np.random.RandomState((args.seed, rank))
 
     model = NodeClassifier(
         features.shape[1], args.hidden, n_class, tuple(args.aggregators.split(",")),
@@ -155,28 +197,36 @@ def main(argv=None):
     )
     opt = make_optimizer(model.parameters(), args.lr)
     assembler = DeviceTableAssembler(features, labels, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
-    log = JsonlLogger(args.log)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1 + rank)
+    log = JsonlLogger(args.log if rank == 0 else None, echo=rank == 0)
+    if mesh is None:
+        def train_step(x, g, y, sm):
+            return sampled_train_step(model, opt, x, g, y, sm, gen)[0]
+    else:
+        dp_step = make_sampled_dp_step(model, opt, mesh, "data")
+
+        def train_step(x, g, y, sm):
+            return dp_step(x, g, y, sm, gen)
     on_card = dev.type == "cuda"
 
     def sync():
         if on_card:
             torch.cuda.synchronize(dev)
 
-    seed_batches = (rs.randint(0, n, size=(1, args.batch_size)) for _ in range(args.steps))
+    seed_batches = (rs.randint(0, n, size=(n_dev, args.batch_size)) for _ in range(args.steps))
     losses, records = [], []
     t0 = t_prev = time.perf_counter()
     for i, (x, g, y, sm) in enumerate(sampled_batch_producer(
         sampler, seed_batches, assembler, n_node_pad=n_node_pad, n_edge_pad=n_edge_pad,
         hop_node_pads=hop_pads if args.use_ell else None,
         device_finish=not args.host_built,
-        deg_table=torch.from_numpy(sampler.true_deg).to(dev),
+        deg_table=torch.from_numpy(sampler.true_deg).to(dev), rank=rank,
     )):
         t_step = time.perf_counter()
         if on_card:
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-        loss, _ = sampled_train_step(model, opt, x, g, y, sm, gen)
+        loss = train_step(x, g, y, sm)
         if on_card:
             end.record()
         sync()
@@ -191,7 +241,7 @@ def main(argv=None):
         t_prev = t_end
         if i % 10 == 0 or i == args.steps - 1:
             log.log(step=i, loss=losses[-1], t=round(t_end - t0, 2))
-            print(f"step {i}: loss {losses[-1]:.4f} ({t_end - t0:.1f}s)", flush=True)
+            say(f"step {i}: loss {losses[-1]:.4f} ({t_end - t0:.1f}s)")
     log.close()
 
     summary = {key: _median_after_warmup([r[key] for r in records])
@@ -203,9 +253,8 @@ def main(argv=None):
         summary["edges_per_s_step"] = e / (summary["step_ms"] * 1e-3)
         summary["edges_per_s_pipeline"] = e / (summary["pipeline_ms"] * 1e-3)
         summary["pipeline_over_step"] = summary["pipeline_ms"] / summary["step_ms"]
-        print("sampled steps (medians after warm-up, host clock): "
-              + ", ".join(f"{k} {v:.6g}" for k, v in summary.items() if v is not None),
-              flush=True)
+        say("sampled steps (medians after warm-up, host clock): "
+            + ", ".join(f"{k} {v:.6g}" for k, v in summary.items() if v is not None))
     return {"model": model, "losses": losses, "records": records, "pads": pads,
             "summary": summary, "sampler": sampler, "assembler": assembler}
 

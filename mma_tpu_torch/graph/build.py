@@ -121,3 +121,16 @@ def graph_from_edges(
         src_csc=t(src_sorted),
         dst_csc=t(dst_p[src_perm]),
     )
+
+
+def pad_graph(g: Graph, n_node: int, n_edge: int, *, device: DeviceLike = None) -> Graph:
+    """Re-pad an existing graph to larger static shapes (host-side), as the
+    JAX package's ``pad_graph`` (``mma_tpu/graph/build.py:141``): its real
+    edges, in their order, rebuilt by :func:`graph_from_edges` without a
+    sort, so every derived field (CSR, CSC, degrees, masks) is made anew and
+    the new padding edges sit at the tail. ``device=None`` keeps ``g``'s."""
+    mask = g.edge_mask.cpu().numpy()
+    return graph_from_edges(
+        g.src.cpu().numpy()[mask], g.dst.cpu().numpy()[mask], int(g.node_mask.sum()),
+        n_node_pad=n_node, n_edge_pad=n_edge, sort=False,
+        device=g.src.device if device is None else device)

@@ -2,7 +2,9 @@
 
 Reference: ``node_classification/models.py:12-68``. ``compute_dtype`` is
 both layers' edge-pipeline dtype (``"float32"``, ``"bfloat16"`` or
-``"auto"``; see :class:`~mma_tpu_torch.nn.MMALayer`).
+``"auto"``; see :class:`~mma_tpu_torch.nn.MMALayer`). ``axis_name`` runs
+both layers on an edge shard (``mma_tpu_torch.parallel.edge_parallel``;
+the JAX package's ``mma_tpu/models/node_classifier.py:71-97``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from mma_tpu_torch.nn.gcn import GraphConvolution
 from mma_tpu_torch.nn.layers import dropout
 from mma_tpu_torch.nn.mma_layer import MMALayer
 from mma_tpu_torch.ops.scalers import SCALER_NAMES
+from mma_tpu_torch.parallel.collectives import AxisName
 
 
 class NodeClassifier(nn.Module):
@@ -50,7 +53,8 @@ class NodeClassifier(nn.Module):
 
     def forward(self, x: torch.Tensor, graph: Graph, *, training: bool = False,
                 generator: Optional[torch.Generator] = None,
-                parity_eval_dropout: bool = False) -> torch.Tensor:
+                parity_eval_dropout: bool = False,
+                axis_name: AxisName = None) -> torch.Tensor:
         """Log-probabilities ``(N_pad, n_class)``; padding rows are unspecified.
 
         ``generator`` plays the JAX package's ``rng`` (it must live on the
@@ -63,8 +67,9 @@ class NodeClassifier(nn.Module):
         Without a generator there is no dropout. The feature dropout draws
         from the generator first, then the mask dropout.
         """
-        h = torch.relu(self.gc1(x, graph))
+        h = torch.relu(self.gc1(x, graph, axis_name))
         h = dropout(h, self.dropout_rate, generator if training else None)
         mask_dropout_on = training or parity_eval_dropout
-        out = self.mma(h, graph, generator=generator if mask_dropout_on else None)
+        out = self.mma(h, graph, generator=generator if mask_dropout_on else None,
+                       axis_name=axis_name)
         return torch.log_softmax(out, dim=-1)

@@ -2,7 +2,10 @@
 
 The port of the JAX package's ``ZincNet`` (``mma_tpu/models/zinc_net.py``;
 reference ``graph_regression/mma.py:63-127``), with the same config fields
-and parameter names.
+and parameter names. ``axis_name`` runs the convs on an edge shard of the
+batch (``mma_tpu_torch.parallel.dp_edge``; the JAX package's
+``mma_tpu/models/zinc_net.py:112-133``): BatchNorm, pooling and the head
+see replicated node arrays and compute replicated within the edge group.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from mma_tpu_torch.graph.container import BatchedGraphs
 from mma_tpu_torch.nn.layers import MLP, BatchNorm, Embedding
 from mma_tpu_torch.nn.mma_conv import MultiMaskConv, Seed
 from mma_tpu_torch.ops.cuda.fused_mma import segment_sum_csr
+from mma_tpu_torch.parallel.collectives import AxisName
 
 
 class ZincNet(nn.Module):
@@ -72,7 +76,8 @@ class ZincNet(nn.Module):
     def forward(self, batch: BatchedGraphs, *, training: bool = False,
                 generator: Optional[torch.Generator] = None,
                 seeds: Optional[Sequence[Seed]] = None,
-                parity_eval_dropout: bool = False) -> torch.Tensor:
+                parity_eval_dropout: bool = False,
+                axis_name: AxisName = None) -> torch.Tensor:
         """Per-graph predictions ``(G,)``; a training forward also updates
         the BatchNorm running statistics.
 
@@ -90,9 +95,9 @@ class ZincNet(nn.Module):
             gen = generator if dropout_on else None
             seed = seeds[i] if dropout_on and seeds is not None else None
             if self.remat and torch.is_grad_enabled():
-                h = _checkpointed(conv, x, g, e, gen, seed)
+                h = _checkpointed(conv, x, g, e, gen, seed, axis_name)
             else:
-                h = conv(x, g, e, generator=gen, seed=seed)
+                h = conv(x, g, e, generator=gen, seed=seed, axis_name=axis_name)
             h = getattr(self, f"bn{i}")(h, g.node_mask, training=training)
             x = torch.relu(h)
         x = torch.where(g.node_mask[:, None], x, 0.0)
@@ -123,7 +128,7 @@ class _PoolByGraph(torch.autograd.Function):
         return ct.index_select(0, node_to_graph.long()), None, None, None
 
 
-def _checkpointed(conv: MultiMaskConv, x, graph, e, generator, seed):
+def _checkpointed(conv: MultiMaskConv, x, graph, e, generator, seed, axis_name):
     """``conv(x, graph, e, ...)`` with its activations recomputed in the
     backward pass. ``torch.utils.checkpoint`` restores the global RNG
     state, not an explicit generator's, so the first run draws from
@@ -139,6 +144,6 @@ def _checkpointed(conv: MultiMaskConv, x, graph, e, generator, seed):
             gen = torch.Generator(device=generator.device)
             gen.set_state(state)
         runs.append(None)
-        return conv(x_, graph, e_, generator=gen, seed=seed)
+        return conv(x_, graph, e_, generator=gen, seed=seed, axis_name=axis_name)
 
     return torch.utils.checkpoint.checkpoint(run, x, e, use_reentrant=False)

@@ -7,6 +7,9 @@ raw binary matrix — no normalization, no self-loops.
 :func:`mma_tpu_torch.autotune.resolve_compute_dtype` on the layer's device)
 is the SpMM operand's dtype: ``X W`` is cast to it after the float32
 product, and the sum stays float32, as in the JAX package.
+
+``axis_name`` runs the SpMM on an edge shard (``binary_spmm``; the JAX
+package's ``mma_tpu/nn/gcn.py:39-44``).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from mma_tpu_torch.device import DeviceLike, resolve_device
 from mma_tpu_torch.graph.container import Graph
 from mma_tpu_torch.nn import init as inits
 from mma_tpu_torch.ops.spmm import binary_spmm
+from mma_tpu_torch.parallel.collectives import AxisName
 
 
 class GraphConvolution(nn.Module):
@@ -41,8 +45,9 @@ class GraphConvolution(nn.Module):
             inits.uniform((out_features,), out_features ** -0.5, generator).to(dev))
             if bias else None)
 
-    def forward(self, x: torch.Tensor, graph: Graph) -> torch.Tensor:
-        out = binary_spmm(graph, (x @ self.w).to(self.edge_dtype))
+    def forward(self, x: torch.Tensor, graph: Graph, axis_name: AxisName = None
+                ) -> torch.Tensor:
+        out = binary_spmm(graph, (x @ self.w).to(self.edge_dtype), axis_name)
         if self.b is not None:
             out = out + self.b
         return out

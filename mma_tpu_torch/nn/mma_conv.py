@@ -21,9 +21,8 @@ take the kernels, CPU tensors their plain versions):
   first-hit routing, sums slot by slot. No kernel runs but kernel 1 in
   ``gather_by_src``'s VJP when the CSC order is not degree-exact. The JAX
   package also skips this route on a graph without ``chunk_hint`` (its
-  sharded slices); the port's ``chunk_hint`` is always None and the port
-  shards nothing (``axis_name`` raises), so the route is keyed on the slot
-  layout alone.
+  sharded slices); the port's ``chunk_hint`` is always None, so the route
+  is keyed on the slot layout alone, and on ``axis_name`` being None.
 - **Fused min/max edge program** (aggregators ⊆ {min, max}, one pre-NN
   layer, no slot layout): kernel 6 adds the dst projection to ``hg``,
   applies the N2 dropout mask and reduces; kernel 7 is its backward.
@@ -52,9 +51,22 @@ Parity knobs (SURVEY §5), as in the JAX package:
 - **N2**: message dropout (0.5) whenever the caller asks for it.
 - Empty rows give 0 for every reduce (``torch_scatter``'s fill).
 
-Not ported yet (raise ``NotImplementedError``): ``compute_dtype`` that
+``axis_name`` (a mesh axis's process group; ``mma_tpu_torch.parallel``)
+runs the conv on an edge shard, as the JAX package's
+``mma_tpu/nn/mma_conv.py:452-518``: the ELL and fused routes are off, the
+general route reduces the shard's edges over its own CSR, and the partials
+combine with each reduction's monoid before the degree normalisation.
+Sum, mean, var and std are ``psum``-ed (var and std as ``[Σx ‖ Σx²]``).
+Max and min reduce locally (kernel 4, paired under parity's shared
+messages), give the ±inf neutral to rows the shard leaves empty, and take
+``torch.amax``/``amin`` over the ``all_gather``-ed partials, whose backward
+splits ties equally among the shards that hold the extreme, as
+``jnp.max``'s does (``:478-486``). ``deg`` is replicated, so the combined
+result equals the unsharded one.
+
+Not ported yet (raises ``NotImplementedError``): ``compute_dtype`` that
 resolves to bfloat16 (``ROADMAP.md`` item 28; ``"auto"`` is float32 off a
-TPU), and ``axis_name``.
+TPU).
 """
 
 from __future__ import annotations
@@ -86,6 +98,7 @@ from mma_tpu_torch.ops.ell import (
     single_width_spec,
 )
 from mma_tpu_torch.ops.gather import gather_by_dst, gather_by_src
+from mma_tpu_torch.parallel.collectives import AxisName, all_gather, psum
 
 GR_AGGREGATORS = ("sum", "mean", "min", "max", "var", "std")
 GR_SCALERS = ("identity", "amplification", "attenuation", "linear", "inverse_linear")
@@ -274,32 +287,37 @@ class MultiMaskConv(nn.Module):
 
     # ---- aggregation ---------------------------------------------------
 
-    def _reduce(self, name, msgs, graph: Graph, deg):
-        """One reduce over the real in-edges → (N, T·F); empty rows give 0."""
+    def _reduce(self, name, msgs, graph: Graph, deg, axis_name: AxisName = None):
+        """One reduce over the real in-edges → (N, T·F); empty rows give 0.
+        ``axis_name`` combines an edge shard's partials (module docstring)."""
         if name == "sum":
-            return segment_sum_csr(msgs, graph.real_row_ptr)
-        if name == "mean":
-            return segment_sum_csr(msgs, graph.real_row_ptr) / deg  # deg clamped ≥ 1
+            return psum(segment_sum_csr(msgs, graph.real_row_ptr), axis_name)
+        if name == "mean":  # deg clamped ≥ 1
+            return psum(segment_sum_csr(msgs, graph.real_row_ptr), axis_name) / deg
         if name in ("var", "std"):
             c = msgs.shape[1]
-            both = segment_sum_sq_csr(msgs, graph.real_row_ptr)
+            both = psum(segment_sum_sq_csr(msgs, graph.real_row_ptr), axis_name)
             mean, mean_sq = both[:, :c] / deg, both[:, c:] / deg
             out = mean_sq - mean * mean
             return torch.sqrt(torch.relu(out) + 1e-5) if name == "std" else out
-        return fused_segment_minmax(msgs, graph, (name,))
+        return _cross_shard_minmax(fused_segment_minmax(msgs, graph, (name,)), (name,),
+                                   graph, axis_name)
 
-    def _reduce_all(self, per_agg, graph: Graph, deg, shared_messages: bool):
+    def _reduce_all(self, per_agg, graph: Graph, deg, shared_messages: bool,
+                    axis_name: AxisName = None):
         """All K reduces; min and max over the SAME messages (parity's
         shared messages, N6) run as one paired kernel pass."""
         paired = {}
         minmax = tuple(a for a in self.aggregators if a in ("min", "max"))
         if shared_messages and len(minmax) >= 2:
             msgs = per_agg[minmax[0]]
-            fused = fused_segment_minmax(msgs, graph, minmax)
+            fused = _cross_shard_minmax(fused_segment_minmax(msgs, graph, minmax), minmax,
+                                        graph, axis_name)
             c = msgs.shape[1]
             for pi, a in enumerate(minmax):
                 paired[a] = fused[:, pi * c:(pi + 1) * c]
-        return [paired[a] if a in paired else self._reduce(a, per_agg[a], graph, deg)
+        return [paired[a] if a in paired
+                else self._reduce(a, per_agg[a], graph, deg, axis_name)
                 for a in self.aggregators]
 
     def _scale(self, agg, deg):
@@ -364,7 +382,7 @@ class MultiMaskConv(nn.Module):
         *,
         generator: Optional[torch.Generator] = None,
         seed: Optional[Seed] = None,
-        axis_name: Optional[str] = None,
+        axis_name: AxisName = None,
     ) -> torch.Tensor:
         """Message dropout (N2) is on when ``generator`` or ``seed`` is
         given. The ELL and fused routes' masks are position hashes of one
@@ -372,9 +390,8 @@ class MultiMaskConv(nn.Module):
         otherwise): ``seed`` gives them (an int or a sequence, so that a
         test can feed the JAX package's seeds), else they are drawn from
         ``generator``. The general route draws its mask from
-        ``generator``."""
-        if axis_name is not None:
-            raise NotImplementedError("edge-sharded convs (axis_name) are not ported yet")
+        ``generator``. ``axis_name`` runs the conv on an edge shard (module
+        docstring)."""
         n = x.shape[0]
         t, f = self.towers, self.f_in
         x_flat = x.reshape(n, t * f) if self.divide_input else x.repeat(1, t)
@@ -386,8 +403,9 @@ class MultiMaskConv(nn.Module):
         deg = torch.clamp(graph.deg, min=1.0)[:, None]
 
         k = len(self.aggregators)
-        spec = self._ell_spec(graph)
-        if spec is not None or self._fused_route():
+        spec = self._ell_spec(graph) if axis_name is None else None
+        fused_route = axis_name is None and self._fused_route()
+        if spec is not None or fused_route:
             seeds = self._seeds(1 if self.parity else k, generator, seed, x.device)
             runs = ([(k - 1, self.aggregators, seeds[0])] if self.parity  # N6
                     else [(ki, (a,), seeds[ki]) for ki, a in enumerate(self.aggregators)])
@@ -397,7 +415,7 @@ class MultiMaskConv(nn.Module):
             for ki, aggs, sd in runs:
                 xs = self._ell_messages(ki, x_flat, e_feat, graph, spec, sd)
                 reds += self._ell_reduce(xs, graph, spec, valids, deg, aggs)
-        elif self._fused_route():
+        elif fused_route:
             reds = []
             for ki, ops, sd in runs:
                 p_dst, hg = self._message_parts(ki, x_flat, e_feat, graph)
@@ -415,7 +433,8 @@ class MultiMaskConv(nn.Module):
                 per_agg = {a: dropout(self._messages_for_aggregator(ki, x_flat, e_feat, graph),
                                       self.dropout_rate, generator)
                            for ki, a in enumerate(self.aggregators)}
-            reds = self._reduce_all(per_agg, graph, deg, shared_messages=self.parity)
+            reds = self._reduce_all(per_agg, graph, deg, shared_messages=self.parity,
+                                    axis_name=axis_name)
         if graph.ell_exact:
             # The bucket-padding rows' synthetic self-loops (module docstring).
             reds = [torch.where(graph.node_mask[:, None], r, 0.0) for r in reds]
@@ -503,3 +522,23 @@ class MultiMaskConv(nn.Module):
             out = torch.baddbmm(b[:, None, :], out, w)
         out = out.permute(1, 0, 2).reshape(n, t * self.f_out)
         return self.lin(out)
+
+
+def _cross_shard_minmax(local: torch.Tensor, ops, graph: Graph, axis_name: AxisName
+                        ) -> torch.Tensor:
+    """Combine an edge shard's min/max partials ``[op_0 ‖ op_1 ‖ ...]`` (the
+    kernel's, 0 on rows the shard leaves empty) over ``axis_name``: those
+    rows take each op's neutral, one ``all_gather`` stacks every shard's
+    partials, ``amax``/``amin`` reduce them, and rows without an in-edge
+    anywhere give 0. Unsharded (``axis_name`` None) it returns ``local``."""
+    if axis_name is None:
+        return local
+    rp = graph.real_row_ptr
+    has_edge = (rp[1:] > rp[:-1])[:, None]
+    c = local.shape[1] // len(ops)
+    neutral = torch.cat([local.new_full((1, c), float("-inf") if op == "max" else float("inf"))
+                         for op in ops], dim=1)
+    stacked = all_gather(torch.where(has_edge, local, neutral), axis_name)
+    out = torch.cat([(torch.amax if op == "max" else torch.amin)(
+        stacked[:, :, i * c:(i + 1) * c], dim=0) for i, op in enumerate(ops)], dim=1)
+    return torch.where(graph.deg[:, None] > 0, out, 0.0)

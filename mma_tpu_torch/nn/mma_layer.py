@@ -14,6 +14,10 @@ aggregators' masks are allocated (N10).
 is the edge pipeline's dtype: the masked aggregation's operands and the
 SpMM operand ``scaled @ W``, cast after the float32 product. Parameters,
 sums and the output stay float32.
+
+``axis_name`` runs the layer's edge-driven reductions on an edge shard, as
+the JAX package's ``mma_tpu/nn/mma_layer.py:98-130`` (see
+``mma_tpu_torch.parallel.edge_parallel``).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from mma_tpu_torch.ops.aggregators import get_agg_spec
 from mma_tpu_torch.ops.masked_aggregate import masked_multi_aggregate
 from mma_tpu_torch.ops.scalers import SCALER_NAMES, apply_scalers
 from mma_tpu_torch.ops.spmm import binary_spmm
+from mma_tpu_torch.parallel.collectives import AxisName
 
 
 class MMALayer(nn.Module):
@@ -80,19 +85,20 @@ class MMALayer(nn.Module):
                   if bias else None)
 
     def forward(self, h: torch.Tensor, graph: Graph, *,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                axis_name: AxisName = None) -> torch.Tensor:
         """``generator`` turns on mask dropout (N2), drawn from it; ``None``
         gives the deterministic eval output."""
         m = masked_multi_aggregate(
             h, graph, self.masks, self.specs,
             activation=self.activation, parity=self.parity,
             mask_dropout_rate=self.mask_dropout, generator=generator,
-            compute_dtype=self.edge_dtype,
+            compute_dtype=self.edge_dtype, axis_name=axis_name,
         )  # (N, K, F)
         scaled = apply_scalers(
             m.sum(dim=1), graph.deg, graph.node_mask, self.scalers, parity=self.parity
         )
-        out = binary_spmm(graph, (scaled @ self.w).to(self.edge_dtype))
+        out = binary_spmm(graph, (scaled @ self.w).to(self.edge_dtype), axis_name)
         if self.b is not None:
             out = out + self.b
         return out

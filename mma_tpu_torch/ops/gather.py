@@ -12,6 +12,10 @@ takes its Pallas segment sum:
   is degree-exact (``Graph.csc_ell_exact``) a permute and per-bucket lane
   sums instead, with no kernel (the JAX package's
   ``_csc_exact_segment_sum``);
+- a graph without the CSC fields (an edge shard built without kernel
+  structure, ``mma_tpu_torch.parallel``) gets its CSC order derived on the
+  device (:func:`csc_view`), where the JAX package falls back to an XLA
+  scatter;
 - :func:`gather_rows`: a lookup ``table[idx]`` in a small table (the
   embeddings), whose VJP is a one-hot product.
 
@@ -28,7 +32,13 @@ import torch
 
 from mma_tpu_torch.graph.container import Graph
 from mma_tpu_torch.ops.cuda.fused_mma import segment_sum_csr
-from mma_tpu_torch.ops.ell import EllSpec, ell_expand_exact, masked_slot_sum, pad_rows
+from mma_tpu_torch.ops.ell import (
+    EllSpec,
+    _csc_order,
+    ell_expand_exact,
+    masked_slot_sum,
+    pad_rows,
+)
 
 
 class _GatherByDst(torch.autograd.Function):
@@ -80,10 +90,23 @@ def gather_by_dst(x: torch.Tensor, graph: Graph) -> torch.Tensor:
     return _GatherByDst.apply(x, graph.dst, graph.real_row_ptr)
 
 
+def csc_view(graph: Graph):
+    """``(src_perm, real_col_ptr, dst_csc)``: the graph's CSC view over its
+    real edges, or, for a graph that carries none, the same derived on its
+    device (a stable argsort of ``src`` and a searchsorted, as
+    ``finish_graph_on_device`` derives them)."""
+    if graph.src_perm is not None:
+        return graph.src_perm, graph.real_col_ptr, graph.dst_csc
+    perm, col_ptr = _csc_order(graph)
+    real_col_ptr = torch.cat([col_ptr[:-1], col_ptr[-2:-1]])
+    return perm.to(torch.int32), real_col_ptr, graph.dst.index_select(0, perm)
+
+
 def gather_by_src(x: torch.Tensor, graph: Graph) -> torch.Tensor:
     """``x[graph.src]`` (N, C) → (E, C); VJP = kernel 1 over the CSC, or
     lane sums when the CSC order is degree-exact."""
-    return _GatherBySrc.apply(x, graph.src, graph.real_col_ptr, graph.src_perm,
+    src_perm, real_col_ptr, _ = csc_view(graph)
+    return _GatherBySrc.apply(x, graph.src, real_col_ptr, src_perm,
                               graph.ell_hint if graph.csc_ell_exact else None)
 
 

@@ -35,6 +35,16 @@ chooses (``mma_tpu/ops/masked_aggregate.py:236-294``):
 
 Every route reduces over the real edges only (``Graph.real_row_ptr``).
 
+``axis_name`` (a mesh axis's process group; ``mma_tpu_torch.parallel``)
+runs the aggregation on an edge shard, as the JAX package does under
+``shard_map``: the partial sums ``S`` (and ``std``'s squares and
+``moment_3``'s cubes) are ``psum``-combined before the center combine
+(``mma_tpu/ops/masked_aggregate.py:316-317``, ``:328-329``, ``:363-364``).
+The ELL route is off under an axis (``:243``). The lean and wide routes need
+the graph's CSC view and stay on for a shard that carries one
+(``src_perm``, ``:236-237``); a graph without one takes the half-fused
+route, whose src-keyed backward derives the CSC order on the device.
+
 ``compute_dtype=torch.bfloat16`` runs the edge pipeline on bf16 operands,
 as the JAX package's Pallas path does (``mma_tpu/ops/masked_aggregate.py:
 218-316``): ``h`` and the mask weights enter as bf16, the lean route's
@@ -61,6 +71,7 @@ from mma_tpu_torch.ops.cuda.fused_mma import (
 )
 from mma_tpu_torch.ops.ell import EllSpec, ell_gather_nodes_by_src, ell_valid, pad_rows
 from mma_tpu_torch.ops.gather import gather_by_dst, gather_by_src
+from mma_tpu_torch.parallel.collectives import AxisName, psum
 
 _EPS = 1e-5
 
@@ -190,6 +201,7 @@ def masked_multi_aggregate(
     generator: Optional[torch.Generator] = None,
     pallas_bwd_mode: Optional[str] = None,
     compute_dtype: torch.dtype = torch.float32,
+    axis_name: AxisName = None,
 ) -> torch.Tensor:
     """K-way masked aggregation: returns ``(N, K, F)`` combined outputs.
 
@@ -204,7 +216,8 @@ def masked_multi_aggregate(
     the lean one. The name is the JAX package's. A graph with an
     ``ell_hint`` takes the ELL route (module docstring). ``compute_dtype``
     (``torch.float32`` or ``torch.bfloat16``) is the edge pipeline's dtype
-    (module docstring); sums and the result stay float32.
+    (module docstring); sums and the result stay float32. ``axis_name``
+    combines an edge shard's partial sums over that axis (module docstring).
     """
     n, f = h.shape
     k = len(specs)
@@ -231,13 +244,13 @@ def masked_multi_aggregate(
     h_c, mw = h.to(compute_dtype), mask_weights.to(compute_dtype)
 
     msgs = ell_ctx = None
-    if graph.ell_hint is not None:
+    if graph.ell_hint is not None and axis_name is None:
         s, s2_ell, cent3 = _ell_masked_aggregate(
             h_c, mw, pat, graph, EllSpec.from_hint(graph.ell_hint),
             generator if dropout_on else None, mask_dropout_rate,
             need_s2=any(sp.combine == "std" for sp in specs))
         ell_ctx = (s2_ell, cent3)
-    elif dropout_on or need_moments:
+    elif dropout_on or need_moments or graph.src_perm is None:
         msgs = _edge_messages(h_c, graph, mw, pat, mask_dropout_rate,
                               generator if dropout_on else None)
         s = segment_sum_csr(msgs, row_ptr)
@@ -252,12 +265,12 @@ def masked_multi_aggregate(
         w_bot = _flat_lanes(mw[:, f:, :]).contiguous()
         s = edge_program_lean((h_c @ w_top).float(), w_bot.float(), h_c.contiguous(), pat,
                               graph.src, row_ptr, graph.real_col_ptr, graph.dst_csc)
-    s = s.reshape(n, k, f)
+    s = psum(s, axis_name).reshape(n, k, f)
 
     deg = torch.clamp(graph.deg, min=1.0)[:, None]  # (N, 1)
     if any(sp.combine == "std" for sp in specs):
         s2 = ell_ctx[0] if ell_ctx is not None else segment_sum_csr(msgs * msgs, row_ptr)
-        s2 = s2.reshape(n, k, f)
+        s2 = psum(s2, axis_name).reshape(n, k, f)
     outs = []
     for idx, sp in enumerate(specs):
         sk = s[:, idx, :]
@@ -289,6 +302,7 @@ def masked_multi_aggregate(
             else:
                 msgs_k = msgs[:, idx * f:(idx + 1) * f]
                 s3 = segment_sum_csr((msgs_k - gather_by_dst(mean, graph)) ** 3, row_ptr)
+                s3 = psum(s3, axis_name)
             m3 = s3 / deg
             out = m3 * (m3 * m3 + _EPS) ** (-1.0 / 3.0)
         else:

@@ -18,6 +18,13 @@ sampler's hopped layout) and no CSC view takes the JAX package's ELL branch
 (``mma_tpu/ops/spmm.py:33-56``): per-slot source rows, masked slot sums. A
 graph that keeps its CSC takes kernel 1 both ways, as there: the JAX
 package measured the CSR product faster for a plain SpMM.
+
+``axis_name`` (a mesh axis's process group; ``mma_tpu_torch.parallel``)
+runs the product on an edge shard: each rank sums its shard's edges into a
+full-size partial and :func:`~mma_tpu_torch.parallel.collectives.psum`
+combines them (``mma_tpu/ops/spmm.py:129-130``, ``:140-141``), with the
+ELL branch off (``:34``). A shard without a CSC derives it on the device
+for the backward (:func:`~mma_tpu_torch.ops.gather.csc_view`).
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ from mma_tpu_torch.ops.ell import (
     masked_slot_sum,
     pad_rows,
 )
+from mma_tpu_torch.ops.gather import csc_view
+from mma_tpu_torch.parallel.collectives import AxisName, psum
 
 
 class _BinarySpmm(torch.autograd.Function):
@@ -49,7 +58,7 @@ class _BinarySpmm(torch.autograd.Function):
         return dx, None, None, None, None
 
 
-def binary_spmm(graph: Graph, x: torch.Tensor) -> torch.Tensor:
+def binary_spmm(graph: Graph, x: torch.Tensor, axis_name: AxisName = None) -> torch.Tensor:
     """``A @ x`` for the graph's binary adjacency; ``x`` is ``(N, F)``
     float32 or bf16.
 
@@ -63,11 +72,14 @@ def binary_spmm(graph: Graph, x: torch.Tensor) -> torch.Tensor:
     slots in slot order; the gradient is the slot gather's VJP, kernel 1
     over a CSC order derived on the device.
     """
-    if graph.ell_hint is not None and not graph.ell_exact and graph.src_perm is None:
+    if (axis_name is None and graph.ell_hint is not None and not graph.ell_exact
+            and graph.src_perm is None):
         spec = EllSpec.from_hint(graph.ell_hint)
         parts = ell_gather_nodes_by_src(x, graph, spec)
         sums = [masked_slot_sum(p, v, w)
                 for p, v, w in zip(parts, ell_valid(graph, spec), spec.widths)]
         return pad_rows(torch.cat(sums, dim=0), graph.n_node)
-    return _BinarySpmm.apply(x.contiguous(), graph.src, graph.real_row_ptr,
-                             graph.dst_csc, graph.real_col_ptr)
+    _, real_col_ptr, dst_csc = csc_view(graph)
+    out = _BinarySpmm.apply(x.contiguous(), graph.src, graph.real_row_ptr, dst_csc,
+                            real_col_ptr)
+    return psum(out, axis_name)

@@ -11,13 +11,14 @@ subgraph.
 - :func:`sampled_batch_producer`: the production pipeline. A producer
   thread samples on the host and copies to the card while the step runs;
   feature and label rows are gathered on the card from device-resident
-  tables (:class:`DeviceTableAssembler`).
-
-The JAX package's data-parallel pieces (``stack_graphs``,
-``stack_sampled_batches``, ``make_sampled_dp_step``: one subgraph per
-device under ``shard_map``) belong to the port of ``parallel/`` (ROADMAP
-item 15). Here one device trains, which is what the JAX package's DP step
-computes on one device.
+  tables (:class:`DeviceTableAssembler`). It takes ``(n_dev, batch)`` seed
+  batches, and rank ``r`` of a data-parallel world consumes row ``r``.
+- :func:`make_sampled_dp_step`: the data-parallel step, one sampled
+  subgraph per rank of the data axis (``mma_tpu/train/sampled.py:327-389``);
+  :func:`stack_graphs` and :func:`stack_sampled_batches` give the per-rank
+  pieces, where the JAX package stacks them along a leading device axis.
+  Each subgraph is whole and keeps its structure, so the lean, half-fused
+  and ELL routes run unsharded on every rank.
 
 Randomness: the weights come from a CPU generator seeded with
 ``cfg.seed`` and dropout from one generator on the run's device; the
@@ -31,7 +32,7 @@ import dataclasses
 import queue
 import threading
 import time
-from typing import Iterable, Optional, Sequence
+from typing import Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -42,6 +43,7 @@ from mma_tpu_torch.device import DeviceLike, resolve_device
 from mma_tpu_torch.graph.container import Graph
 from mma_tpu_torch.graph.device_build import finish_graph_on_device
 from mma_tpu_torch.models import NodeClassifier
+from mma_tpu_torch.parallel.collectives import psum_grads, psum_no_grad
 from mma_tpu_torch.train.logger import JsonlLogger
 from mma_tpu_torch.train.metrics import accuracy
 from mma_tpu_torch.train.optim import make_optimizer
@@ -169,14 +171,13 @@ class DeviceTableAssembler:
         return self.assemble(ids, batch.num_seeds)
 
 
-def _one_device_seeds(seeds_nd) -> np.ndarray:
+def _rank_seeds(seeds_nd, rank: int) -> np.ndarray:
+    """Row ``rank`` of an ``(n_dev, batch)`` seed batch."""
     seeds_nd = np.asarray(seeds_nd)
-    if seeds_nd.ndim != 2 or seeds_nd.shape[0] != 1:
-        raise NotImplementedError(
-            f"seed batches of shape {seeds_nd.shape}: the port's producer serves one "
-            "device, (1, batch); one subgraph per device waits for the port of "
-            "parallel/ (ROADMAP item 15)")
-    return seeds_nd[0]
+    if seeds_nd.ndim != 2 or not 0 <= rank < seeds_nd.shape[0]:
+        raise ValueError(f"seed batches of shape {seeds_nd.shape} have no row for rank "
+                         f"{rank}; pass (n_dev, batch) arrays")
+    return seeds_nd[rank]
 
 
 class _Shipper:
@@ -211,13 +212,14 @@ def sampled_batch_producer(sampler: NeighborSampler, seed_batches: Iterable,
                            assembler: DeviceTableAssembler, *, n_node_pad: int,
                            n_edge_pad: int, hop_node_pads: Optional[Sequence[int]] = None,
                            queue_depth: int = 2, device_finish: bool = False,
-                           deg_table: Optional[torch.Tensor] = None):
+                           deg_table: Optional[torch.Tensor] = None, rank: int = 0):
     """Generator of ``(x, graph, y, seed_mask)`` step inputs on the
     assembler's device, with the host work in a producer thread, up to
     ``queue_depth`` batches ahead of the step.
 
-    ``seed_batches``: an iterable of ``(1, batch)`` seed-id arrays (the JAX
-    package's per-device stacks, for one device; more devices raise).
+    ``seed_batches``: an iterable of ``(n_dev, batch)`` seed-id arrays (the
+    JAX package's per-device stacks); this producer samples row ``rank``,
+    the data-axis rank of its process (0 on one device).
 
     The producer thread does host work only (sampling, which the native
     sampler runs with the interpreter lock released, sorting, filling
@@ -244,7 +246,7 @@ def sampled_batch_producer(sampler: NeighborSampler, seed_batches: Iterable,
     pads = dict(n_node_pad=n_node_pad, n_edge_pad=n_edge_pad, hop_node_pads=hop_node_pads)
 
     def make_inputs(seeds_nd):
-        seeds = _one_device_seeds(seeds_nd)
+        seeds = _rank_seeds(seeds_nd, rank)
         if device_finish:
             ar = sampler.sample_arrays(seeds, **pads)
             host = {"src": ar.src, "dst": ar.dst, "node_ids": ar.node_ids,
@@ -310,3 +312,58 @@ def sampled_batch_producer(sampler: NeighborSampler, seed_batches: Iterable,
         th.join()
     if err:
         raise err[0]
+
+
+# ------------------------------------------------------------ data parallel
+
+def stack_graphs(graphs: Sequence[Graph], keep_structure: bool = True) -> List[Graph]:
+    """The per-rank subgraphs, in rank order (the JAX package stacks them
+    along a leading device axis; rank ``r`` takes ``graphs[r]``). They must
+    share their padding. ``keep_structure=False`` drops the CSC view and the
+    ELL layout, as the JAX package's stripped stack does, so that each
+    subgraph takes the half-fused route."""
+    shapes = {(g.n_node, g.n_edge) for g in graphs}
+    if len(shapes) != 1:
+        raise ValueError(f"subgraphs of different padding: {sorted(shapes)}")
+    if keep_structure:
+        return list(graphs)
+    return [dataclasses.replace(g, chunk_hint=None, ell_hint=None, src_perm=None,
+                                col_ptr=None, src_csc=None, dst_csc=None) for g in graphs]
+
+
+def stack_sampled_batches(batches, features: np.ndarray, labels: np.ndarray,
+                          keep_structure: bool = True) -> List[tuple]:
+    """Per-rank step inputs ``(x, graph, y, seed_mask)``, in rank order, on
+    the CPU (``y`` int64): the JAX package's stacks, one piece per rank, for
+    :func:`make_sampled_dp_step`. The subgraphs must share their padding."""
+    graphs = stack_graphs([b.graph for b in batches], keep_structure)
+    out = []
+    for b, g in zip(batches, graphs):
+        x, y, sm = prepare_sampled_arrays(b, features, labels)
+        out.append((torch.from_numpy(x), g, torch.from_numpy(y).long(), torch.from_numpy(sm)))
+    return out
+
+
+def make_sampled_dp_step(model: NodeClassifier, optimizer: torch.optim.Optimizer, mesh,
+                         axis: str = "data"):
+    """Data-parallel sampled step: ``step(x, graph, y, seed_mask,
+    generator=None) -> loss`` on this rank's subgraph. The loss is the
+    seed-weighted NLL summed across ranks over the global seed count; each
+    rank backpropagates its NLL sum over that count and the parameter
+    gradients are summed over the mesh (``mma_tpu_torch.parallel.collectives``),
+    so the step equals one step on the union of the subgraphs' seeds.
+    Dropout draws from ``generator``, one per rank (the JAX package's
+    per-device ``rng``). Returns the global loss, detached."""
+    group = mesh.get_group(axis)
+
+    def step(x, graph: Graph, y, seed_mask, generator: Optional[torch.Generator] = None):
+        optimizer.zero_grad(set_to_none=True)
+        logp = model(x, graph, training=True, generator=generator)
+        lsum = (-logp[torch.arange(y.shape[0], device=y.device), y] * seed_mask).sum()
+        cnt = torch.clamp(psum_no_grad(seed_mask.sum(), group), min=1.0)
+        (lsum / cnt).backward()
+        psum_grads(model.parameters())
+        optimizer.step()
+        return psum_no_grad(lsum, group) / cnt
+
+    return step

@@ -511,16 +511,25 @@ def test_producer_matches_jax_for_one_device(device_finish, hop_pads):
 
 def test_producer_errors_reach_the_consumer():
     """An exception in the producer thread is raised again by the consumer
-    after the batches before it (a two-device seed batch, which waits for
-    item 15; an edge pad too small for the sample); closing the generator
-    early stops the thread."""
+    after the batches before it (a seed batch without a row for the
+    producer's rank; an edge pad too small for the sample); closing the
+    generator early stops the thread. Rank r of a two-device seed batch
+    samples row r, as a one-device batch of that row does."""
     mk_t, _, feats, labels, seed_batches = _producer_setup()
     asm = DeviceTableAssembler(feats, labels, device="cpu")
-    two_dev = seed_batches[:1] + [np.concatenate(seed_batches)]
+    two_dev = np.concatenate(seed_batches)
+    for rank in (0, 1):
+        (x, g, y, sm), = sampled_batch_producer(mk_t(), iter([two_dev]), asm, rank=rank,
+                                                n_node_pad=2048, n_edge_pad=2048)
+        (wx, wg, wy, wsm), = sampled_batch_producer(mk_t(), iter([seed_batches[rank]]), asm,
+                                                    n_node_pad=2048, n_edge_pad=2048)
+        torch.testing.assert_close((x, y, sm), (wx, wy, wsm), rtol=0, atol=0)
+        for f in FIELDS:
+            torch.testing.assert_close(getattr(g, f), getattr(wg, f), rtol=0, atol=0)
     got = []
-    with pytest.raises(NotImplementedError, match="item 15"):
-        for item in sampled_batch_producer(mk_t(), iter(two_dev), asm, n_node_pad=2048,
-                                           n_edge_pad=2048):
+    with pytest.raises(ValueError, match="no row for rank 1"):
+        for item in sampled_batch_producer(mk_t(), iter([two_dev, seed_batches[0]]), asm,
+                                           rank=1, n_node_pad=2048, n_edge_pad=2048):
             got.append(item)
     assert len(got) == 1
     with pytest.raises(ValueError, match="edge"):

@@ -410,8 +410,16 @@ def test_unported_requests_raise(graphs):
                                    rtol=1e-6, atol=1e-6)
     with pytest.raises(NotImplementedError, match="compute_dtype"):
         MultiMaskConv(F, F, ("min",), ("identity",), AVG_DEG, compute_dtype="bfloat16", **kw)
-    with pytest.raises(NotImplementedError, match="axis_name"):
-        conv(torch.from_numpy(x), tg, torch.from_numpy(e), axis_name="edges")
+    # axis_name (ported): on an edge axis of one rank (a gloo world of this
+    # process alone) the general route with its cross-shard combine gives
+    # the unsharded (fused-route) output.
+    from torch_world import world_of_one
+
+    with world_of_one() as mesh:
+        sharded = conv(torch.from_numpy(x), tg, torch.from_numpy(e),
+                       axis_name=mesh.get_group("edge"))
+    torch.testing.assert_close(sharded[:N], conv(torch.from_numpy(x), tg, torch.from_numpy(e))[:N],
+                               rtol=1e-6, atol=1e-6)
     # Degree-exact graphs and degree-ordered batches, and remat (ported):
     # the same molecules collated both ways give the same predictions, and
     # a remat training step runs on the exact batch.
