@@ -4,7 +4,7 @@
 1. Prints the card's name and power limit (``nvidia-smi``), then builds
    every CUDA kernel of the port from ``mma_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together).
-2. Thirty-five main paths in this process and four in each rank of a
+2. Thirty-eight main paths in this process and seven in each rank of a
    two-rank world, each with the kernels' launch counters set to 0 just
    before it and read just after:
 
@@ -128,6 +128,24 @@
      subgraph per rank, the summed gradients within 1e-5 of the shares).
      Replicated results are bitwise equal across the ranks. Two ranks on
      one card measure correctness, not scaling.
+   - The node-sharded (halo) regime and the entry points. In the
+     world of one: **synthetic-large-node-sharded** (the large-train
+     model's forward and 3 Adam steps, dropout off, on the one-shard plan:
+     the messages built plainly and summed by kernel 1 over the shard's
+     CSRs; forward, losses and step-1 gradients within 1e-5 of the
+     single-device twin, timed beside it in turns, with the all-to-all
+     traffic), **entry** (``graft_entry.entry()``'s flagship ZincNet
+     forward, within 1e-5 of the all-plain run: kernels 6 and 1) and
+     **dryrun-multichip** (``dryrun_multichip(1)`` in that world: six
+     regimes, (d) needing an even world). Then ``python -m
+     mma_tpu_torch.graft_entry`` in its own process (the entry forward and
+     ``dryrun_multichip`` over the host's cards in a world it starts). In
+     each rank of the two-rank world: **node-sharded-contiguous** and
+     **node-sharded-ldg** (synthetic-large on two node shards, the
+     contiguous and the LDG order: the forward and one step within 1e-5 of
+     the single-device forward and gradients, the plan's host time, halo
+     rows and boundary-edge fraction; kernel 1 on each rank) and
+     **dryrun-multichip** (``dryrun_multichip(2)``: all seven regimes).
 
    Each path's launch counts are derived from the code and checked.
 3. Checks every output (finite log-probs of the expected shape whose rows
@@ -174,7 +192,8 @@
 4. Per kernel, at the shapes of the main paths (kernels 1-3 and 9-12 at
    synthetic-large, kernel 1 at the widths of both products, C=64 and
    C=16, and of the wide payload, C=192, and also its heaviest row alone at
-   C=64 and Cora's spmm forward at C=64 and C=7; kernel 2 also as its node
+   C=64, Cora's spmm forward at C=64 and C=7, and the node-sharded path's
+   interior and boundary sums of each of two shards at C=64 and C=128; kernel 2 also as its node
    pass and edge pass alone, its heaviest row alone (as a whole call and
    through the edge pass alone) and at Cora's shape; kernel 3 also as its
    four parts alone (``D``, the dst pass, the src pass, the node pass),
@@ -1916,7 +1935,43 @@ def collective_stats() -> str:
 
     s = collectives.STATS
     return ", ".join(f"{op} {s[op + '_calls']} calls / {s[op + '_bytes']} B"
-                     for op in ("all_reduce", "all_gather", "reduce_scatter"))
+                     for op in ("all_reduce", "all_gather", "reduce_scatter", "all_to_all"))
+
+
+NODE_SHARDED_FWD_SEG_SUMS = 6   # gc1's, the masked sums' and the final SpMM's interior and boundary
+NODE_SHARDED_STEP_SEG_SUMS = 8  # the forward's and the VJPs of c's interior and boundary gathers
+
+
+def node_sharded_pieces(big, x_big, labels, idx_train, mesh, dev, num_shards: int,
+                        method: str = "contiguous"):
+    """The node-sharded plan of the synthetic-large graph (``method``: the
+    contiguous or the LDG order) and this rank's pieces: ``(sg_local, x,
+    labels, train mask, report)``, the report holding the plan's host time,
+    pads, halo rows and boundary-edge fraction."""
+    from mma_tpu_torch.parallel import build_node_sharded_ordered, place_on_mesh, shard_node_values
+
+    n = int(big.node_mask.sum())
+    t0 = time.perf_counter()
+    sg, cuts, order = build_node_sharded_ordered(big, num_shards, method)
+    build_s = time.perf_counter() - t0
+    n_m = sg.node_mask.shape[1]
+    tmask = np.zeros(n, bool)
+    tmask[idx_train.cpu().numpy()] = True
+
+    def local(values):
+        return place_on_mesh(shard_node_values(values, cuts, n_m, order=order), mesh, "node",
+                             device=dev)
+
+    rank = mesh.get_local_rank("node")
+    report = {"plan_build_s": build_s, "N_m": n_m, "E_m": sg.ext_src.shape[1],
+              "B_m": sg.bnd_halo.shape[1], "H_m": sg.send_idx.shape[2],
+              "edges_on_rank": int(sg.edge_mask[rank].sum()),
+              "boundary_edges_on_rank": int(sg.bnd_mask[rank].sum()),
+              "boundary_fraction": float(sg.bnd_mask.sum() / sg.edge_mask.sum()),
+              "halo_rows_sent": int(sg.send_mask[rank].sum()),
+              "halo_rows_received": int(sg.send_mask[:, rank].sum())}
+    return (place_on_mesh(sg, mesh, "node", device=dev), local(x_big.cpu().numpy()[:n]),
+            local(labels.cpu().numpy()[:n, None])[:, 0], local(tmask[:, None])[:, 0], report)
 
 
 def worst(errs: dict) -> dict:
@@ -1966,7 +2021,7 @@ def run_parallel(dev, paths: dict, ctx: dict) -> None:
     in turns (10 steps each after the checked ones, in the default mode)."""
     import torch.distributed as dist
 
-    from mma_tpu_torch import NodeClassifier
+    from mma_tpu_torch import NodeClassifier, graft_entry
     from mma_tpu_torch.cli import train_sampled as cli
     from mma_tpu_torch.models import ZincNet
     from mma_tpu_torch.parallel import (
@@ -1976,6 +2031,8 @@ def run_parallel(dev, paths: dict, ctx: dict) -> None:
         make_edge_sharded_forward,
         make_edge_sharded_train_step,
         make_mesh,
+        make_node_sharded_forward,
+        make_node_sharded_train_step,
         shard_graph,
         shard_stacked_batch,
         stack_batches,
@@ -2036,6 +2093,57 @@ def run_parallel(dev, paths: dict, ctx: dict) -> None:
         expect_launches(paths, "synthetic-large-edge-sharded", segment_sum=2 + 3 * 4,
                         edge_program_lean=1 + 3, edge_program_lean_bwd=3)
         del sharded, twin, shard, opt_s, opt_t, step, out, want
+
+        # ------------------------ main path: synthetic-large-node-sharded
+        # The large-train model on the node-sharded plan of one shard: its
+        # messages built plainly and summed by kernel 1, where the twin takes
+        # the lean route (kernels 2-3), so within 1e-5 and not bitwise.
+        nmesh = make_mesh(("node",))
+        sgl, x_l, labels_l, tmask_l, plan = node_sharded_pieces(big, x_big, labels, idx_train,
+                                                                 nmesh, rank_dev, 1)
+        n_big = int(big.node_mask.sum())
+        sharded, twin = model(), model()
+        opt_s = make_optimizer(sharded.parameters(), 1e-3)
+        opt_t = make_optimizer(twin.parameters(), 1e-3)
+        nstep = make_node_sharded_train_step(sharded, opt_s, nmesh, "node", dropout=False)
+        losses, grads1 = ([], []), [None, None]
+        collectives.reset_stats()
+        with counted("synthetic-large-node-sharded", paths):
+            with torch.no_grad():
+                out = make_node_sharded_forward(sharded, nmesh, "node")(x_l, sgl)
+            fwd_stats = collective_stats()
+            collectives.reset_stats()
+            for i in range(3):
+                losses[0].append(float(nstep(x_l, sgl, labels_l, tmask_l)))
+                if i == 0:
+                    grads1[0] = {n_: p.grad.clone() for n_, p in sharded.named_parameters()}
+        step_stats = collective_stats()
+        with torch.no_grad():
+            want = twin(x_big, big)
+        for i in range(3):
+            losses[1].append(float(node_train_step(twin, opt_t, x_big, big, labels, idx_train,
+                                                   None)[0]))
+            if i == 0:
+                grads1[1] = {n_: p.grad.clone() for n_, p in twin.named_parameters()}
+        errs = {
+            "forward": compare(out[:n_big], want[:n_big], 1e-5, "synthetic-large-node-sharded "
+                               "forward vs the single-device twin"),
+            "losses": compare(torch.tensor(losses[0]), torch.tensor(losses[1]), 1e-5,
+                              "synthetic-large-node-sharded 3 step losses vs the twin's"),
+            "grads": worst({n_: compare(g, grads1[1][n_], 1e-5, f"synthetic-large-node-sharded "
+                                        f"step 1 grad {n_}", verbose=False)
+                            for n_, g in grads1[0].items()})}
+        ms = in_turns(lambda: nstep(x_l, sgl, labels_l, tmask_l),
+                      lambda: node_train_step(twin, opt_t, x_big, big, labels, idx_train, None))
+        print(f"synthetic-large-node-sharded (1 shard, plan {plan}): forward, 3 step losses and "
+              f"step-1 gradients within 1e-5 of the single-device twin: {errs}; losses "
+              f"{losses[0]}; step (host clock, in turns) node-sharded {ms[0]} ms, median "
+              f"{statistics.median(ms[0]):.4f}; twin {ms[1]} ms, median "
+              f"{statistics.median(ms[1]):.4f}; collectives: forward {fwd_stats}; 3 steps "
+              f"{step_stats}")
+        expect_launches(paths, "synthetic-large-node-sharded",
+                        segment_sum=NODE_SHARDED_FWD_SEG_SUMS + 3 * NODE_SHARDED_STEP_SEG_SUMS)
+        del sharded, twin, opt_s, opt_t, nstep, out, want, sgl, x_l, grads1
 
         # --------------------------------------------- main path: zinc-dp
         layers = 4
@@ -2098,8 +2206,54 @@ def run_parallel(dev, paths: dict, ctx: dict) -> None:
         if not same:
             raise AssertionError("sampled-train-dp differs from its twin")
         expect_launches(paths, "sampled-train-dp", **scaled(SAMPLED_PER_STEP["sampled-train"], 3))
+
+        # ------------------------------------------------ main path: entry
+        fn, args = graft_entry.entry()
+        with counted("entry", paths), torch.no_grad():
+            pred = fn(*args)
+        with plain_kernels(), torch.no_grad():
+            pred_plain = fn(*args)
+        compare(pred, pred_plain, 1e-5, "entry forward (the flagship ZincNet, 8 val molecules) "
+                "vs plain on the card")
+        # Kernel 6 once per conv layer, kernel 1 once (the pool).
+        expect_launches(paths, "entry", minmax_prog=4, segment_sum=1)
+
+        # -------------------------------------- main path: dryrun-multichip
+        t0 = time.perf_counter()
+        with counted("dryrun-multichip", paths):
+            graft_entry.dryrun_multichip(1)
+        print(f"dryrun-multichip (world of one on NCCL, regimes (a)-(c), (e)-(g)): "
+              f"{time.perf_counter() - t0:.2f} s; launches {paths['dryrun-multichip']}")
+        require_launches(paths, "dryrun-multichip", "segment_sum", "minmax_prog",
+                         "minmax_prog_bwd")
     finally:
         dist.destroy_process_group()
+
+
+def require_launches(paths: dict, path: str, *kernels: str) -> None:
+    """Check that each of ``kernels`` ran at least once on the path."""
+    missing = [k for k in kernels if not paths[path][k]]
+    if missing:
+        raise AssertionError(f"{path}: no launch of {missing}")
+
+
+def run_graft_entry_cli() -> None:
+    """``python -m mma_tpu_torch.graft_entry`` as a user runs it: the entry
+    forward on the card, then the dry run over every card of the host, in a
+    world it starts itself (NCCL, one process a card)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "mma_tpu_torch.graft_entry"], cwd=here,
+                         capture_output=True, text=True, timeout=600)
+    out = (res.stdout + res.stderr).splitlines()
+    print(f"python -m mma_tpu_torch.graft_entry: rc {res.returncode}, "
+          f"{time.perf_counter() - t0:.2f} s")
+    for line in out:
+        if "dryrun_multichip" in line or "entry forward" in line:
+            print("  " + line)
+    if res.returncode != 0 or "dryrun_multichip OK" not in res.stdout:
+        raise AssertionError("python -m mma_tpu_torch.graft_entry failed:\n"
+                             + "\n".join(out[-40:]))
 
 
 def two_rank_worker(outdir: str, device: str = "cuda:0") -> None:
@@ -2110,7 +2264,7 @@ def two_rank_worker(outdir: str, device: str = "cuda:0") -> None:
     writes this rank's results to ``outdir``. Run by ``run_two_ranks``."""
     import torch.distributed as dist
 
-    from mma_tpu_torch import NodeClassifier, synthetic_powerlaw
+    from mma_tpu_torch import NodeClassifier, graft_entry, synthetic_powerlaw
     from mma_tpu_torch.cli import train_sampled as cli
     from mma_tpu_torch.models import ZincNet
     from mma_tpu_torch.parallel import (
@@ -2122,6 +2276,8 @@ def two_rank_worker(outdir: str, device: str = "cuda:0") -> None:
         make_edge_sharded_forward,
         make_edge_sharded_train_step,
         make_mesh,
+        make_node_sharded_forward,
+        make_node_sharded_train_step,
         shard_batches_dp_edge,
         shard_graph,
         shard_stacked_batch,
@@ -2187,7 +2343,44 @@ def two_rank_worker(outdir: str, device: str = "cuda:0") -> None:
     gather_equal(out, "edge-sharded forward")
     expect_launches(paths, "edge-sharded", segment_sum=2 + 4, edge_program_lean=2,
                     edge_program_lean_bwd=1)
-    del big, x_big, shard, model, twin, step, out, want
+
+    # ------------------------------------------ node-sharded synthetic-large
+    # Two node shards, on the contiguous and the LDG order: the forward and
+    # the first step (dropout off) against the single-device forward and
+    # step above (the twin's gradients are its step's).
+    nmesh = make_mesh(("node",))
+    twin_grads = {n_: p.grad for n_, p in twin.named_parameters()}
+    for method in ("contiguous", "ldg"):
+        sgl, x_l, labels_l, tmask_l, plan = node_sharded_pieces(big, x_big, labels, idx_train,
+                                                                 nmesh, dev, 2, method)
+        nmodel = node_model()
+        nstep = make_node_sharded_train_step(nmodel, make_optimizer(nmodel.parameters(), 1e-3),
+                                             nmesh, "node", dropout=False)
+        path = f"node-sharded-{method}"
+        collectives.reset_stats()
+        with counted(path, paths):
+            with torch.no_grad():
+                out_l = make_node_sharded_forward(nmodel, nmesh, "node")(x_l, sgl)
+            fwd_stats = collective_stats()
+            collectives.reset_stats()
+            nloss = nstep(x_l, sgl, labels_l, tmask_l)
+        step_stats = collective_stats()
+        rows = sgl.node_mask
+        report[f"node_sharded_{method}"] = {
+            **plan, "collectives_forward": fwd_stats, "collectives_step": step_stats,
+            "forward": compare(out_l[rows], want[sgl.global_ids[rows].long()], 1e-5,
+                               f"rank {rank} {path} forward vs single device"),
+            "loss": compare(nloss[None], twin_loss[None], 1e-5, f"rank {rank} {path} loss"),
+            "grads": worst({n_: compare(p.grad, twin_grads[n_], 1e-5,
+                                        f"rank {rank} {path} grad {n_}", verbose=False)
+                            for n_, p in nmodel.named_parameters()}),
+        }
+        expect_launches(paths, path,
+                        segment_sum=NODE_SHARDED_FWD_SEG_SUMS + NODE_SHARDED_STEP_SEG_SUMS)
+        gather_equal(torch.cat([p.grad.flatten() for p in nmodel.parameters()]),
+                     f"{path} gradients")
+        del sgl, x_l, nmodel, nstep, out_l
+    del big, x_big, shard, model, twin, step, out, want, twin_grads
 
     # -------------------------------------------------------------- zinc-dp
     layers = 4
@@ -2318,6 +2511,14 @@ def two_rank_worker(outdir: str, device: str = "cuda:0") -> None:
                 n_: compare(p.grad, shares[n_], 1e-5, f"sampled-train-dp summed grad {n_} vs "
                             "the shares one after the other", verbose=False)
                 for n_, p in model.named_parameters()})}
+
+    # ----------------------------------------------------- dryrun-multichip
+    t0 = time.perf_counter()
+    with counted("dryrun-multichip", paths):
+        graft_entry.dryrun_multichip(2, dev)
+    report["dryrun_multichip_s"] = time.perf_counter() - t0
+    require_launches(paths, "dryrun-multichip", "segment_sum", "minmax_prog", "minmax_prog_bwd",
+                     "segment_minmax", "segment_minmax_bwd")
     report["paths"] = paths
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump(report, f)
@@ -2337,8 +2538,9 @@ def run_two_ranks(paths: dict) -> None:
                  env={"PYTHONPATH": os.pathsep.join([here, os.environ.get("PYTHONPATH", "")])},
                  timeout=600)
     print(f"two-rank world (gloo, both ranks on cuda:0): {time.perf_counter() - t0:.2f} s; "
-          "collectives staged through host memory: none (gloo ran all_reduce, "
-          "all_gather_into_tensor and reduce_scatter_tensor on the CUDA tensors)")
+          "collectives staged through host memory by the port: none (gloo took all_reduce, "
+          "all_gather_into_tensor, reduce_scatter_tensor and all_to_all_single on the CUDA "
+          "tensors; its CUDA work copies them through host memory inside the backend)")
     for rank in range(2):
         with open(os.path.join(TWO_RANK_DIR, f"rank{rank}.json")) as f:
             report = json.load(f)
@@ -2701,6 +2903,7 @@ def main() -> int:
     run_sampled(dev, paths)
     run_parallel(dev, paths, {"big": big, "x_big": x_big, "labels": labels,
                               "idx_train": idx_train, "init_state": init_state})
+    run_graft_entry_cli()
     run_two_ranks(paths)
 
     # --------------------------------------------- per-kernel, large shapes
@@ -2805,6 +3008,50 @@ def main() -> int:
             k1[f"cora_spmm_fwd_c{ch}_ms"] = device_ms(lambda: fused_mma.segment_sum_csr(*args))
             print(f"segment_sum_csr Cora spmm fwd (index=src) C={ch}: "
                   f"E={int(cg.num_edges)} N={cg.n_node} ms {k1[f'cora_spmm_fwd_c{ch}_ms']:.4f}")
+        # The node-sharded path's kernel-1 calls, per rank at S = 2: the
+        # interior sum (E_m rows over row_ptr) and the boundary sum (B_m rows
+        # over bnd_row_ptr) of each shard, at gc1's C=64 and the masked
+        # messages' C=128 (K·F). The sums cover every row slot, padding
+        # included (padding rows are zero and sit in the last row).
+        from mma_tpu_torch.parallel import build_node_sharded
+
+        sg2, _ = build_node_sharded(big, 2)
+        n_m2 = sg2.node_mask.shape[1]
+        k1["node_sharded"] = []
+        for r in range(2):
+            interior = (sg2.ext_src[r] < n_m2) & sg2.edge_mask[r]
+            for part, dst_f, rp_f, valid_np in (
+                    ("interior", "dst_local", "row_ptr", interior),
+                    ("boundary", "bnd_dst", "bnd_row_ptr", sg2.bnd_mask[r])):
+                rp = torch.from_numpy(getattr(sg2, rp_f)[r]).to(dev)
+                dst_l = torch.from_numpy(getattr(sg2, dst_f)[r]).to(dev).long()
+                valid = torch.from_numpy(valid_np).to(dev)
+                rows = dst_l.shape[0]
+                for ch in (64, 128):
+                    data = (torch.randn((rows, ch), generator=torch.Generator().manual_seed(
+                        SEED + 9 + r)).to(dev) * valid[:, None]).contiguous()
+                    got = fused_mma.segment_sum_csr(data, rp)
+                    if not torch.equal(got, fused_mma.segment_sum_csr(data, rp)):
+                        raise AssertionError(f"segment_sum_csr node-sharded {part} differs run "
+                                             "to run")
+                    err = compare(got, fused_mma.segment_sum_reference(data, rp), 1e-5,
+                                  f"segment_sum_csr node-sharded rank {r} {part} C={ch} vs plain")
+                    use = {"rank": r, "part": part, "C": ch, "rows": rows, "N_m": n_m2,
+                           "real_rows": int(valid.sum()),
+                           "max_abs_err": err["max_abs_err"],
+                           "ms": device_ms(lambda: fused_mma.segment_sum_csr(data, rp)),
+                           "plain_ms": device_ms(
+                               lambda: fused_mma.segment_sum_reference(data, rp)),
+                           "library_ms": device_ms(lambda: torch.zeros(
+                               n_m2, ch, device=dev).index_add_(0, dst_l, data)),
+                           **bound(4 * (rows * ch + n_m2 + 1 + n_m2 * ch), rows * ch)}
+                    k1["node_sharded"].append(use)
+                    print(f"segment_sum_csr node-sharded (S=2) rank {r} {part}: E={rows} "
+                          f"({use['real_rows']} real) N_m={n_m2} C={ch}: ms {use['ms']:.4f} "
+                          f"plain_ms {use['plain_ms']:.4f} index_add_ ms "
+                          f"{use['library_ms']:.4f} bound_ms {use['bound_ms']:.4f} "
+                          f"({use['bound_by']})")
+        del sg2
         gather_ms = device_ms(lambda: support.index_select(0, big.src))
         print(f"binary_spmm forward, gather + sum: index_select {gather_ms:.4f} ms + "
               f"kernel 1 {kernels['segment_sum_csr']['ms']:.4f} ms (indexed form above)")

@@ -6,7 +6,8 @@ atomic ``index_add_`` whose summation order changes run to run. These
 Functions take kernel 1 instead, as the JAX package's ``ops/gather.py``
 takes its Pallas segment sum:
 
-- :func:`gather_by_dst`: a dst-keyed sum over ``Graph.real_row_ptr``;
+- :func:`gather_by_dst`: a dst-keyed sum over ``Graph.real_row_ptr``
+  (:func:`gather_by_csr` over any sorted index and its CSR);
 - :func:`gather_by_src`: a src-keyed sum over ``Graph.real_col_ptr``,
   reading the edge rows through ``src_perm``; on a graph whose CSC order
   is degree-exact (``Graph.csc_ell_exact``) a permute and per-bucket lane
@@ -85,9 +86,16 @@ def _csc_exact_segment_sum(ct: torch.Tensor, src_perm: torch.Tensor, ell_hint,
                     n_node)
 
 
+def gather_by_csr(x: torch.Tensor, dst: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
+    """``x[dst]`` (N, C) → (E, C) for a sorted index ``dst`` whose CSR is
+    ``row_ptr``; VJP = kernel 1 over ``row_ptr`` (edges it does not cover
+    give nothing)."""
+    return _GatherByDst.apply(x, dst, row_ptr)
+
+
 def gather_by_dst(x: torch.Tensor, graph: Graph) -> torch.Tensor:
     """``x[graph.dst]`` (N, C) → (E, C); VJP = kernel 1 over the CSR."""
-    return _GatherByDst.apply(x, graph.dst, graph.real_row_ptr)
+    return gather_by_csr(x, graph.dst, graph.real_row_ptr)
 
 
 def csc_view(graph: Graph):

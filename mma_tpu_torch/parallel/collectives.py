@@ -25,11 +25,20 @@ regime:
    every rank runs the same optimizer step.
 
 The parameters stay replicated bit for bit, since every rank applies the
-same summed gradient. ``axis_name`` (here and in the ops, layers and
+same summed gradient.
+
+The node-sharded regime (:mod:`.node_sharded`) reads the rules so. Its
+loss is ``psum(lsum) / psum(lcnt)``, so every rank holds the same global
+loss, and each rank backpropagates ``loss / S`` over the node axis's size
+``S`` (rule 1). ``psum``'s backward all-reduces that cotangent, so each
+rank's error sum gets the global loss's own; :func:`all_to_all`'s backward
+is the reverse exchange, which routes each halo row's cotangent home to
+the rank that owns the row (rule 2); and :func:`psum_grads` sums the
+parameter gradients once (rule 3). ``axis_name`` (here and in the ops, layers and
 models) keeps the JAX name; in the port it is the mesh axis's process
 group, ``mesh.get_group("edge")``. ``None`` means no axis: every function
-here is then the identity (:func:`psum`, :func:`pmean`) or a one-member
-stack (:func:`all_gather`).
+here is then the identity (:func:`psum`, :func:`pmean`, :func:`all_to_all`)
+or a one-member stack (:func:`all_gather`).
 
 The JAX sites these stand for: ``jax.lax.psum`` in
 ``mma_tpu/ops/spmm.py:129-130``, ``:140-141``,
@@ -37,7 +46,8 @@ The JAX sites these stand for: ``jax.lax.psum`` in
 ``mma_tpu/nn/mma_conv.py:457``; ``jax.lax.all_gather`` in
 ``mma_tpu/nn/mma_conv.py:478-486``; ``jax.lax.pmean`` in
 ``mma_tpu/parallel/data_parallel.py:58`` and ``dp_edge.py:185``;
-``jax.lax.axis_index`` in ``dp_edge.py:176-179``.
+``jax.lax.axis_index`` in ``dp_edge.py:176-179``; ``jax.lax.all_to_all`` in
+``mma_tpu/parallel/node_sharded.py:333``.
 
 ``STATS`` counts the calls and the bytes each rank hands to each
 collective, so that a run can report its traffic per step.
@@ -53,7 +63,7 @@ import torch.distributed as dist
 AxisName = Optional[dist.ProcessGroup]
 
 STATS: Dict[str, int] = {f"{op}_{unit}": 0 for op in ("all_reduce", "all_gather",
-                                                       "reduce_scatter")
+                                                       "reduce_scatter", "all_to_all")
                          for unit in ("calls", "bytes")}
 
 
@@ -114,6 +124,67 @@ class _AllGather(torch.autograd.Function):
         _count("reduce_scatter", ct)
         dist.reduce_scatter_tensor(out, ct.view((-1,) + tuple(ct.shape[2:])), group=ctx.group)
         return out, None
+
+
+def _exchange(x: torch.Tensor, group, async_op: bool = False):
+    """``(out, work)``: ``x``'s (contiguous) equal dim-0 blocks sent one to
+    each rank of ``group`` in rank order, ``out`` the blocks received, in
+    the senders' order (``work`` None unless ``async_op``)."""
+    out = torch.empty_like(x)
+    _count("all_to_all", x)
+    return out, dist.all_to_all_single(out, x, group=group, async_op=async_op)
+
+
+class _AllToAllDone(torch.autograd.Function):
+    """The end of an exchange started by :func:`all_to_all_start`: the
+    forward waits for it; the backward is the reverse exchange (rule 2)."""
+
+    @staticmethod
+    def forward(ctx, x, pending):
+        ctx.group = pending.group
+        if pending.work is not None:
+            pending.work.wait()
+        return pending.out
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _exchange(ct.contiguous(), ctx.group)[0], None
+
+
+class PendingAllToAll:
+    """An exchange in flight (:func:`all_to_all_start`); :meth:`wait` gives
+    its result. It keeps the sent buffer alive until then."""
+
+    def __init__(self, x: torch.Tensor, axis_name: AxisName):
+        self.x, self.group = x, axis_name
+        self.out = self.work = None
+        if axis_name is not None:
+            self.sent = x.detach().contiguous()
+            self.out, self.work = _exchange(self.sent, axis_name, async_op=True)
+
+    def wait(self) -> torch.Tensor:
+        if self.group is None:
+            return self.x
+        return _AllToAllDone.apply(self.x, self)
+
+
+def all_to_all_start(x: torch.Tensor, axis_name: AxisName) -> PendingAllToAll:
+    """Start :func:`all_to_all` without waiting for it, so that work which
+    does not read its result overlaps the exchange (the JAX package leaves
+    that to XLA's scheduler, ``mma_tpu/parallel/node_sharded.py:15-21``).
+    The exchange runs on the backend's own stream; ``wait()`` orders the
+    current stream after it."""
+    return PendingAllToAll(x, axis_name)
+
+
+def all_to_all(x: torch.Tensor, axis_name: AxisName) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axis, split_axis=0, concat_axis=0)``: ``x``
+    (``size · m, ...``) is cut along dim 0 into ``size`` equal blocks, block
+    ``q`` goes to rank ``q``, and the result holds the blocks the ranks sent
+    this one, in rank order. Its backward is the same exchange of the
+    cotangent, the reverse route (rule 2). The identity when ``axis_name``
+    is None."""
+    return all_to_all_start(x, axis_name).wait()
 
 
 def psum(x: torch.Tensor, axis_name: AxisName) -> torch.Tensor:
