@@ -4,7 +4,7 @@
 1. Prints the card's name and power limit (``nvidia-smi``), then builds
    every CUDA kernel of the port from ``mma_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together).
-2. Thirty-eight main paths in this process and seven in each rank of a
+2. Forty-four main paths in this process and seven in each rank of a
    two-rank world, each with the kernels' launch counters set to 0 just
    before it and read just after:
 
@@ -81,6 +81,16 @@
      command line with ``--compute-dtype bfloat16``, 5 steps, the
      half-fused route), **sampled-train-lean-bf16** (``--dropout 0``, 5
      steps) and **sampled-train-ell-bf16** (``--use-ell``, 5 steps).
+   - ZINC in bf16 (``compute_dtype="bfloat16"``; kernels 4-8 read bf16 edge
+     operands and compute in float32, under their ``_bf16`` keys):
+     **zinc-serve-bf16**, zinc-serve's model (the same weights) in bf16 on
+     the flagship batch (kernel 6 in bf16); **zinc-train-bf16**,
+     zinc-train's ``train_zinc`` run in bf16 (4 seeds, 5 epochs, 2,000
+     molecules), its mean val MAE held to the JAX package's bf16 CPU band
+     widened by 3 sd (``ZINC_BF16_VAL_MAE_BAND``);
+     **zinc-train-default-bf16** (kernels 1, 4 and 5 in bf16),
+     **zinc-train-pna-bf16** (and kernel 8) and
+     **zinc-exact-train-default-bf16** (the ELL route), 3 steps each.
 
    - Checkpoint/resume, the resilient runner and the serving export:
      **cora-train-resume**, cora-train's preset (seed 0) for 100 epochs
@@ -95,16 +105,17 @@
      twice, skipped), a transient fault and a raising step, against a
      clean run without the bad batch within 1e-5, its failure records
      printed and checked; **cora-serve-export**,
-     **synthetic-large-serve-export**, **synthetic-large-serve-bf16-export**
-     and **zinc-serve-export** (the flagship batch, ``min,max``): each
+     **synthetic-large-serve-export**, **synthetic-large-serve-bf16-export**,
+     **zinc-serve-export** (the flagship batch, ``min,max``) and
+     **zinc-serve-bf16-export** (its bf16 twin): each
      model exported on the card (``mma_tpu_torch.serve``), loaded from the
      bytes and serving 10 requests, every output within 1e-6 of the eager
      forward (bitwise equality printed), the artifact's size, the export
      and load times, and one request served against eager in turns (host
      clock and CUDA events). Then each ``mma_tpu_torch::*`` operator
      (kernel 1 with and without an index, f32 and bf16 rows; kernel 2 with
-     f32 and bf16 ``h``; kernels 4, 6 and 8) against its kernel called
-     directly: bitwise equal, one launch each.
+     f32 and bf16 ``h``; kernels 4, 6 and 8, f32 and bf16) against its
+     kernel called directly: bitwise equal, one launch each.
 
    - The multi-device regimes (``mma_tpu_torch.parallel``). A world of one
      on NCCL in this process, each path bitwise equal to its single-device
@@ -188,7 +199,12 @@
    every gradient at ``BF16_GRAD_TOL`` (2^-8, bf16's resolution: the
    pipeline rounds the backward's float32 sums to bf16, so sums in another
    order may round to neighbouring values); the host-clock and CUDA-event
-   medians beside the f32 ones.
+   medians beside the f32 ones. For ZINC in bf16: the served predictions
+   against the f32 ones (``BF16_ZINC_SERVE_TOL``) and the all-plain bf16
+   forward (1e-5); one bf16 train step of each route (fused, general,
+   PNA, ELL; dropout on) against the all-plain bf16 step, loss at 1e-5 and
+   gradients at ``BF16_GRAD_TOL``; the f32 and bf16 steps of each route
+   and the serve request timed in turns.
 4. Per kernel, at the shapes of the main paths (kernels 1-3 and 9-12 at
    synthetic-large, kernel 1 at the widths of both products, C=64 and
    C=16, and of the wide payload, C=192, and also its heaviest row alone at
@@ -212,14 +228,17 @@
    paths' tensors at synthetic-large (kernel 1 at the SpMM widths C=64 and
    16, the half-fused messages and their gathers' VJP at C=128), each
    with the f32 kernel's time on the same values in turns, and bounds on
-   the bytes of their bf16 inputs.
+   the bytes of their bf16 inputs; the bf16 variants of kernels 4-8 the
+   same way on the tensors the bf16 ZINC steps gave them at the flagship
+   batch (4-6 and the routed gradients equal to the plain versions).
 5. Prints one ``kernels`` JSON line, the ``nvidia-smi`` line again, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 The per-epoch training logs go to ``artifacts/chip_smoke_train.log``,
 ``artifacts/chip_smoke_train_bf16.log``,
 ``artifacts/chip_smoke_train_resume.log`` and
-``artifacts/chip_smoke_zinc_train*.log``, the sampled command line's to
+``artifacts/chip_smoke_zinc_train*.log`` (``_bf16`` for zinc-train-bf16), the
+sampled command line's to
 ``artifacts/chip_smoke_sampled.log``.
 Any failed check raises, so the script exits non-zero and prints no
 result; so does a host without a GPU, or a directory without the port.
@@ -260,6 +279,10 @@ ZINC_SEEDS = (0, 1, 2, 42)
 # 0.0142: the band is the mean ± 3 sd, wide because the dropout streams
 # of the two packages differ.
 ZINC_VAL_MAE_BAND = (0.1758, 0.2610)
+# The same in bf16: the JAX package on the CPU gave 0.2073, 0.2189, 0.2078,
+# 0.2670 for these seeds (the command above with --compute-dtype bfloat16),
+# mean 0.2253, sd 0.0283: the band is the mean ± 3 sd.
+ZINC_BF16_VAL_MAE_BAND = (0.1402, 0.3103)
 ZINC_PRESET_AGGS = (("min", "max"), ("identity", "amplification", "linear"))
 ZINC_DEFAULT_AGGS = (("mean", "max", "min"), ("identity", "amplification", "attenuation"))
 # PyG's examples/pna.py set, which the reference's ZINC script adapted.
@@ -540,10 +563,11 @@ def zinc_flagship(dev):
     return batch, exact, mma_conv.compute_avg_deg(ds.degree_histogram(), parity=True)
 
 
-def run_zinc(dev, paths: dict) -> dict:
+def run_zinc(dev, paths: dict):
     """The ZINC main paths on both layouts, their checks and the per-kernel
     holds of kernels 4-8; returns the kernels' JSON entries (without
-    ``launches``)."""
+    ``launches``) and the flagship batches, degree statistics and training
+    splits for :func:`run_zinc_bf16`."""
     from mma_tpu_torch.data import load_zinc
     from mma_tpu_torch.models import ZincNet
     from mma_tpu_torch.nn import mma_conv
@@ -928,6 +952,343 @@ def run_zinc(dev, paths: dict) -> dict:
                device_ms(lambda: torch.zeros(n_rows, 2 * ch, device=dev).index_add_(0, ids, both)),
                f"E={e_cov} N={n_rows} C={ch} (library: index_add_ of a pre-built [x ‖ x²])",
                source=SOURCE)
+    return kernels, {"batch": batch, "exact": exact, "avg": avg, "splits": splits}
+
+
+def bf16_turns(run_f32, run_bf16, iters: int = 25):
+    """Median device times of the bf16 and the f32 run, taken in turns (f32,
+    bf16, bf16, f32): ``(bf16_ms, f32_ms)``."""
+    t = {"f32": [], "bf16": []}
+    for which in ("f32", "bf16", "bf16", "f32"):
+        t[which].append(device_ms(run_f32 if which == "f32" else run_bf16, iters=iters))
+    return statistics.median(t["bf16"]), statistics.median(t["f32"])
+
+
+# The bf16 ZINC predictions against the f32 ones (the same weights and
+# molecules): relative to the largest |prediction|, a few bf16 ulps of the
+# values the two pipelines round apart.
+BF16_ZINC_SERVE_TOL = 3e-2
+
+
+def run_zinc_bf16(dev, paths: dict, ctx: dict) -> dict:
+    """The ZINC main paths in bf16 (``compute_dtype="bfloat16"``) at the
+    flagship width: zinc-serve-bf16 (the README preset's eval forward on
+    the flagship batch: kernel 6 in bf16), zinc-train-bf16 (``train_zinc``
+    at the README preset, 4 seeds, held to ``ZINC_BF16_VAL_MAE_BAND``),
+    zinc-train-default-bf16 (kernels 1, 4 and 5 in bf16),
+    zinc-train-pna-bf16 (and kernel 8) and zinc-exact-train-default-bf16
+    (the ELL route), with their launch counts, holds and times beside the
+    f32 twins'; returns the JSON entries of the bf16 variants of kernels
+    4-8 (without ``launches``)."""
+    from mma_tpu_torch.models import ZincNet
+    from mma_tpu_torch.nn import mma_conv
+    from mma_tpu_torch.ops.cuda import fused_mma
+    from mma_tpu_torch.ops.cuda import segment_minmax as mm
+    from mma_tpu_torch.train import ZincConfig, make_optimizer, train_zinc
+    from mma_tpu_torch.train.loops import zinc_layout, zinc_train_step
+
+    batch, exact, avg, splits = ctx["batch"], ctx["exact"], ctx["avg"], ctx["splits"]
+    g = batch.graph
+    layers = 4
+
+    def model_of(aggs_scalers, seed, dtype="bfloat16"):
+        aggs, scalers = aggs_scalers
+        return ZincNet(aggs, scalers, avg, num_layers=layers, compute_dtype=dtype, device=dev,
+                       generator=torch.Generator().manual_seed(seed))
+
+    # ------------------------------------------- main path: zinc-serve-bf16
+    # zinc-serve's model (the same seed, so the same weights) in bf16.
+    model, model32 = model_of(ZINC_PRESET_AGGS, SEED), model_of(ZINC_PRESET_AGGS, SEED, "float32")
+    outs = []
+    with counted("zinc-serve-bf16", paths), torch.no_grad():
+        serve_ms = host_ms(lambda: outs.append(model(batch)))
+    # Per forward: kernel 6 in bf16 once per conv layer; kernel 1 once on the
+    # float32 node rows (pooling).
+    expect_launches(paths, "zinc-serve-bf16", minmax_prog_bf16=3 * layers, segment_sum=3)
+    with torch.no_grad():
+        for i, out in enumerate(outs):
+            if tuple(out.shape) != (1024,) or out.dtype != torch.float32 \
+                    or not torch.isfinite(out).all():
+                raise AssertionError(f"zinc-serve-bf16 request {i}: shape {tuple(out.shape)}, "
+                                     f"dtype {out.dtype} or non-finite predictions")
+            if not torch.equal(out, outs[0]):
+                raise AssertionError(f"zinc-serve-bf16 request {i} differs from request 0")
+        compare(outs[0], model32(batch), BF16_ZINC_SERVE_TOL,
+                "zinc-serve-bf16 request 0 vs the f32 request")
+        before = launches()
+        with plain_kernels():
+            plain_out = model(batch)
+        if launches() != before:
+            raise AssertionError("the plain bf16 ZINC forward launched a kernel")
+        compare(outs[0], plain_out, 1e-5, "zinc-serve-bf16 request 0 vs plain on the card")
+        t = {"f32": [], "bf16": []}
+        ev = {"f32": [], "bf16": []}
+        for dtype in ("f32", "bf16", "bf16", "f32"):
+            m_ = model if dtype == "bf16" else model32
+            t[dtype] += host_ms(lambda: m_(batch), 5)
+            ev[dtype].append(device_ms(lambda: m_(batch), iters=5))
+    print(f"zinc-serve-bf16: 3 requests (host clock) {serve_ms} ms; one request (host clock / "
+          f"CUDA events, medians, in turns): bf16 {statistics.median(t['bf16']):.4f} / "
+          f"{statistics.median(ev['bf16']):.4f} ms, f32 {statistics.median(t['f32']):.4f} / "
+          f"{statistics.median(ev['f32']):.4f} ms")
+    del model, model32, outs, plain_out
+
+    # ------------------------------------------- main path: zinc-train-bf16
+    aggs, scalers = ZINC_PRESET_AGGS
+    cfg = ZincConfig(aggregators=aggs, scalers=scalers, lr=1e-4, weight_decay=3e-4,
+                     batch_size=64, epochs=5, subset_size=2000, compute_dtype="bfloat16")
+    exact_layout = zinc_layout(cfg, list(splits.values()))[2] is not None
+    steps = -(-len(splits["train"]) // cfg.batch_size)
+    evals = sum(-(-len(splits[s_]) // cfg.batch_size) for s_ in ("val", "test"))
+    results = {}
+    with counted("zinc-train-bf16", paths), \
+            open(os.path.join(LOG_DIR, "chip_smoke_zinc_train_bf16.log"), "w") as log, \
+            contextlib.redirect_stdout(log):
+        for seed in ZINC_SEEDS:
+            results[seed] = train_zinc(dataclasses.replace(cfg, seed=seed), datasets=splits,
+                                       device=dev)
+    val = [results[s_]["val_mae"] for s_ in ZINC_SEEDS]
+    epoch_s = [r["time"] for s_ in ZINC_SEEDS for r in results[s_]["history"][1:]]
+    mean_val = statistics.mean(val)
+    print(f"zinc-train-bf16 ({'degree-exact' if exact_layout else 'plain'} layout): val MAE per "
+          "seed " + ", ".join(f"{s_}: {v:.4f}" for s_, v in zip(ZINC_SEEDS, val))
+          + "; test MAE " + ", ".join(f"{results[s_]['test_mae']:.4f}" for s_ in ZINC_SEEDS)
+          + f"; mean val {mean_val:.4f} (band {ZINC_BF16_VAL_MAE_BAND}); median epoch "
+          f"{statistics.median(epoch_s) * 1e3:.3f} ms (host clock, epochs 2-{cfg.epochs})")
+    runs = len(ZINC_SEEDS) * cfg.epochs
+    if exact_layout:
+        expect_launches(paths, "zinc-train-bf16", segment_sum=runs * (steps + evals))
+    else:
+        # Per train step: kernels 6 and 7 in bf16 once per layer, kernel 1 on
+        # the bf16 cotangent rows once per layer (the gather_by_src VJP) and
+        # on the float32 node rows once (pooling); per eval forward kernel 6
+        # in bf16 once per layer and kernel 1 once.
+        expect_launches(paths, "zinc-train-bf16",
+                        minmax_prog_bf16=runs * layers * (steps + evals),
+                        minmax_prog_bwd_bf16=runs * layers * steps,
+                        segment_sum_bf16=runs * layers * steps, segment_sum=runs * (steps + evals))
+    if not ZINC_BF16_VAL_MAE_BAND[0] <= mean_val <= ZINC_BF16_VAL_MAE_BAND[1]:
+        raise AssertionError(f"zinc-train-bf16: mean val MAE {mean_val:.4f} outside "
+                             f"{ZINC_BF16_VAL_MAE_BAND}")
+    del results
+
+    # ---- main paths: zinc-train-default-bf16, -pna-bf16, zinc-exact-train-default-bf16
+    # The f32 paths' models, optimizer settings and dropout seed, in bf16.
+    for path, aggs_scalers, seed, b in (
+            ("zinc-train-default-bf16", ZINC_DEFAULT_AGGS, SEED + 5, batch),
+            ("zinc-train-pna-bf16", ZINC_PNA_AGGS, SEED + 9, batch),
+            ("zinc-exact-train-default-bf16", ZINC_DEFAULT_AGGS, SEED + 5, exact)):
+        m = model_of(aggs_scalers, seed)
+        opt = make_optimizer(m.parameters(), 0.01, 5e-4)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        losses = []
+        with counted(path, paths):
+            step_ms = host_ms(lambda: losses.append(float(zinc_train_step(m, opt, b, gen))))
+        print(f"{path}: losses {losses}; step times (host clock) {step_ms} ms")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{path}: non-finite loss {losses}")
+        del m, opt
+    # Per step and layer on the plain collate: forward kernel 4 in bf16 once
+    # (max and min paired on the shared bf16 messages) and kernel 1 on them
+    # once (mean), with std kernel 8 in bf16 once; backward kernel 5 in bf16
+    # once and kernel 1 on the bf16 cotangents of the gathers by dst and by
+    # src; kernel 1 on the float32 node rows once a step (pooling). On the
+    # degree-exact batch the slot reductions are plain and kernel 1 pools.
+    expect_launches(paths, "zinc-train-default-bf16", segment_minmax_bf16=3 * layers,
+                    segment_minmax_bwd_bf16=3 * layers, segment_sum_bf16=3 * 3 * layers,
+                    segment_sum=3)
+    expect_launches(paths, "zinc-train-pna-bf16", segment_minmax_bf16=3 * layers,
+                    segment_minmax_bwd_bf16=3 * layers, segment_sum_bf16=3 * 3 * layers,
+                    segment_sum_sq_bf16=3 * layers, segment_sum=3)
+    expect_launches(paths, "zinc-exact-train-default-bf16", segment_sum=3)
+
+    # ------------- one bf16 train step of each route vs the all-plain step
+    # Dropout on; the kernels' arguments kept for the per-kernel section. The
+    # f32 and bf16 steps of each route timed in turns.
+    captured = {}
+    step_turns = {}
+    for what, aggs_scalers, site, b in (
+            ("min,max (fused route)", ZINC_PRESET_AGGS, "fused_minmax_edge_program", batch),
+            ("mean,max,min (general route)", ZINC_DEFAULT_AGGS, "fused_segment_minmax", batch),
+            ("mean,min,max,std (general route)", ZINC_PNA_AGGS, "segment_sum_sq_csr", batch),
+            ("mean,max,min (ELL route)", ZINC_DEFAULT_AGGS, None, exact)):
+        steps_out = []
+        for plain in (False, True):
+            m = model_of(aggs_scalers, SEED + 7)
+            opt = make_optimizer(m.parameters(), 1e-4, 3e-4)
+
+            def step():
+                with plain_kernels() if plain else contextlib.nullcontext():
+                    loss = zinc_train_step(m, opt, b,
+                                           torch.Generator(device=dev).manual_seed(SEED))
+                steps_out.append((float(loss), grads_of(m)))
+
+            if site is not None and not plain:
+                captured[site] = capture_call(mma_conv, site, step)
+            else:
+                step()
+        (loss_k, grads_k), (loss_p, grads_p) = steps_out
+        what = f"zinc-bf16 {what} step (dropout on)"
+        compare(torch.tensor([loss_k]), torch.tensor([loss_p]), 1e-5, f"{what} loss vs plain")
+        errs = {name: compare(t_, grads_p[name], BF16_GRAD_TOL, f"{what} {name} vs plain",
+                              scale=bn_fed_scale(name, grads_p), verbose=False)
+                for name, t_ in grads_k.items()}
+        worst = max(errs, key=lambda k: errs[k]["max_rel_err"])
+        print(f"{what}: {len(errs)} gradients vs plain on the card, max_rel_err "
+              f"{errs[worst]['max_rel_err']:.3e} ({worst}; tolerance {BF16_GRAD_TOL:g})")
+        models = {"f32": model_of(aggs_scalers, SEED + 13, "float32"),
+                  "bf16": model_of(aggs_scalers, SEED + 13)}
+        opts = {d: make_optimizer(m_.parameters(), 1e-4, 3e-4) for d, m_ in models.items()}
+        gens = {d: torch.Generator(device=dev).manual_seed(SEED) for d in models}
+        times = {d: [] for d in models}
+        for d in models:
+            zinc_train_step(models[d], opts[d], b, gens[d])  # warm-up
+        for d in ("f32", "bf16", "bf16", "f32"):
+            times[d] += host_ms(lambda: zinc_train_step(models[d], opts[d], b, gens[d]), 3)
+        step_turns[what] = {d: statistics.median(v) for d, v in times.items()}
+        print(f"{what}: train step medians (host clock, 6 each, in turns): bf16 "
+              f"{step_turns[what]['bf16']:.4f} ms, f32 {step_turns[what]['f32']:.4f} ms")
+        del m, opt, models, opts, steps_out
+
+    # ------------------- per-kernel: the bf16 variants of kernels 4-8
+    rp = g.real_row_ptr
+    e_cov, n_rows = int(rp[-1]), g.n_node
+    kernels = {}
+
+    def equal(got, want, what):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: max_abs_err "
+                                 f"{(got.float() - want.float()).abs().max().item():.3e}, "
+                                 "must be equal")
+
+    def record(name, err, run16, run32, plain, nbytes, flops, library_ms, shape, f32_name,
+               source=MINMAX_SOURCE):
+        ms, f32_ms = bf16_turns(run32, run16)
+        plain_ms = device_ms(plain, iters=10)
+        kernels[name] = {
+            "name": name, "route": "cuda", "source": source, "replaces": REPLACES[f32_name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound(nbytes, flops),
+            "library_ms": library_ms, "f32_ms": f32_ms, "shape": shape}
+        e = kernels[name]
+        print(f"{name}: ms {ms:.4f} (the f32 kernel on the same values {f32_ms:.4f}, in turns) "
+              f"plain_ms {plain_ms:.4f} library_ms {library_ms} bound_ms {e['bound_ms']:.4f} "
+              f"({e['bound_by']})")
+
+    with torch.no_grad():
+        # Kernels 4-5 on the bf16 messages and the cotangent of the
+        # mean,max,min step (its last layer).
+        (msgs, _, ops2), _, ct2 = captured["fused_segment_minmax"]
+        msgs, ch = msgs.detach().contiguous(), msgs.shape[1]
+        if msgs.dtype != torch.bfloat16:
+            raise AssertionError(f"zinc-bf16 general route gave kernel 4 {msgs.dtype} messages")
+        for ops in (ops2, ops2[:1]):
+            ct = ct2[:, :len(ops) * ch].contiguous()
+            out = mm.segment_minmax(msgs, rp, ops)
+            grad = mm.segment_minmax_bwd(msgs, rp, ops, out, ct)
+            equal(out, mm.segment_minmax_reference(msgs, rp, ops), f"segment_minmax bf16 {ops}")
+            equal(grad, mm.segment_minmax_bwd_reference(msgs, rp, ops, out, ct),
+                  f"segment_minmax_bwd bf16 {ops}")
+            equal(out, mm.segment_minmax(msgs, rp, ops), f"segment_minmax bf16 {ops} run to run")
+            equal(grad, mm.segment_minmax_bwd(msgs, rp, ops, out, ct),
+                  f"segment_minmax_bwd bf16 {ops} run to run")
+            print(f"segment_minmax / _bwd bf16 ops={ops}: equal to plain and run to run")
+        ct = ct2.contiguous()
+        p = len(ops2)
+        out = mm.segment_minmax(msgs, rp, ops2)
+        msgs32, out32 = msgs.float(), mm.segment_minmax(msgs.float(), rp, ops2)
+        ids = mm._row_ids(rp)[:, None].expand(e_cov, ch)
+        live = msgs[:e_cov]
+
+        def library():
+            return [torch.zeros(n_rows, ch, dtype=torch.bfloat16, device=dev).scatter_reduce_(
+                0, ids, live, "amax" if op == "max" else "amin", include_self=False)
+                for op in ops2]
+
+        shape = f"E={e_cov} N={n_rows} C={ch} ops={','.join(ops2)}, bf16 data"
+        # Bytes: the bf16 edge rows and the CSR read once, the float32 output.
+        record("segment_minmax_bf16", 0.0, lambda: mm.segment_minmax(msgs, rp, ops2),
+               lambda: mm.segment_minmax(msgs32, rp, ops2),
+               lambda: mm.segment_minmax_reference(msgs, rp, ops2),
+               2 * e_cov * ch + 4 * ((n_rows + 1) + n_rows * p * ch), e_cov * ch * p,
+               device_ms(library), shape + " (library: one scatter_reduce per op on the bf16 "
+               "rows)", "segment_minmax")
+        # Bytes: the bf16 rows, out and ct (float32), the CSR, grad (bf16) written.
+        record("segment_minmax_bwd_bf16", 0.0,
+               lambda: mm.segment_minmax_bwd(msgs, rp, ops2, out, ct),
+               lambda: mm.segment_minmax_bwd(msgs32, rp, ops2, out32, ct),
+               lambda: mm.segment_minmax_bwd_reference(msgs, rp, ops2, out, ct),
+               2 * e_cov * ch + 4 * (2 * n_rows * p * ch + (n_rows + 1)) + 2 * g.n_edge * ch,
+               e_cov * ch * 2 * p, None, shape, "segment_minmax_bwd")
+
+        # Kernels 6-7 on the bf16 node projection and edge rest, the seed and
+        # the cotangent of the min,max step (its last layer), dropout on and off.
+        (c, hg, _, ops_p), kw, ctp = captured["fused_minmax_edge_program"]
+        c, hg = c.detach().contiguous(), hg.detach().contiguous()
+        seed, rate = kw["seed"], kw["rate"]
+        if (c.dtype, hg.dtype) != (torch.bfloat16, torch.bfloat16):
+            raise AssertionError(f"zinc-bf16 fused route gave kernel 6 {c.dtype} / {hg.dtype}")
+        errs = []
+        for ops in (ops_p, ops_p[:1]):
+            for sd in (seed, None):
+                ct = ctp[:, :len(ops) * ch].contiguous()
+                what = f"minmax_prog bf16 ops={ops} dropout={'on' if sd is not None else 'off'}"
+                out = mm.minmax_edge_program(c, hg, rp, ops, sd, rate)
+                dhg, dc = mm.minmax_edge_program_bwd(c, hg, rp, ops, sd, rate, out, ct)
+                equal(out, mm.minmax_edge_program_reference(c, hg, rp, ops, sd, rate), what)
+                want_dhg, want_dc = mm.minmax_edge_program_bwd_reference(c, hg, rp, ops, sd,
+                                                                         rate, out, ct)
+                equal(dhg, want_dhg, f"{what} dhg")
+                errs.append(compare(dc, want_dc, 1e-5, f"{what} dc vs plain")["max_abs_err"])
+                equal(out, mm.minmax_edge_program(c, hg, rp, ops, sd, rate), f"{what} run to run")
+                again = mm.minmax_edge_program_bwd(c, hg, rp, ops, sd, rate, out, ct)
+                equal(dhg, again[0], f"{what} dhg run to run")
+                equal(dc, again[1], f"{what} dc run to run")
+        ct = ctp.contiguous()
+        p = len(ops_p)
+        c32, hg32 = c.float(), hg.float()
+        out = mm.minmax_edge_program(c, hg, rp, ops_p, seed, rate)
+        out32 = mm.minmax_edge_program(c32, hg32, rp, ops_p, seed, rate)
+        shape = f"E={e_cov} N={n_rows} C={ch} ops={','.join(ops_p)} dropout on, bf16 c and hg"
+        record("minmax_prog_bf16", 0.0,
+               lambda: mm.minmax_edge_program(c, hg, rp, ops_p, seed, rate),
+               lambda: mm.minmax_edge_program(c32, hg32, rp, ops_p, seed, rate),
+               lambda: mm.minmax_edge_program_reference(c, hg, rp, ops_p, seed, rate),
+               2 * (e_cov * ch + n_rows * ch) + 4 * ((n_rows + 1) + 1 + n_rows * p * ch),
+               e_cov * ch * (2 + p), None, shape, "minmax_prog")
+        record("minmax_prog_bwd_bf16", max(errs),
+               lambda: mm.minmax_edge_program_bwd(c, hg, rp, ops_p, seed, rate, out, ct),
+               lambda: mm.minmax_edge_program_bwd(c32, hg32, rp, ops_p, seed, rate, out32, ct),
+               lambda: mm.minmax_edge_program_bwd_reference(c, hg, rp, ops_p, seed, rate, out,
+                                                            ct),
+               2 * (e_cov * ch + n_rows * ch + g.n_edge * ch + n_rows * ch)
+               + 4 * (2 * n_rows * p * ch + (n_rows + 1) + 1),
+               e_cov * ch * (4 + 2 * p), None, shape, "minmax_prog_bwd")
+
+        # Kernel 8 on the bf16 messages of the PNA step (its last layer).
+        (msgs, rp8), _, _ = captured["segment_sum_sq_csr"]
+        msgs = msgs.detach().contiguous()
+        if msgs.dtype != torch.bfloat16:
+            raise AssertionError(f"zinc-bf16 PNA route gave kernel 8 {msgs.dtype} messages")
+        ch = msgs.shape[1]
+        got = fused_mma.segment_sum_sq_csr(msgs, rp8)
+        want = fused_mma.segment_sum_sq_reference(msgs, rp8)
+        err = compare(got, want, 1e-5, "segment_sum_sq bf16 vs plain")
+        print(f"segment_sum_sq bf16: equal to plain bit for bit: {torch.equal(got, want)}")
+        equal(got, fused_mma.segment_sum_sq_csr(msgs, rp8), "segment_sum_sq bf16 run to run")
+        live = msgs[:e_cov].float()
+        both = torch.cat([live, fused_mma._round_bf16(live * live)], dim=1)
+        ids = mm._row_ids(rp8)
+        msgs32 = msgs.float()
+        # Bytes: the bf16 edge rows and the CSR read once, [Σx ‖ Σx²] written;
+        # operations per element: the square, its rounding and two adds.
+        record("segment_sum_sq_bf16", err["max_abs_err"],
+               lambda: fused_mma.segment_sum_sq_csr(msgs, rp8),
+               lambda: fused_mma.segment_sum_sq_csr(msgs32, rp8),
+               lambda: fused_mma.segment_sum_sq_reference(msgs, rp8),
+               2 * e_cov * ch + 4 * ((n_rows + 1) + n_rows * 2 * ch), 3 * e_cov * ch,
+               device_ms(lambda: torch.zeros(n_rows, 2 * ch, device=dev).index_add_(0, ids, both)),
+               f"E={e_cov} N={n_rows} C={ch}, bf16 data (library: index_add_ of a pre-built "
+               "float32 [x ‖ x²])", "segment_sum_sq", source=SOURCE)
     return kernels
 
 
@@ -1459,12 +1820,6 @@ def bf16_kernel_entries(dev, big, x_big, big_model, classes, mw0, train16, label
     e_cov, n_rows = int(row_ptr[-1]), big.n_node
     out = {}
 
-    def in_turns(run_f32, run_bf16, iters=25):
-        t = {"f32": [], "bf16": []}
-        for which in ("f32", "bf16", "bf16", "f32"):
-            t[which].append(device_ms(run_f32 if which == "f32" else run_bf16, iters=iters))
-        return statistics.median(t["bf16"]), statistics.median(t["f32"])
-
     # ------------------------------------------------------------ kernel 1
     specs = [get_agg_spec(a) for a in ("mean", "mean2")]
     pat = masked_aggregate.sigmoid_lane_pattern(specs, "new_sigmoid", True, 64, dev)
@@ -1483,8 +1838,8 @@ def bf16_kernel_entries(dev, big, x_big, big_model, classes, mw0, train16, label
         err = compare(got, fused_mma.segment_sum_reference(data, rp, index), 1e-5,
                       f"segment_sum_csr bf16 {what} vs plain")
         data32 = data.float()
-        ms, f32_ms = in_turns(lambda: fused_mma.segment_sum_csr(data32, rp, index),
-                              lambda: fused_mma.segment_sum_csr(data, rp, index))
+        ms, f32_ms = bf16_turns(lambda: fused_mma.segment_sum_csr(data32, rp, index),
+                                lambda: fused_mma.segment_sum_csr(data, rp, index))
         plain_ms = device_ms(lambda: fused_mma.segment_sum_reference(data, rp, index), iters=10)
         # Bytes: the bf16 rows (the node table when indexed, the edge rows
         # otherwise) read once, the CSR and index, the float32 output.
@@ -1529,9 +1884,9 @@ def bf16_kernel_entries(dev, big, x_big, big_model, classes, mw0, train16, label
         raise AssertionError("edge_program_lean_fwd bf16 differs run to run")
     err = compare(got, fused_mma.edge_program_lean_reference(*fwd_args), 1e-5,
                   "edge_program_lean_fwd bf16 vs plain")
-    ms, f32_ms = in_turns(lambda: fused_mma.edge_program_lean(c, w_bot, h32, pat, src, rp, cp,
-                                                             dst_csc),
-                          lambda: fused_mma.edge_program_lean(*fwd_args, cp, dst_csc))
+    ms, f32_ms = bf16_turns(lambda: fused_mma.edge_program_lean(c, w_bot, h32, pat, src, rp, cp,
+                                                               dst_csc),
+                            lambda: fused_mma.edge_program_lean(*fwd_args, cp, dst_csc))
     plain_ms = device_ms(lambda: fused_mma.edge_program_lean_reference(*fwd_args), iters=5)
     # Bytes: c, W_bot, the pattern, src, the CSR and S as the f32 kernel's,
     # h in bf16.
@@ -1547,9 +1902,9 @@ def bf16_kernel_entries(dev, big, x_big, big_model, classes, mw0, train16, label
     d_tab = fused_mma._lean_node_pass(h, w_bot)
     if not torch.equal(d_tab, fused_mma._node_product(h, w_bot)):
         raise AssertionError("edge_program_lean_fwd bf16 node pass differs from the plain D")
-    k2["node_pass_ms"], k2["f32_node_pass_ms"] = in_turns(
+    k2["node_pass_ms"], k2["f32_node_pass_ms"] = bf16_turns(
         lambda: fused_mma._lean_node_pass(h32, w_bot), lambda: fused_mma._lean_node_pass(h, w_bot))
-    k2["edge_pass_ms"], k2["f32_edge_pass_ms"] = in_turns(
+    k2["edge_pass_ms"], k2["f32_edge_pass_ms"] = bf16_turns(
         lambda: fused_mma._lean_edge_pass(c, pat, d_tab, h32, src, rp),
         lambda: fused_mma._lean_edge_pass(c, pat, d_tab, h, src, rp))
     print(f"edge_program_lean_fwd bf16: ms {ms:.4f} (f32 {f32_ms:.4f}, in turns) plain_ms "
@@ -1567,8 +1922,8 @@ def bf16_kernel_entries(dev, big, x_big, big_model, classes, mw0, train16, label
                                   ("dc", "dW_bot", "dh"))]
     del got
     bwd32 = (c, w_bot, h32) + bwd_args[3:]
-    ms, f32_ms = in_turns(lambda: fused_mma.edge_program_lean_bwd(*bwd32),
-                          lambda: fused_mma.edge_program_lean_bwd(*bwd_args), iters=15)
+    ms, f32_ms = bf16_turns(lambda: fused_mma.edge_program_lean_bwd(*bwd32),
+                            lambda: fused_mma.edge_program_lean_bwd(*bwd_args), iters=15)
     plain_ms = device_ms(lambda: fused_mma.edge_program_lean_bwd_reference(*bwd_args), iters=5)
     # Bytes: as the f32 kernel's (c, ct, dc; W_bot in and dW_bot out; the
     # pattern, src, dst_csc and both pointer arrays; dh out in f32), h in bf16.
@@ -1593,7 +1948,7 @@ def bf16_kernel_entries(dev, big, x_big, big_model, classes, mw0, train16, label
              lambda: fused_mma._lean_bwd_src_pass(c, ct3, pat, d_tab, h, dst_csc, cp)),
             ("node_pass", lambda: fused_mma._lean_bwd_node_pass(ddg, h32, w_bot),
              lambda: fused_mma._lean_bwd_node_pass(ddg, h, w_bot))):
-        k3[f"{part}_ms"], k3[f"f32_{part}_ms"] = in_turns(run32, run16, iters=15)
+        k3[f"{part}_ms"], k3[f"f32_{part}_ms"] = bf16_turns(run32, run16, iters=15)
     print(f"edge_program_lean_bwd bf16: ms {ms:.4f} (f32 {f32_ms:.4f}, in turns) plain_ms "
           f"{plain_ms:.4f} bound_ms {k3['bound_ms']:.4f} ({k3['bound_by']}); parts: dst pass "
           f"{k3['dst_pass_ms']:.4f} (f32 {k3['f32_dst_pass_ms']:.4f}), src pass "
@@ -1787,6 +2142,9 @@ def run_resume_and_serving(dev, paths: dict, ctx: dict) -> None:
     zweights = zmodel.state_dict()
     zparams = {k: v for k, v in zweights.items() if k not in buffers}
     zstate = {k: v for k, v in zweights.items() if k in buffers}
+    zmodel16 = ZincNet(*ZINC_PRESET_AGGS, avg, num_layers=layers, compute_dtype="bfloat16",
+                       device=dev)
+    zmodel16.load_state_dict(zweights)
     requests = ctx["requests"]
     node = {"cora": (ctx["cora_model"], cora.graph, cora.num_nodes),
             "big": (ctx["big_model"], big, n_big), "big16": (ctx["big16"], big, n_big)}
@@ -1808,6 +2166,10 @@ def run_resume_and_serving(dev, paths: dict, ctx: dict) -> None:
                                [(zparams, zstate, zbatch)] * 10, lambda p_, s_, b_: zmodel(b_),
                                1024),
          dict(minmax_prog=layers, segment_sum=1)),
+        ("zinc-serve-bf16-export",
+         (lambda: export_zinc_predictor(zmodel16, zparams, zstate, zbatch),
+          [(zparams, zstate, zbatch)] * 10, lambda p_, s_, b_: zmodel16(b_), 1024),
+         dict(minmax_prog_bf16=layers, segment_sum=1)),
     )
     for path, (make_blob, reqs, eager, n_real), per_request in cases:
         t0 = time.perf_counter()
@@ -1856,6 +2218,7 @@ def run_resume_and_serving(dev, paths: dict, ctx: dict) -> None:
         lean16_args, _, _ = capture_call(fused_mma, "_edge_program_lean_kernel",
                                          lambda: ctx["big16"](x_big, big))
         prog_args, _, _ = capture_call(mm, "_minmax_prog_kernel", lambda: zmodel(zbatch))
+        prog16_args, _, _ = capture_call(mm, "_minmax_prog_kernel", lambda: zmodel16(zbatch))
         zrp = zbatch.graph.real_row_ptr
         zrows = torch.randn((zbatch.graph.n_edge, prog_args[0].shape[1]),
                             generator=torch.Generator().manual_seed(SEED + 7)).to(dev)
@@ -1881,6 +2244,14 @@ def run_resume_and_serving(dev, paths: dict, ctx: dict) -> None:
              lambda c_, h_, r_, o_, s_, t_: mm._minmax_prog_kernel(c_, h_, r_, tuple(o_), s_, t_)),
             ("segment_sum_sq_csr", "segment_sum_sq", ops.segment_sum_sq_csr, (zrows, zrp),
              lambda *a: fused_mma._segment_sum_sq_kernel(*a)),
+            ("segment_minmax bf16", "segment_minmax_bf16", ops.segment_minmax,
+             (zrows.bfloat16(), zrp, ["min", "max"]),
+             lambda d_, r_, o_: mm._segment_minmax_kernel(d_, r_, tuple(o_))),
+            ("minmax_edge_program bf16", "minmax_prog_bf16", ops.minmax_edge_program,
+             prog16_args[:3] + (list(prog16_args[3]),) + prog16_args[4:],
+             lambda c_, h_, r_, o_, s_, t_: mm._minmax_prog_kernel(c_, h_, r_, tuple(o_), s_, t_)),
+            ("segment_sum_sq_csr bf16", "segment_sum_sq_bf16", ops.segment_sum_sq_csr,
+             (zrows.bfloat16(), zrp), lambda *a: fused_mma._segment_sum_sq_kernel(*a)),
         )
         for what, key, op, args, direct in holds:
             before = launches()[key]
@@ -2895,7 +3266,9 @@ def main() -> int:
         "n_big": n_big, "e_big": e_big, "labels": labels, "idx_train": idx_train,
         "init_state": init_state, "losses": losses, "step_ms": step_ms})
     del big_ref
-    zinc_kernels = run_zinc(dev, paths)
+    zinc_kernels, zinc_ctx = run_zinc(dev, paths)
+    zinc_kernels.update(run_zinc_bf16(dev, paths, zinc_ctx))
+    del zinc_ctx
     run_resume_and_serving(dev, paths, {
         "cora": cora, "cora_model": cora_model, "requests": requests, "big": big,
         "big_model": big_model, "big16": bf16_models["big16"], "x_big": x_big, "n_big": n_big,

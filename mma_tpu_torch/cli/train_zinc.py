@@ -10,10 +10,11 @@ and the CSR kernels, which the H100 runs faster; ``ZincConfig``);
 ``--max-degree-hint`` sizes the single slot width where a batch carries
 no degree buckets.
 ``--remat`` recomputes each conv in the backward pass.
-``--compute-dtype auto`` resolves to float32 off a TPU, as in the JAX
-package; ``--compute-dtype bfloat16`` is not ported yet and raises
-(``ROADMAP.md`` item 28). ``--checkpoint-dir`` with ``--checkpoint-every
-N`` saves a checkpoint every N epochs.
+``--compute-dtype bfloat16`` runs the convs' edge pipeline (projections,
+messages, dropout, the min/max, sum and sum-of-squares kernels' operands)
+in bf16 on every route and layout, ``--remat`` included; ``auto`` resolves
+to float32 off a TPU, as in the JAX package. ``--checkpoint-dir`` with
+``--checkpoint-every N`` saves a checkpoint every N epochs.
 
 Usage (reproduces README.md:79):
     python -m mma_tpu_torch.cli.train_zinc --aggregators min,max \\
@@ -48,8 +49,8 @@ def build_parser():
     p.add_argument("--use-pallas", action="store_true",
                    help="compatibility no-op: CUDA tensors always take the kernels")
     p.add_argument("--compute-dtype", type=str, default="float32",
-                   help="conv edge-pipeline dtype: float32 or auto (float32 off a TPU); "
-                        "bfloat16 is not ported yet")
+                   help="conv edge-pipeline dtype: float32, bfloat16 or auto "
+                        "(float32 off a TPU)")
     p.add_argument("--edge-format", type=str, default="auto",
                    help="conv edge layout: auto|csr|ell")
     p.add_argument("--max-degree-hint", type=int, default=4,

@@ -11,13 +11,14 @@
 // are no atomics and the results are deterministic; rows with no edges
 // get 0.
 //
-// Kernels 1, 2 and 3 also read bf16 operands (the edge pipeline's
-// compute_dtype="bfloat16"): kernel 1 bf16 data rows, kernels 2 and 3 a
-// bf16 h. They widen each value to f32 in registers as they use it, and
+// Kernels 1, 2, 3 and 8 also read bf16 operands (the edge pipeline's
+// compute_dtype="bfloat16"): kernels 1 and 8 bf16 data rows, kernels 2
+// and 3 a bf16 h. They widen each value to f32 in registers as they use it, and
 // every sum and every output stays f32. Where the JAX package's kernels
 // take bf16 inputs they run each contraction as one MXU pass, which rounds
 // its f32 operands to bf16 (mma_tpu/ops/pallas/fused_mma.py:107-118): the
-// message act(c + D) * h before kernel 2 sums it, ct and dlog in kernel 3.
+// message act(c + D) * h before kernel 2 sums it, ct and dlog in kernel 3,
+// the square x * x in kernel 8.
 // The bf16 variants round at the same places (round_bf16), so that the
 // port computes the JAX package's bf16 function; the f32 kernels are
 // unchanged. Conversions go through the cuda_bf16.h intrinsics alone, so
@@ -239,7 +240,16 @@ __device__ __forceinline__ float round_bf16(float x) {
 }
 
 // An operand that the JAX kernel rounds to bf16 when its inputs are bf16
-// (E = bf16), on the 4 lanes of a slot; as it is for f32 inputs.
+// (E = bf16); as it is for f32 inputs. operand4: on the 4 lanes of a slot.
+template <typename E>
+__device__ __forceinline__ float operand(float v) {
+  if constexpr (std::is_same<E, float>::value) {
+    return v;
+  } else {
+    return round_bf16(v);
+  }
+}
+
 template <typename E>
 __device__ __forceinline__ float4 operand4(const float4& v) {
   if constexpr (std::is_same<E, float>::value) {
@@ -1664,9 +1674,16 @@ cudaError_t launch_dw(const float* ddg, const E* h, float* part, int n_rows, int
 // ZINC's in-degree is at most 4, so each walk is short. Both sums use
 // rounded operations (no FMA contraction), so the kernel gives the plain
 // version's slot-by-slot sums bit for bit.
+//
+// bf16 data (E = bf16): each value is widened to f32 as it is loaded and
+// both sums stay f32. The square of a bf16 value is exact in f32, and the
+// JAX kernel's one-pass contraction on bf16 data (precision "fastest")
+// then rounds it to bf16 before it is summed (_contract at
+// mma_tpu/ops/pallas/fused_mma.py:108-119): so does this kernel.
 // ---------------------------------------------------------------------------
 
-__global__ void segment_sum_sq_kernel(const float* __restrict__ data,
+template <typename E>
+__global__ void segment_sum_sq_kernel(const E* __restrict__ data,
                                       const int32_t* __restrict__ row_ptr,
                                       float* __restrict__ out, int n_rows, int n_chan) {
   const int row = blockIdx.x * blockDim.y + threadIdx.y;
@@ -1677,9 +1694,10 @@ __global__ void segment_sum_sq_kernel(const float* __restrict__ data,
   for (int ch = threadIdx.x; ch < n_chan; ch += blockDim.x) {
     float s1 = 0.f, s2 = 0.f;
     for (int64_t e = start; e < end; ++e) {
-      const float x = __ldg(data + e * n_chan + ch);
+      const float x = Slots<1, E>::widen(Slots<1, E>::load(
+          reinterpret_cast<const typename Slots<1, E>::Raw*>(data + e * n_chan + ch)));
       s1 = __fadd_rn(s1, x);
-      s2 = __fadd_rn(s2, __fmul_rn(x, x));
+      s2 = __fadd_rn(s2, operand<E>(__fmul_rn(x, x)));
     }
     o[ch] = s1;
     o[n_chan + ch] = s2;
@@ -2113,19 +2131,24 @@ int mma_edge_program_lean_bwd_node(const void* ddg, const void* h, const void* w
                                            static_cast<float*>(dw), s));
 }
 
-// data (E, C) f32, row_ptr (n_rows+1,) i32, out (n_rows, 2C) f32.
+// data (E, C) f32 (bf16 when data_bf16 != 0), row_ptr (n_rows+1,) i32, out
+// (n_rows, 2C) f32.
 int mma_segment_sum_sq_csr(const void* data, const void* row_ptr, void* out, int n_rows,
-                           int n_chan, void* stream) {
+                           int n_chan, int data_bf16, void* stream) {
   if (n_rows <= 0 || n_chan <= 0) return static_cast<int>(cudaSuccess);
   // Threads along x cover channels (a multiple of 32, at most 128); the
   // rest of the 256-thread block along y covers rows.
   int bx = ((n_chan + kWarp - 1) / kWarp) * kWarp;
   if (bx > 128) bx = 128;
   const int by = 256 / bx;
-  segment_sum_sq_kernel<<<(n_rows + by - 1) / by, dim3(bx, by), 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(data), static_cast<const int32_t*>(row_ptr),
-      static_cast<float*>(out), n_rows, n_chan);
+  auto launch = [&](auto elem) {
+    using E = typename decltype(elem)::type;
+    segment_sum_sq_kernel<E><<<(n_rows + by - 1) / by, dim3(bx, by), 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const E*>(data), static_cast<const int32_t*>(row_ptr),
+        static_cast<float*>(out), n_rows, n_chan);
+  };
+  data_bf16 ? launch(Type<bf16>()) : launch(Type<float>());
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -64,9 +64,20 @@ splits ties equally among the shards that hold the extreme, as
 ``jnp.max``'s does (``:478-486``). ``deg`` is replicated, so the combined
 result equals the unsharded one.
 
-Not ported yet (raises ``NotImplementedError``): ``compute_dtype`` that
-resolves to bfloat16 (``ROADMAP.md`` item 28; ``"auto"`` is float32 off a
-TPU).
+``compute_dtype`` (``"float32"``, ``"bfloat16"`` or ``"auto"``, resolved by
+:func:`mma_tpu_torch.autotune.resolve_compute_dtype` on the conv's device:
+``"auto"`` is float32 off a TPU) is the edge pipeline's dtype, cast where
+the JAX package's conv casts (``mma_tpu/nn/mma_conv.py:200-210``,
+``:246-252``, ``:266``, ``:276``): the node features, the edge features and
+the pre-NNs' weights and biases, so that the projections, the messages and
+their dropout are in that dtype. The reduces read bf16 messages and give
+float32 (kernels 1, 4 and 8 on the general route, kernel 6 on the fused
+one; the ELL route's slot sums, its min/max outputs cast up), and the
+scalers, post-NNs and ``lin`` stay float32. The ELL route rounds where the
+JAX function rounds (``:339-352``, ``:383``): each slot message after the
+dst tile is added, the hashed dropout's keep factor, and the slot squares of
+``var``/``std``. The fused kernel adds and masks in float32 and does not
+round the message. Parameters stay float32.
 """
 
 from __future__ import annotations
@@ -77,7 +88,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from mma_tpu_torch.autotune import resolve_compute_dtype
+from mma_tpu_torch.autotune import torch_compute_dtype
 from mma_tpu_torch.device import DeviceLike, resolve_device
 from mma_tpu_torch.graph.container import Graph
 from mma_tpu_torch.nn.layers import Dense, dropout
@@ -178,10 +189,7 @@ class MultiMaskConv(nn.Module):
                 raise ValueError(f'Unknown scaler "{s}".')
         if edge_format not in ("auto", "csr", "ell"):
             raise ValueError(f'Unknown edge_format "{edge_format}".')
-        if resolve_compute_dtype(compute_dtype, dev) == "bfloat16":
-            raise NotImplementedError(
-                "MultiMaskConv with compute_dtype='bfloat16' (the ZINC bf16 edge pipeline: "
-                "the conv's message build and kernels 4-8) is not ported yet: ROADMAP.md item 28")
+        self.edge_dtype = torch_compute_dtype(compute_dtype, dev)
         if divide_input and in_channels % towers:
             raise ValueError(f"in_channels={in_channels} must divide by towers={towers}")
         if out_channels % towers:
@@ -224,17 +232,19 @@ class MultiMaskConv(nn.Module):
 
     def _first_layer(self, k: int):
         """Aggregator ``k``'s first pre-NN layer over all towers: weights
-        (T, msg_in, F) and bias (T·F,), detached under parity (N7)."""
+        (T, msg_in, F) and bias (T·F,) in the edge dtype, detached under
+        parity (N7)."""
         w0 = torch.stack([tower[0].w for tower in self.pre_nns[k]])
         b0 = torch.cat([tower[0].b for tower in self.pre_nns[k]])
         if self.parity:
             w0, b0 = w0.detach(), b0.detach()
-        return w0, b0
+        return w0.to(self.edge_dtype), b0.to(self.edge_dtype)
 
     def _projections(self, w0, x_flat):
         """``(p_dst, p_src)`` (N, T·F): the dst and src blocks of the first
-        layer applied per node."""
+        layer applied per node, in the edge dtype."""
         f, t = self.f_in, self.towers
+        x_flat = x_flat.to(self.edge_dtype)
         if self.divide_input:
             xt = x_flat.reshape(-1, t, f)
             p_dst = torch.einsum("ntf,tfg->ntg", xt, w0[:, :f, :]).reshape(-1, t * f)
@@ -247,7 +257,7 @@ class MultiMaskConv(nn.Module):
 
     def _edge_term(self, w0, e_feat):
         f, t = self.f_in, self.towers
-        return e_feat @ w0[:, 2 * f:, :].permute(1, 0, 2).reshape(f, t * f)
+        return e_feat.to(self.edge_dtype) @ w0[:, 2 * f:, :].permute(1, 0, 2).reshape(f, t * f)
 
     def _messages_for_aggregator(self, k, x_flat, e_feat, graph: Graph):
         """Aggregator ``k``'s messages, flat (E, T·F), tower-major lanes."""
@@ -281,7 +291,7 @@ class MultiMaskConv(nn.Module):
                 w, b = layer.w, layer.b
                 if self.parity:
                     w, b = w.detach(), b.detach()
-                m = torch.relu(m) @ w + b
+                m = torch.relu(m) @ w.to(self.edge_dtype) + b.to(self.edge_dtype)
             parts.append(m)
         return torch.cat(parts, dim=1)
 
@@ -444,8 +454,8 @@ class MultiMaskConv(nn.Module):
 
     def _ell_messages(self, k, x_flat, e_feat, graph: Graph, spec: EllSpec, seed):
         """Aggregator ``k``'s messages as per-bucket slot blocks ``(R_b,
-        W_b·T·F)``, N2 dropout applied: the JAX package's hash of (seed, row,
-        slot lane), bit for bit."""
+        W_b·T·F)`` in the edge dtype, N2 dropout applied: the JAX package's
+        hash of (seed, row, slot lane), bit for bit."""
         p_dst, hg = self._message_parts(k, x_flat, e_feat, graph)
         parts = ell_expand_exact(hg, spec) if graph.ell_exact else ell_expand(hg, graph, spec)
         xs = []
@@ -454,13 +464,13 @@ class MultiMaskConv(nn.Module):
             if seed is not None:
                 rows = torch.arange(s, b, device=xb.device)[:, None]
                 lanes = torch.arange(xb.shape[1], device=xb.device)[None, :]
-                xb = xb * dropout_keep(seed, rows, lanes, self.dropout_rate)
+                xb = xb * dropout_keep(seed, rows, lanes, self.dropout_rate).to(xb.dtype)
             xs.append(xb)
         return xs
 
     def _ell_reduce(self, xs, graph: Graph, spec: EllSpec, valids, deg, wanted):
-        """The reduces ``wanted`` of one message set as ``(N, T·F)`` each:
-        masked reduces over each bucket's slot axis, concatenated and
+        """The reduces ``wanted`` of one message set as ``(N, T·F)`` float32
+        each: masked reduces over each bucket's slot axis, concatenated and
         zero-padded past the buckets (degree-0 and padding rows)."""
         need = set()
         for a in wanted:
@@ -478,7 +488,8 @@ class MultiMaskConv(nn.Module):
             if "s2" in need:
                 raw["s2"].append(masked_slot_sum(xb * xb, vb, w))
         n = graph.n_node
-        cat = {key: pad_rows(torch.cat(v, dim=0), n) for key, v in raw.items()}
+        # The sums are float32 already; min/max select edge-dtype values.
+        cat = {key: pad_rows(torch.cat(v, dim=0), n).float() for key, v in raw.items()}
         if minmax and valids is not None:
             # Rows without a valid slot hold the ±inf neutral: select on the
             # slots themselves, not on deg (a sampled layout's deg holds

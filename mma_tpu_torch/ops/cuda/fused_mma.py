@@ -41,8 +41,9 @@ its CSC twin:
   pre-gathered per-edge logits and source rows, the forward of
   :func:`fused_masked_aggregate`.
 
-Kernels 1, 2 and 3 also take bf16 operands, the edge pipeline's
-``compute_dtype="bfloat16"``: :func:`segment_sum_csr` bf16 ``data``,
+Kernels 1, 2, 3 and 8 also take bf16 operands, the edge pipeline's
+``compute_dtype="bfloat16"``: :func:`segment_sum_csr` and
+:func:`segment_sum_sq_csr` bf16 ``data``,
 :func:`edge_program_lean` and :func:`edge_program_lean_bwd` a bf16 ``h``
 (``c``, ``w_bot``, ``pattern``, ``ct`` and every output stay float32). The
 kernels read the bf16 values from device memory and sum in float32. With a
@@ -50,9 +51,11 @@ bf16 ``h`` the JAX package's lean kernels run each contraction as one MXU
 pass, which rounds its float32 operands to bf16
 (``mma_tpu/ops/pallas/fused_mma.py:107-118``, ``:1498``): the message
 before the forward sums it, the cotangent ``ct`` and ``dlog`` in the
-backward. Kernels 2 and 3 and their plain versions round at the same
+backward; kernel 8's one-pass contraction rounds each square ``x²``
+(``mma_tpu/ops/pallas/fused_mma.py:108-119``, precision ``"fastest"`` on
+bf16 data). Kernels 2, 3 and 8 and their plain versions round at the same
 places, so the port computes the JAX package's bf16 function. The other
-kernels take float32 only.
+kernels of this module take float32 only.
 
 Each function takes the plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors; any other device, dtype, shape or layout
@@ -82,11 +85,12 @@ import torch
 
 from mma_tpu_torch.ops.cuda import build, library
 
-# The bf16 variants of kernels 1-3 count under their own "_bf16" keys.
+# The bf16 variants of kernels 1-3 and 8 count under their own "_bf16" keys.
 LAUNCHES = {"segment_sum": 0, "edge_program_lean": 0, "edge_program_lean_bwd": 0,
             "segment_sum_sq": 0, "edge_program_fwd": 0, "edge_program_bwd": 0,
             "edge_program_bwd_csc": 0, "masked_segment_sum": 0, "segment_sum_bf16": 0,
-            "edge_program_lean_bf16": 0, "edge_program_lean_bwd_bf16": 0}
+            "edge_program_lean_bf16": 0, "edge_program_lean_bwd_bf16": 0,
+            "segment_sum_sq_bf16": 0}
 
 # The wide program's src-keyed backward strategies, as the JAX package's
 # EDGE_BWD_MODE (mma_tpu/ops/pallas/fused_mma.py:47-58): "payload_permute"
@@ -126,7 +130,7 @@ def _lib() -> ctypes.CDLL:
         lib.mma_edge_program_lean_bwd_src.argtypes = [_P] * 10 + [_I] * 5 + [_P]
         lib.mma_edge_program_lean_bwd_n_slabs.argtypes = [_I] * 3
         lib.mma_edge_program_lean_bwd_node.argtypes = [_P] * 6 + [_I] * 4 + [_P]
-        lib.mma_segment_sum_sq_csr.argtypes = [_P, _P, _P, _I, _I, _P]
+        lib.mma_segment_sum_sq_csr.argtypes = [_P, _P, _P, _I, _I, _I, _P]
         lib.mma_edge_program_bwd_csc.argtypes = [_P] * 10 + [_I] * 4 + [_P]
         lib.mma_masked_segment_sum.argtypes = [_P] * 5 + [_I] * 4 + [_P]
         for fn in ("mma_edge_program_lean_bwd_dst", "mma_edge_program_lean_bwd_src",
@@ -666,8 +670,9 @@ def segment_sum_sq_reference(data: torch.Tensor, row_ptr: torch.Tensor) -> torch
     """Plain version of :func:`segment_sum_sq_csr`: ``(N, 2C)`` float32.
 
     Each row is summed slot by slot in CSR order, with the square rounded
-    before it is added, as the kernel sums: the two agree bit for bit, so
-    that ``var = E[x²] - E[x]²`` cancels the same way on both sides."""
+    before it is added (to float32, and then to bf16 for bf16 ``data``), as
+    the kernel sums: the two agree bit for bit, so that ``var = E[x²] -
+    E[x]²`` cancels the same way on both sides."""
     n, ch = row_ptr.shape[0] - 1, data.shape[1]
     s1 = torch.zeros((n, ch), dtype=torch.float32, device=data.device)
     s2 = torch.zeros_like(s1)
@@ -676,15 +681,16 @@ def segment_sum_sq_reference(data: torch.Tensor, row_ptr: torch.Tensor) -> torch
     for j in range(int(counts.max()) if n else 0):
         live = (counts > j)[:, None]
         x = data.index_select(0, torch.where(counts > j, starts + j, 0)).float()
+        sq = _round_bf16(x * x) if data.dtype == torch.bfloat16 else x * x
         s1 = s1 + torch.where(live, x, 0.0)
-        s2 = s2 + torch.where(live, x * x, 0.0)
+        s2 = s2 + torch.where(live, sq, 0.0)
     return torch.cat([s1, s2], dim=1)
 
 
 def _segment_sum_sq_kernel(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
     name = "segment_sum_sq_csr"
     _check_cuda_inputs(name, data=data, row_ptr=row_ptr)
-    _check_dtype(name, "data", data, torch.float32)
+    _check_dtype(name, "data", data, torch.float32, torch.bfloat16)
     _check_dtype(name, "row_ptr", row_ptr, torch.int32)
     if data.ndim != 2 or row_ptr.ndim != 1:
         raise ValueError(f"{name}: data must be (E, C) and row_ptr (N+1,)")
@@ -693,9 +699,9 @@ def _segment_sum_sq_kernel(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.T
     lib = _lib()
     with torch.cuda.device(data.device):
         err = lib.mma_segment_sum_sq_csr(data.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
-                                         n, ch, _stream())
+                                         n, ch, _bf16(data), _stream())
     _check_launch(lib, err, name)
-    LAUNCHES["segment_sum_sq"] += 1
+    LAUNCHES["segment_sum_sq_bf16" if _bf16(data) else "segment_sum_sq"] += 1
     return out
 
 
@@ -723,10 +729,12 @@ class _SegmentSumSq(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct):
+        # In float32 and then cast to the data's dtype, as the JAX VJP
+        # computes it (mma_tpu/ops/pallas/fused_mma.py:1210-1215).
         data, row_ptr = ctx.saved_tensors
         ch = data.shape[1]
         ct_e = _expand_rows(ct, row_ptr, data.shape[0])
-        return ct_e[:, :ch] + 2.0 * data * ct_e[:, ch:], None
+        return (ct_e[:, :ch] + 2.0 * data.float() * ct_e[:, ch:]).to(data.dtype), None
 
 
 def segment_sum_sq_csr(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
@@ -737,7 +745,9 @@ def segment_sum_sq_csr(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tenso
     aggregators' input. Differentiable in ``data``: ``d/dx_e = ct[i, :C] +
     2·x_e·ct[i, C:]`` for the edges the CSR covers and 0 for the others, as
     plain gathers (no kernel). ``row_ptr`` as :func:`segment_sum_csr`'s.
-    Deterministic; rows without edges give 0.
+    Deterministic; rows without edges give 0. ``data`` is float32 or bf16:
+    bf16 values are summed in float32, each square rounded to bf16 first,
+    and the gradient (taken in float32) is cast to bf16.
     """
     return _SegmentSumSq.apply(data, row_ptr)
 

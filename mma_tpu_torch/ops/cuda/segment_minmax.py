@@ -14,6 +14,17 @@ reduce over the dst-sorted CSR of a :class:`~mma_tpu_torch.graph.Graph`
   (``_minmax_prog_bwd_kernel``: exact recompute, first-hit routing, ``dhg``
   and the dst-keyed ``dc``).
 
+All four take float32 or bf16 edge operands (the conv's
+``compute_dtype="bfloat16"``): kernels 4-5 a bf16 ``data``, kernels 6-7 a
+bf16 ``c`` and ``hg`` (both of one dtype). The kernels read the bf16
+values and compute in float32, as the JAX package's kernels do on bf16
+inputs; the forward outputs stay float32 ``(N, P·C)``. The backward rounds
+the cotangent to bf16 before routing it, as the JAX kernels' one-pass
+select does (``passes = 1`` for bf16 data), and gives each gradient
+(``grad``, ``dhg``, ``dc``) in its input's dtype, each float32 value
+rounded once to nearest even. ``LAUNCHES`` counts the bf16 calls under
+``"..._bf16"`` keys.
+
 Ops follow aggregator order: output lanes ``[p·C, (p+1)·C)`` hold op ``p``.
 Rows without edges give 0 (the reference's ``torch_scatter`` fill), so the
 callers' ``where(deg > 0, ·, 0)`` of the JAX package is not needed.
@@ -38,17 +49,24 @@ import torch
 from mma_tpu_torch.graph.container import Graph
 from mma_tpu_torch.ops.cuda import build, library
 from mma_tpu_torch.ops.cuda.fused_mma import (
+    _bf16,
     _check_cuda_inputs,
     _check_dtype,
     _check_launch,
     _on_cpu,
+    _round_bf16,
     _row_ids,
     _stream,
 )
 from mma_tpu_torch.ops.segment import segment_max, segment_min
 
+# The bf16 variants count under their own "_bf16" keys.
 LAUNCHES = {"segment_minmax": 0, "segment_minmax_bwd": 0, "minmax_prog": 0,
-            "minmax_prog_bwd": 0}
+            "minmax_prog_bwd": 0, "segment_minmax_bf16": 0, "segment_minmax_bwd_bf16": 0,
+            "minmax_prog_bf16": 0, "minmax_prog_bwd_bf16": 0}
+# The edge operands of kernels 4-7 and the dtypes they take.
+_EDGE_ARGS = ("data", "c", "hg")
+_EDGE_DTYPES = (torch.float32, torch.bfloat16)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,11 +81,11 @@ def _lib() -> ctypes.CDLL:
     if not _configured:
         lib.mma_cuda_error_string.argtypes = [_I]
         lib.mma_cuda_error_string.restype = ctypes.c_char_p
-        lib.mma_segment_minmax.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
-        lib.mma_segment_minmax_bwd.argtypes = [_P, _P, _P, _P, _P, _I, _I64, _I, _I, _P]
-        lib.mma_minmax_prog.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
+        lib.mma_segment_minmax.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
+        lib.mma_segment_minmax_bwd.argtypes = [_P, _P, _P, _P, _P, _I, _I64, _I, _I, _I, _P]
+        lib.mma_minmax_prog.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]
         lib.mma_minmax_prog_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I64, _I, _I,
-                                            _I, _F, _P]
+                                            _I, _F, _I, _P]
         for fn in ("mma_segment_minmax", "mma_segment_minmax_bwd", "mma_minmax_prog",
                    "mma_minmax_prog_bwd"):
             getattr(lib, fn).restype = _I
@@ -146,7 +164,8 @@ def _reduce_rows(x: torch.Tensor, ids: torch.Tensor, n: int, ops) -> torch.Tenso
 def _route_first_hit(x: torch.Tensor, ids: torch.Tensor, lo: int, out: torch.Tensor,
                      ct: torch.Tensor, ops) -> torch.Tensor:
     """``Σ_p ct_p[row]`` on the first edge of each (row, channel) whose
-    value equals ``out_p[row]``, 0 elsewhere: (E_covered, C)."""
+    value equals ``out_p[row]``, 0 elsewhere: (E_covered, C) float32 from
+    the float32 values ``x``."""
     n_cov, ch = x.shape
     pos = torch.arange(lo, lo + n_cov, device=x.device)[:, None].expand(n_cov, ch)
     idx = ids[:, None].expand(n_cov, ch)
@@ -162,9 +181,16 @@ def _route_first_hit(x: torch.Tensor, ids: torch.Tensor, lo: int, out: torch.Ten
     return grad
 
 
+def _cotangent(ct: torch.Tensor, edge_dtype: torch.dtype) -> torch.Tensor:
+    """The cotangent the backward routes: rounded to bf16 for bf16 edge
+    operands, as the JAX kernels' one-pass select rounds it."""
+    return _round_bf16(ct) if edge_dtype == torch.bfloat16 else ct
+
+
 def segment_minmax_reference(data: torch.Tensor, row_ptr: torch.Tensor,
                              ops: Sequence[str]) -> torch.Tensor:
-    """Plain version of kernel 4: ``(N, P·C)`` float32."""
+    """Plain version of kernel 4: ``(N, P·C)`` float32 (of float32 or bf16
+    ``data``)."""
     ops = _check_ops(ops)
     lo, hi, ids = _covered(row_ptr)
     return _reduce_rows(data[lo:hi].float(), ids, row_ptr.shape[0] - 1, ops)
@@ -173,17 +199,21 @@ def segment_minmax_reference(data: torch.Tensor, row_ptr: torch.Tensor,
 def segment_minmax_bwd_reference(data: torch.Tensor, row_ptr: torch.Tensor,
                                  ops: Sequence[str], out: torch.Tensor,
                                  ct: torch.Tensor) -> torch.Tensor:
-    """Plain version of kernel 5: the (E, C) gradient of ``data``."""
+    """Plain version of kernel 5: the (E, C) gradient of ``data``, in its
+    dtype."""
     ops = _check_ops(ops)
     lo, hi, ids = _covered(row_ptr)
-    grad = torch.zeros(data.shape, dtype=torch.float32, device=data.device)
-    grad[lo:hi] = _route_first_hit(data[lo:hi].float(), ids, lo, out, ct, ops)
+    grad = torch.zeros(data.shape, dtype=data.dtype, device=data.device)
+    grad[lo:hi] = _route_first_hit(data[lo:hi].float(), ids, lo, out,
+                                   _cotangent(ct, data.dtype), ops).to(data.dtype)
     return grad
 
 
 def _messages(c, hg, row_ptr, seed, rate):
+    """The float32 messages ``m ⊙ (hg + c[dst])`` of the covered edges (the
+    add and the mask product in float32, on bf16 operands too)."""
     lo, hi, ids = _covered(row_ptr)
-    x = hg[lo:hi] + c.index_select(0, ids)
+    x = hg[lo:hi].float() + c.index_select(0, ids).float()
     m = None
     if seed is not None:
         pos = torch.arange(lo, hi, device=hg.device)[:, None]
@@ -196,7 +226,8 @@ def _messages(c, hg, row_ptr, seed, rate):
 def minmax_edge_program_reference(c: torch.Tensor, hg: torch.Tensor, row_ptr: torch.Tensor,
                                   ops: Sequence[str], seed: Optional[torch.Tensor] = None,
                                   rate: float = 0.5) -> torch.Tensor:
-    """Plain version of kernel 6: ``(N, P·C)`` float32."""
+    """Plain version of kernel 6: ``(N, P·C)`` float32 (of float32 or bf16
+    ``c`` and ``hg``)."""
     ops = _check_ops(ops)
     x, _, _, _, ids = _messages(c, hg, row_ptr, seed, rate)
     return _reduce_rows(x, ids, row_ptr.shape[0] - 1, ops)
@@ -207,25 +238,33 @@ def minmax_edge_program_bwd_reference(c: torch.Tensor, hg: torch.Tensor,
                                       seed: Optional[torch.Tensor], rate: float,
                                       out: torch.Tensor, ct: torch.Tensor
                                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of kernel 7: ``(dhg (E, C), dc (N, C))``."""
+    """Plain version of kernel 7: ``(dhg (E, C), dc (N, C))`` in the dtypes
+    of ``hg`` and ``c``."""
     ops = _check_ops(ops)
     x, m, lo, hi, ids = _messages(c, hg, row_ptr, seed, rate)
-    g = _route_first_hit(x, ids, lo, out, ct, ops)
+    g = _route_first_hit(x, ids, lo, out, _cotangent(ct, hg.dtype), ops)
     if m is not None:
         g = g * m
-    dhg = torch.zeros(hg.shape, dtype=torch.float32, device=hg.device)
-    dhg[lo:hi] = g
+    dhg = torch.zeros(hg.shape, dtype=hg.dtype, device=hg.device)
+    dhg[lo:hi] = g.to(hg.dtype)
     dc = torch.zeros(c.shape, dtype=torch.float32, device=c.device).index_add_(0, ids, g)
-    return dhg, dc
+    return dhg, dc.to(c.dtype)
 
 
 # ----------------------------------------------------------------- kernels
 
 def _check_rows(name, row_ptr, n_rows, **tensors):
-    _check_cuda_inputs(name, row_ptr=row_ptr, **tensors)
+    """Devices, layouts and dtypes: ``row_ptr`` and ``seed`` int32, the edge
+    operands (``data``, ``c``, ``hg``) float32 or bf16 and of one dtype,
+    the rest float32."""
     _check_dtype(name, "row_ptr", row_ptr, torch.int32)
     for arg, t in tensors.items():
-        _check_dtype(name, arg, t, torch.int32 if arg == "seed" else torch.float32)
+        _check_dtype(name, arg, t, *((torch.int32,) if arg == "seed" else
+                                     _EDGE_DTYPES if arg in _EDGE_ARGS else (torch.float32,)))
+    edge = {tensors[a].dtype for a in _EDGE_ARGS if a in tensors}
+    if len(edge) > 1:
+        raise ValueError(f"{name}: c and hg must share a dtype, got {sorted(map(str, edge))}")
+    _check_cuda_inputs(name, row_ptr=row_ptr, **tensors)
     if row_ptr.ndim != 1 or row_ptr.shape[0] != n_rows + 1:
         raise ValueError(f"{name}: row_ptr must be ({n_rows + 1},), got {tuple(row_ptr.shape)}")
 
@@ -247,9 +286,9 @@ def _segment_minmax_kernel(data, row_ptr, ops):
     lib = _lib()
     with torch.cuda.device(data.device):
         err = lib.mma_segment_minmax(data.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), n,
-                                     ch, len(ops), _max_bits(ops), _stream())
+                                     ch, len(ops), _max_bits(ops), _bf16(data), _stream())
     _check_launch(lib, err, name)
-    LAUNCHES["segment_minmax"] += 1
+    LAUNCHES["segment_minmax_bf16" if _bf16(data) else "segment_minmax"] += 1
     return out
 
 
@@ -258,14 +297,14 @@ def _segment_minmax_bwd_kernel(data, row_ptr, ops, out, ct):
     n, ch = row_ptr.shape[0] - 1, data.shape[1]
     _check_rows(name, row_ptr, n, data=data, out=out, ct=ct)
     _check_pc(name, ops, n, ch, out=out, ct=ct)
-    grad = torch.empty(data.shape, dtype=torch.float32, device=data.device)
+    grad = torch.empty(data.shape, dtype=data.dtype, device=data.device)
     lib = _lib()
     with torch.cuda.device(data.device):
         err = lib.mma_segment_minmax_bwd(data.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
                                          ct.data_ptr(), grad.data_ptr(), n, data.shape[0], ch,
-                                         len(ops), _stream())
+                                         len(ops), _bf16(data), _stream())
     _check_launch(lib, err, name)
-    LAUNCHES["segment_minmax_bwd"] += 1
+    LAUNCHES["segment_minmax_bwd_bf16" if _bf16(data) else "segment_minmax_bwd"] += 1
     return grad
 
 
@@ -292,9 +331,10 @@ def _minmax_prog_kernel(c, hg, row_ptr, ops, seed, rate):
     with torch.cuda.device(c.device):
         err = lib.mma_minmax_prog(c.data_ptr(), hg.data_ptr(), row_ptr.data_ptr(),
                                   None if seed is None else seed.data_ptr(), out.data_ptr(),
-                                  n, ch, len(ops), _max_bits(ops), thresh, scale, _stream())
+                                  n, ch, len(ops), _max_bits(ops), thresh, scale, _bf16(hg),
+                                  _stream())
     _check_launch(lib, err, name)
-    LAUNCHES["minmax_prog"] += 1
+    LAUNCHES["minmax_prog_bf16" if _bf16(hg) else "minmax_prog"] += 1
     return out
 
 
@@ -303,17 +343,17 @@ def _minmax_prog_bwd_kernel(c, hg, row_ptr, ops, seed, rate, out, ct):
     n, ch = _check_program(name, c, hg, row_ptr, seed, out=out, ct=ct)
     _check_pc(name, ops, n, ch, out=out, ct=ct)
     thresh, scale = _dropout_params(rate) if seed is not None else (0, 1.0)
-    dhg = torch.empty(hg.shape, dtype=torch.float32, device=c.device)
-    dc = torch.empty(c.shape, dtype=torch.float32, device=c.device)
+    dhg = torch.empty(hg.shape, dtype=hg.dtype, device=c.device)
+    dc = torch.empty(c.shape, dtype=c.dtype, device=c.device)
     lib = _lib()
     with torch.cuda.device(c.device):
         err = lib.mma_minmax_prog_bwd(c.data_ptr(), hg.data_ptr(), row_ptr.data_ptr(),
                                       None if seed is None else seed.data_ptr(),
                                       out.data_ptr(), ct.data_ptr(), dhg.data_ptr(),
                                       dc.data_ptr(), n, hg.shape[0], ch, len(ops), thresh,
-                                      scale, _stream())
+                                      scale, _bf16(hg), _stream())
     _check_launch(lib, err, name)
-    LAUNCHES["minmax_prog_bwd"] += 1
+    LAUNCHES["minmax_prog_bwd_bf16" if _bf16(hg) else "minmax_prog_bwd"] += 1
     return dhg, dc
 
 
@@ -417,14 +457,16 @@ class _MinmaxEdgeProgram(torch.autograd.Function):
 
 def fused_segment_minmax(data: torch.Tensor, graph: Graph,
                          ops: Sequence[str] = ("min", "max")) -> torch.Tensor:
-    """Min and/or max of ``data`` (E, C) over each node's in-edges → (N, P·C).
+    """Min and/or max of ``data`` (E, C; float32 or bf16) over each node's
+    in-edges → (N, P·C) float32.
 
     ``ops`` ⊆ {"min", "max"} in aggregator order, sharing one pass over the
     edge data. Rows without real in-edges give 0; padding edges take no
     part. Differentiable in ``data``: the backward routes each (row,
     channel, op) cotangent to the first in-edge whose value equals the
-    optimum (exact f32 ``==``), summed over ops, and gives padding edges 0.
-    Deterministic.
+    optimum (exact f32 ``==``), summed over ops, and gives padding edges 0;
+    for bf16 ``data`` the cotangent is rounded to bf16 first and the
+    gradient is bf16. Deterministic.
     """
     return _SegmentMinmax.apply(data.contiguous(), graph.real_row_ptr, _check_ops(ops))
 
@@ -441,11 +483,12 @@ def fused_minmax_edge_program(c: torch.Tensor, hg: torch.Tensor, graph: Graph,
     mask (:func:`dropout_keep` of ``seed``, a (1,) int32 tensor on the
     device, at ``rate``; ``seed=None`` turns it off). The mask multiplies
     after the add, so dropped lanes take part in the min/max as 0. The
-    (E, C) message is never stored.
+    (E, C) message is never stored. ``c`` and ``hg`` are float32 or both
+    bf16; the add and the mask product are float32 either way.
 
     Differentiable in ``c`` and ``hg`` with first-hit routing as
     :func:`fused_segment_minmax`: ``dhg = routed ⊙ m`` (padding edges 0)
-    and ``dc`` its sum over each row's in-edges.
+    and ``dc`` its sum over each row's in-edges, in the inputs' dtype.
     """
     return _MinmaxEdgeProgram.apply(c.contiguous(), hg.contiguous(), graph.real_row_ptr,
                                     seed, _check_ops(ops), rate)

@@ -26,7 +26,7 @@ run in both packages. Fields that read differently:
   (``mma_tpu_torch.train.loops.zinc_layout``). ``"plain"`` keeps the
   plain collate, ``"degree_exact"`` forces the exact one.
   ``compute_dtype="auto"`` resolves to float32 off a TPU; ``"bfloat16"``
-  is not ported yet for ZINC and raises (``ROADMAP.md`` item 28).
+  runs the convs' edge pipeline in bf16 (``MultiMaskConv``).
 
 Checkpointing (``checkpoint_dir``, ``checkpoint_every``, ``resume``)
 works as in the JAX package; what a checkpoint holds is in

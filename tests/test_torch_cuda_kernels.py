@@ -789,6 +789,64 @@ def test_minmax_edge_program_kernels_match_plain(cuda, graph, ch, ops, ties, see
     assert (dhg[int(rp[-1]):] == 0).all()
 
 
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("ch,ops", _MINMAX_CASES)
+def test_bf16_segment_minmax_kernels_match_plain(cuda, graph, ch, ops, ties):
+    """The bf16 variants of kernels 4 and 5 (bf16 data; the cotangent
+    rounded to bf16, the gradient bf16) equal to their plain versions and
+    run to run, under their own launch keys."""
+    from mma_tpu_torch.ops.cuda import segment_minmax as mm
+
+    data, _, ct = _minmax_inputs(cuda, graph, ch, ties, len(ops))
+    data = (data * 3).bfloat16()
+    rp = graph.real_row_ptr
+    before = dict(mm.LAUNCHES)
+    out = mm.segment_minmax(data, rp, ops)
+    grad = mm.segment_minmax_bwd(data, rp, ops, out, ct)
+    torch.cuda.synchronize()
+    assert mm.LAUNCHES["segment_minmax_bf16"] == before["segment_minmax_bf16"] + 1
+    assert mm.LAUNCHES["segment_minmax_bwd_bf16"] == before["segment_minmax_bwd_bf16"] + 1
+    assert out.dtype == torch.float32 and grad.dtype == torch.bfloat16
+    assert torch.equal(out, mm.segment_minmax_reference(data, rp, ops))
+    assert torch.equal(grad, mm.segment_minmax_bwd_reference(data, rp, ops, out, ct))
+    assert torch.equal(out, mm.segment_minmax(data, rp, ops))
+    assert torch.equal(grad, mm.segment_minmax_bwd(data, rp, ops, out, ct))
+    assert (out[260:] == 0).all()
+    assert (grad[int(rp[-1]):] == 0).all()
+
+
+@pytest.mark.parametrize("seed", [None, 1234])
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("ch,ops", _MINMAX_CASES)
+def test_bf16_minmax_edge_program_kernels_match_plain(cuda, graph, ch, ops, ties, seed):
+    """The bf16 variants of kernels 6 and 7 (bf16 ``c`` and ``hg``; the
+    message added and masked in float32; ``dhg`` and ``dc`` bf16): the
+    output and ``dhg`` equal to the plain versions, ``dc`` within 1e-5,
+    bitwise run to run."""
+    from mma_tpu_torch.ops.cuda import segment_minmax as mm
+
+    hg, c, ct = _minmax_inputs(cuda, graph, ch, ties, len(ops))
+    hg, c = (hg * 3).bfloat16(), (c * 3).bfloat16()
+    rp = graph.real_row_ptr
+    sd = None if seed is None else torch.tensor([seed], dtype=torch.int32, device=cuda)
+    before = dict(mm.LAUNCHES)
+    out = mm.minmax_edge_program(c, hg, rp, ops, sd, 0.5)
+    dhg, dc = mm.minmax_edge_program_bwd(c, hg, rp, ops, sd, 0.5, out, ct)
+    torch.cuda.synchronize()
+    assert mm.LAUNCHES["minmax_prog_bf16"] == before["minmax_prog_bf16"] + 1
+    assert mm.LAUNCHES["minmax_prog_bwd_bf16"] == before["minmax_prog_bwd_bf16"] + 1
+    assert out.dtype == torch.float32 and dhg.dtype == dc.dtype == torch.bfloat16
+    assert torch.equal(out, mm.minmax_edge_program_reference(c, hg, rp, ops, sd, 0.5))
+    want_dhg, want_dc = mm.minmax_edge_program_bwd_reference(c, hg, rp, ops, sd, 0.5, out, ct)
+    assert torch.equal(dhg, want_dhg)
+    _close(dc.float(), want_dc.float())
+    assert torch.equal(out, mm.minmax_edge_program(c, hg, rp, ops, sd, 0.5))
+    again = mm.minmax_edge_program_bwd(c, hg, rp, ops, sd, 0.5, out, ct)
+    assert torch.equal(dhg, again[0]) and torch.equal(dc, again[1])
+    assert (out[260:] == 0).all() and (dc[260:] == 0).all()
+    assert (dhg[int(rp[-1]):] == 0).all()
+
+
 def test_minmax_hash_on_card_matches_cpu(cuda):
     """The dropout hash's PyTorch form gives the same bits on the card."""
     from mma_tpu_torch.ops.cuda.segment_minmax import dropout_keep
@@ -845,6 +903,25 @@ def test_segment_sum_sq_kernel_matches_plain(cuda, graph, channels):
     got = fused_mma.segment_sum_sq_csr(data, rp)
     torch.cuda.synchronize()
     assert fused_mma.LAUNCHES["segment_sum_sq"] == before + 1
+    assert torch.equal(got, fused_mma.segment_sum_sq_reference(data, rp))
+    assert torch.equal(got, fused_mma.segment_sum_sq_csr(data, rp))
+    assert (got[260:] == 0).all()
+
+
+@pytest.mark.parametrize("channels", [375, 37, 64])
+def test_bf16_segment_sum_sq_kernel_matches_plain(cuda, graph, channels):
+    """Kernel 8's bf16 variant (bf16 data, each square rounded to bf16
+    before the float32 sum) equal to its plain version bit for bit and run
+    to run, under its own launch key."""
+    rs = np.random.RandomState(channels)
+    data = torch.from_numpy(rs.randn(graph.n_edge, channels).astype(np.float32) * 3).to(cuda)
+    data = data.bfloat16()
+    rp = graph.real_row_ptr
+    before = fused_mma.LAUNCHES["segment_sum_sq_bf16"]
+    got = fused_mma.segment_sum_sq_csr(data, rp)
+    torch.cuda.synchronize()
+    assert fused_mma.LAUNCHES["segment_sum_sq_bf16"] == before + 1
+    assert got.dtype == torch.float32
     assert torch.equal(got, fused_mma.segment_sum_sq_reference(data, rp))
     assert torch.equal(got, fused_mma.segment_sum_sq_csr(data, rp))
     assert (got[260:] == 0).all()
@@ -1171,6 +1248,14 @@ def _operator_cases(cuda, graph):
          lambda c, h, r, o, s, t: mm._minmax_prog_kernel(c, h, r, tuple(o), s, t), "minmax_prog"),
         (ops.segment_sum_sq_csr, (draw(e, 16), rp), fused_mma._segment_sum_sq_kernel,
          "segment_sum_sq"),
+        (ops.segment_minmax, (draw(e, 37).bfloat16(), rp, ["min", "max"]),
+         lambda d, r, o: mm._segment_minmax_kernel(d, r, tuple(o)), "segment_minmax_bf16"),
+        (ops.minmax_edge_program, (draw(n, 37).bfloat16(), draw(e, 37).bfloat16(), rp,
+                                   ["max", "min"], seed, 0.5),
+         lambda c, h, r, o, s, t: mm._minmax_prog_kernel(c, h, r, tuple(o), s, t),
+         "minmax_prog_bf16"),
+        (ops.segment_sum_sq_csr, (draw(e, 16).bfloat16(), rp), fused_mma._segment_sum_sq_kernel,
+         "segment_sum_sq_bf16"),
     ]
 
 
@@ -1180,7 +1265,7 @@ def _launches():
     return {**fused_mma.LAUNCHES, **mm.LAUNCHES}
 
 
-@pytest.mark.parametrize("case", range(10))
+@pytest.mark.parametrize("case", range(13))
 def test_operators_are_their_kernels(cuda, graph, case):
     """Each ``mma_tpu_torch::*`` operator on the card is the hand-written
     kernel: bitwise equal to the kernel called directly, one launch a call."""

@@ -121,14 +121,16 @@ def test_convert_rejects_mismatched_params(small):
 
 
 def test_unported_requests_raise(small, tmp_path):
-    """bf16 requests outside the node-classification slice raise, naming
-    their ROADMAP item (the node classifier's bf16 and ``auto`` run:
-    ``tests/test_torch_bf16.py``). Checkpoints are ported and run
+    """bf16 requests outside the ported slices raise, naming their ROADMAP
+    item (the node classifier's bf16 and ``auto`` run:
+    ``tests/test_torch_bf16.py``; ZINC's bf16 conv runs:
+    ``tests/test_torch_zinc_bf16.py``). Checkpoints are ported and run
     (``tests/test_torch_checkpoint.py``)."""
     _, tg, x, _ = small
-    with pytest.raises(NotImplementedError, match="item 28"):
-        MultiMaskConv(8, 8, ("min",), ("identity",), {"lin": 1.0, "log": 1.0},
-                      compute_dtype="bfloat16", device="cpu")
+    conv = MultiMaskConv(8, 8, ("min",), ("identity",), {"lin": 1.0, "log": 1.0},
+                         compute_dtype="bfloat16", device="cpu")
+    out = conv(torch.from_numpy(np.ascontiguousarray(x[:, :8])), tg)
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
     h = torch.from_numpy(np.ascontiguousarray(x[:, :8]))
     mw = torch.zeros(2, 16, 8)
     specs = [get_agg_spec(a) for a in ("mean", "mean2")]

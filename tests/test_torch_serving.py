@@ -228,6 +228,30 @@ def test_bf16_node_classifier_exports_and_serves():
     assert np.abs(got[:30].numpy() - want).max() <= 1e-2 * np.abs(want).max()
 
 
+@pytest.mark.parametrize("aggs,scalers,ops", [
+    ZINC_AGGS + ({"minmax_edge_program", "segment_sum_csr"},),
+    PNA_AGGS + ({"segment_minmax", "segment_sum_csr", "segment_sum_sq_csr"},),
+])
+def test_bf16_zinc_net_exports_and_serves(aggs, scalers, ops):
+    """A bf16 ZincNet exports: kernels 4, 6 and 8 (and 1) take bf16 operands
+    inside the operators, whose outputs stay float32. Against the JAX
+    bf16 Pallas path at the bf16 layer tolerance of
+    ``tests/test_torch_zinc_bf16.py`` (1e-2 of the scale)."""
+    jmodel, jparams, jstate, model, params, state = _zinc_setup(aggs, scalers,
+                                                                compute_dtype="bfloat16")
+    batch = next(load_zinc("val", subset_size=8).batches(4, n_node=160, n_edge=400, device="cpu"))
+    blob = export_zinc_predictor(model, params, state, batch)
+    assert _ops(blob) == ops
+    got = load_forward(blob)(params, state, batch)
+    assert got.dtype == torch.float32 and got.shape == (4,)
+    _close(got, _eager(model, batch), 1e-6)
+    jbatch = next(jax_load_zinc("val", subset_size=8).batches(4, n_node=160, n_edge=400))
+    want, _ = jax.jit(lambda p, s, b: jmodel.apply(p, s, b, training=False, use_pallas=True))(
+        jparams, jstate, jbatch)
+    want = np.asarray(want)
+    assert np.abs(got.numpy() - want).max() <= 1e-2 * np.abs(want).max()
+
+
 def test_loading_never_falls_back_to_unsafe_unpickling(caplog):
     """The artifact keeps no pickled containers, so ``torch.export.load``
     never retries with ``weights_only=False``; an artifact that would need

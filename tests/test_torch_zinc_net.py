@@ -408,8 +408,11 @@ def test_unported_requests_raise(graphs):
         torch.testing.assert_close(ell_conv(torch.from_numpy(x), tg, torch.from_numpy(e))[:N],
                                    conv(torch.from_numpy(x), tg, torch.from_numpy(e))[:N],
                                    rtol=1e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        MultiMaskConv(F, F, ("min",), ("identity",), AVG_DEG, compute_dtype="bfloat16", **kw)
+    # compute_dtype="bfloat16" (ported): a bf16 conv builds and gives a
+    # finite float32 output.
+    bf16 = MultiMaskConv(F, F, ("min",), ("identity",), AVG_DEG, compute_dtype="bfloat16", **kw)
+    out = bf16(torch.from_numpy(x), tg, torch.from_numpy(e))
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
     # axis_name (ported): on an edge axis of one rank (a gloo world of this
     # process alone) the general route with its cross-shard combine gives
     # the unsharded (fused-route) output.

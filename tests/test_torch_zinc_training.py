@@ -72,14 +72,12 @@ def test_padding_budgets_follow_the_jax_formula(splits):
 
 
 def test_train_zinc_raises_on_what_is_not_ported(splits, tmp_path):
-    with pytest.raises(NotImplementedError):
-        train_zinc(ZincConfig(epochs=1, **SMALL, compute_dtype="bfloat16"), datasets=splits,
-                   device="cpu")
     # Ported: the degree-exact layout, the ELL route on the plain collate
-    # (max_degree_hint's single width), remat and checkpoints each train an
-    # epoch.
+    # (max_degree_hint's single width), remat, checkpoints and
+    # compute_dtype="bfloat16" each train an epoch.
     for kw in (dict(batch_layout="degree_exact"), dict(batch_layout="plain", edge_format="ell"),
-               dict(remat=True), dict(checkpoint_dir=str(tmp_path), checkpoint_every=1)):
+               dict(remat=True), dict(checkpoint_dir=str(tmp_path), checkpoint_every=1),
+               dict(compute_dtype="bfloat16")):
         res = train_zinc(ZincConfig(epochs=1, **SMALL, **kw), datasets=splits, device="cpu")
         assert np.isfinite([v for r in res["history"] for v in r.values()]).all(), kw
     assert (tmp_path / "step_00000001").exists()
