@@ -4,7 +4,7 @@
 1. Prints the card's name and power limit (``nvidia-smi``), then builds
    every CUDA kernel of the port from ``mma_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together).
-2. Forty-four main paths in this process and seven in each rank of a
+2. Forty-six main paths in this process and seven in each rank of a
    two-rank world, each with the kernels' launch counters set to 0 just
    before it and read just after:
 
@@ -27,11 +27,19 @@
      ``h`` and ``mask_weights``, 3 times with each ``pallas_bwd_mode``:
      the wide edge program, ``payload_permute`` (kernels 9, 10 and 1) and
      ``csc_gather`` (kernels 9, 10 and 11).
+   - **large-wide-bf16**: the same work with ``compute_dtype=bfloat16``,
+     3 times with each mode: bf16 ``c``, ``d`` and ``h`` through the bf16
+     variants of kernels 9-11 (and kernel 1 on the float32 payload), held
+     against the all-plain bf16 run, the other mode, the lean bf16 route
+     and the f32 wide route, timed beside the f32 runs in turns.
    - **large-masked**: the same work's aggregate ``S`` (no combine) through
      ``fused_masked_aggregate`` on the pre-gathered logits ``c[dst] +
      d[src]`` and rows ``h[src]``, forward and backward to ``h`` and
      ``mask_weights``, 3 times: kernel 12, and kernel 1 for the gathers'
-     VJPs.
+     VJPs. **large-masked-bf16**: the same on the bf16 logits and rows that
+     the half-fused route builds in bf16: kernel 12 in bf16 and kernel 1
+     on the bf16 cotangents, held against the all-plain run and the wide
+     bf16 route's ``S``.
    - **zinc-serve**: the ZincNet eval forward at the README preset
      (``min,max``; ``identity,amplification,linear``; hidden 75, edge 50,
      towers 5, 4 layers; the fused min/max edge program, kernel 6) answers
@@ -230,7 +238,10 @@
    with the f32 kernel's time on the same values in turns, and bounds on
    the bytes of their bf16 inputs; the bf16 variants of kernels 4-8 the
    same way on the tensors the bf16 ZINC steps gave them at the flagship
-   batch (4-6 and the routed gradients equal to the plain versions).
+   batch (4-6 and the routed gradients equal to the plain versions); the
+   bf16 variants of kernels 9, 10 (with and without the payload) and 11
+   on large-wide-bf16's edge-program arguments and kernel 12 on
+   large-masked-bf16's bf16 logits and rows, the same way.
 5. Prints one ``kernels`` JSON line, the ``nvidia-smi`` line again, and as
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -1604,6 +1615,15 @@ BF16_SERVE_TOL = 3e-2
 # step's masks (one ulp of an element at 1/20 of the largest), where the
 # float32 steps hold at 1e-5. Loss and log-probs are held at 1e-5.
 BF16_GRAD_TOL = 2.0 ** -8
+# Two bf16 routes that round in different places, and a bf16 route against
+# the f32 one, on the same work (large-wide-bf16, large-masked-bf16): the
+# lean bf16 kernels round each message to bf16 and the wide ones do not;
+# kernel 12 gets bf16 logits c[dst] + d[src] and rounds each message, the
+# wide bf16 program adds both in float32. Relative to each tensor's largest
+# value (compare's floor): on the CPU at 8,192 nodes of the same power-law
+# graph at most 3.8e-3 (outputs, S and gradients); at 1e-5 of a bound the
+# rounding would go unseen, at 1e-2 a mistaken route would not.
+BF16_ROUTE_TOL = 1e-2
 
 
 def run_bf16(dev, paths: dict, ctx: dict) -> dict:
@@ -1955,6 +1975,128 @@ def bf16_kernel_entries(dev, big, x_big, big_model, classes, mw0, train16, label
           f"{k3['src_pass_ms']:.4f} (f32 {k3['f32_src_pass_ms']:.4f}), node pass "
           f"{k3['node_pass_ms']:.4f} (f32 {k3['f32_node_pass_ms']:.4f}) ms; gathered rows alone "
           f"{k3['gather_bound_ms']:.4f} ms; bitwise equal run to run")
+    return out
+
+
+def wide_bf16_kernel_entries(dev, big, wide_run, masked16_in, pat) -> dict:
+    """The bf16 variants of kernels 9-12 at synthetic-large, each on its
+    path's own tensors, held against its plain version (1e-5) and run to run
+    (bitwise), timed beside the f32 kernel on the same values (in turns:
+    f32, bf16, bf16, f32), with a bound on the bytes of its inputs (bf16 at
+    2 bytes an element). Kernels 9-11 on large-wide-bf16's edge-program
+    arguments and cotangent (``c`` as the float32 table the autograd
+    Function hands the kernels); kernel 12 on large-masked-bf16's bf16
+    logits and rows, with ``index_add_`` of the pre-built bf16 message as
+    its library time."""
+    from mma_tpu_torch.ops import masked_aggregate
+    from mma_tpu_torch.ops.cuda import fused_mma
+
+    args, _, ct = capture_call(masked_aggregate, "edge_program",
+                               lambda: wide_run("payload_permute", torch.bfloat16))
+    c, d, h, pat_w, src, rp, cp, _, dst_csc, _ = args
+    c, d, h = (t.detach() for t in (c, d, h))
+    if (c.dtype, d.dtype, h.dtype) != (torch.bfloat16,) * 3:
+        raise AssertionError(f"large-wide-bf16 gave kernels 9-11 {c.dtype}, {d.dtype}, {h.dtype}")
+    c, ct = c.float(), ct.contiguous()
+    d32, h32 = d.float(), h.float()
+    n, f, kf = h.shape[0], h.shape[1], c.shape[1]
+    e_cov = int(rp[-1])
+    out = {}
+
+    def entry(name, run16, run32, plain, outs, nbytes, flops, gather_bytes, shape,
+              library=None, iters=25):
+        got = run16()
+        got = got if isinstance(got, tuple) else (got,)
+        again = run16()
+        again = again if isinstance(again, tuple) else (again,)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name} differs run to run")
+        want = plain()
+        want = want if isinstance(want, tuple) else (want,)
+        errs = [compare(g_, w_, 1e-5, f"{name} {o} vs plain") for g_, w_, o in zip(got, want, outs)]
+        ms, f32_ms = bf16_turns(run32, run16, iters=iters)
+        plain_ms = device_ms(plain, iters=5)
+        e = out[name] = {
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name[:-len("_bf16")]],
+            "max_abs_err": max(x["max_abs_err"] for x in errs), "ms": ms, "plain_ms": plain_ms,
+            **bound(nbytes, flops), "library_ms": None if library is None else device_ms(library),
+            "f32_ms": f32_ms, "gather_bound_ms": gather_bytes / PEAK_BYTES_PER_S * 1e3,
+            "shape": shape}
+        print(f"{name}: ms {ms:.4f} (the f32 kernel on the same values {f32_ms:.4f}, in turns) "
+              f"plain_ms {plain_ms:.4f} library_ms {e['library_ms']} bound_ms {e['bound_ms']:.4f} "
+              f"({e['bound_by']}); gathered rows alone {e['gather_bound_ms']:.4f} ms; bitwise "
+              "equal run to run")
+        return got
+
+    shape = f"E={e_cov} N={n} F={f} K·F={kf}, bf16 d and h, float32 c"
+    fwd16, fwd32 = (c, d, h, pat_w, src, rp), (c, d32, h32, pat_w, src, rp)
+    # Bytes: c (f32), d and h (bf16), the pattern, src and the CSR read once,
+    # S (f32) written once; per edge and lane the add, the product, the sum.
+    small = 4 * (kf + e_cov + (n + 1)) + 2 * (n * kf + n * f)
+    entry("edge_program_fwd_bf16", lambda: fused_mma.edge_program_fwd(*fwd16),
+          lambda: fused_mma.edge_program_fwd(*fwd32),
+          lambda: fused_mma.edge_program_fwd_reference(*fwd16), ("S",),
+          small + 4 * 2 * n * kf, 3 * e_cov * kf, 2 * e_cov * (kf + f), shape)
+    # Bytes: c, ct (f32), d, h (bf16), the pattern, src and the CSR read once;
+    # dc and the (E, K·F+F) payload (f32) written once.
+    payload_bytes = 4 * big.n_edge * (kf + f)
+    entry("edge_program_bwd_bf16", lambda: fused_mma.edge_program_bwd(*fwd16, ct),
+          lambda: fused_mma.edge_program_bwd(*fwd32, ct),
+          lambda: fused_mma.edge_program_bwd_reference(*fwd16, ct), ("dc", "payload"),
+          small + 4 * 3 * n * kf + payload_bytes, 8 * e_cov * kf, 2 * e_cov * (kf + f), shape,
+          iters=15)
+    k10 = out["edge_program_bwd_bf16"]
+    k10["ms_without_payload"], k10["f32_ms_without_payload"] = bf16_turns(
+        lambda: fused_mma.edge_program_bwd(*fwd32, ct, emit_payload=False),
+        lambda: fused_mma.edge_program_bwd(*fwd16, ct, emit_payload=False), iters=15)
+    k10["bound_without_payload"] = bound(small + 4 * 3 * n * kf, 6 * e_cov * kf)
+    print(f"edge_program_bwd_bf16 without the payload (csc_gather's use): ms "
+          f"{k10['ms_without_payload']:.4f} (f32 {k10['f32_ms_without_payload']:.4f}, in turns) "
+          f"bound_ms {k10['bound_without_payload']['bound_ms']:.4f}")
+    # Bytes: c, ct (f32), d, h (bf16), the pattern, dst_csc and the CSC read
+    # once, [dd ‖ dh] (f32) written once; per edge it gathers c and ct (f32)
+    # of the dst.
+    entry("edge_program_bwd_csc_bf16",
+          lambda: fused_mma.edge_program_bwd_csc(c, d, h, pat_w, dst_csc, cp, ct),
+          lambda: fused_mma.edge_program_bwd_csc(c, d32, h32, pat_w, dst_csc, cp, ct),
+          lambda: fused_mma.edge_program_bwd_csc_reference(c, d, h, pat_w, dst_csc, cp, ct),
+          ("[dd ‖ dh]",), small + 4 * (2 * n * kf + n * (kf + f)), 8 * e_cov * kf,
+          4 * e_cov * 2 * kf, shape, iters=15)
+
+    # Kernel 12 on large-masked-bf16's pre-gathered bf16 logits and rows.
+    logits, h_src = masked16_in
+    if (logits.dtype, h_src.dtype) != (torch.bfloat16, torch.bfloat16):
+        raise AssertionError("large-masked-bf16 gave kernel 12 float32 operands")
+    row_ptr = big.real_row_ptr
+    margs = (logits, h_src, pat, row_ptr)
+    msg = fused_mma._round_bf16(
+        torch.where(pat.bool(), torch.sigmoid(logits[:e_cov].float()), logits[:e_cov].float())
+        * h_src[:e_cov].float().repeat(1, kf // f)).bfloat16()
+    ids = big.dst[:e_cov].long()
+    l32, h32s = logits.float(), h_src.float()
+    # Bytes: each covered edge's bf16 logits and h_src rows, the pattern and
+    # the CSR read once, S (f32) written once; about 6 operations an edge
+    # and lane.
+    entry("masked_segment_sum_bf16", lambda: fused_mma.masked_segment_sum(*margs),
+          lambda: fused_mma.masked_segment_sum(l32, h32s, pat, row_ptr),
+          lambda: fused_mma.masked_segment_sum_reference(*margs), ("S",),
+          2 * e_cov * (kf + f) + 4 * (kf + (n + 1) + n * kf), 6 * e_cov * kf,
+          2 * e_cov * (kf + f), f"E={e_cov} N={n} F={f} K·F={kf}, bf16 logits and h_src "
+          "(library: index_add_ over dst of the pre-built bf16 message)",
+          library=lambda: torch.zeros(n, kf, dtype=torch.bfloat16, device=dev).index_add_(
+              0, ids, msg))
+    # Skew: the heaviest row alone, one warp's loop over its edges, beside
+    # the f32 kernel on the same values.
+    deg = row_ptr[1:] - row_ptr[:-1]
+    top = int(torch.argmax(deg))
+    one_row = row_ptr[top:top + 2].contiguous()
+    k12 = out["masked_segment_sum_bf16"]
+    k12["heaviest_row_ms"], k12["f32_heaviest_row_ms"] = bf16_turns(
+        lambda: fused_mma.masked_segment_sum(l32, h32s, pat, one_row),
+        lambda: fused_mma.masked_segment_sum(logits, h_src, pat, one_row))
+    print(f"masked_segment_sum_bf16: the heaviest row alone ({int(deg[top])} edges, one warp) "
+          f"ms {k12['heaviest_row_ms']:.4f} (f32 {k12['f32_heaviest_row_ms']:.4f}, in turns)")
     return out
 
 
@@ -2921,6 +3063,7 @@ def run_two_ranks(paths: dict) -> None:
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -3139,13 +3282,15 @@ def main() -> int:
     ct_wide = (torch.randn((big.n_node, 2, 64), generator=torch.Generator().manual_seed(SEED + 6))
                .to(dev) * big.node_mask[:, None, None])
 
-    def wide_run(mode):
-        """Forward and backward of the masked aggregate: (out, dh, dmask_weights)."""
+    def wide_run(mode, dtype=torch.float32):
+        """Forward and backward of the masked aggregate in the edge pipeline's
+        ``dtype``: (out, dh, dmask_weights)."""
         h = x_big.clone().requires_grad_()
         mw = mw0.clone().requires_grad_()
         with torch.enable_grad():
             out = masked_aggregate.masked_multi_aggregate(h, big, mw, wide_specs,
-                                                          pallas_bwd_mode=mode)
+                                                          pallas_bwd_mode=mode,
+                                                          compute_dtype=dtype)
             (out * ct_wide).sum().backward()
         return out.detach(), h.grad, mw.grad
 
@@ -3186,7 +3331,59 @@ def main() -> int:
             compare(got, want_plain, 1e-5, f"large-wide {mode} {name} vs plain on the card")
     for name, a, b in zip(names, *(wide[m] for m in modes)):
         compare(a, b, 1e-5, f"large-wide {name}: {modes[0]} vs {modes[1]}")
-    del wide, wide_plain, lean
+    del wide_plain, lean
+
+    # -------------------------------------------- main path: large-wide-bf16
+    # The large-wide work in the bf16 edge pipeline (compute_dtype bfloat16,
+    # the same h, weights and cotangent): bf16 c, d and h through the bf16
+    # variants of kernels 9-11, which round no message.
+    wide16, wide16_ms = {}, {}
+    with counted("large-wide-bf16", paths):
+        for mode in modes:
+            wide16_ms[mode] = []
+            for rep in range(3):
+                t0 = time.perf_counter()
+                res = wide_run(mode, torch.bfloat16)
+                torch.cuda.synchronize()
+                wide16_ms[mode].append((time.perf_counter() - t0) * 1e3)
+                if rep == 0:
+                    wide16[mode] = res
+    # Per run: kernel 9 in bf16 forward and kernel 10 in bf16 backward, then
+    # payload_permute sums the float32 payload by source with kernel 1 and
+    # csc_gather runs kernel 11 in bf16. The bf16 projections and their
+    # backward are matrix products (no kernel of the port).
+    expect_launches(paths, "large-wide-bf16", edge_program_fwd_bf16=6, edge_program_bwd_bf16=6,
+                    segment_sum=3, edge_program_bwd_csc_bf16=3)
+    turns = {(m, t): [] for m in modes for t in ("f32", "bf16")}
+    for m in modes:
+        for which in ("f32", "bf16", "bf16", "f32"):
+            turns[(m, which)] += host_ms(
+                lambda: wide_run(m, torch.bfloat16 if which == "bf16" else torch.float32))
+    print("large-wide-bf16: forward + backward (host clock, medians of 6 in turns f32, bf16, "
+          "bf16, f32): " + ", ".join(
+              f"{m} bf16 {statistics.median(turns[(m, 'bf16')]):.4f} ms / f32 "
+              f"{statistics.median(turns[(m, 'f32')]):.4f} ms" for m in modes)
+          + f" (the counted runs {wide16_ms})")
+    before = launches()
+    with plain_kernels():
+        wide16_plain = {mode: wide_run(mode, torch.bfloat16) for mode in modes}
+    if launches() != before:
+        raise AssertionError("the plain bf16 wide route launched a kernel")
+    lean16 = wide_run(None, torch.bfloat16)
+    for mode in modes:
+        for name, got, plain, other, f32 in zip(names, wide16[mode], wide16_plain[mode], lean16,
+                                                wide[mode]):
+            tol = 1e-5 if name == "output" else BF16_GRAD_TOL
+            compare(got, plain, tol, f"large-wide-bf16 {mode} {name} vs plain on the card")
+            compare(got, other, BF16_ROUTE_TOL,
+                    f"large-wide-bf16 {mode} {name} vs the lean bf16 route")
+            compare(got, f32, BF16_ROUTE_TOL, f"large-wide-bf16 {mode} {name} vs the f32 wide route")
+    if torch.equal(wide16[modes[0]][0], lean16[0]):
+        raise AssertionError("large-wide-bf16: the wide and the lean bf16 route round alike")
+    for name, a, b in zip(names, *(wide16[m] for m in modes)):
+        compare(a, b, 1e-5 if name == "output" else BF16_GRAD_TOL,
+                f"large-wide-bf16 {name}: {modes[0]} vs {modes[1]}")
+    del wide, wide16, wide16_plain, lean16
 
     # ----------------------------------------------- main path: large-masked
     # The large-wide work's S = Σ_{e ∈ row i} act(c[i] + d[src_e]) ⊙
@@ -3200,22 +3397,24 @@ def main() -> int:
     ct_s = ct_wide.reshape(big.n_node, k_big * f_big)
     rp_big, cp_big = big.real_row_ptr, big.real_col_ptr
 
-    def s_run(route):
+    def s_run(route, dtype=torch.float32):
         """Forward and backward of S by ``route`` ("masked", "wide" or "lean")
-        from h and mask_weights: S, dh and dmask_weights, and for "masked"
-        the pre-gathered logits and h_src and their gradients."""
+        from h and mask_weights, the "masked" and "wide" routes on c, d and
+        h in ``dtype``: S, dh and dmask_weights, and for "masked" the
+        pre-gathered logits and h_src and their gradients."""
         h = x_big.clone().requires_grad_()
         mw = mw0.clone().requires_grad_()
         with torch.enable_grad():
-            c, d = masked_aggregate.mma_mask_projections(h, mw)
+            h_c = h.to(dtype)
+            c, d = masked_aggregate.mma_mask_projections(h_c, mw.to(dtype))
             if route == "masked":
                 logits = gather_by_dst(c, big) + gather_by_src(d, big)
-                h_src = gather_by_src(h, big)
+                h_src = gather_by_src(h_c, big)
                 logits.retain_grad()
                 h_src.retain_grad()
                 s = fused_masked_aggregate(logits, h_src, pat_big, big, k_big)
             elif route == "wide":
-                s = fused_mma.edge_program(c, d, h, pat_big, big.src, rp_big, cp_big,
+                s = fused_mma.edge_program(c, d, h_c, pat_big, big.src, rp_big, cp_big,
                                            big.src_perm, big.dst_csc, "payload_permute")
             else:
                 w_bot = mw[:, f_big:, :].permute(1, 0, 2).reshape(f_big, -1).contiguous()
@@ -3258,6 +3457,44 @@ def main() -> int:
         del other
     masked_in = (masked["logits"], masked["h_src"])
     del masked, res
+
+    # ------------------------------------------ main path: large-masked-bf16
+    # fused_masked_aggregate on the bf16 logits c[dst] + d[src] and rows
+    # h[src] that the half-fused route builds in bf16 from the same h and
+    # weights: kernel 12 in bf16, each message rounded to bf16.
+    masked16_ms = []
+    with counted("large-masked-bf16", paths):
+        for rep in range(3):
+            t0 = time.perf_counter()
+            res = s_run("masked", torch.bfloat16)
+            torch.cuda.synchronize()
+            masked16_ms.append((time.perf_counter() - t0) * 1e3)
+            if rep == 0:
+                masked16 = res
+    print(f"large-masked-bf16: fused_masked_aggregate forward + backward from h and mask_weights "
+          f"(host clock) {masked16_ms} ms; median {statistics.median(masked16_ms):.4f} ms "
+          f"(f32 {statistics.median(masked_ms):.4f} ms)")
+    if (masked16["logits"].dtype, masked16["h_src"].dtype) != (torch.bfloat16, torch.bfloat16):
+        raise AssertionError("large-masked-bf16 gave kernel 12 float32 operands")
+    # Per run: kernel 12 in bf16 forward; backward the Function's
+    # elementwise VJP in bf16, then the three gathers' VJPs sum bf16
+    # cotangents with kernel 1 in bf16.
+    expect_launches(paths, "large-masked-bf16", masked_segment_sum_bf16=3, segment_sum_bf16=3 * 3)
+    before = launches()
+    with plain_kernels():
+        masked16_plain = s_run("masked", torch.bfloat16)
+    if launches() != before:
+        raise AssertionError("the plain bf16 masked route launched a kernel")
+    for name in ("S", "dlogits", "dh_src", "dh", "dmask_weights"):
+        compare(masked16[name], masked16_plain[name], 1e-5 if name == "S" else BF16_GRAD_TOL,
+                f"large-masked-bf16 {name} vs plain on the card")
+    # The wide bf16 route reads the same bf16 c, d and h but adds c[dst] +
+    # d[src] and each message in float32; kernel 12 gets that sum rounded
+    # to bf16 and rounds each message.
+    compare(masked16["S"], s_run("wide", torch.bfloat16)["S"], BF16_ROUTE_TOL,
+            "large-masked-bf16 S vs the wide bf16 route")
+    masked16_in = (masked16["logits"], masked16["h_src"])
+    del masked16, masked16_plain, res
 
     bf16_models = run_bf16(dev, paths, {
         "cora": cora, "cora_model": cora_model, "requests": requests, "cora_out": cora_out,
@@ -3791,6 +4028,8 @@ def main() -> int:
         del msg, masked_in, logits, h_src
         kernels.update(bf16_kernel_entries(dev, big, x_big, big_model, classes, mw0,
                                            bf16_models["train16"], labels, idx_train))
+        kernels.update(wide_bf16_kernel_entries(dev, big, wide_run, masked16_in, pat_big))
+        del masked16_in
 
     kernels.update(zinc_kernels)
     launch_keys = {"segment_sum_csr": "segment_sum", "edge_program_lean_fwd": "edge_program_lean",
@@ -3799,6 +4038,7 @@ def main() -> int:
     for name, entry in kernels.items():
         entry["launches"] = sum(p[launch_keys.get(name, name)] for p in paths.values())
     print("launches per main path:", json.dumps(paths))
+    print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s (host clock, the build included)")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

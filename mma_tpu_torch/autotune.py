@@ -5,8 +5,11 @@ Only ``resolve_compute_dtype`` is ported (``mma_tpu/autotune.py:46-57``):
 on ``cuda`` and ``cpu`` it is ``"float32"``. The JAX package measured its
 rule on a TPU; the port keeps the rule as written, and ``PERF.md`` holds
 the H100's bf16 and f32 times that a change of the rule would argue from.
-``choose_blocks`` has no counterpart: the port's kernels take no block
-sizes (``ROADMAP.md`` item 12).
+``choose_blocks`` (``mma_tpu/autotune.py:60-90``) needs no counterpart:
+it picks the tiles of the TPU's Pallas grid, whose values are bit-identical
+whatever the tiles (``:26-31``), and the port's kernels take no block
+sizes: each derives its partition from the edge count, the node count and
+the widths.
 """
 
 from __future__ import annotations

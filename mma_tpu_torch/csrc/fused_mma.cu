@@ -11,17 +11,19 @@
 // are no atomics and the results are deterministic; rows with no edges
 // get 0.
 //
-// Kernels 1, 2, 3 and 8 also read bf16 operands (the edge pipeline's
+// Kernels 1-3 and 8-12 also read bf16 operands (the edge pipeline's
 // compute_dtype="bfloat16"): kernels 1 and 8 bf16 data rows, kernels 2
-// and 3 a bf16 h. They widen each value to f32 in registers as they use it, and
+// and 3 a bf16 h, kernels 9-11 bf16 d and h, kernel 12 bf16 logits and/or
+// h_src. They widen each value to f32 in registers as they use it, and
 // every sum and every output stays f32. Where the JAX package's kernels
-// take bf16 inputs they run each contraction as one MXU pass, which rounds
-// its f32 operands to bf16 (mma_tpu/ops/pallas/fused_mma.py:107-118): the
-// message act(c + D) * h before kernel 2 sums it, ct and dlog in kernel 3,
-// the square x * x in kernel 8.
-// The bf16 variants round at the same places (round_bf16), so that the
-// port computes the JAX package's bf16 function; the f32 kernels are
-// unchanged. Conversions go through the cuda_bf16.h intrinsics alone, so
+// take bf16 inputs with one MXU pass, the pass rounds its f32 operands to
+// bf16 (mma_tpu/ops/pallas/fused_mma.py:107-118): the message act(c + D) *
+// h before kernel 2 sums it, ct and dlog in kernel 3, the square x * x in
+// kernel 8, the message in kernel 12 on bf16 logits. The bf16 variants
+// round at the same places (round_bf16), so that the port computes the JAX
+// package's bf16 function. The wide program (kernels 9-11) runs two passes
+// whatever the dtype, so its bf16 variants round nothing. The f32 kernels
+// are unchanged. Conversions go through the cuda_bf16.h intrinsics alone, so
 // the source also builds under -D__CUDA_NO_BFLOAT16_CONVERSIONS__.
 
 #include <cuda_bf16.h>
@@ -257,6 +259,32 @@ __device__ __forceinline__ float4 operand4(const float4& v) {
   } else {
     return make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z), round_bf16(v.w));
   }
+}
+
+// The element types of an edge-program pass's gathered node tables and its
+// rounding policy, chosen at run time (by_form): H, h's type; D, d's type;
+// kRound, whether ct and each message are rounded to bf16 (the JAX lean
+// kernels' one-pass contractions on a bf16 h). Kernels 2-3 take <E, float,
+// E == bf16> (D is the node pass's f32 table); kernels 9-11 take <E, E,
+// false>: the JAX wide kernels sum in two bf16 passes whatever the dtype
+// (mma_tpu/ops/pallas/fused_mma.py:1380), about f32, so their bf16 form
+// reads bf16 d and h and computes and adds in f32 with no rounding.
+template <typename EH, typename ED, bool ROUND>
+struct Form {
+  using H = EH;
+  using D = ED;
+  static constexpr bool kRound = ROUND;
+};
+
+// launch(Form<...>()) for the forms the flags name: f32 (0, 0, 0), the lean
+// bf16 form (1, 0, 1) and the wide bf16 form (1, 1, 0); another
+// combination is refused.
+template <typename Launch>
+cudaError_t by_form(int h_bf16, int d_bf16, int round, Launch launch) {
+  if (!h_bf16 && !d_bf16 && !round) return launch(Form<float, float, false>());
+  if (h_bf16 && !d_bf16 && round) return launch(Form<bf16, float, true>());
+  if (h_bf16 && d_bf16 && !round) return launch(Form<bf16, bf16, false>());
+  return cudaErrorInvalidValue;
 }
 
 __device__ __forceinline__ float sigmoidf(float x) {
@@ -899,57 +927,60 @@ lean_node_kernel(const E* __restrict__ h, const float* __restrict__ w_bot,
   }
 }
 
-// The edge pass's message: act(c[row] + D[r]) * h[r, l mod F] on slots of 4
-// lanes, h f32 or bf16 (E); with a bf16 h the message is rounded to bf16
-// before it is added, as the JAX kernel's one-pass contraction rounds it.
-template <typename E>
+// The edge pass's message: act(c[row] + d[r]) * h[r, l mod F] on slots of 4
+// lanes, in the form Fm (Form): h and d read as Fm::H and Fm::D and widened to
+// f32; with Fm::kRound the message is rounded to bf16 before it is added, as
+// the JAX lean kernel's one-pass contraction rounds it.
+template <class Fm>
 struct LeanMessage {
   static constexpr int VEC = 4;
   static constexpr int kSums = 1;
   static constexpr bool kEmits = false;
   static constexpr bool kFolds = false;
-  // Two edges' D and h slots in flight (see lean_edge_kernel).
+  // Two edges' d and h slots in flight (see lean_edge_kernel).
   template <int TILES>
   __host__ __device__ static constexpr int in_flight() {
     return 2;
   }
-  using HS = Slots<4, E>;
+  using HS = Slots<4, typename Fm::H>;
+  using DS = Slots<4, typename Fm::D>;
   struct Slot {
     float4 c, p;  // c[row] and the pattern on the slot's 4 lanes
     int hv;       // the slot of h that the lanes read: cv mod F/4
   };
   struct Edge {
-    float4 d;
+    typename DS::Raw d;
     typename HS::Raw h;
   };
   const float4* c;
   const float4* pat;
-  const float4* d;
+  const typename DS::Raw* d;
   const typename HS::Raw* h;
-  int n_vec, f_vec;  // slots of a K*F row (c, D) and of an F row (h)
+  int n_vec, f_vec;  // slots of a K*F row (c, d) and of an F row (h)
 
   __device__ Slot slot(int64_t row, int cv) const {
     return {__ldg(c + row * n_vec + cv), __ldg(pat + cv), cv % f_vec};
   }
   __device__ static Slot no_slot() { return {Vec<4>::zero(), Vec<4>::zero(), 0}; }
   __device__ Edge load(int64_t r, int cv, const Slot& s) const {
-    return {__ldg(d + r * n_vec + cv), HS::load(h + r * f_vec + s.hv)};
+    return {DS::load(d + r * n_vec + cv), HS::load(h + r * f_vec + s.hv)};
   }
-  __device__ static Edge none() { return {Vec<4>::zero(), HS::zero()}; }
+  __device__ static Edge none() { return {DS::zero(), HS::zero()}; }
   __device__ static float term(float acc, float c, float p, float d, float h) {
     const float x = c + d;
-    if constexpr (std::is_same<E, float>::value) {
+    if constexpr (!Fm::kRound) {
       return fmaf(p != 0.f ? sigmoidf(x) : x, h, acc);
     } else {
       return acc + round_bf16(__fmul_rn(p != 0.f ? sigmoidf(x) : x, h));
     }
   }
   __device__ static void add(float4 (&acc)[1], const Edge& e, const Slot& s) {
+    const float4 d = DS::widen(e.d);
     const float4 h = HS::widen(e.h);
-    acc[0].x = term(acc[0].x, s.c.x, s.p.x, e.d.x, h.x);
-    acc[0].y = term(acc[0].y, s.c.y, s.p.y, e.d.y, h.y);
-    acc[0].z = term(acc[0].z, s.c.z, s.p.z, e.d.z, h.z);
-    acc[0].w = term(acc[0].w, s.c.w, s.p.w, e.d.w, h.w);
+    acc[0].x = term(acc[0].x, s.c.x, s.p.x, d.x, h.x);
+    acc[0].y = term(acc[0].y, s.c.y, s.p.y, d.y, h.y);
+    acc[0].z = term(acc[0].z, s.c.z, s.p.z, d.z, h.z);
+    acc[0].w = term(acc[0].w, s.c.w, s.p.w, d.w, h.w);
   }
 };
 
@@ -959,22 +990,22 @@ struct LeanMessage {
 // and 8 edges in flight and over 2 or 3 blocks per SM, because the
 // sigmoids of one warp's edges then run while other warps wait on their
 // gathers.
-template <int TILES, typename E>
+template <class Msg, int TILES>
 __global__ void __launch_bounds__(kSumWarps* kWarp, 4)
-lean_edge_kernel(const LeanMessage<E> msg, const int32_t* __restrict__ row_ptr,
+lean_edge_kernel(const Msg msg, const int32_t* __restrict__ row_ptr,
                  const int32_t* __restrict__ src, float* __restrict__ out,
                  float* __restrict__ part, int32_t* __restrict__ tail_row, int n_rows,
                  int n_vec, int lpe, int tiles, int chunk, int n_chunks) {
-  chunk_pass<LeanMessage<E>, TILES>(msg, row_ptr, src, out, part, tail_row, n_rows, n_vec, lpe,
-                                    tiles, chunk, n_chunks);
+  chunk_pass<Msg, TILES>(msg, row_ptr, src, out, part, tail_row, n_rows, n_vec, lpe, tiles,
+                         chunk, n_chunks);
 }
 
-template <int TILES, typename E>
-cudaError_t launch_lean_edges(const LeanMessage<E>& msg, const void* row_ptr, const void* src,
+template <class Msg, int TILES>
+cudaError_t launch_lean_edges(const Msg& msg, const void* row_ptr, const void* src,
                               void* out, void* part, void* tail_row, int n_rows, int n_vec,
                               int lpe, int tiles, int chunk, int n_chunks, cudaStream_t s) {
   const int blocks = (n_chunks + kSumWarps - 1) / kSumWarps;
-  lean_edge_kernel<TILES, E><<<blocks, kSumWarps * kWarp, 0, s>>>(
+  lean_edge_kernel<Msg, TILES><<<blocks, kSumWarps * kWarp, 0, s>>>(
       msg, static_cast<const int32_t*>(row_ptr), static_cast<const int32_t*>(src),
       static_cast<float*>(out), static_cast<float*>(part), static_cast<int32_t*>(tail_row),
       n_rows, n_vec, lpe, tiles, chunk, n_chunks);
@@ -1050,10 +1081,11 @@ cudaError_t launch_lean_edges(const LeanMessage<E>& msg, const void* row_ptr, co
 // W_bot^T equal the JAX kernel's per-edge sums of the same rounded values.
 // ---------------------------------------------------------------------------
 
-// The dst pass's message: dlog_e on slots of 4 lanes of a K*F row of dc, h
-// f32 or bf16 (E). With a bf16 h, ct is rounded to bf16 as it is loaded and
-// dlog_e before it is added, as in the JAX kernel.
-template <typename E>
+// The dst pass's message: dlog_e on slots of 4 lanes of a K*F row of dc, in
+// the form Fm (Form): h and d read as Fm::H and Fm::D. With Fm::kRound, ct is
+// rounded to bf16 as it is loaded and dlog_e before it is added, as in the
+// JAX lean kernel.
+template <class Fm>
 struct LeanDcMessage {
   static constexpr int VEC = 4;
   static constexpr int kSums = 1;
@@ -1064,48 +1096,51 @@ struct LeanDcMessage {
   __host__ __device__ static constexpr int in_flight() {
     return 2;
   }
-  using HS = Slots<4, E>;
+  using HS = Slots<4, typename Fm::H>;
+  using DS = Slots<4, typename Fm::D>;
+  using RoundAs = typename std::conditional<Fm::kRound, bf16, float>::type;
   struct Slot {
     float4 c, ct, p;  // c[row], ct[row] and the pattern on the slot's 4 lanes
     int hv;           // the slot of h that the lanes read: cv mod F/4
   };
   struct Edge {
-    float4 d;
+    typename DS::Raw d;
     typename HS::Raw h;
   };
   const float4* c;
   const float4* ct;
   const float4* pat;
-  const float4* d;
+  const typename DS::Raw* d;
   const typename HS::Raw* h;
-  int n_vec, f_vec;  // slots of a K*F row (c, ct, D) and of an F row (h)
+  int n_vec, f_vec;  // slots of a K*F row (c, ct, d) and of an F row (h)
 
   __device__ Slot slot(int64_t row, int cv) const {
-    return {__ldg(c + row * n_vec + cv), operand4<E>(__ldg(ct + row * n_vec + cv)),
+    return {__ldg(c + row * n_vec + cv), operand4<RoundAs>(__ldg(ct + row * n_vec + cv)),
             __ldg(pat + cv), cv % f_vec};
   }
   __device__ static Slot no_slot() {
     return {Vec<4>::zero(), Vec<4>::zero(), Vec<4>::zero(), 0};
   }
   __device__ Edge load(int64_t r, int cv, const Slot& s) const {
-    return {__ldg(d + r * n_vec + cv), HS::load(h + r * f_vec + s.hv)};
+    return {DS::load(d + r * n_vec + cv), HS::load(h + r * f_vec + s.hv)};
   }
-  __device__ static Edge none() { return {Vec<4>::zero(), HS::zero()}; }
+  __device__ static Edge none() { return {DS::zero(), HS::zero()}; }
   __device__ static float term(float acc, float c, float ct, float p, float d, float h) {
     float m, dm;
     mask_chain(c + d, p, m, dm);
-    if constexpr (std::is_same<E, float>::value) {
+    if constexpr (!Fm::kRound) {
       return acc + ct * h * dm;
     } else {
       return acc + round_bf16(__fmul_rn(__fmul_rn(ct, h), dm));
     }
   }
   __device__ static void add(float4 (&acc)[1], const Edge& e, const Slot& s) {
+    const float4 d = DS::widen(e.d);
     const float4 h = HS::widen(e.h);
-    acc[0].x = term(acc[0].x, s.c.x, s.ct.x, s.p.x, e.d.x, h.x);
-    acc[0].y = term(acc[0].y, s.c.y, s.ct.y, s.p.y, e.d.y, h.y);
-    acc[0].z = term(acc[0].z, s.c.z, s.ct.z, s.p.z, e.d.z, h.z);
-    acc[0].w = term(acc[0].w, s.c.w, s.ct.w, s.p.w, e.d.w, h.w);
+    acc[0].x = term(acc[0].x, s.c.x, s.ct.x, s.p.x, d.x, h.x);
+    acc[0].y = term(acc[0].y, s.c.y, s.ct.y, s.p.y, d.y, h.y);
+    acc[0].z = term(acc[0].z, s.c.z, s.ct.z, s.p.z, d.z, h.z);
+    acc[0].w = term(acc[0].w, s.c.w, s.ct.w, s.p.w, d.w, h.w);
   }
 };
 
@@ -1166,8 +1201,15 @@ __device__ __forceinline__ void fold_k(const float4 (&v)[TILES], float4* q, bool
 // written by the edge's lane group with streaming 16-byte stores from the
 // loads the sums already made (the K-fold by fold_k). Positions the CSR
 // does not cover get zero rows from the chunk that holds them
-// (zero_uncovered).
-struct LeanDcPayloadMessage : LeanDcMessage<float> {
+// (zero_uncovered). E: the element type of d and h (kernel 10's forms,
+// Form<E, E, false>).
+template <typename E>
+struct LeanDcPayloadMessage : LeanDcMessage<Form<E, E, false>> {
+  using Base = LeanDcMessage<Form<E, E, false>>;
+  using typename Base::Edge;
+  using typename Base::Slot;
+  using Base::f_vec;
+  using Base::n_vec;
   static constexpr bool kEmits = true;
   // 80 registers (3 blocks an SM) and LeanDcMessage's two edges in flight:
   // on the card, 2 or 4 blocks an SM and four edges in flight all came
@@ -1200,7 +1242,7 @@ struct LeanDcPayloadMessage : LeanDcMessage<float> {
   // it does alone, and dc has the same bits with or without the payload.
   __device__ static void terms(float& acc, float& dl, float& gm, float c, float ct, float p,
                                float d, float h) {
-    acc = term(acc, c, ct, p, d, h);
+    acc = Base::term(acc, c, ct, p, d, h);
     float m, dm;
     mask_chain(c + d, p, m, dm);
     dl = __fmul_rn(__fmul_rn(ct, h), dm);
@@ -1215,10 +1257,12 @@ struct LeanDcPayloadMessage : LeanDcMessage<float> {
 #pragma unroll
     for (int t = 0; t < TILES; ++t) {
       float4 dl;
-      terms(acc[t][0].x, dl.x, gm[t].x, sl[t].c.x, sl[t].ct.x, sl[t].p.x, ed[t].d.x, ed[t].h.x);
-      terms(acc[t][0].y, dl.y, gm[t].y, sl[t].c.y, sl[t].ct.y, sl[t].p.y, ed[t].d.y, ed[t].h.y);
-      terms(acc[t][0].z, dl.z, gm[t].z, sl[t].c.z, sl[t].ct.z, sl[t].p.z, ed[t].d.z, ed[t].h.z);
-      terms(acc[t][0].w, dl.w, gm[t].w, sl[t].c.w, sl[t].ct.w, sl[t].p.w, ed[t].d.w, ed[t].h.w);
+      const float4 d = Base::DS::widen(ed[t].d);
+      const float4 h = Base::HS::widen(ed[t].h);
+      terms(acc[t][0].x, dl.x, gm[t].x, sl[t].c.x, sl[t].ct.x, sl[t].p.x, d.x, h.x);
+      terms(acc[t][0].y, dl.y, gm[t].y, sl[t].c.y, sl[t].ct.y, sl[t].p.y, d.y, h.y);
+      terms(acc[t][0].z, dl.z, gm[t].z, sl[t].c.z, sl[t].ct.z, sl[t].p.z, d.z, h.z);
+      terms(acc[t][0].w, dl.w, gm[t].w, sl[t].c.w, sl[t].ct.w, sl[t].p.w, d.w, h.w);
       const int cv = (t0 + t) * lpe + li;
       if (e >= 0 && cv < n_vec) __stcs(prow + cv, dl);
     }
@@ -1227,9 +1271,9 @@ struct LeanDcPayloadMessage : LeanDcMessage<float> {
 };
 
 // The src pass's message: on slots of 4 lanes of a K*F row, dlog_e into the
-// row's dD block and gm_e into its G block; h f32 or bf16 (E), rounded as
+// row's dD block and gm_e into its G block, in the form Fm (Form), rounded as
 // LeanDcMessage rounds.
-template <typename E>
+template <class Fm>
 struct LeanSrcMessage {
   static constexpr int VEC = 4;
   static constexpr int kSums = 2;
@@ -1240,9 +1284,11 @@ struct LeanSrcMessage {
   __host__ __device__ static constexpr int in_flight() {
     return 2;
   }
-  using HS = Slots<4, E>;
+  using HS = Slots<4, typename Fm::H>;
+  using DS = Slots<4, typename Fm::D>;
+  using RoundAs = typename std::conditional<Fm::kRound, bf16, float>::type;
   struct Slot {
-    float4 d, h, p;  // D[row], tile(h[row], K) and the pattern on the slot's 4 lanes
+    float4 d, h, p;  // d[row], tile(h[row], K) and the pattern on the slot's 4 lanes
   };
   struct Edge {
     float4 c, ct;
@@ -1250,24 +1296,24 @@ struct LeanSrcMessage {
   const float4* c;
   const float4* ct;
   const float4* pat;
-  const float4* d;
+  const typename DS::Raw* d;
   const typename HS::Raw* h;
   int n_vec, f_vec;
 
   __device__ Slot slot(int64_t row, int cv) const {
-    return {__ldg(d + row * n_vec + cv), HS::widen(HS::load(h + row * f_vec + cv % f_vec)),
-            __ldg(pat + cv)};
+    return {DS::widen(DS::load(d + row * n_vec + cv)),
+            HS::widen(HS::load(h + row * f_vec + cv % f_vec)), __ldg(pat + cv)};
   }
   __device__ static Slot no_slot() { return {Vec<4>::zero(), Vec<4>::zero(), Vec<4>::zero()}; }
   __device__ Edge load(int64_t r, int cv, const Slot&) const {
-    return {__ldg(c + r * n_vec + cv), operand4<E>(__ldg(ct + r * n_vec + cv))};
+    return {__ldg(c + r * n_vec + cv), operand4<RoundAs>(__ldg(ct + r * n_vec + cv))};
   }
   __device__ static Edge none() { return {Vec<4>::zero(), Vec<4>::zero()}; }
   __device__ static void term(float& dd, float& g, float c, float ct, float p, float d,
                               float h) {
     float m, dm;
     mask_chain(c + d, p, m, dm);
-    if constexpr (std::is_same<E, float>::value) {
+    if constexpr (!Fm::kRound) {
       dd += ct * h * dm;
     } else {
       dd += round_bf16(__fmul_rn(__fmul_rn(ct, h), dm));
@@ -1286,8 +1332,13 @@ struct LeanSrcMessage {
 // d, with the G block folded over the K aggregator blocks as it is stored
 // (kFolds): an output row, and a head or tail partial, is [dd || fold_K(G)],
 // n_vec + f_vec slots. The fold is linear, so kernel 1's fixup adds folded
-// partials as they are.
-struct LeanSrcFoldMessage : LeanSrcMessage<float> {
+// partials as they are. E: the element type of d and h (kernel 11's forms,
+// Form<E, E, false>).
+template <typename E>
+struct LeanSrcFoldMessage : LeanSrcMessage<Form<E, E, false>> {
+  using Base = LeanSrcMessage<Form<E, E, false>>;
+  using Base::f_vec;
+  using Base::n_vec;
   static constexpr bool kFolds = true;
   // 64 registers (4 blocks an SM), with spills, and LeanSrcMessage's two
   // edges in flight: on the card 2 and 3 blocks an SM were 17-18% slower at
@@ -1314,10 +1365,10 @@ struct LeanSrcFoldMessage : LeanSrcMessage<float> {
   }
 };
 
-// Pass 1 of the dst pass (Msg = LeanDcMessage<E>; kernel 10 with the
-// caller's d, and with its payload LeanDcPayloadMessage) and of the src pass
-// (LeanSrcMessage<E>; kernel 11 with the caller's d, LeanSrcFoldMessage),
-// each at its message's launch bounds.
+// Pass 1 of the dst pass (Msg = LeanDcMessage<Fm>; kernel 10 with the
+// caller's d, and with its payload LeanDcPayloadMessage<E>) and of the src
+// pass (LeanSrcMessage<Fm>; kernel 11 with the caller's d,
+// LeanSrcFoldMessage<E>), each at its message's launch bounds.
 template <class Msg, int TILES, int MIN_BLOCKS>
 __global__ void __launch_bounds__(kSumWarps* kWarp, MIN_BLOCKS)
 lean_bwd_edge_kernel(const Msg msg, const int32_t* __restrict__ ptr,
@@ -1749,6 +1800,17 @@ __global__ void segment_sum_sq_kernel(const E* __restrict__ data,
 // stored, so rows and partials are K*F + F wide, not 2 K*F. The power-law
 // graph's heaviest source (1,448 edges) is split over chunks and joined
 // by the fixup in chunk order, as the other passes' heavy rows are.
+//
+// bf16 d and h (the form Form<bf16, bf16, false>: LeanMessage,
+// LeanDcMessage, LeanDcPayloadMessage<bf16>, LeanSrcFoldMessage<bf16>): the
+// tables are read as bf16, 8 bytes a slot, and widened to f32 in
+// registers; c, ct, the payload, dc and [dd || dh] stay f32, and no term is
+// rounded. The JAX wide kernels contract in two bf16 passes whatever the
+// dtype (mma_tpu/ops/pallas/fused_mma.py:1380), f32 to about 2^-17, and
+// round dc, dd and dh once to their inputs' dtypes at the end (:1449),
+// which the Python wrapper does. At the synthetic-large graph a gathered
+// [d || h] row drops from 768 to 384 B, and the d and h tables from 100.7
+// to 50.3 MB, about the 50 MB L2.
 // ---------------------------------------------------------------------------
 
 // ---------------------------------------------------------------------------
@@ -1776,6 +1838,16 @@ __global__ void segment_sum_sq_kernel(const E* __restrict__ data,
 // once, with no atomics, bitwise equal run to run. The block stages the
 // pattern in shared memory once. The power-law graph's heaviest row (1,448
 // edges, 1.1 MB) is one warp's sequential loop.
+//
+// bf16 logits and/or h_src (masked_segment_sum_kernel<VEC, NT, EL, EH>, each
+// operand's type on its own): VEC = 4 reads 4 bf16 lanes in 8 bytes, VEC =
+// 1 one 2-byte lane, widened to f32 in registers; the mask and the message
+// are computed in f32. With bf16 logits the message is rounded to bf16
+// before it is added, whatever h_src's type: the JAX wrapper keys its one
+// pass on the logits' dtype (mma_tpu/ops/pallas/fused_mma.py:1574) and its
+// contraction rounds the f32 message (:108-119). The output stays f32. bf16
+// inputs halve the bytes: at synthetic-large 1.61 -> 0.81 GB of edge rows,
+// a bound of about 0.26 ms.
 // ---------------------------------------------------------------------------
 
 constexpr int kMaskedWarps = 8;
@@ -1808,19 +1880,29 @@ cudaError_t by_tiles(int kf, Launch launch) {
   return cudaGetLastError();
 }
 
-template <int VEC>
-__device__ __forceinline__ void load_lanes(float (&v)[VEC], const float* p, bool on) {
-  if constexpr (VEC == 4) {
+// VEC lanes of type E at p (aligned to VEC of its elements) as f32, 0
+// where off.
+template <int VEC, typename E>
+__device__ __forceinline__ void load_lanes(float (&v)[VEC], const E* p, bool on) {
+  if constexpr (std::is_same<E, float>::value && VEC == 4) {
     load4(v, p, on);
-  } else {
+  } else if constexpr (std::is_same<E, float>::value) {
     v[0] = on ? __ldg(p) : 0.f;
+  } else {
+    using S = Slots<VEC, E>;
+    const auto w = S::widen(on ? S::load(reinterpret_cast<const typename S::Raw*>(p)) : S::zero());
+    if constexpr (VEC == 4) {
+      v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
+    } else {
+      v[0] = w;
+    }
   }
 }
 
-template <int VEC, int NT>
+template <int VEC, int NT, typename EL, typename EH>
 __global__ void __launch_bounds__(kMaskedWarps * kWarp)
-masked_segment_sum_kernel(const float* __restrict__ logits,
-                          const float* __restrict__ h_src,
+masked_segment_sum_kernel(const EL* __restrict__ logits,
+                          const EH* __restrict__ h_src,
                           const float* __restrict__ pat,
                           const int32_t* __restrict__ row_ptr, float* __restrict__ out,
                           int n_rows, int f, int kf) {
@@ -1856,8 +1938,8 @@ masked_segment_sum_kernel(const float* __restrict__ logits,
       const bool live = e < end;
 #pragma unroll
       for (int t = 0; t < NT; ++t) {
-        load_lanes<VEC>(lg[u][t], logits + e * kf + l0[t], live && on[t]);
-        load_lanes<VEC>(hv[u][t], h_src + e * f + hoff[t], live && on[t]);
+        load_lanes<VEC, EL>(lg[u][t], logits + e * kf + l0[t], live && on[t]);
+        load_lanes<VEC, EH>(hv[u][t], h_src + e * f + hoff[t], live && on[t]);
       }
     }
 #pragma unroll
@@ -1869,7 +1951,11 @@ masked_segment_sum_kernel(const float* __restrict__ logits,
           for (int q = 0; q < VEC; ++q) {
             const float x = lg[u][t][q];
             const float m = p[t][q] != 0.f ? sigmoidf(x) : x;
-            acc[t][q] = fmaf(m, hv[u][t][q], acc[t][q]);
+            if constexpr (std::is_same<EL, float>::value) {
+              acc[t][q] = fmaf(m, hv[u][t][q], acc[t][q]);
+            } else {  // the JAX kernel's one pass on bf16 logits
+              acc[t][q] += round_bf16(__fmul_rn(m, hv[u][t][q]));
+            }
           }
         }
       }
@@ -1979,16 +2065,19 @@ int mma_edge_program_lean_node(const void* h, const void* w_bot, void* d, int n_
 // Kernel 2's edge pass, and kernel 9: out[i] = sum_{e in row i} act(c[i] +
 // d[src_e]) * tile(h[src_e], K). c (n_rows, kf), pat (kf,) 0/1 f32; node
 // tables d (R, kf) (kernel 2: h @ w_bot; kernel 9: the caller's) and h (R,
-// f) f32 (bf16 when h_bf16 != 0: kernel 2 only), R any row count above every
-// src; src (n_edges,) i32, row_ptr (n_rows+1,) i32 with row_ptr[n_rows] <=
-// n_edges, out (n_rows, kf) f32; scratch part (n_chunks, 2, kf) f32 and
-// tail_row (n_chunks,) i32, n_chunks = mma_segment_sum_n_chunks(n_edges).
-// Requires f % 4 == 0, kf % f == 0, 16-byte aligned c, pat, d and out, and
-// h aligned to 4 of its elements.
+// f), R any row count above every src; src (n_edges,) i32, row_ptr
+// (n_rows+1,) i32 with row_ptr[n_rows] <= n_edges, out (n_rows, kf) f32;
+// scratch part (n_chunks, 2, kf) f32 and tail_row (n_chunks,) i32, n_chunks
+// = mma_segment_sum_n_chunks(n_edges). The form (by_form): h_bf16, d_bf16,
+// round = 0, 0, 0 (f32 tables), 1, 0, 1 (kernel 2's bf16 h: each message
+// rounded to bf16) or 1, 1, 0 (kernel 9's bf16 d and h: f32 messages).
+// Requires f % 4 == 0, kf % f == 0, 16-byte aligned c, pat and out, and d
+// and h aligned to 4 of their elements.
 int mma_edge_program_lean_edges(const void* c, const void* pat, const void* d, const void* h,
                                 const void* src, const void* row_ptr,
                                 void* out, void* part, void* tail_row, int n_rows, int f,
-                                int kf, int n_edges, int h_bf16, void* stream) {
+                                int kf, int n_edges, int h_bf16, int d_bf16, int round,
+                                void* stream) {
   if (n_rows <= 0) return static_cast<int>(cudaSuccess);
   const int n_vec = kf / 4;
   const int lpe = lanes_per_edge(n_vec);
@@ -1996,18 +2085,17 @@ int mma_edge_program_lean_edges(const void* c, const void* pat, const void* d, c
   const int chunk = sum_chunk_edges(n_edges);
   const int n_chunks = sum_n_chunks(n_edges);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto launch = [&](auto elem) {
-    using E = typename decltype(elem)::type;
-    using Msg = LeanMessage<E>;
+  auto launch = [&](auto form) {
+    using Msg = LeanMessage<decltype(form)>;
     const Msg msg{static_cast<const float4*>(c), static_cast<const float4*>(pat),
-                  static_cast<const float4*>(d), static_cast<const typename Msg::HS::Raw*>(h),
-                  n_vec, f / 4};
-    return tiles <= 1 ? launch_lean_edges<1, E>(msg, row_ptr, src, out, part, tail_row, n_rows,
-                                                n_vec, lpe, tiles, chunk, n_chunks, s)
-                      : launch_lean_edges<2, E>(msg, row_ptr, src, out, part, tail_row, n_rows,
-                                                n_vec, lpe, tiles, chunk, n_chunks, s);
+                  static_cast<const typename Msg::DS::Raw*>(d),
+                  static_cast<const typename Msg::HS::Raw*>(h), n_vec, f / 4};
+    return tiles <= 1 ? launch_lean_edges<Msg, 1>(msg, row_ptr, src, out, part, tail_row, n_rows,
+                                                  n_vec, lpe, tiles, chunk, n_chunks, s)
+                      : launch_lean_edges<Msg, 2>(msg, row_ptr, src, out, part, tail_row, n_rows,
+                                                  n_vec, lpe, tiles, chunk, n_chunks, s);
   };
-  return static_cast<int>(h_bf16 ? launch(Type<bf16>()) : launch(Type<float>()));
+  return static_cast<int>(by_form(h_bf16, d_bf16, round, launch));
 }
 
 // The dst pass of kernels 3 and 10: dc[i] = sum_{e in row i} dlog_e. c, ct
@@ -2018,35 +2106,38 @@ int mma_edge_program_lean_edges(const void* c, const void* pat, const void* d, c
 // (n_chunks,) i32, n_chunks = mma_segment_sum_n_chunks(n_edges). Unless
 // payload is null, also kernel 10's payload (n_edges, kf + f) f32: row e
 // is [dlog_e || sum_k (ct[i] * mask_e)_k] for the positions the CSR covers
-// and 0 for the others. h_bf16 != 0 (kernel 3 only, no payload): h is
-// bf16. Requires f % 4 == 0, kf % f == 0, 16-byte aligned c, ct, pat, d, dc
-// and payload, and h aligned to 4 of its elements.
+// and 0 for the others. The form as mma_edge_program_lean_edges': 1, 0, 1
+// is kernel 3's bf16 h (ct and each dlog_e rounded to bf16; no payload), 1,
+// 1, 0 kernel 10's bf16 d and h. Requires f % 4 == 0, kf % f == 0, 16-byte
+// aligned c, ct, pat, dc and payload, and d and h aligned to 4 of their
+// elements.
 int mma_edge_program_lean_bwd_dst(const void* c, const void* ct, const void* pat, const void* d,
                                   const void* h, const void* src, const void* row_ptr, void* dc,
                                   void* payload, void* part, void* tail_row, int n_rows, int f,
-                                  int kf, int n_edges, int h_bf16, void* stream) {
-  if (h_bf16 && payload != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+                                  int kf, int n_edges, int h_bf16, int d_bf16, int round,
+                                  void* stream) {
   if (n_rows <= 0 && payload == nullptr) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (h_bf16) {
-    const LeanDcMessage<bf16> msg{
-        static_cast<const float4*>(c), static_cast<const float4*>(ct),
-        static_cast<const float4*>(pat), static_cast<const float4*>(d),
-        static_cast<const uint2*>(h), kf / 4, f / 4};
-    return static_cast<int>(
-        launch_lean_bwd_edges(msg, row_ptr, src, dc, part, tail_row, n_rows, kf, n_edges, s));
-  }
-  const LeanDcMessage<float> msg{static_cast<const float4*>(c),   static_cast<const float4*>(ct),
-                                 static_cast<const float4*>(pat), static_cast<const float4*>(d),
-                                 static_cast<const float4*>(h),   kf / 4, f / 4};
-  if (payload == nullptr) {
-    return static_cast<int>(
-        launch_lean_bwd_edges(msg, row_ptr, src, dc, part, tail_row, n_rows, kf, n_edges, s));
-  }
-  const LeanDcPayloadMessage pmsg{msg, static_cast<float4*>(payload), n_edges,
-                                  lanes_per_edge(kf / 4) % (f / 4) == 0};
-  return static_cast<int>(
-      launch_lean_bwd_edges(pmsg, row_ptr, src, dc, part, tail_row, n_rows, kf, n_edges, s));
+  auto launch = [&](auto form) -> cudaError_t {
+    using Fm = decltype(form);
+    using Msg = LeanDcMessage<Fm>;
+    const Msg msg{static_cast<const float4*>(c),   static_cast<const float4*>(ct),
+                  static_cast<const float4*>(pat), static_cast<const typename Msg::DS::Raw*>(d),
+                  static_cast<const typename Msg::HS::Raw*>(h), kf / 4, f / 4};
+    if (payload == nullptr) {
+      return launch_lean_bwd_edges(msg, row_ptr, src, dc, part, tail_row, n_rows, kf, n_edges,
+                                   s);
+    }
+    if constexpr (Fm::kRound || !std::is_same<typename Fm::H, typename Fm::D>::value) {
+      return cudaErrorInvalidValue;  // the payload is kernel 10's alone
+    } else {
+      const LeanDcPayloadMessage<typename Fm::H> pmsg{msg, static_cast<float4*>(payload), n_edges,
+                                                      lanes_per_edge(kf / 4) % (f / 4) == 0};
+      return launch_lean_bwd_edges(pmsg, row_ptr, src, dc, part, tail_row, n_rows, kf, n_edges,
+                                   s);
+    }
+  };
+  return static_cast<int>(by_form(h_bf16, d_bf16, round, launch));
 }
 
 // Kernel 3's src pass over the CSC: out[s] = [dD[s] || G[s]] (n_rows, 2
@@ -2061,35 +2152,42 @@ int mma_edge_program_lean_bwd_src(const void* c, const void* ct, const void* pat
                                   void* out, void* part, void* tail_row, int n_rows, int f,
                                   int kf, int n_edges, int h_bf16, void* stream) {
   if (n_rows <= 0) return static_cast<int>(cudaSuccess);
-  auto launch = [&](auto elem) {
-    using E = typename decltype(elem)::type;
-    using Msg = LeanSrcMessage<E>;
+  auto launch = [&](auto form) {
+    using Msg = LeanSrcMessage<decltype(form)>;
     const Msg msg{static_cast<const float4*>(c),   static_cast<const float4*>(ct),
                   static_cast<const float4*>(pat), static_cast<const float4*>(d),
                   static_cast<const typename Msg::HS::Raw*>(h), kf / 4, f / 4};
     return launch_lean_bwd_edges(msg, col_ptr, dst_csc, out, part, tail_row, n_rows, kf,
                                  n_edges, static_cast<cudaStream_t>(stream));
   };
-  return static_cast<int>(h_bf16 ? launch(Type<bf16>()) : launch(Type<float>()));
+  // Kernel 3's forms: f32, or a bf16 h with ct and dlog_e rounded.
+  return static_cast<int>(h_bf16 ? launch(Form<bf16, float, true>())
+                                 : launch(Form<float, float, false>()));
 }
 
 // Kernel 11, the src pass with G's K blocks folded as it stores: out[s] =
 // [dd[s] || dh[s]] (n_rows, kf + f) f32, scratch part (n_chunks, 2, kf + f)
 // f32; the other arguments and requirements as
-// mma_edge_program_lean_bwd_src's, with the caller's d.
+// mma_edge_program_lean_bwd_src's, with the caller's d. tables_bf16 != 0:
+// d and h are bf16 (c and ct stay f32), and every term is f32 (the form 1,
+// 1, 0).
 int mma_edge_program_bwd_csc(const void* c, const void* ct, const void* pat, const void* d,
                              const void* h, const void* dst_csc, const void* col_ptr, void* out,
                              void* part, void* tail_row, int n_rows, int f, int kf, int n_edges,
-                             void* stream) {
+                             int tables_bf16, void* stream) {
   if (n_rows <= 0) return static_cast<int>(cudaSuccess);
-  const LeanSrcMessage<float> src{
-      static_cast<const float4*>(c),   static_cast<const float4*>(ct),
-      static_cast<const float4*>(pat), static_cast<const float4*>(d),
-      static_cast<const float4*>(h),   kf / 4, f / 4};
-  const LeanSrcFoldMessage msg{src, lanes_per_edge(kf / 4) % (f / 4) == 0};
-  return static_cast<int>(launch_lean_bwd_edges(msg, col_ptr, dst_csc, out, part, tail_row,
-                                                n_rows, kf, n_edges,
-                                                static_cast<cudaStream_t>(stream)));
+  auto launch = [&](auto elem) {
+    using E = typename decltype(elem)::type;
+    using Msg = LeanSrcFoldMessage<E>;
+    const typename Msg::Base src{
+        static_cast<const float4*>(c),   static_cast<const float4*>(ct),
+        static_cast<const float4*>(pat), static_cast<const typename Msg::DS::Raw*>(d),
+        static_cast<const typename Msg::HS::Raw*>(h), kf / 4, f / 4};
+    const Msg msg{src, lanes_per_edge(kf / 4) % (f / 4) == 0};
+    return launch_lean_bwd_edges(msg, col_ptr, dst_csc, out, part, tail_row, n_rows, kf,
+                                 n_edges, static_cast<cudaStream_t>(stream));
+  };
+  return static_cast<int>(tables_bf16 ? launch(Type<bf16>()) : launch(Type<float>()));
 }
 
 // The slab count of mma_edge_program_lean_bwd_node; the caller sizes the
@@ -2152,28 +2250,36 @@ int mma_segment_sum_sq_csr(const void* data, const void* row_ptr, void* out, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// logits (E, kf), h_src (E, f), pat (kf,) 0/1 f32, row_ptr (n_rows+1,) i32,
-// out (n_rows, kf) f32. Requires kf % f == 0, f <= 128, kf <= 512; vec4 != 0
-// requires f % 4 == 0 and 16-byte aligned logits, h_src and out.
+// logits (E, kf) f32 (bf16 when logits_bf16 != 0), h_src (E, f) f32 (bf16
+// when h_bf16 != 0), pat (kf,) 0/1 f32, row_ptr (n_rows+1,) i32, out
+// (n_rows, kf) f32. Requires kf % f == 0, f <= 128, kf <= 512; vec4 != 0
+// requires f % 4 == 0, 16-byte aligned out and logits and h_src aligned to
+// 4 of their elements.
 int mma_masked_segment_sum(const void* logits, const void* h_src, const void* pat,
                            const void* row_ptr, void* out, int n_rows, int f, int kf,
-                           int vec4, void* stream) {
+                           int vec4, int logits_bf16, int h_bf16, void* stream) {
   if (n_rows <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = (n_rows + kMaskedWarps - 1) / kMaskedWarps;
-  auto launch = [&](auto vec, auto nt) {
-    masked_segment_sum_kernel<decltype(vec)::value, decltype(nt)::value>
-        <<<blocks, kMaskedWarps * kWarp, 0, s>>>(
-            static_cast<const float*>(logits), static_cast<const float*>(h_src),
-            static_cast<const float*>(pat), static_cast<const int32_t*>(row_ptr),
-            static_cast<float*>(out), n_rows, f, kf);
+  auto by_types = [&](auto el, auto eh) {
+    using EL = typename decltype(el)::type;
+    using EH = typename decltype(eh)::type;
+    auto launch = [&](auto vec, auto nt) {
+      masked_segment_sum_kernel<decltype(vec)::value, decltype(nt)::value, EL, EH>
+          <<<blocks, kMaskedWarps * kWarp, 0, s>>>(
+              static_cast<const EL*>(logits), static_cast<const EH*>(h_src),
+              static_cast<const float*>(pat), static_cast<const int32_t*>(row_ptr),
+              static_cast<float*>(out), n_rows, f, kf);
+    };
+    if (vec4) {
+      return by_tiles(kf, [&](auto nt) { launch(std::integral_constant<int, 4>(), nt); });
+    }
+    return by_scalar_tiles(kf, [&](auto nt) { launch(std::integral_constant<int, 1>(), nt); });
   };
-  if (vec4) {
-    return static_cast<int>(
-        by_tiles(kf, [&](auto nt) { launch(std::integral_constant<int, 4>(), nt); }));
-  }
-  return static_cast<int>(
-      by_scalar_tiles(kf, [&](auto nt) { launch(std::integral_constant<int, 1>(), nt); }));
+  auto by_h = [&](auto el) {
+    return h_bf16 ? by_types(el, Type<bf16>()) : by_types(el, Type<float>());
+  };
+  return static_cast<int>(logits_bf16 ? by_h(Type<bf16>()) : by_h(Type<float>()));
 }
 
 }  // extern "C"

@@ -41,21 +41,26 @@ its CSC twin:
   pre-gathered per-edge logits and source rows, the forward of
   :func:`fused_masked_aggregate`.
 
-Kernels 1, 2, 3 and 8 also take bf16 operands, the edge pipeline's
+Every kernel of this module also takes bf16 operands, the edge pipeline's
 ``compute_dtype="bfloat16"``: :func:`segment_sum_csr` and
 :func:`segment_sum_sq_csr` bf16 ``data``,
 :func:`edge_program_lean` and :func:`edge_program_lean_bwd` a bf16 ``h``
-(``c``, ``w_bot``, ``pattern``, ``ct`` and every output stay float32). The
-kernels read the bf16 values from device memory and sum in float32. With a
-bf16 ``h`` the JAX package's lean kernels run each contraction as one MXU
-pass, which rounds its float32 operands to bf16
-(``mma_tpu/ops/pallas/fused_mma.py:107-118``, ``:1498``): the message
-before the forward sums it, the cotangent ``ct`` and ``dlog`` in the
-backward; kernel 8's one-pass contraction rounds each square ``x²``
-(``mma_tpu/ops/pallas/fused_mma.py:108-119``, precision ``"fastest"`` on
-bf16 data). Kernels 2, 3 and 8 and their plain versions round at the same
-places, so the port computes the JAX package's bf16 function. The other
-kernels of this module take float32 only.
+(``c``, ``w_bot``, ``pattern``, ``ct`` and every output stay float32), the
+wide program's kernels bf16 ``d`` and ``h`` (and a bf16 ``c``, which they
+read as float32), :func:`masked_segment_sum` bf16 ``logits`` and/or
+``h_src``. The kernels read the bf16 values from device memory and sum in
+float32. Where the JAX package's kernels run a contraction as one MXU
+pass on bf16 inputs, the pass rounds its float32 operands to bf16
+(``mma_tpu/ops/pallas/fused_mma.py:107-118``): the lean kernels' message
+before the forward sums it and the cotangent ``ct`` and ``dlog`` in the
+backward (one pass on a bf16 ``h``, ``:1498``), kernel 8's square ``x²``
+(precision ``"fastest"`` on bf16 data), kernel 12's message on bf16 logits
+(``:1574``). Kernels 2, 3, 8 and 12 and their plain versions round at the
+same places, so the port computes the JAX package's bf16 function. The
+wide program's kernels round nothing: the JAX wide program runs two passes
+whatever the dtype (``:1380``), float32 to about 2⁻¹⁷, and rounds only its
+gradients, once, to their inputs' dtypes (``:1449``). ``LAUNCHES`` counts
+every bf16 call under its kernel's key with ``_bf16`` appended.
 
 Each function takes the plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors; any other device, dtype, shape or layout
@@ -85,12 +90,13 @@ import torch
 
 from mma_tpu_torch.ops.cuda import build, library
 
-# The bf16 variants of kernels 1-3 and 8 count under their own "_bf16" keys.
+# The bf16 variants count under their own "_bf16" keys.
 LAUNCHES = {"segment_sum": 0, "edge_program_lean": 0, "edge_program_lean_bwd": 0,
             "segment_sum_sq": 0, "edge_program_fwd": 0, "edge_program_bwd": 0,
             "edge_program_bwd_csc": 0, "masked_segment_sum": 0, "segment_sum_bf16": 0,
             "edge_program_lean_bf16": 0, "edge_program_lean_bwd_bf16": 0,
-            "segment_sum_sq_bf16": 0}
+            "segment_sum_sq_bf16": 0, "edge_program_fwd_bf16": 0, "edge_program_bwd_bf16": 0,
+            "edge_program_bwd_csc_bf16": 0, "masked_segment_sum_bf16": 0}
 
 # The wide program's src-keyed backward strategies, as the JAX package's
 # EDGE_BWD_MODE (mma_tpu/ops/pallas/fused_mma.py:47-58): "payload_permute"
@@ -124,15 +130,15 @@ def _lib() -> ctypes.CDLL:
         lib.mma_segment_sum_csr.restype = _I
         lib.mma_edge_program_lean_node.argtypes = [_P, _P, _P] + [_I] * 4 + [_P]
         lib.mma_edge_program_lean_node.restype = _I
-        lib.mma_edge_program_lean_edges.argtypes = [_P] * 9 + [_I] * 5 + [_P]
+        lib.mma_edge_program_lean_edges.argtypes = [_P] * 9 + [_I] * 7 + [_P]
         lib.mma_edge_program_lean_edges.restype = _I
-        lib.mma_edge_program_lean_bwd_dst.argtypes = [_P] * 11 + [_I] * 5 + [_P]
+        lib.mma_edge_program_lean_bwd_dst.argtypes = [_P] * 11 + [_I] * 7 + [_P]
         lib.mma_edge_program_lean_bwd_src.argtypes = [_P] * 10 + [_I] * 5 + [_P]
         lib.mma_edge_program_lean_bwd_n_slabs.argtypes = [_I] * 3
         lib.mma_edge_program_lean_bwd_node.argtypes = [_P] * 6 + [_I] * 4 + [_P]
         lib.mma_segment_sum_sq_csr.argtypes = [_P, _P, _P, _I, _I, _I, _P]
-        lib.mma_edge_program_bwd_csc.argtypes = [_P] * 10 + [_I] * 4 + [_P]
-        lib.mma_masked_segment_sum.argtypes = [_P] * 5 + [_I] * 4 + [_P]
+        lib.mma_edge_program_bwd_csc.argtypes = [_P] * 10 + [_I] * 5 + [_P]
+        lib.mma_masked_segment_sum.argtypes = [_P] * 5 + [_I] * 6 + [_P]
         for fn in ("mma_edge_program_lean_bwd_dst", "mma_edge_program_lean_bwd_src",
                    "mma_edge_program_lean_bwd_n_slabs", "mma_edge_program_lean_bwd_node",
                    "mma_segment_sum_sq_csr", "mma_edge_program_bwd_csc",
@@ -405,14 +411,26 @@ def _lean_node_pass(h, w_bot):
     return d
 
 
+def _form(h: torch.Tensor, d: torch.Tensor) -> Tuple[int, int, int]:
+    """The edge-program passes' form flags ``(h_bf16, d_bf16, round)``: a
+    bf16 ``h`` beside a float32 ``d`` is kernels 2-3's bf16 form, whose
+    messages (and ``ct``) are rounded to bf16 as the JAX lean kernel's one
+    pass rounds them; bf16 ``d`` and ``h`` are kernels 9-11's, which round
+    nothing (the JAX wide kernels run two passes whatever the dtype)."""
+    h_bf16, d_bf16 = _bf16(h), _bf16(d)
+    return h_bf16, d_bf16, int(h_bf16 and not d_bf16)
+
+
 def _lean_edge_pass(c, pattern, d, h, src, row_ptr):
     """Kernel 2's edge pass, kernel 1's two launches with the lean message:
     ``S[i] = Σ_{e ∈ row i} act(c[i] + d[src_e]) ⊙ tile(h[src_e], K)`` over
-    the CSR ``row_ptr`` (N+1,), with ``c`` (N, K·F) and the node tables
-    ``d`` (R, K·F) and ``h`` (R, F; float32, or bf16 with each message
-    rounded to bf16), as :func:`_edge_program_lean_kernel` checks them
-    (``c`` may be a slice of rows of a checked one). The partition, scratch
-    and grid come from ``src.shape`` alone: no host sync."""
+    the CSR ``row_ptr`` (N+1,), with ``c`` (N, K·F) float32 and the node
+    tables ``d`` (R, K·F) and ``h`` (R, F) in a form of :func:`_form` (both
+    float32, a bf16 ``h`` with each message rounded to bf16, or both bf16),
+    as :func:`_edge_program_lean_kernel` and :func:`_check_wide_inputs`
+    check them (``c`` may be a slice of rows of a checked one). The
+    partition, scratch and grid come from ``src.shape`` alone: no host
+    sync."""
     n, kf, f = row_ptr.shape[0] - 1, c.shape[1], h.shape[1]
     n_edges = src.shape[0]
     lib = _lib()
@@ -422,7 +440,7 @@ def _lean_edge_pass(c, pattern, d, h, src, row_ptr):
         err = lib.mma_edge_program_lean_edges(
             c.data_ptr(), pattern.data_ptr(), d.data_ptr(), h.data_ptr(), src.data_ptr(),
             row_ptr.data_ptr(), out.data_ptr(), part.data_ptr(), tail_row.data_ptr(), n, f, kf,
-            n_edges, _bf16(h), _stream(),
+            n_edges, *_form(h, d), _stream(),
         )
     _check_launch(lib, err, "edge_program_lean_fwd edge pass")
     return out
@@ -480,8 +498,10 @@ def _lean_bwd_dst_pass(c, ct, pattern, d, h, src, row_ptr, emit_payload=False):
     """The dst pass of kernels 3 and 10, kernel 1's two launches with the
     ``dc`` message: ``dc[i] = Σ_{e ∈ row i} dlog_e``, ``dlog_e = ct[i] ⊙
     tile(h[src_e], K) ⊙ dmask(c[i] + d[src_e])``, over the CSR ``row_ptr``
-    (N+1,), with ``c``, ``ct`` (N, K·F) and the node tables ``d`` (R, K·F)
-    and ``h`` (R, F), 16-byte aligned. With ``emit_payload`` the same pass
+    (N+1,), with ``c``, ``ct`` (N, K·F) float32 and the node tables ``d``
+    (R, K·F) and ``h`` (R, F) in a form of :func:`_form`, 16-byte aligned
+    (the payload only where ``d`` and ``h`` share a dtype). With
+    ``emit_payload`` the same pass
     also writes kernel 10's payload (E, K·F+F), ``[dlog_e ‖ Σ_k (ct[i] ⊙
     mask_e)_k]`` at each covered edge's position and 0 elsewhere: ``(dc,
     payload or None)``. No host sync."""
@@ -497,7 +517,7 @@ def _lean_bwd_dst_pass(c, ct, pattern, d, h, src, row_ptr, emit_payload=False):
             c.data_ptr(), ct.data_ptr(), pattern.data_ptr(), d.data_ptr(), h.data_ptr(),
             src.data_ptr(), row_ptr.data_ptr(), dc.data_ptr(),
             None if payload is None else payload.data_ptr(), part.data_ptr(),
-            tail_row.data_ptr(), n, f, kf, n_edges, _bf16(h), _stream(),
+            tail_row.data_ptr(), n, f, kf, n_edges, *_form(h, d), _stream(),
         )
     _check_launch(lib, err, "edge program dst pass")
     return dc, payload
@@ -509,8 +529,10 @@ def _lean_bwd_src_pass(c, ct, pattern, d, h, dst_csc, col_ptr, fold=False):
     edge's destination through ``dst_csc``: row ``s`` is ``[Σ dlog_e ‖ Σ
     ct[i] ⊙ mask_e]`` over the edges ``e = (s → i)`` it covers, (N,
     2·K·F). With ``fold`` kernel 11's row ``[dd ‖ dh]`` instead, ``G``'s K
-    blocks added as it is stored, (N, K·F+F). ``c``, ``ct`` are node tables
-    (R, K·F), ``d`` (N, K·F), ``h`` (N, F). No host sync."""
+    blocks added as it is stored, (N, K·F+F). ``c``, ``ct`` are float32 node
+    tables (R, K·F), ``d`` (N, K·F), ``h`` (N, F): kernel 3's a float32
+    ``d`` and a float32 or bf16 ``h``, kernel 11's ``d`` and ``h`` of one
+    dtype. No host sync."""
     n, kf, f = col_ptr.shape[0] - 1, d.shape[1], h.shape[1]
     width = kf + f if fold else 2 * kf
     lib = _lib()
@@ -520,8 +542,8 @@ def _lean_bwd_src_pass(c, ct, pattern, d, h, dst_csc, col_ptr, fold=False):
             dst_csc.data_ptr(), col_ptr.data_ptr(), out.data_ptr(), part.data_ptr(),
             tail_row.data_ptr(), n, f, kf, dst_csc.shape[0]]
     with torch.cuda.device(d.device):
-        if fold:  # kernel 11: float32 only
-            err = lib.mma_edge_program_bwd_csc(*args, _stream())
+        if fold:  # kernel 11: d and h float32 or both bf16
+            err = lib.mma_edge_program_bwd_csc(*args, _bf16(h), _stream())
         else:
             err = lib.mma_edge_program_lean_bwd_src(*args, _bf16(h), _stream())
     _check_launch(lib, err, "edge program src pass")
@@ -755,10 +777,17 @@ def segment_sum_sq_csr(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tenso
 # ------------------------------------------------------------ kernels 9-11
 
 def _check_wide_inputs(name, c, d, h, pattern, index, ptr, ct=None):
+    """Kernels 9-11's inputs: ``d`` and ``h`` float32 or both bf16, ``c``
+    float32 or bf16 (the wrappers cast it to float32, as the JAX wrapper
+    does), ``pattern`` and ``ct`` float32."""
     extra = {} if ct is None else {"ct": ct}
     _check_cuda_inputs(name, c=c, d=d, h=h, pattern=pattern, index=index, ptr=ptr, **extra)
-    for arg, t in (("c", c), ("d", d), ("h", h), ("pattern", pattern), *extra.items()):
+    for arg, t in (("pattern", pattern), *extra.items()):
         _check_dtype(name, arg, t, torch.float32)
+    for arg, t in (("c", c), ("d", d), ("h", h)):
+        _check_dtype(name, arg, t, torch.float32, torch.bfloat16)
+    if d.dtype != h.dtype:
+        raise ValueError(f"{name}: d and h must share a dtype, got {d.dtype} and {h.dtype}")
     for arg, t in (("index", index), ("ptr", ptr)):
         _check_dtype(name, arg, t, torch.int32)
     if h.ndim != 2 or c.ndim != 2:
@@ -782,24 +811,31 @@ def _check_wide_inputs(name, c, d, h, pattern, index, ptr, ct=None):
     return n, f, kf
 
 
+def _wide_edges(c, d, h, pattern, ids, s):
+    """Kernels 9-11's per-edge values in float32 from the values of ``c``,
+    ``d`` and ``h`` (bf16 ones exact): each edge's ``(h_src, mask, dmask)``
+    at the logits ``c[ids] + d[s]``. Nothing is rounded to bf16."""
+    mask, dmask = _mask_chain(c.float()[ids] + d.float()[s], pattern)  # (E, K·F)
+    return h.float()[s], mask, dmask
+
+
 def edge_program_fwd_reference(c, d, h, pattern, src, row_ptr):
-    """Plain version of :func:`edge_program_fwd`: ``(N, K·F)`` float32."""
+    """Plain version of :func:`edge_program_fwd`: ``(N, K·F)`` float32, from
+    float32 or bf16 inputs computed in float32."""
     kf, f = c.shape[1], h.shape[1]
     ids = _row_ids(row_ptr)
     lo, hi = int(row_ptr[0]), int(row_ptr[-1])
-    s = src[lo:hi].long()
-    mask, _ = _mask_chain(c[ids] + d[s], pattern)  # (E, K·F)
-    msg = mask * h[s].repeat(1, kf // f)
+    h_src, mask, _ = _wide_edges(c, d, h, pattern, ids, src[lo:hi].long())
     out = torch.zeros((c.shape[0], kf), dtype=torch.float32, device=c.device)
-    return out.index_add_(0, ids, msg)
+    return out.index_add_(0, ids, mask * h_src.repeat(1, kf // f))
 
 
 def _edge_program_fwd_kernel(c, d, h, pattern, src, row_ptr):
     """Kernel 9 on the card: kernel 2's edge pass (two launches) over the
-    caller's ``d``."""
+    caller's ``d``; ``c`` as float32."""
     _check_wide_inputs("edge_program_fwd", c, d, h, pattern, src, row_ptr)
-    out = _lean_edge_pass(c, _aligned(pattern), d, h, src, row_ptr)
-    LAUNCHES["edge_program_fwd"] += 1
+    out = _lean_edge_pass(c.float(), _aligned(pattern), d, h, src, row_ptr)
+    LAUNCHES["edge_program_fwd_bf16" if _bf16(h) else "edge_program_fwd"] += 1
     return out
 
 
@@ -807,7 +843,7 @@ def edge_program_fwd(c: torch.Tensor, d: torch.Tensor, h: torch.Tensor,
                      pattern: torch.Tensor, src: torch.Tensor,
                      row_ptr: torch.Tensor) -> torch.Tensor:
     """``S[i] = Σ_{e ∈ row i} act(c[i] + d[src_e]) ⊙ tile(h[src_e], K)`` →
-    (N, K·F) float32; arguments as :func:`edge_program`'s. Not
+    (N, K·F) float32; arguments and dtypes as :func:`edge_program`'s. Not
     differentiable (:func:`edge_program` is)."""
     if _on_cpu(c, d, h, pattern, src, row_ptr):
         return edge_program_fwd_reference(c, d, h, pattern, src, row_ptr)
@@ -816,14 +852,14 @@ def edge_program_fwd(c: torch.Tensor, d: torch.Tensor, h: torch.Tensor,
 
 def edge_program_bwd_reference(c, d, h, pattern, src, row_ptr, ct, emit_payload=True):
     """Plain version of :func:`edge_program_bwd`, with explicit per-edge
-    tensors: ``(dc, payload or None)``."""
+    tensors: ``(dc, payload or None)``, float32 from float32 or bf16 inputs
+    computed in float32."""
     kf, f = c.shape[1], h.shape[1]
     ids = _row_ids(row_ptr)
     lo, hi = int(row_ptr[0]), int(row_ptr[-1])
-    s = src[lo:hi].long()
-    mask, dmask = _mask_chain(c[ids] + d[s], pattern)
+    h_src, mask, dmask = _wide_edges(c, d, h, pattern, ids, src[lo:hi].long())
     ge = ct[ids]
-    dlog = ge * h[s].repeat(1, kf // f) * dmask
+    dlog = ge * h_src.repeat(1, kf // f) * dmask
     dc = torch.zeros((c.shape[0], kf), dtype=torch.float32, device=c.device)
     dc.index_add_(0, ids, dlog)
     if not emit_payload:
@@ -835,10 +871,11 @@ def edge_program_bwd_reference(c, d, h, pattern, src, row_ptr, ct, emit_payload=
 
 def _edge_program_bwd_kernel(c, d, h, pattern, src, row_ptr, ct, emit_payload=True):
     """Kernel 10 on the card: kernel 3's dst pass (two launches) over the
-    caller's ``d``, writing the payload in the same pass."""
+    caller's ``d``, writing the payload in the same pass; ``c`` as
+    float32."""
     _check_wide_inputs("edge_program_bwd", c, d, h, pattern, src, row_ptr, ct)
-    out = _lean_bwd_dst_pass(c, ct, _aligned(pattern), d, h, src, row_ptr, emit_payload)
-    LAUNCHES["edge_program_bwd"] += 1
+    out = _lean_bwd_dst_pass(c.float(), ct, _aligned(pattern), d, h, src, row_ptr, emit_payload)
+    LAUNCHES["edge_program_bwd_bf16" if _bf16(h) else "edge_program_bwd"] += 1
     return out
 
 
@@ -855,9 +892,11 @@ def edge_program_bwd(c: torch.Tensor, d: torch.Tensor, h: torch.Tensor,
     row i} dlog_e`` and, with ``emit_payload``, the per-edge payload (E,
     K·F+F) = ``[dlog_e ‖ Σ_k (ct[i] ⊙ mask_e)_k]`` for the edges the CSR
     covers, 0 for the others (else None). ``[dd ‖ dh]`` is the payload
-    summed by source. On the card it also takes a ``pattern`` off a 16-byte
-    boundary (it is copied to one); ``c``, ``d``, ``h`` and ``ct`` must be
-    16-byte aligned. Deterministic: no atomics, chunks fixed by E.
+    summed by source. ``ct``, ``dc`` and the payload are float32; ``c``,
+    ``d`` and ``h`` as :func:`edge_program` takes them, every term float32.
+    On the card it also takes a ``pattern`` off a 16-byte boundary (it is
+    copied to one); ``c``, ``d``, ``h`` and ``ct`` must be 16-byte aligned.
+    Deterministic: no atomics, chunks fixed by E.
     """
     tensors = (c, d, h, pattern, src, row_ptr, ct)
     if _on_cpu(*tensors):
@@ -867,14 +906,15 @@ def edge_program_bwd(c: torch.Tensor, d: torch.Tensor, h: torch.Tensor,
 
 def edge_program_bwd_csc_reference(c, d, h, pattern, dst_csc, col_ptr, ct):
     """Plain version of :func:`edge_program_bwd_csc`, with explicit
-    per-edge tensors in CSC order: ``(N, K·F+F)`` float32."""
+    per-edge tensors in CSC order: ``(N, K·F+F)`` float32, from float32 or
+    bf16 inputs computed in float32."""
     kf, f = c.shape[1], h.shape[1]
     js = _row_ids(col_ptr)
     lo, hi = int(col_ptr[0]), int(col_ptr[-1])
     i = dst_csc[lo:hi].long()
-    mask, dmask = _mask_chain(c[i] + d[js], pattern)
+    h_src, mask, dmask = _wide_edges(c, d, h, pattern, i, js)
     ge = ct[i]
-    dlog = ge * h[js].repeat(1, kf // f) * dmask
+    dlog = ge * h_src.repeat(1, kf // f) * dmask
     dh_e = (ge * mask).reshape(-1, kf // f, f).sum(dim=1)
     out = torch.zeros((c.shape[0], kf + f), dtype=torch.float32, device=c.device)
     return out.index_add_(0, js, torch.cat([dlog, dh_e], dim=1))
@@ -882,10 +922,11 @@ def edge_program_bwd_csc_reference(c, d, h, pattern, dst_csc, col_ptr, ct):
 
 def _edge_program_bwd_csc_kernel(c, d, h, pattern, dst_csc, col_ptr, ct):
     """Kernel 11 on the card: kernel 3's src pass (two launches) over the
-    caller's ``d``, folding ``G``'s K blocks into ``dh`` as it stores."""
+    caller's ``d``, folding ``G``'s K blocks into ``dh`` as it stores; ``c``
+    as float32."""
     _check_wide_inputs("edge_program_bwd_csc", c, d, h, pattern, dst_csc, col_ptr, ct)
-    out = _lean_bwd_src_pass(c, ct, _aligned(pattern), d, h, dst_csc, col_ptr, fold=True)
-    LAUNCHES["edge_program_bwd_csc"] += 1
+    out = _lean_bwd_src_pass(c.float(), ct, _aligned(pattern), d, h, dst_csc, col_ptr, fold=True)
+    LAUNCHES["edge_program_bwd_csc_bf16" if _bf16(h) else "edge_program_bwd_csc"] += 1
     return out
 
 
@@ -896,10 +937,11 @@ def edge_program_bwd_csc(c: torch.Tensor, d: torch.Tensor, h: torch.Tensor,
     dh]`` (N, K·F+F) with ``dd[s] = Σ_{e: src=s} dlog_e`` and ``dh[s] =
     Σ_{e: src=s} Σ_k (ct[i] ⊙ mask_e)_k``, ``i = dst_csc[e]``, over the
     CSC ``col_ptr``. The kernel gathers ``c[i]`` and ``ct[i]`` itself and
-    recomputes the mask chain; no per-edge table is stored. On the card it
-    also takes a ``pattern`` off a 16-byte boundary (it is copied to one);
-    ``c``, ``d``, ``h`` and ``ct`` must be 16-byte aligned. Deterministic:
-    no atomics, chunks fixed by E.
+    recomputes the mask chain; no per-edge table is stored. ``ct`` and the
+    result are float32; ``c``, ``d`` and ``h`` as :func:`edge_program` takes
+    them, every term float32. On the card it also takes a ``pattern`` off a
+    16-byte boundary (it is copied to one); ``c``, ``d``, ``h`` and ``ct``
+    must be 16-byte aligned. Deterministic: no atomics, chunks fixed by E.
     """
     tensors = (c, d, h, pattern, dst_csc, col_ptr, ct)
     if _on_cpu(*tensors):
@@ -910,6 +952,10 @@ def edge_program_bwd_csc(c: torch.Tensor, d: torch.Tensor, h: torch.Tensor,
 class _EdgeProgram(torch.autograd.Function):
     @staticmethod
     def forward(ctx, c, d, h, pattern, src, row_ptr, col_ptr, src_perm, dst_csc, bwd_mode):
+        # The kernels take c as float32, as the JAX wrapper casts it
+        # (mma_tpu/ops/pallas/fused_mma.py:1389); d and h go as they are.
+        ctx.c_dtype = c.dtype
+        c = c.float()
         ctx.save_for_backward(c, d, h, pattern, src, row_ptr, col_ptr, src_perm, dst_csc)
         ctx.bwd_mode = bwd_mode
         return edge_program_fwd(c, d, h, pattern, src, row_ptr)
@@ -926,8 +972,9 @@ class _EdgeProgram(torch.autograd.Function):
         if src_side:
             both = (edge_program_bwd_csc(c, d, h, pattern, dst_csc, col_ptr, ct) if csc
                     else segment_sum_csr(payload, col_ptr, index=src_perm))
-            dd, dh = both[:, :c.shape[1]], both[:, c.shape[1]:]
-        return dc, dd, dh, None, None, None, None, None, None, None
+            # Rounded once to the inputs' dtypes, as the JAX VJP casts them (:1449).
+            dd, dh = both[:, :c.shape[1]].to(d.dtype), both[:, c.shape[1]:].to(h.dtype)
+        return dc.to(ctx.c_dtype), dd, dh, None, None, None, None, None, None, None
 
 
 def edge_program(c: torch.Tensor, d: torch.Tensor, h: torch.Tensor, pattern: torch.Tensor,
@@ -942,6 +989,12 @@ def edge_program(c: torch.Tensor, d: torch.Tensor, h: torch.Tensor, pattern: tor
     ``src`` (E,) int32 and ``row_ptr`` (N+1,) int32 (a graph builder's
     CSR; the kernels do not check the values). The kernel gathers
     ``d[src]`` and ``h[src]`` itself; no (E, K·F+F) table is stored.
+    ``d`` and ``h`` are float32 or both bf16 and ``c`` is float32 or bf16,
+    as the JAX package's ``fused_mma_edge_program`` takes them: the kernels
+    read bf16 ``d`` and ``h`` as they are and ``c`` as float32, compute and
+    sum every term in float32 with no bf16 rounding (the JAX kernels run two
+    passes whatever the dtype) and give a float32 ``S``; each gradient is
+    rounded once to its input's dtype.
 
     Differentiable in ``c``, ``d`` and ``h``: :func:`edge_program_bwd`
     gives ``dc``; ``bwd_mode`` (None: :data:`EDGE_BWD_MODE`) chooses how
@@ -963,9 +1016,11 @@ def edge_program(c: torch.Tensor, d: torch.Tensor, h: torch.Tensor, pattern: tor
 
 def _check_masked_inputs(name, logits, h_src, pattern, row_ptr):
     """Dtypes, shapes and widths of :func:`masked_segment_sum`'s inputs, on
-    any device: ``(n_rows, F, K·F)``."""
-    for arg, t in (("logits", logits), ("h_src", h_src), ("pattern", pattern)):
-        _check_dtype(name, arg, t, torch.float32)
+    any device: ``(n_rows, F, K·F)``. ``logits`` and ``h_src`` are each
+    float32 or bf16."""
+    for arg, t in (("logits", logits), ("h_src", h_src)):
+        _check_dtype(name, arg, t, torch.float32, torch.bfloat16)
+    _check_dtype(name, "pattern", pattern, torch.float32)
     _check_dtype(name, "row_ptr", row_ptr, torch.int32)
     if logits.ndim != 2 or h_src.ndim != 2 or row_ptr.ndim != 1:
         raise ValueError(f"{name}: logits must be (E, K·F), h_src (E, F) and row_ptr (N+1,)")
@@ -982,10 +1037,14 @@ def _check_masked_inputs(name, logits, h_src, pattern, row_ptr):
 
 def masked_segment_sum_reference(logits: torch.Tensor, h_src: torch.Tensor,
                                  pattern: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`masked_segment_sum`: ``(N, K·F)`` float32."""
-    mask, _ = _mask_chain(logits, pattern)
-    return segment_sum_reference(mask * h_src.repeat(1, logits.shape[1] // h_src.shape[1]),
-                                 row_ptr)
+    """Plain version of :func:`masked_segment_sum`: ``(N, K·F)`` float32. The
+    mask and the message are float32 from the inputs' values; with bf16
+    ``logits`` each message is rounded to bf16 before the float32 sum."""
+    mask, _ = _mask_chain(logits.float(), pattern)
+    msg = mask * h_src.float().repeat(1, logits.shape[1] // h_src.shape[1])
+    if logits.dtype == torch.bfloat16:
+        msg = _round_bf16(msg)
+    return segment_sum_reference(msg, row_ptr)
 
 
 def _masked_segment_sum_kernel(logits, h_src, pattern, row_ptr):
@@ -993,15 +1052,18 @@ def _masked_segment_sum_kernel(logits, h_src, pattern, row_ptr):
     _check_cuda_inputs(name, logits=logits, h_src=h_src, pattern=pattern, row_ptr=row_ptr)
     n, f, kf = _check_masked_inputs(name, logits, h_src, pattern, row_ptr)
     out = torch.empty((n, kf), dtype=torch.float32, device=logits.device)
-    vec4 = f % 4 == 0 and logits.data_ptr() % 16 == 0 and h_src.data_ptr() % 16 == 0
+    # 4-lane slots: 16-byte float32 loads, 8-byte bf16 ones.
+    vec4 = f % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0
+                              for t in (logits, h_src))
     lib = _lib()
     with torch.cuda.device(logits.device):
         err = lib.mma_masked_segment_sum(
             logits.data_ptr(), h_src.data_ptr(), pattern.data_ptr(), row_ptr.data_ptr(),
-            out.data_ptr(), n, f, kf, int(vec4), _stream(),
+            out.data_ptr(), n, f, kf, int(vec4), _bf16(logits), _bf16(h_src), _stream(),
         )
     _check_launch(lib, err, name)
-    LAUNCHES["masked_segment_sum"] += 1
+    LAUNCHES["masked_segment_sum_bf16" if _bf16(logits) or _bf16(h_src)
+             else "masked_segment_sum"] += 1
     return out
 
 
@@ -1009,12 +1071,15 @@ def masked_segment_sum(logits: torch.Tensor, h_src: torch.Tensor, pattern: torch
                        row_ptr: torch.Tensor) -> torch.Tensor:
     """``S[i] = Σ_{e ∈ row i} where(pattern, σ(logits_e), logits_e) ⊙
     tile(h_src_e, K)`` → (N, K·F) float32 over the CSR ``row_ptr`` (N+1,)
-    int32, from per-edge ``logits`` (E, K·F) and ``h_src`` (E, F) float32
-    and ``pattern`` (K·F,) float 0/1. Lane ``k·F + j`` multiplies
-    ``h_src[e, j]``; rows without edges give 0. Takes F <= 128 and K·F <=
-    512. Deterministic. Not differentiable (:func:`fused_masked_aggregate`
-    is). Other dtypes raise on every device: the plain version does not run
-    a bf16 request in float32."""
+    int32, from per-edge ``logits`` (E, K·F) and ``h_src`` (E, F), each
+    float32 or bf16, and ``pattern`` (K·F,) float32 0/1. Lane ``k·F + j``
+    multiplies ``h_src[e, j]``; rows without edges give 0. The mask and the
+    message are float32; with bf16 ``logits`` each message is rounded to
+    bf16 before the float32 sum, whatever ``h_src``'s dtype, as the JAX
+    wrapper keys its one-pass contraction on the logits' dtype. Takes F <=
+    128 and K·F <= 512. Deterministic. Not differentiable
+    (:func:`fused_masked_aggregate` is). Other dtypes raise on every
+    device."""
     if _on_cpu(logits, h_src, pattern, row_ptr):
         _check_masked_inputs("masked_segment_sum", logits, h_src, pattern, row_ptr)
         return masked_segment_sum_reference(logits, h_src, pattern, row_ptr)
@@ -1029,13 +1094,21 @@ class _MaskedAggregate(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct):
-        # The JAX package's VJP (fused_mma.py:1593-1607), elementwise.
+        # The JAX package's VJP (mma_tpu/ops/pallas/fused_mma.py:1593-1607),
+        # elementwise and in its dtypes: sigmoid, mask, dmask and ct[dst] in
+        # the logits' dtype, dlogits in the promotion of the logits' and
+        # h_src's, dh_src in the logits' (bf16 blocks added in k order, each
+        # sum rounded). Autograd then casts each to its input's dtype.
         logits, h_src, pattern, row_ptr = ctx.saved_tensors
         (e, kf), f = logits.shape, h_src.shape[1]
-        ge = _expand_rows(ct, row_ptr, e)  # ct[dst_e], 0 on edges the CSR skips
+        # ct[dst_e], 0 on edges the CSR skips.
+        ge = _expand_rows(ct, row_ptr, e).to(logits.dtype)
         mask, dmask = _mask_chain(logits, pattern)
         dlogits = ge * h_src.repeat(1, kf // f) * dmask
-        dh_src = (ge * mask).reshape(e, kf // f, f).sum(dim=1)
+        gm = ge * mask
+        dh_src = gm[:, :f]
+        for k in range(1, kf // f):
+            dh_src = dh_src + gm[:, k * f:(k + 1) * f]
         return dlogits, dh_src, None, None
 
 
@@ -1053,16 +1126,14 @@ def fused_masked_aggregate(logits: torch.Tensor, h_src: torch.Tensor,
     ``logits`` and ``h_src``; the backward recomputes the activation
     elementwise, as the JAX package's custom VJP does.
 
+    ``logits`` and ``h_src`` are each float32 or bf16. With bf16 logits
+    each message is rounded to bf16 before the float32 sum, as the JAX
+    wrapper's one pass on bf16 logits rounds it, and the backward runs in
+    the JAX VJP's dtypes (:class:`_MaskedAggregate`). The result is float32.
     The port computes in float32 natively, so the JAX wrapper's TPU knobs
-    (``block_r``, ``block_b``, ``precision``) have no counterpart. Inputs
-    are float32: the JAX wrapper's single-pass bfloat16 form is
-    ``ROADMAP.md`` item 29 and raises ``NotImplementedError``. Takes F <= 128
-    and K·F <= 512 on any device.
+    (``block_r``, ``block_b``, ``precision``) have no counterpart. Takes F
+    <= 128 and K·F <= 512 on any device.
     """
-    if torch.bfloat16 in (logits.dtype, h_src.dtype):
-        raise NotImplementedError(
-            "fused_masked_aggregate with bfloat16 inputs (kernel 12's bf16 form) is not "
-            "ported yet: ROADMAP.md item 29")
     if logits.ndim != 2 or logits.shape[0] != graph.n_edge or logits.shape[1] % n_agg:
         raise ValueError(f"fused_masked_aggregate: logits {tuple(logits.shape)} must be "
                          f"(graph.n_edge={graph.n_edge}, K·F) with K={n_agg}")

@@ -49,10 +49,14 @@ route, whose src-keyed backward derives the CSC order on the device.
 as the JAX package's Pallas path does (``mma_tpu/ops/masked_aggregate.py:
 218-316``): ``h`` and the mask weights enter as bf16, the lean route's
 ``c = h @ W_top`` is a bf16 product handed to kernels 2-3 as float32 (with
-``W_bot``), the half-fused route's logits, masks and messages are bf16 and
+``W_bot``), the wide route's ``c, d`` are bf16 products that kernels 9-11
+read with the bf16 ``h`` (``c`` as float32) and sum without rounding a
+message, the half-fused route's logits, masks and messages are bf16 and
 kernel 1 sums them in float32, and the ELL route gathers a bf16 ``[d ‖ h]``
-table and computes its slot messages in float32. The combines use the
-float32 ``h``. The wide route does not take bf16 (``ROADMAP.md`` item 29).
+table and computes its slot messages in float32. The lean and the wide
+route round differently, as the JAX package's do: the lean kernels round
+each message to bf16 before they sum it, the wide ones do not. The
+combines use the float32 ``h``.
 """
 
 from __future__ import annotations
@@ -232,10 +236,6 @@ def masked_multi_aggregate(
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype must be torch.float32 or torch.bfloat16, "
                          f"got {compute_dtype}")
-    if compute_dtype == torch.bfloat16 and pallas_bwd_mode is not None:
-        raise NotImplementedError(
-            "masked_multi_aggregate(pallas_bwd_mode=...) in bfloat16 (the wide edge program, "
-            "kernels 9-11) is not ported yet: ROADMAP.md item 29")
     dropout_on = generator is not None and mask_dropout_rate > 0.0
     need_moments = any(s.combine in ("std", "moment_3") for s in specs)
     pat = sigmoid_lane_pattern(specs, activation, parity, f, h.device)
@@ -255,8 +255,10 @@ def masked_multi_aggregate(
                               generator if dropout_on else None)
         s = segment_sum_csr(msgs, row_ptr)
     elif pallas_bwd_mode is not None:
-        c, d = mma_mask_projections(h, mask_weights)
-        s = edge_program(c, d, h.contiguous(), pat, graph.src, row_ptr, graph.real_col_ptr,
+        # c and d are products in the pipeline's dtype; kernels 9-11 take c
+        # as float32 and read d and h_c as they are.
+        c, d = mma_mask_projections(h_c, mw)
+        s = edge_program(c, d, h_c.contiguous(), pat, graph.src, row_ptr, graph.real_col_ptr,
                          graph.src_perm, graph.dst_csc, pallas_bwd_mode)
     else:
         # c = h_c @ W_top is a product in the pipeline's dtype; kernels 2-3

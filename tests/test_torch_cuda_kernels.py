@@ -1203,7 +1203,7 @@ def test_masked_kernel_rejects_what_it_does_not_take(cuda, hub_graph):
     rp = hub_graph.real_row_ptr
     before = fused_mma.LAUNCHES["masked_segment_sum"]
     with pytest.raises(ValueError, match="float32"):
-        fused_mma.masked_segment_sum(logits.bfloat16(), h_src, pat, rp)
+        fused_mma.masked_segment_sum(logits.double(), h_src, pat, rp)
     with pytest.raises(ValueError, match="K·F <= 512"):
         fused_mma.masked_segment_sum(torch.zeros(e, 520, device=cuda),
                                      torch.zeros(e, 130, device=cuda),
@@ -1213,6 +1213,133 @@ def test_masked_kernel_rejects_what_it_does_not_take(cuda, hub_graph):
     with pytest.raises(ValueError, match="several devices"):
         fused_mma.masked_segment_sum(logits, h_src.cpu(), pat, rp)
     assert fused_mma.LAUNCHES["masked_segment_sum"] == before
+
+
+# ---- kernels 9-12 on bf16 operands
+
+@pytest.mark.parametrize("f,kf", [(16, 32), (64, 128), (64, 384), (12, 36), (128, 512)])
+def test_bf16_wide_edge_program_chunks_match_plain(cuda, chunk_graph, f, kf):
+    """Kernels 9, 10 (with and without its payload) and 11 on bf16 ``d`` and
+    ``h`` (and a bf16 ``c``, which they read as float32) against their plain
+    versions' formula in float64 on the same values (``_wide_f64``,
+    ``_csc_f64``; nothing is rounded to bf16), within 1e-5 of each tensor's
+    largest value, over kernel 1's chunk cases (the 3,000-edge
+    row, and as a CSC the 3,000-edge source, split across chunks; runs of
+    empty rows; a slice with ``row_ptr[0] > 0``; padding positions); K·F of
+    384 and 512 take two rounds a row. Counted under the ``_bf16`` keys,
+    bitwise equal run to run, empty rows 0."""
+    rs = np.random.RandomState(f + kf + 1)
+    for what, (rp_np, n_edges) in chunk_graph.items():
+        n = len(rp_np) - 1
+        rp = torch.from_numpy(rp_np).to(cuda)
+
+        def draw(*shape):
+            return torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda)
+
+        c, d, h = draw(n, kf).bfloat16(), draw(n, kf).bfloat16(), draw(n, f).bfloat16()
+        ct = draw(n, kf)
+        pat = torch.from_numpy((rs.rand(kf) > 0.5).astype(np.float32)).to(cuda)
+        src = torch.from_numpy(rs.randint(0, n, n_edges).astype(np.int32)).to(cuda)
+        fwd = (c, d, h, pat, src, rp)
+        before = dict(fused_mma.LAUNCHES)
+        got = fused_mma.edge_program_fwd(*fwd)
+        dc, payload = fused_mma.edge_program_bwd(*fwd, ct)
+        dc_only, none = fused_mma.edge_program_bwd(*fwd, ct, emit_payload=False)
+        csc = fused_mma.edge_program_bwd_csc(*fwd, ct)  # the CSR taken as a CSC
+        torch.cuda.synchronize()
+        for key, added in (("edge_program_fwd", 1), ("edge_program_bwd", 2),
+                           ("edge_program_bwd_csc", 1)):
+            assert fused_mma.LAUNCHES[key] == before[key], what
+            assert fused_mma.LAUNCHES[key + "_bf16"] == before[key + "_bf16"] + added, what
+        for name, g, w in zip(("S", "dc", "payload", "[dd ‖ dh]"), (got, dc, payload, csc),
+                              (*_wide_f64(*fwd, ct), _csc_f64(*fwd, ct))):
+            assert g.dtype == torch.float32, f"{what} {name}"
+            torch.testing.assert_close(g.double(), w, rtol=1e-5,
+                                       atol=1e-5 * w.abs().max().item(), msg=f"{what} {name}")
+        assert none is None and torch.equal(dc_only, dc), what
+        assert torch.equal(got, fused_mma.edge_program_fwd(*fwd)), what
+        again = fused_mma.edge_program_bwd(*fwd, ct)
+        assert torch.equal(dc, again[0]) and torch.equal(payload, again[1]), what
+        assert torch.equal(csc, fused_mma.edge_program_bwd_csc(*fwd, ct)), what
+        empty = torch.from_numpy(rp_np[1:] == rp_np[:-1]).to(cuda)
+        assert (got[empty] == 0).all() and (dc[empty] == 0).all() and (csc[empty] == 0).all()
+        assert (payload[int(rp_np[-1]):] == 0).all(), what
+
+
+@pytest.mark.parametrize("bwd_mode", ["payload_permute", "csc_gather"])
+def test_bf16_wide_edge_program_on_card_matches_cpu(cuda, graph, bwd_mode):
+    """``edge_program``'s forward and its bf16 gradients on bf16 ``c``,
+    ``d`` and ``h`` on the card (kernels 9, 10 and 1 or 11 in bf16) against
+    the CPU's plain path: the forward within 1e-5 of scale, each gradient
+    within one bf16 ulp (2⁻⁷ of the value, float32 sums in another order
+    rounded once) and 1e-5 of scale."""
+    cpu_graph = graph.to("cpu")
+    rs = np.random.RandomState(9)
+    f, k = 64, 2
+    c, d = (torch.from_numpy(rs.randn(graph.n_node, k * f).astype(np.float32)).bfloat16()
+            for _ in range(2))
+    h = torch.from_numpy(rs.randn(graph.n_node, f).astype(np.float32)).bfloat16()
+    pat = torch.from_numpy(np.repeat(np.array([0.0, 1.0], np.float32), f))
+
+    def make(g):
+        return lambda c_, d_, h_: fused_mma.edge_program(
+            c_, d_, h_, pat.to(g.src.device), g.src, g.real_row_ptr, g.real_col_ptr,
+            g.src_perm, g.dst_csc, bwd_mode)
+
+    before = dict(fused_mma.LAUNCHES)
+    got, got_g = _grads(make(graph), *(t.to(cuda) for t in (c, d, h)))
+    assert fused_mma.LAUNCHES["edge_program_fwd_bf16"] == before["edge_program_fwd_bf16"] + 1
+    assert fused_mma.LAUNCHES["edge_program_bwd_bf16"] == before["edge_program_bwd_bf16"] + 1
+    want, want_g = _grads(make(cpu_graph), c, d, h)
+    _close(got, want)
+    for g, w in zip(got_g, want_g):
+        assert g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), w.float(), rtol=2.0 ** -7,
+                                   atol=1e-5 * w.float().abs().max().item())
+
+
+@pytest.mark.parametrize("dtypes", ["bf16,bf16", "bf16,f32", "f32,bf16"])
+@pytest.mark.parametrize("f,k", [(64, 2), (128, 4), (12, 3), (5, 1), (6, 3)])
+def test_bf16_masked_segment_sum_kernel_matches_plain(cuda, hub_graph, f, k, dtypes):
+    """Kernel 12 on each (logits, h_src) dtype pair with a bf16 operand
+    against its plain version (the message rounded to bf16 iff the logits
+    are bf16) within 1e-5 of the largest value, over a 1,000-edge row and
+    empty rows: 8-byte loads of 4 bf16 lanes at K·F of 36 to 512 (two or
+    more lane tiles past 128) and the scalar path (F % 4 != 0). Counted
+    under ``masked_segment_sum_bf16``, bitwise equal run to run; rows off
+    their 4-lane alignment take the scalar path and give the same bits."""
+    g = hub_graph
+    rs = np.random.RandomState(f + k + 2)
+    types = {"bf16": torch.bfloat16, "f32": torch.float32}
+    ld, hd = (types[t] for t in dtypes.split(","))
+    logits = torch.from_numpy(rs.randn(g.n_edge, k * f).astype(np.float32)).to(cuda, ld)
+    h_src = torch.from_numpy(rs.randn(g.n_edge, f).astype(np.float32)).to(cuda, hd)
+    pat = torch.from_numpy((np.arange(k * f) // f % 2 == 0).astype(np.float32)).to(cuda)
+    rp = g.real_row_ptr
+    before = dict(fused_mma.LAUNCHES)
+    got = fused_mma.masked_segment_sum(logits, h_src, pat, rp)
+    torch.cuda.synchronize()
+    assert fused_mma.LAUNCHES["masked_segment_sum_bf16"] == before["masked_segment_sum_bf16"] + 1
+    assert fused_mma.LAUNCHES["masked_segment_sum"] == before["masked_segment_sum"]
+    assert got.dtype == torch.float32
+    _close(got, fused_mma.masked_segment_sum_reference(logits, h_src, pat, rp))
+    assert torch.equal(got, fused_mma.masked_segment_sum(logits, h_src, pat, rp))
+    assert (got[260:] == 0).all()
+    shifted = torch.empty(logits.numel() + 1, dtype=ld, device=cuda)[1:].view_as(logits)
+    assert torch.equal(got, fused_mma.masked_segment_sum(shifted.copy_(logits), h_src, pat, rp))
+
+
+def test_bf16_wide_kernels_reject_what_they_do_not_take(cuda, graph):
+    """``d`` and ``h`` of two dtypes, and float64, raise on the card."""
+    n, f, kf = graph.n_node, 16, 32
+    c, pat = torch.zeros(n, kf, device=cuda), torch.zeros(kf, device=cuda)
+    h = torch.zeros(n, f, device=cuda)
+    before = dict(fused_mma.LAUNCHES)
+    with pytest.raises(ValueError, match="share a dtype"):
+        fused_mma.edge_program_fwd(c, c.bfloat16(), h, pat, graph.src, graph.real_row_ptr)
+    with pytest.raises(ValueError, match="float32"):
+        fused_mma.edge_program_fwd(c, c.double(), h.double(), pat, graph.src, graph.real_row_ptr)
+    assert fused_mma.LAUNCHES == before
 
 
 # ------------------------------------------- the torch.library operators

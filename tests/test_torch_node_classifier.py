@@ -121,11 +121,12 @@ def test_convert_rejects_mismatched_params(small):
 
 
 def test_unported_requests_raise(small, tmp_path):
-    """bf16 requests outside the ported slices raise, naming their ROADMAP
-    item (the node classifier's bf16 and ``auto`` run:
-    ``tests/test_torch_bf16.py``; ZINC's bf16 conv runs:
-    ``tests/test_torch_zinc_bf16.py``). Checkpoints are ported and run
-    (``tests/test_torch_checkpoint.py``)."""
+    """Every request of the JAX package is ported: the ones that raised in
+    earlier slices run and give float32 results, the wide program and
+    kernel 12 in bf16 (``tests/test_torch_wide_bf16.py`` holds them against
+    the JAX package), ZINC's bf16 conv (``tests/test_torch_zinc_bf16.py``)
+    and checkpoints (``tests/test_torch_checkpoint.py``). What no kernel
+    takes (a float64 operand) still raises."""
     _, tg, x, _ = small
     conv = MultiMaskConv(8, 8, ("min",), ("identity",), {"lin": 1.0, "log": 1.0},
                          compute_dtype="bfloat16", device="cpu")
@@ -134,16 +135,17 @@ def test_unported_requests_raise(small, tmp_path):
     h = torch.from_numpy(np.ascontiguousarray(x[:, :8]))
     mw = torch.zeros(2, 16, 8)
     specs = [get_agg_spec(a) for a in ("mean", "mean2")]
-    with pytest.raises(NotImplementedError, match="item 29"):
-        masked_multi_aggregate(h, tg, mw, specs, pallas_bwd_mode="csc_gather",
-                               compute_dtype=torch.bfloat16)
+    out = masked_multi_aggregate(h, tg, mw, specs, pallas_bwd_mode="csc_gather",
+                                 compute_dtype=torch.bfloat16)
+    assert out.dtype == torch.float32 and torch.isfinite(out[:200]).all()
     logits = torch.zeros(tg.n_edge, 16, dtype=torch.bfloat16)
     h_src = torch.zeros(tg.n_edge, 8, dtype=torch.bfloat16)
     pat = torch.ones(16)
-    with pytest.raises(NotImplementedError, match="item 29"):
-        fused_mma.fused_masked_aggregate(logits, h_src, pat, tg, 2)
+    for s in (fused_mma.fused_masked_aggregate(logits, h_src, pat, tg, 2),
+              fused_mma.masked_segment_sum(logits, h_src, pat, tg.real_row_ptr)):
+        assert s.dtype == torch.float32 and s.shape == (tg.n_node, 16) and torch.isfinite(s).all()
     with pytest.raises(ValueError, match="float32"):
-        fused_mma.masked_segment_sum(logits, h_src, pat, tg.real_row_ptr)
+        fused_mma.masked_segment_sum(logits.double(), h_src, pat, tg.real_row_ptr)
     cfg = dataclasses.replace(NODE_CLS_PRESETS["cora"], epochs=1, checkpoint_dir=str(tmp_path),
                               checkpoint_every=1, resume=True)
     res = train_node_classification(cfg, device="cpu")  # nothing to resume: from scratch
