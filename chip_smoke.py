@@ -922,7 +922,16 @@ def run_zinc(dev, paths: dict):
         ct = ctp.contiguous()
         p = len(ops_p)
         out = mm.minmax_edge_program(c, hg, rp, ops_p, seed, rate)
-        shape = f"E={e_cov} N={n_rows} C={ch} ops={','.join(ops_p)} dropout on"
+        shape = (f"E={e_cov} N={n_rows} C={ch} ops={','.join(ops_p)} dropout on (library: "
+                 "scatter_reduce_ amax plus amin over the pre-built message)")
+        prog_msg = mm._messages(c, hg, rp, seed, rate)[0]
+        prog_ids = mm._row_ids(rp)[:, None].expand(e_cov, ch)
+
+        def prog_library():
+            return [torch.zeros(n_rows, ch, device=dev).scatter_reduce_(
+                0, prog_ids, prog_msg, "amax" if op == "max" else "amin", include_self=False)
+                for op in ops_p]
+
         # Operations per edge and lane: the add, the mask product and one
         # compare per op (the hash's integer operations not counted).
         record("minmax_prog", 0.0,
@@ -930,7 +939,8 @@ def run_zinc(dev, paths: dict):
                device_ms(lambda: mm.minmax_edge_program_reference(c, hg, rp, ops_p, seed, rate),
                          iters=10),
                4 * (e_cov * ch + n_rows * ch + (n_rows + 1) + 1 + n_rows * p * ch),
-               e_cov * ch * (2 + p), None, shape)
+               e_cov * ch * (2 + p), device_ms(prog_library), shape)
+        del prog_msg, prog_ids
         record("minmax_prog_bwd", max(errs),
                device_ms(lambda: mm.minmax_edge_program_bwd(c, hg, rp, ops_p, seed, rate, out,
                                                             ct)),
@@ -1259,13 +1269,23 @@ def run_zinc_bf16(dev, paths: dict, ctx: dict) -> dict:
         c32, hg32 = c.float(), hg.float()
         out = mm.minmax_edge_program(c, hg, rp, ops_p, seed, rate)
         out32 = mm.minmax_edge_program(c32, hg32, rp, ops_p, seed, rate)
-        shape = f"E={e_cov} N={n_rows} C={ch} ops={','.join(ops_p)} dropout on, bf16 c and hg"
+        shape = (f"E={e_cov} N={n_rows} C={ch} ops={','.join(ops_p)} dropout on, bf16 c and hg "
+                 "(library: scatter_reduce_ amax plus amin over the pre-built float32 message)")
+        prog_msg = mm._messages(c, hg, rp, seed, rate)[0]
+        prog_ids = mm._row_ids(rp)[:, None].expand(e_cov, ch)
+
+        def prog_library():
+            return [torch.zeros(n_rows, ch, device=dev).scatter_reduce_(
+                0, prog_ids, prog_msg, "amax" if op == "max" else "amin", include_self=False)
+                for op in ops_p]
+
         record("minmax_prog_bf16", 0.0,
                lambda: mm.minmax_edge_program(c, hg, rp, ops_p, seed, rate),
                lambda: mm.minmax_edge_program(c32, hg32, rp, ops_p, seed, rate),
                lambda: mm.minmax_edge_program_reference(c, hg, rp, ops_p, seed, rate),
                2 * (e_cov * ch + n_rows * ch) + 4 * ((n_rows + 1) + 1 + n_rows * p * ch),
-               e_cov * ch * (2 + p), None, shape, "minmax_prog")
+               e_cov * ch * (2 + p), device_ms(prog_library), shape, "minmax_prog")
+        del prog_msg, prog_ids
         record("minmax_prog_bwd_bf16", max(errs),
                lambda: mm.minmax_edge_program_bwd(c, hg, rp, ops_p, seed, rate, out, ct),
                lambda: mm.minmax_edge_program_bwd(c32, hg32, rp, ops_p, seed, rate, out32, ct),
@@ -2086,8 +2106,8 @@ def wide_bf16_kernel_entries(dev, big, wide_run, masked16_in, pat) -> dict:
           "(library: index_add_ over dst of the pre-built bf16 message)",
           library=lambda: torch.zeros(n, kf, dtype=torch.bfloat16, device=dev).index_add_(
               0, ids, msg))
-    # Skew: the heaviest row alone, one warp's loop over its edges, beside
-    # the f32 kernel on the same values.
+    # Skew: the heaviest row alone, split over kernel 1's chunks and
+    # joined by the fixup, beside the f32 kernel on the same values.
     deg = row_ptr[1:] - row_ptr[:-1]
     top = int(torch.argmax(deg))
     one_row = row_ptr[top:top + 2].contiguous()
@@ -2095,7 +2115,7 @@ def wide_bf16_kernel_entries(dev, big, wide_run, masked16_in, pat) -> dict:
     k12["heaviest_row_ms"], k12["f32_heaviest_row_ms"] = bf16_turns(
         lambda: fused_mma.masked_segment_sum(l32, h32s, pat, one_row),
         lambda: fused_mma.masked_segment_sum(logits, h_src, pat, one_row))
-    print(f"masked_segment_sum_bf16: the heaviest row alone ({int(deg[top])} edges, one warp) "
+    print(f"masked_segment_sum_bf16: the heaviest row alone ({int(deg[top])} edges) "
           f"ms {k12['heaviest_row_ms']:.4f} (f32 {k12['f32_heaviest_row_ms']:.4f}, in turns)")
     return out
 
@@ -4017,13 +4037,14 @@ def main() -> int:
              library=lambda: torch.zeros(n_rows, kf, device=dev).index_add_(0, ids, msg))
         kernels["masked_segment_sum"]["shape"] += (" (library: index_add_ over dst of the "
                                                    "pre-built message)")
-        # Skew: the heaviest row alone, one warp's loop over its edges.
+        # Skew: the heaviest row alone, split over kernel 1's chunks and
+        # joined by the fixup.
         deg = row_ptr[1:] - row_ptr[:-1]
         top = int(torch.argmax(deg))
         one_row = row_ptr[top:top + 2].contiguous()
         heavy_ms = device_ms(lambda: fused_mma.masked_segment_sum(logits, h_src, pat_big, one_row))
         kernels["masked_segment_sum"]["heaviest_row_ms"] = heavy_ms
-        print(f"masked_segment_sum: the heaviest row alone ({int(deg[top])} edges, one warp) "
+        print(f"masked_segment_sum: the heaviest row alone ({int(deg[top])} edges) "
               f"ms {heavy_ms:.4f}")
         del msg, masked_in, logits, h_src
         kernels.update(bf16_kernel_entries(dev, big, x_big, big_model, classes, mw0,

@@ -403,8 +403,8 @@ __device__ __forceinline__ void zero_empty_rows(const int32_t* __restrict__ row_
 // adds them. RowsOf is kernel 1's (the data row itself); LeanMessage,
 // kernels 2 and 9's, LeanDcMessage, kernels 3 and 10's, LeanSrcMessage,
 // kernel 3's, LeanDcPayloadMessage, kernel 10's with its per-edge
-// payload, and LeanSrcFoldMessage, kernel 11's, are below with those
-// kernels.
+// payload, LeanSrcFoldMessage, kernel 11's, and MaskedMessage, kernel
+// 12's, are below with those kernels.
 template <int VEC_, typename E = float>
 struct RowsOf {
   static constexpr int VEC = VEC_;
@@ -447,8 +447,9 @@ __host__ __device__ __forceinline__ int out_slots(const Msg& msg, int n_vec) {
 }
 
 // Pass 1, for any message type Msg: the body of kernel 1's
-// segment_sum_chunk_kernel, of kernels 2 and 9's lean_edge_kernel and of
-// kernels 3, 10 and 11's lean_bwd_edge_kernel. TILES: the lane's channel
+// segment_sum_chunk_kernel, of kernels 2 and 9's lean_edge_kernel, of
+// kernels 3, 10 and 11's lean_bwd_edge_kernel and of kernel 12's
+// masked_edge_kernel. TILES: the lane's channel
 // slots per edge (a compile-time bound on `tiles`; wider rows take several
 // rounds over the row's edges). U: edges a group loads before it adds
 // them. n_vec counts the slots of one sum; an output row (and a partial)
@@ -1827,165 +1828,139 @@ __global__ void segment_sum_sq_kernel(const E* __restrict__ data,
 // (E = 2,097,138 covered edges, N = 131,080, F = 64, K = 2) that is
 //   E (K*F + F) 4 B + N K*F 4 B = 2,097,138 x 768 B + 131,080 x 512 B ~ 1.68 GB,
 // 0.50 ms at 3.35 TB/s, against about 6 operations per edge and lane
-// (1.6 GFLOP, 0.024 ms at the f32 rate).
-// Design: one warp per destination row, 8 warps a block, as kernel 1. A
-// row's edges are contiguous, so the warp streams their logits and h_src
-// rows with coalesced loads and gathers nothing: a thread owns VEC
-// consecutive lanes of each (32 VEC)-lane tile, VEC = 4 (16-byte loads)
-// when F % 4 == 0, else 1. The warp starts the loads of up to 4 edges
-// before their arithmetic, so several rows are in flight per warp, and
-// adds the edges into registers in CSR order: each output row is written
-// once, with no atomics, bitwise equal run to run. The block stages the
-// pattern in shared memory once. The power-law graph's heaviest row (1,448
-// edges, 1.1 MB) is one warp's sequential loop.
+// (1.6 GFLOP, 0.024 ms at the f32 rate). bf16 logits and h_src halve the
+// edge rows (0.81 GB, a bound of about 0.26 ms).
 //
-// bf16 logits and/or h_src (masked_segment_sum_kernel<VEC, NT, EL, EH>, each
-// operand's type on its own): VEC = 4 reads 4 bf16 lanes in 8 bytes, VEC =
-// 1 one 2-byte lane, widened to f32 in registers; the mask and the message
-// are computed in f32. With bf16 logits the message is rounded to bf16
-// before it is added, whatever h_src's type: the JAX wrapper keys its one
-// pass on the logits' dtype (mma_tpu/ops/pallas/fused_mma.py:1574) and its
-// contraction rounds the f32 message (:108-119). The output stays f32. bf16
-// inputs halve the bytes: at synthetic-large 1.61 -> 0.81 GB of edge rows,
-// a bound of about 0.26 ms.
+// Design: kernel 1's edge-balanced two passes (chunk_pass, then
+// segment_sum_fixup_kernel) with MaskedMessage, as kernels 2, 3 and 9-11
+// run them. A warp per destination row made the power-law graph's heaviest
+// row (1,448 edges, 1.1 MB in f32) one warp's sequential loop, which set
+// most of the call's time (0.588 of 0.903 ms in f32, 0.663 of 0.862 in
+// bf16). Here edge positions go in chunks sized from E alone, one warp
+// each; a row of at most max(chunk, 64) edges is summed whole by the chunk
+// it starts in, a longer one split at chunk boundaries into head and tail
+// partials that the fixup adds in chunk order, and the fixup's zeroing
+// warps write the empty rows. Edge position e reads its own logits and
+// h_src rows (no index): the loads stream, coalesced. A lane's slot is 4
+// lanes of the K*F row (16-byte f32 or 8-byte bf16 loads, F % 4 == 0 and
+// aligned rows) or one lane (VEC = 1); the slot loads the pattern's lanes
+// once per row segment and reads h_src's slot cv mod F/VEC.
+//
+// The scalar path takes the vector path's lanes per edge (lanes_per_edge
+// of K*F / 4 slots) and edges in flight (set by the lanes a round covers,
+// not by VEC), so its groups, chunks and butterflies sum each output lane
+// in the same order: rows off their 4-lane alignment give the same bits.
+//
+// Launch bounds and edges in flight: MMA_MASKED_MIN_BLOCKS blocks an SM
+// (4: 64 registers, 32 warps) and MMA_MASKED_EDGES edges in flight a lane
+// while a round covers at most 4 lanes (2; half past that, twice for bf16
+// logits and h_src), chosen on the card over 2 and 3 blocks an SM and over
+// 1 and 4 edges (PERF.md §6): at 64 registers some instances spill a few
+// hundred bytes, but fewer warps an SM cost more (5-48% slower). They are
+// compile-time so that scripts/torch_redesign_compare.py can build and time
+// other settings beside these.
+//
+// Every row is written once, with no atomics and no host sync: bitwise
+// equal run to run, and a call replays in a CUDA graph. The summation
+// order is the chunk pass's, not a warp's walk in edge order: within 1e-5
+// of the plain version's index_add_.
+//
+// bf16 logits and/or h_src (MaskedMessage<VEC, EL, EH>, each operand's
+// type on its own) are widened to f32 in registers; the mask and the
+// message are computed in f32. With bf16 logits the message is rounded to
+// bf16 before it is added, whatever h_src's type: the JAX wrapper keys its
+// one pass on the logits' dtype (mma_tpu/ops/pallas/fused_mma.py:1574) and
+// its contraction rounds the f32 message (:108-119). With f32 logits the
+// sum is an fmaf. The output and the partials stay f32.
 // ---------------------------------------------------------------------------
 
-constexpr int kMaskedWarps = 8;
+#ifndef MMA_MASKED_MIN_BLOCKS
+#define MMA_MASKED_MIN_BLOCKS 4
+#endif
+#ifndef MMA_MASKED_EDGES
+#define MMA_MASKED_EDGES 2
+#endif
+
 constexpr int kMaxKF = 512;
 
-__device__ __forceinline__ void load4(float (&v)[4], const float* p, bool on) {
-  if (on) {
-    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-  } else {
-    v[0] = v[1] = v[2] = v[3] = 0.f;
+template <int VEC_, typename EL, typename EH>
+struct MaskedMessage {
+  static constexpr int VEC = VEC_;
+  static constexpr int kSums = 1;
+  static constexpr bool kEmits = false;
+  static constexpr bool kFolds = false;
+  static constexpr int kMinBlocks = MMA_MASKED_MIN_BLOCKS;
+  // The same for VEC = 4 at TILES and VEC = 1 at 4 TILES (see above).
+  template <int TILES>
+  __host__ __device__ static constexpr int in_flight() {
+    return (TILES * VEC <= 4 ? MMA_MASKED_EDGES : (MMA_MASKED_EDGES + 1) / 2) *
+           (sizeof(EL) == 2 && sizeof(EH) == 2 ? 2 : 1);
   }
-}
+  using V = Vec<VEC>;
+  using T = typename V::T;
+  using LS = Slots<VEC, EL>;
+  using HS = Slots<VEC, EH>;
+  struct Slot {
+    T p;     // the pattern on the slot's lanes
+    int hv;  // the slot of h_src that the lanes read: cv mod F/VEC
+  };
+  struct Edge {
+    typename LS::Raw l;
+    typename HS::Raw h;
+  };
+  const typename LS::Raw* logits;
+  const typename HS::Raw* h;
+  const T* pat;
+  int n_vec, f_vec;  // slots of a K*F row (logits) and of an F row (h_src)
 
-__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-// Calls launch(std::integral_constant<int, NT>()) for NT = ceil(kf / 128)
-// in 1..4 and returns the launch's error.
-template <typename Launch>
-cudaError_t by_tiles(int kf, Launch launch) {
-  switch ((kf + kLaneTile - 1) / kLaneTile) {
-    case 1: launch(std::integral_constant<int, 1>()); break;
-    case 2: launch(std::integral_constant<int, 2>()); break;
-    case 3: launch(std::integral_constant<int, 3>()); break;
-    case 4: launch(std::integral_constant<int, 4>()); break;
-    default: return cudaErrorInvalidValue;
+  __device__ Slot slot(int64_t, int cv) const { return {__ldg(pat + cv), cv % f_vec}; }
+  __device__ static Slot no_slot() { return {V::zero(), 0}; }
+  __device__ Edge load(int64_t r, int cv, const Slot& s) const {
+    return {LS::load(logits + r * n_vec + cv), HS::load(h + r * f_vec + s.hv)};
   }
-  return cudaGetLastError();
-}
-
-// VEC lanes of type E at p (aligned to VEC of its elements) as f32, 0
-// where off.
-template <int VEC, typename E>
-__device__ __forceinline__ void load_lanes(float (&v)[VEC], const E* p, bool on) {
-  if constexpr (std::is_same<E, float>::value && VEC == 4) {
-    load4(v, p, on);
-  } else if constexpr (std::is_same<E, float>::value) {
-    v[0] = on ? __ldg(p) : 0.f;
-  } else {
-    using S = Slots<VEC, E>;
-    const auto w = S::widen(on ? S::load(reinterpret_cast<const typename S::Raw*>(p)) : S::zero());
+  __device__ static Edge none() { return {LS::zero(), HS::zero()}; }
+  __device__ static float term(float acc, float p, float x, float hx) {
+    const float m = p != 0.f ? sigmoidf(x) : x;
+    if constexpr (std::is_same<EL, float>::value) {
+      return fmaf(m, hx, acc);
+    } else {  // the JAX kernel's one pass on bf16 logits
+      return acc + round_bf16(__fmul_rn(m, hx));
+    }
+  }
+  __device__ static void add(T (&acc)[1], const Edge& e, const Slot& s) {
     if constexpr (VEC == 4) {
-      v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
+      const float4 l = LS::widen(e.l);
+      const float4 hx = HS::widen(e.h);
+      acc[0].x = term(acc[0].x, s.p.x, l.x, hx.x);
+      acc[0].y = term(acc[0].y, s.p.y, l.y, hx.y);
+      acc[0].z = term(acc[0].z, s.p.z, l.z, hx.z);
+      acc[0].w = term(acc[0].w, s.p.w, l.w, hx.w);
     } else {
-      v[0] = w;
+      acc[0] = term(acc[0], s.p, LS::widen(e.l), HS::widen(e.h));
     }
   }
+};
+
+// Pass 1 of kernel 12, at its message's launch bounds.
+template <class Msg, int TILES>
+__global__ void __launch_bounds__(kSumWarps* kWarp, Msg::kMinBlocks)
+masked_edge_kernel(const Msg msg, const int32_t* __restrict__ row_ptr, float* __restrict__ out,
+                   float* __restrict__ part, int32_t* __restrict__ tail_row, int n_rows,
+                   int n_vec, int lpe, int tiles, int chunk, int n_chunks) {
+  chunk_pass<Msg, TILES>(msg, row_ptr, nullptr, out, part, tail_row, n_rows, n_vec, lpe, tiles,
+                         chunk, n_chunks);
 }
 
-template <int VEC, int NT, typename EL, typename EH>
-__global__ void __launch_bounds__(kMaskedWarps * kWarp)
-masked_segment_sum_kernel(const EL* __restrict__ logits,
-                          const EH* __restrict__ h_src,
-                          const float* __restrict__ pat,
-                          const int32_t* __restrict__ row_ptr, float* __restrict__ out,
-                          int n_rows, int f, int kf) {
-  // Edges whose loads are in flight together: 16 floats of each input a thread.
-  constexpr int kU = 16 / (NT * VEC) < 1 ? 1 : (16 / (NT * VEC) > 4 ? 4 : 16 / (NT * VEC));
-  __shared__ float pat_s[kMaxKF];
-  for (int l = threadIdx.x; l < kf; l += blockDim.x) pat_s[l] = pat[l];
-  __syncthreads();
-  const int row = blockIdx.x * kMaskedWarps + threadIdx.x / kWarp;
-  if (row >= n_rows) return;  // whole warps leave together
-  const int lane = threadIdx.x % kWarp;
-  int l0[NT], hoff[NT];
-  bool on[NT];
-  float p[NT][VEC], acc[NT][VEC];
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    l0[t] = t * kWarp * VEC + VEC * lane;
-    on[t] = l0[t] < kf;  // with VEC = 4, kf % 4 == 0: all 4 lanes or none
-    hoff[t] = on[t] ? l0[t] % f : 0;
-#pragma unroll
-    for (int q = 0; q < VEC; ++q) {
-      p[t][q] = on[t] ? pat_s[l0[t] + q] : 0.f;
-      acc[t][q] = 0.f;
-    }
-  }
-  const int start = row_ptr[row];
-  const int end = row_ptr[row + 1];
-  for (int e0 = start; e0 < end; e0 += kU) {
-    float lg[kU][NT][VEC], hv[kU][NT][VEC];
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const int64_t e = e0 + u;
-      const bool live = e < end;
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        load_lanes<VEC, EL>(lg[u][t], logits + e * kf + l0[t], live && on[t]);
-        load_lanes<VEC, EH>(hv[u][t], h_src + e * f + hoff[t], live && on[t]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      if (e0 + u < end) {  // edges in CSR order
-#pragma unroll
-        for (int t = 0; t < NT; ++t) {
-#pragma unroll
-          for (int q = 0; q < VEC; ++q) {
-            const float x = lg[u][t][q];
-            const float m = p[t][q] != 0.f ? sigmoidf(x) : x;
-            if constexpr (std::is_same<EL, float>::value) {
-              acc[t][q] = fmaf(m, hv[u][t][q], acc[t][q]);
-            } else {  // the JAX kernel's one pass on bf16 logits
-              acc[t][q] += round_bf16(__fmul_rn(m, hv[u][t][q]));
-            }
-          }
-        }
-      }
-    }
-  }
-  float* orow = out + static_cast<int64_t>(row) * kf;
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    if (!on[t]) continue;
-    if constexpr (VEC == 4) {
-      store4(orow + l0[t], acc[t]);
-    } else {
-      orow[l0[t]] = acc[t][0];
-    }
-  }
-}
-
-// Calls launch(std::integral_constant<int, NT>()) for the scalar path's
-// NT = ceil(kf / 32) rounded up to a power of two (kf <= 512) and returns
-// the launch's error.
-template <typename Launch>
-cudaError_t by_scalar_tiles(int kf, Launch launch) {
-  const int tiles = (kf + kWarp - 1) / kWarp;
-  if (tiles <= 1) launch(std::integral_constant<int, 1>());
-  else if (tiles <= 2) launch(std::integral_constant<int, 2>());
-  else if (tiles <= 4) launch(std::integral_constant<int, 4>());
-  else if (tiles <= 8) launch(std::integral_constant<int, 8>());
-  else if (tiles <= 16) launch(std::integral_constant<int, 16>());
-  else return cudaErrorInvalidValue;
-  return cudaGetLastError();
+template <class Msg, int TILES>
+cudaError_t launch_masked(const Msg& msg, const void* row_ptr, void* out, void* part,
+                          void* tail_row, int n_rows, int n_vec, int lpe, int tiles, int chunk,
+                          int n_chunks, cudaStream_t s) {
+  const int blocks = (n_chunks + kSumWarps - 1) / kSumWarps;
+  masked_edge_kernel<Msg, TILES><<<blocks, kSumWarps * kWarp, 0, s>>>(
+      msg, static_cast<const int32_t*>(row_ptr), static_cast<float*>(out),
+      static_cast<float*>(part), static_cast<int32_t*>(tail_row), n_rows, n_vec, lpe, tiles,
+      chunk, n_chunks);
+  return launch_fixup<Msg::VEC>(row_ptr, part, tail_row, out, n_rows, n_vec, chunk, n_chunks, s);
 }
 
 }  // namespace
@@ -2250,31 +2225,49 @@ int mma_segment_sum_sq_csr(const void* data, const void* row_ptr, void* out, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// logits (E, kf) f32 (bf16 when logits_bf16 != 0), h_src (E, f) f32 (bf16
-// when h_bf16 != 0), pat (kf,) 0/1 f32, row_ptr (n_rows+1,) i32, out
-// (n_rows, kf) f32. Requires kf % f == 0, f <= 128, kf <= 512; vec4 != 0
-// requires f % 4 == 0, 16-byte aligned out and logits and h_src aligned to
-// 4 of their elements.
+// logits (n_edges, kf) f32 (bf16 when logits_bf16 != 0), h_src (n_edges, f)
+// f32 (bf16 when h_bf16 != 0), pat (kf,) 0/1 f32, row_ptr (n_rows+1,) i32
+// with row_ptr[n_rows] <= n_edges, out (n_rows, kf) f32; scratch part
+// (n_chunks, 2, kf) f32 and tail_row (n_chunks,) i32, n_chunks =
+// mma_segment_sum_n_chunks(n_edges). Requires kf % f == 0, kf <= 512;
+// vec4 != 0 requires f % 4 == 0, 16-byte aligned pat, out and part, and
+// logits and h_src aligned to 4 of their elements.
 int mma_masked_segment_sum(const void* logits, const void* h_src, const void* pat,
-                           const void* row_ptr, void* out, int n_rows, int f, int kf,
-                           int vec4, int logits_bf16, int h_bf16, void* stream) {
+                           const void* row_ptr, void* out, void* part, void* tail_row,
+                           int n_rows, int f, int kf, int n_edges, int vec4, int logits_bf16,
+                           int h_bf16, void* stream) {
   if (n_rows <= 0) return static_cast<int>(cudaSuccess);
+  if (f <= 0 || kf % f != 0 || kf > kMaxKF || (vec4 && f % 4 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // The vector path's lanes per edge, for both paths (see the note above).
+  const int lpe = lanes_per_edge((kf + 3) / 4);
+  const int n_vec = vec4 ? kf / 4 : kf;
+  const int tiles = (n_vec + lpe - 1) / lpe;
+  const int chunk = sum_chunk_edges(n_edges);
+  const int n_chunks = sum_n_chunks(n_edges);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = (n_rows + kMaskedWarps - 1) / kMaskedWarps;
-  auto by_types = [&](auto el, auto eh) {
+  auto by_types = [&](auto el, auto eh) -> cudaError_t {
     using EL = typename decltype(el)::type;
     using EH = typename decltype(eh)::type;
-    auto launch = [&](auto vec, auto nt) {
-      masked_segment_sum_kernel<decltype(vec)::value, decltype(nt)::value, EL, EH>
-          <<<blocks, kMaskedWarps * kWarp, 0, s>>>(
-              static_cast<const EL*>(logits), static_cast<const EH*>(h_src),
-              static_cast<const float*>(pat), static_cast<const int32_t*>(row_ptr),
-              static_cast<float*>(out), n_rows, f, kf);
+    auto launch = [&](auto vec, auto eight) -> cudaError_t {
+      constexpr int VEC = decltype(vec)::value;
+      using Msg = MaskedMessage<VEC, EL, EH>;
+      const Msg msg{static_cast<const typename Msg::LS::Raw*>(logits),
+                    static_cast<const typename Msg::HS::Raw*>(h_src),
+                    static_cast<const typename Msg::T*>(pat), n_vec, f / VEC};
+      // A round covers 4 lanes of a lane's slots, or 8 (several rounds past that).
+      constexpr int TILES = (decltype(eight)::value ? 8 : 4) / VEC;
+      return launch_masked<Msg, TILES>(msg, row_ptr, out, part, tail_row, n_rows, n_vec, lpe,
+                                       tiles, chunk, n_chunks, s);
     };
+    const bool wide = tiles * (vec4 ? 4 : 1) > 4;
     if (vec4) {
-      return by_tiles(kf, [&](auto nt) { launch(std::integral_constant<int, 4>(), nt); });
+      return wide ? launch(std::integral_constant<int, 4>(), std::true_type())
+                  : launch(std::integral_constant<int, 4>(), std::false_type());
     }
-    return by_scalar_tiles(kf, [&](auto nt) { launch(std::integral_constant<int, 1>(), nt); });
+    return wide ? launch(std::integral_constant<int, 1>(), std::true_type())
+                : launch(std::integral_constant<int, 1>(), std::false_type());
   };
   auto by_h = [&](auto el) {
     return h_bf16 ? by_types(el, Type<bf16>()) : by_types(el, Type<float>());

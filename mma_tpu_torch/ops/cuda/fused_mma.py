@@ -138,7 +138,7 @@ def _lib() -> ctypes.CDLL:
         lib.mma_edge_program_lean_bwd_node.argtypes = [_P] * 6 + [_I] * 4 + [_P]
         lib.mma_segment_sum_sq_csr.argtypes = [_P, _P, _P, _I, _I, _I, _P]
         lib.mma_edge_program_bwd_csc.argtypes = [_P] * 10 + [_I] * 5 + [_P]
-        lib.mma_masked_segment_sum.argtypes = [_P] * 5 + [_I] * 6 + [_P]
+        lib.mma_masked_segment_sum.argtypes = [_P] * 7 + [_I] * 7 + [_P]
         for fn in ("mma_edge_program_lean_bwd_dst", "mma_edge_program_lean_bwd_src",
                    "mma_edge_program_lean_bwd_n_slabs", "mma_edge_program_lean_bwd_node",
                    "mma_segment_sum_sq_csr", "mma_edge_program_bwd_csc",
@@ -1051,15 +1051,21 @@ def _masked_segment_sum_kernel(logits, h_src, pattern, row_ptr):
     name = "masked_segment_sum"
     _check_cuda_inputs(name, logits=logits, h_src=h_src, pattern=pattern, row_ptr=row_ptr)
     n, f, kf = _check_masked_inputs(name, logits, h_src, pattern, row_ptr)
-    out = torch.empty((n, kf), dtype=torch.float32, device=logits.device)
+    # The edge positions the CSR may cover, from shapes alone (no host
+    # sync): they fix kernel 1's chunks, which this kernel runs on.
+    n_edges = logits.shape[0]
+    dev = logits.device
+    out = torch.empty((n, kf), dtype=torch.float32, device=dev)
+    part, tail_row = _chunk_scratch(n_edges, kf, dev)
     # 4-lane slots: 16-byte float32 loads, 8-byte bf16 ones.
-    vec4 = f % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0
-                              for t in (logits, h_src))
+    vec4 = f % 4 == 0 and pattern.data_ptr() % 16 == 0 and all(
+        t.data_ptr() % (4 * t.element_size()) == 0 for t in (logits, h_src))
     lib = _lib()
-    with torch.cuda.device(logits.device):
+    with torch.cuda.device(dev):
         err = lib.mma_masked_segment_sum(
             logits.data_ptr(), h_src.data_ptr(), pattern.data_ptr(), row_ptr.data_ptr(),
-            out.data_ptr(), n, f, kf, int(vec4), _bf16(logits), _bf16(h_src), _stream(),
+            out.data_ptr(), part.data_ptr(), tail_row.data_ptr(), n, f, kf, n_edges, int(vec4),
+            _bf16(logits), _bf16(h_src), _stream(),
         )
     _check_launch(lib, err, name)
     LAUNCHES["masked_segment_sum_bf16" if _bf16(logits) or _bf16(h_src)

@@ -83,7 +83,8 @@ def _lib() -> ctypes.CDLL:
         lib.mma_cuda_error_string.restype = ctypes.c_char_p
         lib.mma_segment_minmax.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
         lib.mma_segment_minmax_bwd.argtypes = [_P, _P, _P, _P, _P, _I, _I64, _I, _I, _I, _P]
-        lib.mma_minmax_prog.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]
+        lib.mma_minmax_prog.argtypes = [_P, _P, _P, _P, _P, _I, _I64, _I, _I, _I, _I, _F, _I,
+                                        _P]
         lib.mma_minmax_prog_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I64, _I, _I,
                                             _I, _F, _I, _P]
         for fn in ("mma_segment_minmax", "mma_segment_minmax_bwd", "mma_minmax_prog",
@@ -329,10 +330,12 @@ def _minmax_prog_kernel(c, hg, row_ptr, ops, seed, rate):
     out = torch.empty((n, len(ops) * ch), dtype=torch.float32, device=c.device)
     lib = _lib()
     with torch.cuda.device(c.device):
+        # hg's rows bound the CSR's edges: with N they fix the kernel's
+        # tiles from shapes alone (no host sync).
         err = lib.mma_minmax_prog(c.data_ptr(), hg.data_ptr(), row_ptr.data_ptr(),
                                   None if seed is None else seed.data_ptr(), out.data_ptr(),
-                                  n, ch, len(ops), _max_bits(ops), thresh, scale, _bf16(hg),
-                                  _stream())
+                                  n, hg.shape[0], ch, len(ops), _max_bits(ops), thresh, scale,
+                                  _bf16(hg), _stream())
     _check_launch(lib, err, name)
     LAUNCHES["minmax_prog_bf16" if _bf16(hg) else "minmax_prog"] += 1
     return out

@@ -847,6 +847,80 @@ def test_bf16_minmax_edge_program_kernels_match_plain(cuda, graph, ch, ops, ties
     assert (dhg[int(rp[-1]):] == 0).all()
 
 
+def _prog_inputs(cuda, rs, n_rows, n_edges, ch, n_ops, dtype):
+    """Kernel 6-7 inputs on any CSR: ``c`` (N, C), ``hg`` (E, C) and a
+    cotangent (N, P·C); C = 7 and 375 draw small integers, so that edges
+    of a row tie, the others normal values."""
+    def draw(*shape):
+        a = rs.randint(-3, 4, shape) if ch in (7, 375) else rs.randn(*shape)
+        return torch.from_numpy(a.astype(np.float32)).to(cuda)
+
+    return (draw(n_rows, ch).to(dtype), draw(n_edges, ch).to(dtype),
+            draw(n_rows, n_ops * ch))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seed", [None, 4321])
+@pytest.mark.parametrize("ops", [("min", "max"), ("max",)])
+@pytest.mark.parametrize("ch", [7, 37, 375, 640])
+def test_minmax_prog_tiles_match_plain(cuda, chunk_graph, ch, ops, seed, dtype):
+    """Kernel 6's staged row tiles over the chunk CSRs: a 3,000-edge row
+    many times a tile's item budget (walked in pieces through one stage),
+    empty rows inside and at both ends, a ``row_ptr[0] > 0`` slice, a
+    padding tail no row covers, a CSR that covers nothing and one row among
+    2,000 empty ones; odd widths (7, 37, 375) whose rows start off 16-byte
+    boundaries, and 640. ``out`` equal to the plain version and run to run,
+    empty rows 0, one launch a call; kernel 7 on that ``out``: ``dhg`` equal
+    to its plain version and ``dc`` within 1e-5."""
+    from mma_tpu_torch.ops.cuda import segment_minmax as mm
+
+    rs = np.random.RandomState(ch)
+    sd = None if seed is None else torch.tensor([seed], dtype=torch.int32, device=cuda)
+    key = "minmax_prog_bf16" if dtype == torch.bfloat16 else "minmax_prog"
+    for what, (rp_np, n_edges) in chunk_graph.items():
+        rp = torch.from_numpy(rp_np).to(cuda)
+        c, hg, ct = _prog_inputs(cuda, rs, rp_np.shape[0] - 1, n_edges, ch, len(ops), dtype)
+        before = mm.LAUNCHES[key]
+        out = mm.minmax_edge_program(c, hg, rp, ops, sd, 0.5)
+        torch.cuda.synchronize()
+        assert mm.LAUNCHES[key] == before + 1, what
+        assert torch.equal(out, mm.minmax_edge_program_reference(c, hg, rp, ops, sd, 0.5)), what
+        assert torch.equal(out, mm.minmax_edge_program(c, hg, rp, ops, sd, 0.5)), what
+        empty = torch.from_numpy(rp_np[1:] == rp_np[:-1]).to(cuda)
+        assert (out[empty] == 0).all(), what
+        dhg, dc = mm.minmax_edge_program_bwd(c, hg, rp, ops, sd, 0.5, out, ct)
+        want_dhg, want_dc = mm.minmax_edge_program_bwd_reference(c, hg, rp, ops, sd, 0.5, out, ct)
+        assert torch.equal(dhg, want_dhg), what
+        torch.testing.assert_close(dc.float(), want_dc.float(), rtol=1e-5,
+                                   atol=1e-5 * want_dc.float().abs().max().item(), msg=what)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_minmax_prog_replays_in_a_cuda_graph(cuda, chunk_graph, dtype):
+    """One kernel-6 call (dropout on) captured in a CUDA graph and replayed
+    gives the eager result: its tiles come from shapes, and the host never
+    reads ``row_ptr``."""
+    from mma_tpu_torch.ops.cuda import segment_minmax as mm
+
+    rp_np, n_edges = chunk_graph["hub"]
+    rp = torch.from_numpy(rp_np).to(cuda)
+    c, hg, _ = _prog_inputs(cuda, np.random.RandomState(5), rp_np.shape[0] - 1, n_edges, 375, 2,
+                            dtype)
+    sd = torch.tensor([99], dtype=torch.int32, device=cuda)
+    eager = mm.minmax_edge_program(c, hg, rp, ("min", "max"), sd, 0.5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        mm.minmax_edge_program(c, hg, rp, ("min", "max"), sd, 0.5)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = mm.minmax_edge_program(c, hg, rp, ("min", "max"), sd, 0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+
+
 def test_minmax_hash_on_card_matches_cpu(cuda):
     """The dropout hash's PyTorch form gives the same bits on the card."""
     from mma_tpu_torch.ops.cuda.segment_minmax import dropout_keep
@@ -1213,6 +1287,76 @@ def test_masked_kernel_rejects_what_it_does_not_take(cuda, hub_graph):
     with pytest.raises(ValueError, match="several devices"):
         fused_mma.masked_segment_sum(logits, h_src.cpu(), pat, rp)
     assert fused_mma.LAUNCHES["masked_segment_sum"] == before
+
+
+def _masked_f64(logits, h_src, pat, row_ptr):
+    """Kernel 12's sum in float64 over the plain version's own float32
+    messages (rounded to bf16 for bf16 logits): the kernel's chunked order
+    against an exact sum, not against the float32 ``index_add_``'s drift."""
+    kf, f = logits.shape[1], h_src.shape[1]
+    msg = fused_mma._mask_chain(logits.float(), pat)[0] * h_src.float().repeat(1, kf // f)
+    if logits.dtype == torch.bfloat16:
+        msg = fused_mma._round_bf16(msg)
+    return _sum_f64(msg, row_ptr)
+
+
+@pytest.mark.parametrize("dtypes", ["f32,f32", "bf16,bf16", "bf16,f32", "f32,bf16"])
+@pytest.mark.parametrize("f,k", [(64, 2), (128, 4), (12, 3), (5, 1)])
+def test_masked_segment_sum_chunks_match_plain(cuda, chunk_graph, f, k, dtypes):
+    """Kernel 12 on kernel 1's chunks over the chunk CSRs (a 3,000-edge row
+    split over many chunks and joined by the fixup, empty rows written by
+    its zeroing warps, a slice, a CSR that covers nothing, one row among
+    2,000 empty ones) for every (logits, h_src) dtype pair: within 1e-5 of
+    the float64 sum of the plain version's messages, bitwise equal run to
+    run, empty rows 0; with F % 4 == 0 the scalar path (rows off their
+    4-lane alignment) gives the vector path's bits."""
+    types = {"bf16": torch.bfloat16, "f32": torch.float32}
+    ld, hd = (types[t] for t in dtypes.split(","))
+    key = "masked_segment_sum" if dtypes == "f32,f32" else "masked_segment_sum_bf16"
+    rs = np.random.RandomState(f + k)
+    pat = torch.from_numpy((np.arange(k * f) // f % 2 == 0).astype(np.float32)).to(cuda)
+    for what, (rp_np, n_edges) in chunk_graph.items():
+        rp = torch.from_numpy(rp_np).to(cuda)
+        logits = torch.from_numpy(rs.randn(n_edges, k * f).astype(np.float32)).to(cuda, ld)
+        h_src = torch.from_numpy(rs.randn(n_edges, f).astype(np.float32)).to(cuda, hd)
+        before = fused_mma.LAUNCHES[key]
+        got = fused_mma.masked_segment_sum(logits, h_src, pat, rp)
+        torch.cuda.synchronize()
+        assert fused_mma.LAUNCHES[key] == before + 1, what
+        want = _masked_f64(logits, h_src, pat, rp)
+        torch.testing.assert_close(got.double(), want, rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item(), msg=what)
+        assert torch.equal(got, fused_mma.masked_segment_sum(logits, h_src, pat, rp)), what
+        empty = torch.from_numpy(rp_np[1:] == rp_np[:-1]).to(cuda)
+        assert (got[empty] == 0).all(), what
+        if f % 4 == 0:
+            shifted = torch.empty(logits.numel() + 1, dtype=ld, device=cuda)[1:]
+            shifted = shifted.view_as(logits).copy_(logits)
+            assert torch.equal(got, fused_mma.masked_segment_sum(shifted, h_src, pat, rp)), what
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_segment_sum_replays_in_a_cuda_graph(cuda, chunk_graph, dtype):
+    """One kernel-12 call captured in a CUDA graph and replayed gives the
+    eager result: chunks and scratch from shapes, no host sync."""
+    rp_np, n_edges = chunk_graph["hub"]
+    rp = torch.from_numpy(rp_np).to(cuda)
+    rs = np.random.RandomState(21)
+    logits = torch.from_numpy(rs.randn(n_edges, 128).astype(np.float32)).to(cuda, dtype)
+    h_src = torch.from_numpy(rs.randn(n_edges, 64).astype(np.float32)).to(cuda, dtype)
+    pat = torch.from_numpy((np.arange(128) < 64).astype(np.float32)).to(cuda)
+    eager = fused_mma.masked_segment_sum(logits, h_src, pat, rp)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused_mma.masked_segment_sum(logits, h_src, pat, rp)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fused_mma.masked_segment_sum(logits, h_src, pat, rp)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
 
 
 # ---- kernels 9-12 on bf16 operands
