@@ -4,7 +4,7 @@
 1. Prints the card's name and power limit (``nvidia-smi``), then builds
    every CUDA kernel of the port from ``mma_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together).
-2. Forty-six main paths in this process and seven in each rank of a
+2. Forty-seven main paths in this process and seven in each rank of a
    two-rank world, each with the kernels' launch counters set to 0 just
    before it and read just after:
 
@@ -13,6 +13,13 @@
      ``mean,mean2``, parity mode), then runs 3 forwards of the
      synthetic-large model (131072-node / 2.1M-edge power-law graph, F=64,
      16 classes). Weights are random from a seed.
+   - **cora-neighbor-lists**: Cora's graph built on the card by
+     ``graph_from_neighbor_lists`` from the Planetoid adjacency lists and
+     by ``graph_from_dense``, every tensor bitwise equal to the serve
+     path's graph, and the first request's forward on each (kernels 1 and
+     2) bitwise equal to the serve path's; ``segment_mean``,
+     ``segment_softmax_denom`` and ``mma_mask_logits`` at synthetic-large
+     within 1e-5 of the same calls on the CPU.
    - **cora-train**: ``train_node_classification`` at the README preset
      (``NODE_CLS_PRESETS["cora"]``: 200 epochs, mask dropout 0.75, so the
      half-fused route), seeds 0, 1, 2 and 42. The mean test accuracy must
@@ -3082,6 +3089,86 @@ def run_two_ranks(paths: dict) -> None:
         print(f"two-rank world, rank {rank}: {json.dumps(report)}")
 
 
+def cora_neighbor_lists(num_nodes: int) -> list:
+    """Cora's neighbour lists in the reference's format: ``add_all[i]`` the
+    neighbours of node ``i`` in the symmetric adjacency built from the
+    Planetoid ``ind.cora.graph`` adjacency lists, ascending."""
+    import pickle
+
+    from mma_tpu_torch.graph.build import symmetrize
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "datasets", "ind.cora.graph"), "rb") as fh:
+        lists = pickle.load(fh, encoding="latin1")
+    src = np.array([i for i, nbrs in lists.items() for _ in nbrs], np.int32)
+    dst = np.array([j for nbrs in lists.values() for j in nbrs], np.int32)
+    src, dst = symmetrize(src, dst)  # sorted by (dst, src)
+    return np.split(src, np.searchsorted(dst, np.arange(1, num_nodes)))
+
+
+GRAPH_FIELDS = ("src", "dst", "edge_mask", "node_mask", "deg", "row_ptr", "src_perm",
+                "col_ptr", "src_csc", "dst_csc", "real_row_ptr", "real_col_ptr")
+
+
+def run_cora_neighbor_lists(dev, paths: dict, cora, cora_model, cora_out0, big, x_big) -> None:
+    """Path cora-neighbor-lists: Cora's graph built on the card from its
+    neighbour lists and from its dense adjacency, each tensor bitwise equal
+    to cora-serve's graph (``graph_from_edges``), and cora-serve's first
+    request answered on each, bitwise equal to cora-serve's answer (kernels
+    1 and 2). Then ``segment_mean``, ``segment_softmax_denom`` (over
+    ``x[src]`` by destination) and ``mma_mask_logits`` (K=2) at
+    synthetic-large, each within 1e-5 of the largest magnitude of the same
+    call on the CPU."""
+    from mma_tpu_torch import graph_from_dense, graph_from_neighbor_lists
+    from mma_tpu_torch.ops import mma_mask_logits, segment_mean, segment_softmax_denom
+
+    t0 = time.perf_counter()
+    n = cora.num_nodes
+    add_all = cora_neighbor_lists(n)
+    adj = np.zeros((n, n), np.float32)
+    adj[np.repeat(np.arange(n), [len(a) for a in add_all]), np.concatenate(add_all)] = 1.0
+    errs = {}
+    with counted("cora-neighbor-lists", paths), torch.no_grad():
+        graphs = {"neighbor lists": graph_from_neighbor_lists(add_all, device=dev),
+                  "dense": graph_from_dense(adj, device=dev)}
+        for what, g in graphs.items():
+            for name in GRAPH_FIELDS:
+                got, want = getattr(g, name), getattr(cora.graph, name)
+                if got.dtype != want.dtype or not torch.equal(got, want):
+                    raise AssertionError(f"cora-neighbor-lists: {what} graph's {name} "
+                                         "differs from cora-serve's")
+            if not torch.equal(cora_model(cora.features, g), cora_out0):
+                raise AssertionError(f"cora-neighbor-lists: the forward on the {what} graph "
+                                     "differs from cora-serve's")
+        e = int(big.num_edges)
+        src, dst = big.src[:e], big.dst[:e]
+        cpu_big = big.to("cpu")
+        data = x_big[src]
+        mw = (torch.randn((2, 128, 64), generator=torch.Generator().manual_seed(SEED + 7))
+              / 8.0).to(dev)
+        calls = {
+            "segment_mean": lambda d, i, g, w: (segment_mean(d, i, g.n_node),),
+            "segment_softmax_denom": lambda d, i, g, w: segment_softmax_denom(d, i, g.n_node),
+            "mma_mask_logits": lambda d, i, g, w: (mma_mask_logits(x_big.to(d.device), w, g),),
+        }
+        for name, call in calls.items():
+            on_card = call(data, dst, big, mw)
+            on_cpu = call(data.cpu(), dst.cpu(), cpu_big, mw.cpu())
+            for i, (got, want) in enumerate(zip(on_card, on_cpu)):
+                errs[f"{name}[{i}]"] = compare(got.cpu(), want, 1e-5, f"{name}[{i}]",
+                                               verbose=False)["max_rel_err"]
+            del on_card, on_cpu
+    wall = time.perf_counter() - t0
+    print(f"cora-neighbor-lists: graph_from_neighbor_lists and graph_from_dense give "
+          f"cora-serve's graph ({len(GRAPH_FIELDS)} tensors each bitwise equal) and its "
+          f"request-0 answer bitwise; synthetic-large (E = {e}, F = 64, K = 2), card against "
+          f"CPU, max_rel_err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tolerance 1e-5); wall {wall:.2f} s")
+    # Per forward: kernel 1 for each binary_spmm (2), kernel 2 once.
+    expect_launches(paths, "cora-neighbor-lists", segment_sum=2 * 2, edge_program_lean=2)
+
+
 def main() -> int:
     t_main = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3189,6 +3276,9 @@ def main() -> int:
         big_ms = latency_ms(lambda: big_model(x_big, big), 5)
     print(f"serving latency (host clock, median): cora request {cora_ms:.4f} ms; "
           f"synthetic-large forward {big_ms:.4f} ms = {e_big / (big_ms * 1e-3):.4e} edges/s")
+
+    # ---------------------------------------- main path: cora-neighbor-lists
+    run_cora_neighbor_lists(dev, paths, cora, cora_model, cora_out[0], big, x_big)
 
     # ------------------------------------------------- main path: cora-train
     os.makedirs(LOG_DIR, exist_ok=True)

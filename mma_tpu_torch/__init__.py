@@ -8,16 +8,27 @@ the plain PyTorch versions of the kernels and CUDA tensors the kernels
 """
 
 from mma_tpu_torch.data import load_planetoid, synthetic_powerlaw
-from mma_tpu_torch.graph import Graph, graph_from_edges
-from mma_tpu_torch.models import NodeClassifier
-from mma_tpu_torch.nn import GraphConvolution, MMALayer
+from mma_tpu_torch.graph import (
+    BatchedGraphs,
+    Graph,
+    graph_from_dense,
+    graph_from_edges,
+    graph_from_neighbor_lists,
+)
+from mma_tpu_torch.models import NodeClassifier, ZincNet
+from mma_tpu_torch.nn import GraphConvolution, MMALayer, MultiMaskConv
 
 __all__ = [
+    "BatchedGraphs",
     "Graph",
     "GraphConvolution",
     "MMALayer",
+    "MultiMaskConv",
     "NodeClassifier",
+    "ZincNet",
+    "graph_from_dense",
     "graph_from_edges",
+    "graph_from_neighbor_lists",
     "load_planetoid",
     "synthetic_powerlaw",
 ]

@@ -1,4 +1,16 @@
-from mma_tpu_torch.graph.build import graph_from_edges
+from mma_tpu_torch.graph.build import (
+    graph_from_dense,
+    graph_from_edges,
+    graph_from_neighbor_lists,
+    pad_graph,
+)
 from mma_tpu_torch.graph.container import BatchedGraphs, Graph
 
-__all__ = ["BatchedGraphs", "Graph", "graph_from_edges"]
+__all__ = [
+    "BatchedGraphs",
+    "Graph",
+    "graph_from_dense",
+    "graph_from_edges",
+    "graph_from_neighbor_lists",
+    "pad_graph",
+]

@@ -15,7 +15,7 @@ serve as the target of padding edges.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -121,6 +121,39 @@ def graph_from_edges(
         src_csc=t(src_sorted),
         dst_csc=t(dst_p[src_perm]),
     )
+
+
+def graph_from_neighbor_lists(
+    add_all: Sequence[np.ndarray],
+    n_node_pad: Optional[int] = None,
+    n_edge_pad: Optional[int] = None,
+    *,
+    device: DeviceLike = None,
+) -> Graph:
+    """Build from the reference's per-node neighbor-list format.
+
+    ``add_all[i]`` lists the neighbors of center node ``i``
+    (``node_classification/utils.py:98-100``); each pair becomes an edge
+    ``j → i`` so that aggregation at ``i`` sums over its neighbors.
+    ``device=None`` places the graph on the GPU.
+    """
+    num_nodes = len(add_all)
+    dst = np.concatenate(
+        [np.full(len(nbrs), i, np.int32) for i, nbrs in enumerate(add_all)]
+        or [np.zeros(0, np.int32)]
+    )
+    src = np.concatenate(
+        [np.asarray(nbrs, np.int32) for nbrs in add_all] or [np.zeros(0, np.int32)]
+    )
+    return graph_from_edges(src, dst, num_nodes, n_node_pad, n_edge_pad, device=device)
+
+
+def graph_from_dense(adj: np.ndarray, **kw) -> Graph:
+    """Build from a dense 0/1 adjacency; ``adj[i, j] != 0`` ⇒ edge ``j → i``.
+    ``kw`` goes to :func:`graph_from_edges` (padding, ``device``)."""
+    adj = np.asarray(adj)
+    dst, src = np.nonzero(adj)
+    return graph_from_edges(src.astype(np.int32), dst.astype(np.int32), adj.shape[0], **kw)
 
 
 def pad_graph(g: Graph, n_node: int, n_edge: int, *, device: DeviceLike = None) -> Graph:

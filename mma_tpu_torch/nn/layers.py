@@ -38,9 +38,9 @@ class Dense(nn.Module):
                  device: DeviceLike = None, generator: Optional[torch.Generator] = None):
         super().__init__()
         dev = resolve_device(device)
-        bound = 1.0 / math.sqrt(in_features)
-        self.w = nn.Parameter(inits.uniform((in_features, out_features), bound, generator).to(dev))
-        self.b = (nn.Parameter(inits.uniform((out_features,), bound, generator).to(dev))
+        self.w = nn.Parameter(inits.uniform_fan_in((in_features, out_features), generator).to(dev))
+        self.b = (nn.Parameter(inits.uniform((out_features,), 1.0 / math.sqrt(in_features),
+                                             generator).to(dev))
                   if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -58,8 +58,7 @@ class Embedding(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         dev = resolve_device(device)
-        table = torch.randn((num_embeddings, features), generator=generator)
-        self.table = nn.Parameter(table.to(dev))
+        self.table = nn.Parameter(inits.normal((num_embeddings, features), generator).to(dev))
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
         return gather_rows(self.table, idx)

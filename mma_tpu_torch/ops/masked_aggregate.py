@@ -98,6 +98,13 @@ def mma_mask_projections(h: torch.Tensor, mask_weights: torch.Tensor):
     return c, d
 
 
+def mma_mask_logits(h: torch.Tensor, mask_weights: torch.Tensor, graph: Graph) -> torch.Tensor:
+    """Per-edge mask logits for K aggregators, ``c[dst] + d[src]``: ``(E, K·F)``
+    flat, padding edges included."""
+    c, d = mma_mask_projections(h, mask_weights)
+    return gather_by_dst(c, graph) + gather_by_src(d, graph)
+
+
 def sigmoid_lane_pattern(specs: Sequence[AggSpec], activation: str,
                          parity: bool, f: int, device) -> torch.Tensor:
     """(K·F,) float 0/1: which flat lanes get the sigmoid (N1 table)."""
@@ -115,8 +122,7 @@ def _edge_messages(h, graph, mask_weights, pat, rate, generator):
     probability ``1 - rate`` and scales it by ``1 / (1 - rate)``; the keep
     draws come from ``generator`` on the tensors' device."""
     k = mask_weights.shape[0]
-    c, d = mma_mask_projections(h, mask_weights)
-    logits = gather_by_dst(c, graph) + gather_by_src(d, graph)
+    logits = mma_mask_logits(h, mask_weights, graph)
     mask = torch.where(pat.bool(), torch.sigmoid(logits), logits)
     if generator is not None:
         keep = torch.rand(mask.shape, generator=generator, device=mask.device) >= rate
