@@ -1,0 +1,10 @@
+"""Host time a served request in the port's kernel wrappers: the
+``kernel.*`` spans inside ``serve.call``, around each launcher's argument
+checks, scratch allocation and launches (ms, traced stretch)."""
+
+from h100_bench.port_spans import stretch
+
+
+def read(ctx):
+    s = stretch(ctx, "serve.call")
+    return None if s is None else s.host_ms(lambda n: n.startswith("kernel."))

@@ -25,6 +25,7 @@ from mma_tpu_torch.graph.container import Graph
 from mma_tpu_torch.nn import init as inits
 from mma_tpu_torch.ops.spmm import binary_spmm
 from mma_tpu_torch.parallel.collectives import AxisName
+from mma_tpu_torch.utils.profiling import trace
 
 
 class GraphConvolution(nn.Module):
@@ -47,7 +48,8 @@ class GraphConvolution(nn.Module):
 
     def forward(self, x: torch.Tensor, graph: Graph, axis_name: AxisName = None
                 ) -> torch.Tensor:
-        out = binary_spmm(graph, (x @ self.w).to(self.edge_dtype), axis_name)
-        if self.b is not None:
-            out = out + self.b
-        return out
+        with trace("gcn.layer"):
+            out = binary_spmm(graph, (x @ self.w).to(self.edge_dtype), axis_name)
+            if self.b is not None:
+                out = out + self.b
+            return out

@@ -36,6 +36,7 @@ from mma_tpu_torch.ops.masked_aggregate import masked_multi_aggregate
 from mma_tpu_torch.ops.scalers import SCALER_NAMES, apply_scalers
 from mma_tpu_torch.ops.spmm import binary_spmm
 from mma_tpu_torch.parallel.collectives import AxisName
+from mma_tpu_torch.utils.profiling import trace
 
 
 class MMALayer(nn.Module):
@@ -89,16 +90,17 @@ class MMALayer(nn.Module):
                 axis_name: AxisName = None) -> torch.Tensor:
         """``generator`` turns on mask dropout (N2), drawn from it; ``None``
         gives the deterministic eval output."""
-        m = masked_multi_aggregate(
-            h, graph, self.masks, self.specs,
-            activation=self.activation, parity=self.parity,
-            mask_dropout_rate=self.mask_dropout, generator=generator,
-            compute_dtype=self.edge_dtype, axis_name=axis_name,
-        )  # (N, K, F)
-        scaled = apply_scalers(
-            m.sum(dim=1), graph.deg, graph.node_mask, self.scalers, parity=self.parity
-        )
-        out = binary_spmm(graph, (scaled @ self.w).to(self.edge_dtype), axis_name)
-        if self.b is not None:
-            out = out + self.b
-        return out
+        with trace("mma.layer"):
+            m = masked_multi_aggregate(
+                h, graph, self.masks, self.specs,
+                activation=self.activation, parity=self.parity,
+                mask_dropout_rate=self.mask_dropout, generator=generator,
+                compute_dtype=self.edge_dtype, axis_name=axis_name,
+            )  # (N, K, F)
+            scaled = apply_scalers(
+                m.sum(dim=1), graph.deg, graph.node_mask, self.scalers, parity=self.parity
+            )
+            out = binary_spmm(graph, (scaled @ self.w).to(self.edge_dtype), axis_name)
+            if self.b is not None:
+                out = out + self.b
+            return out

@@ -71,8 +71,11 @@ differentiable through ``torch.autograd.Function``s whose backward
 dispatches the same way: the plain forward and a plain backward on the
 CPU, the kernels on the card (the backward of :func:`segment_sum_sq_csr`
 and of :func:`fused_masked_aggregate` is plain elementwise code on both,
-as in the JAX package). ``LAUNCHES`` counts kernel launches, so a run can
-show that its path went through the kernels.
+as in the JAX package). ``LAUNCHES`` counts calls of each kernel's
+launcher (a call is one to eight launches, as above), so a run can show
+that its path went through the kernels; while a profiler records, each call
+is a ``kernel.<LAUNCHES key>`` span (``mma_tpu_torch.utils.profiling``)
+around its argument checks, scratch allocation and launches.
 
 The forwards of kernels 1, 2 and 8 run as the ``torch.library`` operators
 ``mma_tpu_torch::segment_sum_csr``, ``edge_program_lean`` and
@@ -89,6 +92,7 @@ from typing import Optional, Tuple
 import torch
 
 from mma_tpu_torch.ops.cuda import build, library
+from mma_tpu_torch.utils.profiling import trace
 
 # The bf16 variants count under their own "_bf16" keys.
 LAUNCHES = {"segment_sum": 0, "edge_program_lean": 0, "edge_program_lean_bwd": 0,
@@ -224,34 +228,36 @@ def _chunk_scratch(n_edges: int, width: int, device):
 
 def _segment_sum_kernel(data: torch.Tensor, row_ptr: torch.Tensor,
                         index: Optional[torch.Tensor] = None) -> torch.Tensor:
-    name = "segment_sum_csr"
-    extra = {} if index is None else {"index": index}
-    _check_cuda_inputs(name, data=data, row_ptr=row_ptr, **extra)
-    _check_dtype(name, "data", data, torch.float32, torch.bfloat16)
-    _check_dtype(name, "row_ptr", row_ptr, torch.int32)
-    if index is not None:
-        _check_dtype(name, "index", index, torch.int32)
-    if data.ndim != 2 or row_ptr.ndim != 1 or (index is not None and index.ndim != 1):
-        raise ValueError(f"{name}: data must be (R, C), row_ptr (N+1,) and index (E,)")
-    n, ch = row_ptr.shape[0] - 1, data.shape[1]
-    # The edge positions the CSR may cover, from shapes alone (no host sync):
-    # they fix the kernel's partition into chunks and its scratch.
-    n_edges = data.shape[0] if index is None else index.shape[0]
-    dev = data.device
-    lib = _lib()
-    out = torch.empty((n, ch), dtype=torch.float32, device=dev)
-    part, tail_row = _chunk_scratch(n_edges, ch, dev)
-    # 4-lane slots: 16-byte float32 loads, 8-byte bf16 ones.
-    vec4 = ch % 4 == 0 and data.data_ptr() % (4 * data.element_size()) == 0
-    with torch.cuda.device(dev):
-        err = lib.mma_segment_sum_csr(
-            data.data_ptr(), row_ptr.data_ptr(),
-            None if index is None else index.data_ptr(), out.data_ptr(), part.data_ptr(),
-            tail_row.data_ptr(), n, ch, n_edges, int(vec4), _bf16(data), _stream(),
-        )
-    _check_launch(lib, err, name)
-    LAUNCHES["segment_sum_bf16" if _bf16(data) else "segment_sum"] += 1
-    return out
+    key = "segment_sum_bf16" if _bf16(data) else "segment_sum"
+    with trace(f"kernel.{key}"):
+        name = "segment_sum_csr"
+        extra = {} if index is None else {"index": index}
+        _check_cuda_inputs(name, data=data, row_ptr=row_ptr, **extra)
+        _check_dtype(name, "data", data, torch.float32, torch.bfloat16)
+        _check_dtype(name, "row_ptr", row_ptr, torch.int32)
+        if index is not None:
+            _check_dtype(name, "index", index, torch.int32)
+        if data.ndim != 2 or row_ptr.ndim != 1 or (index is not None and index.ndim != 1):
+            raise ValueError(f"{name}: data must be (R, C), row_ptr (N+1,) and index (E,)")
+        n, ch = row_ptr.shape[0] - 1, data.shape[1]
+        # The edge positions the CSR may cover, from shapes alone (no host sync):
+        # they fix the kernel's partition into chunks and its scratch.
+        n_edges = data.shape[0] if index is None else index.shape[0]
+        dev = data.device
+        lib = _lib()
+        out = torch.empty((n, ch), dtype=torch.float32, device=dev)
+        part, tail_row = _chunk_scratch(n_edges, ch, dev)
+        # 4-lane slots: 16-byte float32 loads, 8-byte bf16 ones.
+        vec4 = ch % 4 == 0 and data.data_ptr() % (4 * data.element_size()) == 0
+        with torch.cuda.device(dev):
+            err = lib.mma_segment_sum_csr(
+                data.data_ptr(), row_ptr.data_ptr(),
+                None if index is None else index.data_ptr(), out.data_ptr(), part.data_ptr(),
+                tail_row.data_ptr(), n, ch, n_edges, int(vec4), _bf16(data), _stream(),
+            )
+        _check_launch(lib, err, name)
+        LAUNCHES[key] += 1
+        return out
 
 
 def _segment_sum(data, row_ptr, index=None):
@@ -448,13 +454,15 @@ def _lean_edge_pass(c, pattern, d, h, src, row_ptr):
 
 def _edge_program_lean_kernel(c, w_bot, h, pattern, src, row_ptr):
     """Kernel 2 on the card: the node pass, then the edge pass."""
-    name = "edge_program_lean_fwd"
-    _check_program_inputs(name, c, w_bot, h, pattern, src, row_ptr)
-    if h.data_ptr() % 16 or pattern.data_ptr() % 16:
-        raise ValueError(f"{name}: h and pattern must be 16-byte aligned")
-    out = _lean_edge_pass(c, pattern, _lean_node_pass(h, w_bot), h, src, row_ptr)
-    LAUNCHES["edge_program_lean_bf16" if _bf16(h) else "edge_program_lean"] += 1
-    return out
+    key = "edge_program_lean_bf16" if _bf16(h) else "edge_program_lean"
+    with trace(f"kernel.{key}"):
+        name = "edge_program_lean_fwd"
+        _check_program_inputs(name, c, w_bot, h, pattern, src, row_ptr)
+        if h.data_ptr() % 16 or pattern.data_ptr() % 16:
+            raise ValueError(f"{name}: h and pattern must be 16-byte aligned")
+        out = _lean_edge_pass(c, pattern, _lean_node_pass(h, w_bot), h, src, row_ptr)
+        LAUNCHES[key] += 1
+        return out
 
 
 def edge_program_lean_payload_reference(c, w_bot, h, pattern, src, row_ptr, ct):
@@ -573,22 +581,24 @@ def _lean_bwd_node_pass(ddg, h, w_bot):
 
 def _edge_program_lean_bwd_kernel(c, w_bot, h, pattern, src, row_ptr, col_ptr, dst_csc, ct):
     """Kernel 3 on the card: ``D``, the dst pass, the src pass, the node pass."""
-    name = "edge_program_lean_bwd"
-    n, _, _ = _check_program_inputs(name, c, w_bot, h, pattern, src, row_ptr, ct)
-    _check_cuda_inputs(name, c=c, col_ptr=col_ptr, dst_csc=dst_csc)
-    for arg, t in (("col_ptr", col_ptr), ("dst_csc", dst_csc)):
-        _check_dtype(name, arg, t, torch.int32)
-    if col_ptr.shape != (n + 1,) or dst_csc.ndim != 1:
-        raise ValueError(f"{name}: col_ptr{tuple(col_ptr.shape)} and "
-                         f"dst_csc{tuple(dst_csc.shape)} do not fit N={n}")
-    # The passes read h, the pattern and W_bot in 16-byte pieces.
-    h, pattern, w_bot = _aligned(h), _aligned(pattern), _aligned(w_bot)
-    d = _lean_node_pass(h, w_bot)
-    dc, _ = _lean_bwd_dst_pass(c, ct, pattern, d, h, src, row_ptr)
-    ddg = _lean_bwd_src_pass(c, ct, pattern, d, h, dst_csc, col_ptr)
-    dh, dw = _lean_bwd_node_pass(ddg, h, w_bot)
-    LAUNCHES["edge_program_lean_bwd_bf16" if _bf16(h) else "edge_program_lean_bwd"] += 1
-    return dc, dw, dh
+    key = "edge_program_lean_bwd_bf16" if _bf16(h) else "edge_program_lean_bwd"
+    with trace(f"kernel.{key}"):
+        name = "edge_program_lean_bwd"
+        n, _, _ = _check_program_inputs(name, c, w_bot, h, pattern, src, row_ptr, ct)
+        _check_cuda_inputs(name, c=c, col_ptr=col_ptr, dst_csc=dst_csc)
+        for arg, t in (("col_ptr", col_ptr), ("dst_csc", dst_csc)):
+            _check_dtype(name, arg, t, torch.int32)
+        if col_ptr.shape != (n + 1,) or dst_csc.ndim != 1:
+            raise ValueError(f"{name}: col_ptr{tuple(col_ptr.shape)} and "
+                             f"dst_csc{tuple(dst_csc.shape)} do not fit N={n}")
+        # The passes read h, the pattern and W_bot in 16-byte pieces.
+        h, pattern, w_bot = _aligned(h), _aligned(pattern), _aligned(w_bot)
+        d = _lean_node_pass(h, w_bot)
+        dc, _ = _lean_bwd_dst_pass(c, ct, pattern, d, h, src, row_ptr)
+        ddg = _lean_bwd_src_pass(c, ct, pattern, d, h, dst_csc, col_ptr)
+        dh, dw = _lean_bwd_node_pass(ddg, h, w_bot)
+        LAUNCHES[key] += 1
+        return dc, dw, dh
 
 
 def edge_program_lean_bwd(c: torch.Tensor, w_bot: torch.Tensor, h: torch.Tensor,
@@ -710,21 +720,23 @@ def segment_sum_sq_reference(data: torch.Tensor, row_ptr: torch.Tensor) -> torch
 
 
 def _segment_sum_sq_kernel(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
-    name = "segment_sum_sq_csr"
-    _check_cuda_inputs(name, data=data, row_ptr=row_ptr)
-    _check_dtype(name, "data", data, torch.float32, torch.bfloat16)
-    _check_dtype(name, "row_ptr", row_ptr, torch.int32)
-    if data.ndim != 2 or row_ptr.ndim != 1:
-        raise ValueError(f"{name}: data must be (E, C) and row_ptr (N+1,)")
-    n, ch = row_ptr.shape[0] - 1, data.shape[1]
-    out = torch.empty((n, 2 * ch), dtype=torch.float32, device=data.device)
-    lib = _lib()
-    with torch.cuda.device(data.device):
-        err = lib.mma_segment_sum_sq_csr(data.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
-                                         n, ch, _bf16(data), _stream())
-    _check_launch(lib, err, name)
-    LAUNCHES["segment_sum_sq_bf16" if _bf16(data) else "segment_sum_sq"] += 1
-    return out
+    key = "segment_sum_sq_bf16" if _bf16(data) else "segment_sum_sq"
+    with trace(f"kernel.{key}"):
+        name = "segment_sum_sq_csr"
+        _check_cuda_inputs(name, data=data, row_ptr=row_ptr)
+        _check_dtype(name, "data", data, torch.float32, torch.bfloat16)
+        _check_dtype(name, "row_ptr", row_ptr, torch.int32)
+        if data.ndim != 2 or row_ptr.ndim != 1:
+            raise ValueError(f"{name}: data must be (E, C) and row_ptr (N+1,)")
+        n, ch = row_ptr.shape[0] - 1, data.shape[1]
+        out = torch.empty((n, 2 * ch), dtype=torch.float32, device=data.device)
+        lib = _lib()
+        with torch.cuda.device(data.device):
+            err = lib.mma_segment_sum_sq_csr(data.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
+                                             n, ch, _bf16(data), _stream())
+        _check_launch(lib, err, name)
+        LAUNCHES[key] += 1
+        return out
 
 
 def _segment_sum_sq(data, row_ptr):
@@ -833,10 +845,12 @@ def edge_program_fwd_reference(c, d, h, pattern, src, row_ptr):
 def _edge_program_fwd_kernel(c, d, h, pattern, src, row_ptr):
     """Kernel 9 on the card: kernel 2's edge pass (two launches) over the
     caller's ``d``; ``c`` as float32."""
-    _check_wide_inputs("edge_program_fwd", c, d, h, pattern, src, row_ptr)
-    out = _lean_edge_pass(c.float(), _aligned(pattern), d, h, src, row_ptr)
-    LAUNCHES["edge_program_fwd_bf16" if _bf16(h) else "edge_program_fwd"] += 1
-    return out
+    key = "edge_program_fwd_bf16" if _bf16(h) else "edge_program_fwd"
+    with trace(f"kernel.{key}"):
+        _check_wide_inputs("edge_program_fwd", c, d, h, pattern, src, row_ptr)
+        out = _lean_edge_pass(c.float(), _aligned(pattern), d, h, src, row_ptr)
+        LAUNCHES[key] += 1
+        return out
 
 
 def edge_program_fwd(c: torch.Tensor, d: torch.Tensor, h: torch.Tensor,
@@ -873,10 +887,12 @@ def _edge_program_bwd_kernel(c, d, h, pattern, src, row_ptr, ct, emit_payload=Tr
     """Kernel 10 on the card: kernel 3's dst pass (two launches) over the
     caller's ``d``, writing the payload in the same pass; ``c`` as
     float32."""
-    _check_wide_inputs("edge_program_bwd", c, d, h, pattern, src, row_ptr, ct)
-    out = _lean_bwd_dst_pass(c.float(), ct, _aligned(pattern), d, h, src, row_ptr, emit_payload)
-    LAUNCHES["edge_program_bwd_bf16" if _bf16(h) else "edge_program_bwd"] += 1
-    return out
+    key = "edge_program_bwd_bf16" if _bf16(h) else "edge_program_bwd"
+    with trace(f"kernel.{key}"):
+        _check_wide_inputs("edge_program_bwd", c, d, h, pattern, src, row_ptr, ct)
+        out = _lean_bwd_dst_pass(c.float(), ct, _aligned(pattern), d, h, src, row_ptr, emit_payload)
+        LAUNCHES[key] += 1
+        return out
 
 
 def edge_program_bwd(c: torch.Tensor, d: torch.Tensor, h: torch.Tensor,
@@ -924,10 +940,13 @@ def _edge_program_bwd_csc_kernel(c, d, h, pattern, dst_csc, col_ptr, ct):
     """Kernel 11 on the card: kernel 3's src pass (two launches) over the
     caller's ``d``, folding ``G``'s K blocks into ``dh`` as it stores; ``c``
     as float32."""
-    _check_wide_inputs("edge_program_bwd_csc", c, d, h, pattern, dst_csc, col_ptr, ct)
-    out = _lean_bwd_src_pass(c.float(), ct, _aligned(pattern), d, h, dst_csc, col_ptr, fold=True)
-    LAUNCHES["edge_program_bwd_csc_bf16" if _bf16(h) else "edge_program_bwd_csc"] += 1
-    return out
+    key = "edge_program_bwd_csc_bf16" if _bf16(h) else "edge_program_bwd_csc"
+    with trace(f"kernel.{key}"):
+        _check_wide_inputs("edge_program_bwd_csc", c, d, h, pattern, dst_csc, col_ptr, ct)
+        out = _lean_bwd_src_pass(c.float(), ct, _aligned(pattern), d, h, dst_csc, col_ptr,
+                                 fold=True)
+        LAUNCHES[key] += 1
+        return out
 
 
 def edge_program_bwd_csc(c: torch.Tensor, d: torch.Tensor, h: torch.Tensor,
@@ -1048,29 +1067,30 @@ def masked_segment_sum_reference(logits: torch.Tensor, h_src: torch.Tensor,
 
 
 def _masked_segment_sum_kernel(logits, h_src, pattern, row_ptr):
-    name = "masked_segment_sum"
-    _check_cuda_inputs(name, logits=logits, h_src=h_src, pattern=pattern, row_ptr=row_ptr)
-    n, f, kf = _check_masked_inputs(name, logits, h_src, pattern, row_ptr)
-    # The edge positions the CSR may cover, from shapes alone (no host
-    # sync): they fix kernel 1's chunks, which this kernel runs on.
-    n_edges = logits.shape[0]
-    dev = logits.device
-    out = torch.empty((n, kf), dtype=torch.float32, device=dev)
-    part, tail_row = _chunk_scratch(n_edges, kf, dev)
-    # 4-lane slots: 16-byte float32 loads, 8-byte bf16 ones.
-    vec4 = f % 4 == 0 and pattern.data_ptr() % 16 == 0 and all(
-        t.data_ptr() % (4 * t.element_size()) == 0 for t in (logits, h_src))
-    lib = _lib()
-    with torch.cuda.device(dev):
-        err = lib.mma_masked_segment_sum(
-            logits.data_ptr(), h_src.data_ptr(), pattern.data_ptr(), row_ptr.data_ptr(),
-            out.data_ptr(), part.data_ptr(), tail_row.data_ptr(), n, f, kf, n_edges, int(vec4),
-            _bf16(logits), _bf16(h_src), _stream(),
-        )
-    _check_launch(lib, err, name)
-    LAUNCHES["masked_segment_sum_bf16" if _bf16(logits) or _bf16(h_src)
-             else "masked_segment_sum"] += 1
-    return out
+    key = "masked_segment_sum_bf16" if _bf16(logits) or _bf16(h_src) else "masked_segment_sum"
+    with trace(f"kernel.{key}"):
+        name = "masked_segment_sum"
+        _check_cuda_inputs(name, logits=logits, h_src=h_src, pattern=pattern, row_ptr=row_ptr)
+        n, f, kf = _check_masked_inputs(name, logits, h_src, pattern, row_ptr)
+        # The edge positions the CSR may cover, from shapes alone (no host
+        # sync): they fix kernel 1's chunks, which this kernel runs on.
+        n_edges = logits.shape[0]
+        dev = logits.device
+        out = torch.empty((n, kf), dtype=torch.float32, device=dev)
+        part, tail_row = _chunk_scratch(n_edges, kf, dev)
+        # 4-lane slots: 16-byte float32 loads, 8-byte bf16 ones.
+        vec4 = f % 4 == 0 and pattern.data_ptr() % 16 == 0 and all(
+            t.data_ptr() % (4 * t.element_size()) == 0 for t in (logits, h_src))
+        lib = _lib()
+        with torch.cuda.device(dev):
+            err = lib.mma_masked_segment_sum(
+                logits.data_ptr(), h_src.data_ptr(), pattern.data_ptr(), row_ptr.data_ptr(),
+                out.data_ptr(), part.data_ptr(), tail_row.data_ptr(), n, f, kf, n_edges, int(vec4),
+                _bf16(logits), _bf16(h_src), _stream(),
+            )
+        _check_launch(lib, err, name)
+        LAUNCHES[key] += 1
+        return out
 
 
 def masked_segment_sum(logits: torch.Tensor, h_src: torch.Tensor, pattern: torch.Tensor,

@@ -31,8 +31,10 @@ callers' ``where(deg > 0, ·, 0)`` of the JAX package is not needed.
 
 Each kernel has a plain PyTorch version here (``*_reference``); a wrapper
 takes it for CPU tensors and launches the kernel for CUDA tensors, and any
-other device, dtype, shape or layout raises. ``LAUNCHES`` counts kernel
-launches, so a run can show that its path went through the kernels. The
+other device, dtype, shape or layout raises. ``LAUNCHES`` counts calls
+(one launch each), so a run can show that its path went through the
+kernels; while a profiler records, each call is a ``kernel.<LAUNCHES key>``
+span around its checks, allocation and launch. The
 forwards of kernels 4 and 6 run as the ``torch.library`` operators
 ``mma_tpu_torch::segment_minmax`` and ``minmax_edge_program``
 (``mma_tpu_torch.ops.cuda.library``).
@@ -59,6 +61,7 @@ from mma_tpu_torch.ops.cuda.fused_mma import (
     _stream,
 )
 from mma_tpu_torch.ops.segment import segment_max, segment_min
+from mma_tpu_torch.utils.profiling import trace
 
 # The bf16 variants count under their own "_bf16" keys.
 LAUNCHES = {"segment_minmax": 0, "segment_minmax_bwd": 0, "minmax_prog": 0,
@@ -278,35 +281,39 @@ def _check_pc(name, ops, n_rows, ch, **tensors):
 
 
 def _segment_minmax_kernel(data, row_ptr, ops):
-    name = "segment_minmax"
-    if data.ndim != 2:
-        raise ValueError(f"{name}: data must be (E, C)")
-    n, ch = row_ptr.shape[0] - 1, data.shape[1]
-    _check_rows(name, row_ptr, n, data=data)
-    out = torch.empty((n, len(ops) * ch), dtype=torch.float32, device=data.device)
-    lib = _lib()
-    with torch.cuda.device(data.device):
-        err = lib.mma_segment_minmax(data.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), n,
-                                     ch, len(ops), _max_bits(ops), _bf16(data), _stream())
-    _check_launch(lib, err, name)
-    LAUNCHES["segment_minmax_bf16" if _bf16(data) else "segment_minmax"] += 1
-    return out
+    key = "segment_minmax_bf16" if _bf16(data) else "segment_minmax"
+    with trace(f"kernel.{key}"):
+        name = "segment_minmax"
+        if data.ndim != 2:
+            raise ValueError(f"{name}: data must be (E, C)")
+        n, ch = row_ptr.shape[0] - 1, data.shape[1]
+        _check_rows(name, row_ptr, n, data=data)
+        out = torch.empty((n, len(ops) * ch), dtype=torch.float32, device=data.device)
+        lib = _lib()
+        with torch.cuda.device(data.device):
+            err = lib.mma_segment_minmax(data.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), n,
+                                         ch, len(ops), _max_bits(ops), _bf16(data), _stream())
+        _check_launch(lib, err, name)
+        LAUNCHES[key] += 1
+        return out
 
 
 def _segment_minmax_bwd_kernel(data, row_ptr, ops, out, ct):
-    name = "segment_minmax_bwd"
-    n, ch = row_ptr.shape[0] - 1, data.shape[1]
-    _check_rows(name, row_ptr, n, data=data, out=out, ct=ct)
-    _check_pc(name, ops, n, ch, out=out, ct=ct)
-    grad = torch.empty(data.shape, dtype=data.dtype, device=data.device)
-    lib = _lib()
-    with torch.cuda.device(data.device):
-        err = lib.mma_segment_minmax_bwd(data.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
-                                         ct.data_ptr(), grad.data_ptr(), n, data.shape[0], ch,
-                                         len(ops), _bf16(data), _stream())
-    _check_launch(lib, err, name)
-    LAUNCHES["segment_minmax_bwd_bf16" if _bf16(data) else "segment_minmax_bwd"] += 1
-    return grad
+    key = "segment_minmax_bwd_bf16" if _bf16(data) else "segment_minmax_bwd"
+    with trace(f"kernel.{key}"):
+        name = "segment_minmax_bwd"
+        n, ch = row_ptr.shape[0] - 1, data.shape[1]
+        _check_rows(name, row_ptr, n, data=data, out=out, ct=ct)
+        _check_pc(name, ops, n, ch, out=out, ct=ct)
+        grad = torch.empty(data.shape, dtype=data.dtype, device=data.device)
+        lib = _lib()
+        with torch.cuda.device(data.device):
+            err = lib.mma_segment_minmax_bwd(data.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
+                                             ct.data_ptr(), grad.data_ptr(), n, data.shape[0], ch,
+                                             len(ops), _bf16(data), _stream())
+        _check_launch(lib, err, name)
+        LAUNCHES[key] += 1
+        return grad
 
 
 def _check_program(name, c, hg, row_ptr, seed, **extra):
@@ -324,40 +331,44 @@ def _check_program(name, c, hg, row_ptr, seed, **extra):
 
 
 def _minmax_prog_kernel(c, hg, row_ptr, ops, seed, rate):
-    name = "minmax_prog"
-    n, ch = _check_program(name, c, hg, row_ptr, seed)
-    thresh, scale = _dropout_params(rate) if seed is not None else (0, 1.0)
-    out = torch.empty((n, len(ops) * ch), dtype=torch.float32, device=c.device)
-    lib = _lib()
-    with torch.cuda.device(c.device):
-        # hg's rows bound the CSR's edges: with N they fix the kernel's
-        # tiles from shapes alone (no host sync).
-        err = lib.mma_minmax_prog(c.data_ptr(), hg.data_ptr(), row_ptr.data_ptr(),
-                                  None if seed is None else seed.data_ptr(), out.data_ptr(),
-                                  n, hg.shape[0], ch, len(ops), _max_bits(ops), thresh, scale,
-                                  _bf16(hg), _stream())
-    _check_launch(lib, err, name)
-    LAUNCHES["minmax_prog_bf16" if _bf16(hg) else "minmax_prog"] += 1
-    return out
+    key = "minmax_prog_bf16" if _bf16(hg) else "minmax_prog"
+    with trace(f"kernel.{key}"):
+        name = "minmax_prog"
+        n, ch = _check_program(name, c, hg, row_ptr, seed)
+        thresh, scale = _dropout_params(rate) if seed is not None else (0, 1.0)
+        out = torch.empty((n, len(ops) * ch), dtype=torch.float32, device=c.device)
+        lib = _lib()
+        with torch.cuda.device(c.device):
+            # hg's rows bound the CSR's edges: with N they fix the kernel's
+            # tiles from shapes alone (no host sync).
+            err = lib.mma_minmax_prog(c.data_ptr(), hg.data_ptr(), row_ptr.data_ptr(),
+                                      None if seed is None else seed.data_ptr(), out.data_ptr(),
+                                      n, hg.shape[0], ch, len(ops), _max_bits(ops), thresh, scale,
+                                      _bf16(hg), _stream())
+        _check_launch(lib, err, name)
+        LAUNCHES[key] += 1
+        return out
 
 
 def _minmax_prog_bwd_kernel(c, hg, row_ptr, ops, seed, rate, out, ct):
-    name = "minmax_prog_bwd"
-    n, ch = _check_program(name, c, hg, row_ptr, seed, out=out, ct=ct)
-    _check_pc(name, ops, n, ch, out=out, ct=ct)
-    thresh, scale = _dropout_params(rate) if seed is not None else (0, 1.0)
-    dhg = torch.empty(hg.shape, dtype=hg.dtype, device=c.device)
-    dc = torch.empty(c.shape, dtype=c.dtype, device=c.device)
-    lib = _lib()
-    with torch.cuda.device(c.device):
-        err = lib.mma_minmax_prog_bwd(c.data_ptr(), hg.data_ptr(), row_ptr.data_ptr(),
-                                      None if seed is None else seed.data_ptr(),
-                                      out.data_ptr(), ct.data_ptr(), dhg.data_ptr(),
-                                      dc.data_ptr(), n, hg.shape[0], ch, len(ops), thresh,
-                                      scale, _bf16(hg), _stream())
-    _check_launch(lib, err, name)
-    LAUNCHES["minmax_prog_bwd_bf16" if _bf16(hg) else "minmax_prog_bwd"] += 1
-    return dhg, dc
+    key = "minmax_prog_bwd_bf16" if _bf16(hg) else "minmax_prog_bwd"
+    with trace(f"kernel.{key}"):
+        name = "minmax_prog_bwd"
+        n, ch = _check_program(name, c, hg, row_ptr, seed, out=out, ct=ct)
+        _check_pc(name, ops, n, ch, out=out, ct=ct)
+        thresh, scale = _dropout_params(rate) if seed is not None else (0, 1.0)
+        dhg = torch.empty(hg.shape, dtype=hg.dtype, device=c.device)
+        dc = torch.empty(c.shape, dtype=c.dtype, device=c.device)
+        lib = _lib()
+        with torch.cuda.device(c.device):
+            err = lib.mma_minmax_prog_bwd(c.data_ptr(), hg.data_ptr(), row_ptr.data_ptr(),
+                                          None if seed is None else seed.data_ptr(),
+                                          out.data_ptr(), ct.data_ptr(), dhg.data_ptr(),
+                                          dc.data_ptr(), n, hg.shape[0], ch, len(ops), thresh,
+                                          scale, _bf16(hg), _stream())
+        _check_launch(lib, err, name)
+        LAUNCHES[key] += 1
+        return dhg, dc
 
 
 # --------------------------------------------------------------- dispatch

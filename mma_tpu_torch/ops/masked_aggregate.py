@@ -76,6 +76,7 @@ from mma_tpu_torch.ops.cuda.fused_mma import (
 from mma_tpu_torch.ops.ell import EllSpec, ell_gather_nodes_by_src, ell_valid, pad_rows
 from mma_tpu_torch.ops.gather import gather_by_dst, gather_by_src
 from mma_tpu_torch.parallel.collectives import AxisName, psum
+from mma_tpu_torch.utils.profiling import trace
 
 _EPS = 1e-5
 
@@ -112,7 +113,9 @@ def sigmoid_lane_pattern(specs: Sequence[AggSpec], activation: str,
         [float(s.applies_sigmoid(activation, parity)) for s in specs],
         dtype=torch.float32,
     )
-    return pat.repeat_interleave(f).to(device)
+    pat = pat.repeat_interleave(f)
+    with trace("sync.lane_pattern"):  # a host-to-card copy: the host waits for it
+        return pat.to(device)
 
 
 def _edge_messages(h, graph, mask_weights, pat, rate, generator):

@@ -47,10 +47,13 @@ import contextlib
 import io
 import json
 import pickle
+import threading
 from typing import Any, Callable, Optional, Sequence
 
 import torch
 import torch.utils._pytree as pytree
+
+from mma_tpu_torch.utils.profiling import trace
 
 _META = "mma_tpu_torch_serve.json"
 # Names a caller may give ``platforms``: the JAX package's "gpu" and the
@@ -134,7 +137,10 @@ def load_forward(blob: bytes) -> Callable:
     The callable takes the argument structure of the export (same shapes,
     dtypes and static container fields, on the export's device) and
     returns the forward's output. Loading imports the kernel modules, which
-    define the ``mma_tpu_torch::*`` operators the artifact calls.
+    define the ``mma_tpu_torch::*`` operators the artifact calls. While a
+    ``torch.profiler`` records, a call is the span ``serve.call`` with
+    ``serve.check``, ``serve.inputs`` and ``serve.graph`` inside
+    (:func:`_graph_starts`).
     """
     from mma_tpu_torch.ops.cuda import fused_mma, segment_minmax  # noqa: F401  (the operators)
 
@@ -143,15 +149,52 @@ def load_forward(blob: bytes) -> Callable:
         program = torch.export.load(io.BytesIO(blob), extra_files=extra)
     device = json.loads(extra[_META])["device"]
     module = program.module()
+    _mark_graph_start(module)
 
     def served(*args):
-        got = _device_type(args)
-        if got != device:
-            raise ValueError(f"this artifact serves on {device!r} and was called with "
-                             f"tensors on {got!r}")
-        return module(*args)
+        with trace("serve.call"):
+            with trace("serve.check"):
+                got = _device_type(args)
+            if got != device:
+                raise ValueError(f"this artifact serves on {device!r} and was called with "
+                                 f"tensors on {got!r}")
+            _part.span = trace("serve.inputs")
+            _part.span.__enter__()
+            try:
+                return module(*args)
+            finally:
+                _part.span.__exit__(None, None, None)
+                _part.span = None
 
     return served
+
+
+# The open part of a served call on this thread: ``serve.inputs`` from the
+# device check to the graph's first node, then ``serve.graph``.
+_part = threading.local()
+
+
+def _graph_starts() -> None:
+    """The first node of a loaded module's graph: ends the served call's
+    ``serve.inputs`` span (the module's pre-hooks, its input checks and the
+    pytree flatten) and opens ``serve.graph`` (the graph's nodes and the
+    unflatten)."""
+    span = getattr(_part, "span", None)
+    if span is not None:
+        span.__exit__(None, None, None)
+        _part.span = trace("serve.graph")
+        _part.span.__enter__()
+
+
+def _mark_graph_start(module: torch.fx.GraphModule) -> None:
+    """Insert a call of :func:`_graph_starts` after the loaded module's
+    placeholders, where ``torch.export`` puts its own ``_guards_fn`` call
+    when an artifact keeps example inputs (these keep none). The node
+    computes nothing: the outputs stay those of the artifact."""
+    graph = module.graph
+    with graph.inserting_after(graph.find_nodes(op="placeholder")[-1]):
+        graph.call_function(_graph_starts)
+    module.recompile()
 
 
 def export_node_classifier(model, params, x, graph, *, use_pallas: bool = False,

@@ -12,7 +12,9 @@
 
 PyTorch runs eagerly, so each step is a plain function
 (:func:`node_train_step`, :func:`zinc_train_step`) where the JAX package
-jits one.
+jits one. While a ``torch.profiler`` records, a step is the span ``step``
+with ``step.forward``, ``step.loss``, ``step.backward`` and
+``step.optimizer`` inside (``mma_tpu_torch.utils.profiling``).
 
 Randomness: the weights are drawn from a CPU generator seeded with
 ``cfg.seed`` (so one seed gives the same weights on any device), and the
@@ -90,12 +92,17 @@ def node_train_step(model: NodeClassifier, optimizer: torch.optim.Optimizer,
     """One training step: the train-mode forward, the NLL over ``idx_train``,
     the backward and one optimizer update. Returns ``(loss, logp)``,
     detached; ``labels`` and ``idx_train`` are int64."""
-    optimizer.zero_grad(set_to_none=True)
-    logp = model(x, graph, training=True, generator=generator)
-    loss = nll(logp, labels, idx_train)
-    loss.backward()
-    optimizer.step()
-    return loss.detach(), logp.detach()
+    with trace("step"):
+        optimizer.zero_grad(set_to_none=True)
+        with trace("step.forward"):
+            logp = model(x, graph, training=True, generator=generator)
+        with trace("step.loss"):
+            loss = nll(logp, labels, idx_train)
+        with trace("step.backward"):
+            loss.backward()
+        with trace("step.optimizer"):
+            optimizer.step()
+        return loss.detach(), logp.detach()
 
 
 def train_node_classification(cfg: NodeClassificationConfig, data=None, *,
@@ -165,9 +172,7 @@ def _train(cfg: NodeClassificationConfig, data, dev: torch.device):
     history = []
     for epoch in range(start_epoch, cfg.epochs):
         t = time.time()
-        with trace("train_step"):
-            loss_train, logp_train = node_train_step(model, opt, x, graph, labels,
-                                                     idx_train, gen)
+        loss_train, logp_train = node_train_step(model, opt, x, graph, labels, idx_train, gen)
         acc_train = accuracy(logp_train[idx_train], labels[idx_train])
         # train.py:82-86: fastmode reuses the train-mode forward.
         logp = logp_train if cfg.fastmode else eval_forward()
@@ -222,14 +227,20 @@ def zinc_train_step(model: ZincNet, optimizer: torch.optim.Optimizer,
     parity mode, N7) get a zero gradient, so that weight decay still moves
     them. ``torch.optim.Adam`` would skip a parameter without a gradient.
     """
-    optimizer.zero_grad(set_to_none=True)
-    loss = l1_loss(model(batch, training=True, generator=generator), batch)
-    loss.backward()
-    for p in model.parameters():
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    optimizer.step()
-    return loss.detach()
+    with trace("step"):
+        optimizer.zero_grad(set_to_none=True)
+        with trace("step.forward"):
+            pred = model(batch, training=True, generator=generator)
+        with trace("step.loss"):
+            loss = l1_loss(pred, batch)
+        with trace("step.backward"):
+            loss.backward()
+        with trace("step.optimizer"):
+            for p in model.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            optimizer.step()
+        return loss.detach()
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
@@ -360,8 +371,7 @@ def _train_zinc(cfg: ZincConfig, datasets, dev: torch.device):
         total_loss = torch.zeros((), device=dev)
         total_graphs = torch.zeros((), device=dev)
         for batch in batches(train_ds, shuffle=True, seed=cfg.seed + epoch):
-            with trace("train_step"):
-                loss = zinc_train_step(model, opt, batch, gen)
+            loss = zinc_train_step(model, opt, batch, gen)
             ng = batch.graph_mask.sum()
             total_loss += loss * ng
             total_graphs += ng

@@ -41,4 +41,4 @@ def test_the_training_loop_marks_its_steps(tmp_path):
     cfg = NodeClassificationConfig(dataset="cora", aggregators=("mean",), hidden=8, epochs=2)
     with profile_to(str(tmp_path)) as prof:
         train_node_classification(cfg, device="cpu")
-    assert sum(e.name == "train_step" for e in prof.events()) == 2
+    assert sum(e.name == "step" for e in prof.events()) == 2
