@@ -21,8 +21,8 @@
      ``segment_softmax_denom`` and ``mma_mask_logits`` at synthetic-large
      within 1e-5 of the same calls on the CPU.
    - **cora-train**: ``train_node_classification`` at the README preset
-     (``NODE_CLS_PRESETS["cora"]``: 200 epochs, mask dropout 0.75, so the
-     half-fused route), seeds 0, 1, 2 and 42. The mean test accuracy must
+     (``NODE_CLS_PRESETS["cora"]``: 200 epochs, mask dropout 0.75, so
+     kernels 2-3 with the keep), seeds 0, 1, 2 and 42. The mean test accuracy must
      reach 0.834 (the JAX package's CPU band 0.849 ± 0.005, less 3 sd).
    - **large-train**: 3 Adam steps of ``NodeClassifier(64, 64, 16,
      mean,mean2, dropout 0)`` on the synthetic-large graph through
@@ -75,11 +75,12 @@
      defaults (a 200,000-node power-law graph from the seed, ``--avg-deg
      25``, batch 512, fanouts 10,10,5, hidden 64, 100 features, 47
      classes, ``mean,mean2``, dropout 0.5, the ``device_finish``
-     pipeline) for 20 steps: the half-fused route, kernel 1.
+     pipeline) for 20 steps: kernel 1, kernels 2-3 with the keep.
      **sampled-train-lean**: ``--dropout 0``, 5 steps (kernels 1, 2, 3).
      **sampled-train-ell**: ``--use-ell``, 10 steps (the ELL route; kernel
      1 for the products and the slot gather's VJP).
-     **sampled-train-hostbuilt**: ``--host-built``, 5 steps (kernel 1).
+     **sampled-train-hostbuilt**: ``--host-built``, 5 steps (kernel 1,
+     kernels 2-3 with the keep).
    - **sampled-quality**: the community graph of
      ``tests/test_sampling.py:260-345`` on the card, sampled training
      against full-graph training (full accuracy above 0.6, sampled within
@@ -180,7 +181,9 @@
    card (under PyTorch's deterministic algorithms, so that the reference
    is the same every run): the serving outputs, every parameter gradient
    of one more Cora train step from a trained state (mask dropout on, the
-   same draws on both sides), and every parameter gradient of the first
+   same draws on both sides; on kernels 2-3 with the keep and on the
+   float32 half-fused route, each against the plain step), and every
+   parameter gradient of the first
    synthetic-large train step. The first Cora request is also held against
    the plain forward on the CPU, which the CPU tests hold against the JAX
    package. The wide route's output and gradients, in both modes, against
@@ -199,7 +202,7 @@
    preset's train step timed on both layouts in turns. For the sampled
    paths: the native library built; the device-finished graph equal to
    the host-built one field for field (both layouts) with full-graph
-   degrees; one train step per route (half-fused, lean, ELL) on one batch
+   degrees; one train step per route (lean with the keep, lean, ELL) on one batch
    against the all-plain step (loss, log-probs, every gradient at 1e-5);
    the ELL route's predictions against the CSR route's on a hopped batch
    (dropout off, 1e-5); hole rows moving no seed output and taking no
@@ -239,6 +242,12 @@
    kernel's median time, the plain version's time, the time of one
    PyTorch library call for the same function where there is one, and the
    least time the card could take (``bound_ms``). The bf16 variants of
+   kernels 2 and 3 with mask dropout's keep the same way, as entries of
+   their own (``edge_program_lean_keep``, ``..._keep_bwd``), on the
+   arguments, keep and cotangent of a step of the large-train model with
+   mask dropout 0.75 (node-large-train's route), each with the keep-free
+   kernel's time on the same values in turns, its keep-aware edge passes
+   alone and the keep's draw and compare. The bf16 variants of
    kernels 1, 2 and 3 the same way, as entries of their own, on the bf16
    paths' tensors at synthetic-large (kernel 1 at the SpMM widths C=64 and
    16, the half-fused messages and their gathers' VJP at C=128), each
@@ -983,13 +992,120 @@ def run_zinc(dev, paths: dict):
     return kernels, {"batch": batch, "exact": exact, "avg": avg, "splits": splits}
 
 
-def bf16_turns(run_f32, run_bf16, iters: int = 25):
-    """Median device times of the bf16 and the f32 run, taken in turns (f32,
-    bf16, bf16, f32): ``(bf16_ms, f32_ms)``."""
-    t = {"f32": [], "bf16": []}
-    for which in ("f32", "bf16", "bf16", "f32"):
-        t[which].append(device_ms(run_f32 if which == "f32" else run_bf16, iters=iters))
-    return statistics.median(t["bf16"]), statistics.median(t["f32"])
+def device_turns(run_base, run_other, iters: int = 25):
+    """Median device times of two runs on the same values (the f32 and the
+    bf16 kernel, or a kernel without and with the keep), taken in turns
+    (base, other, other, base): ``(other_ms, base_ms)``."""
+    t = {"base": [], "other": []}
+    for which in ("base", "other", "other", "base"):
+        t[which].append(device_ms(run_base if which == "base" else run_other, iters=iters))
+    return statistics.median(t["other"]), statistics.median(t["base"])
+
+
+def keep_kernel_entries(dev, big, x_big, model, labels, idx_train) -> dict:
+    """Kernels 2 and 3 with mask dropout's keep at synthetic-large, on the
+    edge program's arguments, keep and cotangent of one step of ``model``'s
+    weights with mask dropout 0.75 (node-large-train's route): the
+    forward, ``dc``, ``dW_bot`` and ``dh`` held against their plain
+    versions (1e-5) and run to run (bitwise), each call timed beside the
+    keep-free kernel on the same values in turns (without, with, with,
+    without), with its keep-aware edge passes alone and the keep's draw
+    and compare; bounds count the keep's bytes once."""
+    from mma_tpu_torch.models import NodeClassifier
+    from mma_tpu_torch.ops import masked_aggregate
+    from mma_tpu_torch.ops.cuda import fused_mma
+
+    rate = 0.75
+    drop = NodeClassifier(64, 64, 16, ("mean", "mean2"), dropout_rate=rate, device=dev)
+    drop.load_state_dict(model.state_dict())
+    step_gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    def one_step():
+        with torch.enable_grad():
+            o = drop(x_big, big, training=True, generator=step_gen)
+            (-o[idx_train, labels[idx_train]].mean()).backward()
+
+    args, kw, ct = capture_call(masked_aggregate, "edge_program_lean", one_step)
+    if kw.get("keep") is None or kw.get("rate") != rate:
+        raise AssertionError(f"a dropout-{rate} step gave kernel 2 no keep: {sorted(kw)}")
+    c, w_bot, h, pat, src, rp, cp, dst_csc = (t.detach() for t in args)
+    keep, src_perm = kw["keep"], kw["src_perm"]
+    kw = {"keep": keep, "rate": rate, "src_perm": src_perm}
+    f, kf = w_bot.shape
+    e_cov, n_rows = int(rp[-1]), big.n_node
+    shape = f"E={e_cov} N={n_rows} F={f} K·F={kf}, keep {tuple(keep.shape)} at rate {rate}"
+    out = {}
+
+    # ------------------------------------------------------------ kernel 2
+    fwd_args = (c, w_bot, h, pat, src, rp)
+    got = fused_mma.edge_program_lean(*fwd_args, cp, dst_csc, **kw)
+    if not torch.equal(got, fused_mma.edge_program_lean(*fwd_args, cp, dst_csc, **kw)):
+        raise AssertionError("edge_program_lean_keep differs run to run")
+    err = compare(got, fused_mma.edge_program_lean_reference(*fwd_args, keep, rate), 1e-5,
+                  "edge_program_lean_keep vs plain")
+    ms, free_ms = device_turns(lambda: fused_mma.edge_program_lean(*fwd_args, cp, dst_csc),
+                             lambda: fused_mma.edge_program_lean(*fwd_args, cp, dst_csc, **kw))
+    plain_ms = device_ms(lambda: fused_mma.edge_program_lean_reference(*fwd_args, keep, rate),
+                         iters=5)
+    # Kernel 2's bytes and work (its entry), and the keep read once: a
+    # byte a lane of the covered edges.
+    nbytes = (4 * (n_rows * kf + n_rows * f + f * kf + kf + e_cov + (n_rows + 1) + n_rows * kf)
+              + e_cov * kf)
+    k2 = out["edge_program_lean_keep"] = {
+        "name": "edge_program_lean_keep", "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES["edge_program_lean_fwd"], "max_abs_err": err["max_abs_err"],
+        "ms": ms, "plain_ms": plain_ms, **bound(nbytes, 2 * n_rows * f * kf + 3 * e_cov * kf),
+        "library_ms": None, "keep_free_ms": free_ms,
+        "gather_bound_ms": 4 * e_cov * (kf + f) / PEAK_BYTES_PER_S * 1e3, "shape": shape}
+    scale = fused_mma._keep_scale(rate)
+    d_tab = fused_mma._lean_node_pass(h, w_bot)
+    k2["edge_pass_ms"] = device_ms(
+        lambda: fused_mma._lean_edge_pass(c, pat, d_tab, h, src, rp, keep, scale))
+    draw_gen = torch.Generator(device=dev).manual_seed(SEED)
+    k2["draw_ms"] = device_ms(
+        lambda: torch.rand(tuple(keep.shape), generator=draw_gen, device=dev) >= rate)
+    print(f"edge_program_lean_keep: ms {ms:.4f} (without the keep {free_ms:.4f}, in turns) "
+          f"plain_ms {plain_ms:.4f} bound_ms {k2['bound_ms']:.4f} ({k2['bound_by']}); edge "
+          f"pass {k2['edge_pass_ms']:.4f} ms; the keep's draw and compare "
+          f"{k2['draw_ms']:.4f} ms; bitwise equal run to run; {shape}")
+
+    # ------------------------------------------------------------ kernel 3
+    bwd_args = fwd_args + (cp, dst_csc, ct.contiguous())
+    got = fused_mma.edge_program_lean_bwd(*bwd_args, **kw)
+    again = fused_mma.edge_program_lean_bwd(*bwd_args, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("edge_program_lean_keep_bwd differs run to run")
+    want = fused_mma.edge_program_lean_bwd_reference(*bwd_args, keep, rate)
+    errs = [compare(g, w, 1e-5, f"edge_program_lean_keep_bwd {name} vs plain")
+            for g, w, name in zip(got, want, ("dc", "dW_bot", "dh"))]
+    del got, again, want
+    ms, free_ms = device_turns(lambda: fused_mma.edge_program_lean_bwd(*bwd_args),
+                             lambda: fused_mma.edge_program_lean_bwd(*bwd_args, **kw), iters=15)
+    plain_ms = device_ms(lambda: fused_mma.edge_program_lean_bwd_reference(*bwd_args, keep, rate),
+                         iters=5)
+    # Kernel 3's bytes and work (its entry), the keep read once and
+    # src_perm; the keep's two reads, one per edge pass, apart.
+    nbytes = (4 * (3 * n_rows * kf + 2 * n_rows * f + 2 * f * kf + kf + 2 * e_cov
+                   + 2 * (n_rows + 1) + e_cov) + e_cov * kf)
+    k3 = out["edge_program_lean_keep_bwd"] = {
+        "name": "edge_program_lean_keep_bwd", "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES["edge_program_lean_bwd"],
+        "max_abs_err": max(e["max_abs_err"] for e in errs), "ms": ms, "plain_ms": plain_ms,
+        **bound(nbytes, 6 * n_rows * f * kf + 10 * e_cov * kf), "library_ms": None,
+        "keep_free_ms": free_ms,
+        "gather_bound_ms": 4 * e_cov * (kf + f + 2 * kf) / PEAK_BYTES_PER_S * 1e3,
+        "keep_reads_bound_ms": 2 * e_cov * kf / PEAK_BYTES_PER_S * 1e3, "shape": shape}
+    ct3 = bwd_args[-1]
+    k3["dst_pass_ms"] = device_ms(lambda: fused_mma._lean_bwd_dst_pass(
+        c, ct3, pat, d_tab, h, src, rp, keep=keep, scale=scale))
+    k3["src_pass_ms"] = device_ms(lambda: fused_mma._lean_bwd_src_pass(
+        c, ct3, pat, d_tab, h, dst_csc, cp, keep=keep, src_perm=src_perm, scale=scale))
+    print(f"edge_program_lean_keep_bwd: ms {ms:.4f} (without the keep {free_ms:.4f}, in turns) "
+          f"plain_ms {plain_ms:.4f} bound_ms {k3['bound_ms']:.4f} ({k3['bound_by']}); dst pass "
+          f"{k3['dst_pass_ms']:.4f} ms, src pass {k3['src_pass_ms']:.4f} ms; the keep's two "
+          f"reads alone {k3['keep_reads_bound_ms']:.4f} ms; dc, dW_bot and dh bitwise equal run "
+          "to run")
+    return out
 
 
 # The bf16 ZINC predictions against the f32 ones (the same weights and
@@ -1191,7 +1307,7 @@ def run_zinc_bf16(dev, paths: dict, ctx: dict) -> dict:
 
     def record(name, err, run16, run32, plain, nbytes, flops, library_ms, shape, f32_name,
                source=MINMAX_SOURCE):
-        ms, f32_ms = bf16_turns(run32, run16)
+        ms, f32_ms = device_turns(run32, run16)
         plain_ms = device_ms(plain, iters=10)
         kernels[name] = {
             "name": name, "route": "cuda", "source": source, "replaces": REPLACES[f32_name],
@@ -1345,10 +1461,12 @@ SAMPLED_PHASES = (
     ("sampled-train-lean-bf16", BF16 + ["--dropout", "0"], 5),
     ("sampled-train-ell-bf16", BF16 + ["--use-ell"], 5),
 )
-# Kernel calls per train step on each route. Half-fused (mask dropout on, the
-# CSR): kernel 1 x3 forward (two binary_spmm, the message sum) and x5
-# backward (two binary_spmm, the gathers of c by dst and of d and h by src).
-# Lean (dropout 0): kernel 1 x2 and kernel 2 forward, kernel 1 x2 and
+# Kernel calls per train step on each route. Lean with the keep (mask
+# dropout on, the CSR): kernel 1 x2 and kernel 2 with the keep forward,
+# kernel 1 x2 and kernel 3 with the keep backward. Half-fused (mask dropout
+# on in bf16): kernel 1 x3 forward (two binary_spmm, the message sum) and
+# x5 backward (two binary_spmm, the gathers of c by dst and of d and h by
+# src). Lean (dropout 0): kernel 1 x2 and kernel 2 forward, kernel 1 x2 and
 # kernel 3 backward. ELL (mask dropout on, hopped layout): kernel 1 x2
 # forward (binary_spmm; the slot sums are plain) and x3 backward (binary_spmm,
 # the [d ‖ h] slot gather's VJP over the CSC). In bf16 the calls on bf16
@@ -1356,10 +1474,12 @@ SAMPLED_PHASES = (
 # VJPs of the bf16 gathers and slot gather, kernels 2 and 3; the two
 # binary_spmm backward calls sum float32 cotangents.
 SAMPLED_PER_STEP = {
-    "sampled-train": {"segment_sum": 8},
+    "sampled-train": {"segment_sum": 4, "edge_program_lean_keep": 1,
+                      "edge_program_lean_keep_bwd": 1},
     "sampled-train-lean": {"segment_sum": 4, "edge_program_lean": 1, "edge_program_lean_bwd": 1},
     "sampled-train-ell": {"segment_sum": 5},
-    "sampled-train-hostbuilt": {"segment_sum": 8},
+    "sampled-train-hostbuilt": {"segment_sum": 4, "edge_program_lean_keep": 1,
+                                "edge_program_lean_keep_bwd": 1},
     "sampled-train-bf16": {"segment_sum_bf16": 6, "segment_sum": 2},
     "sampled-train-lean-bf16": {"segment_sum_bf16": 2, "segment_sum": 2,
                                 "edge_program_lean_bf16": 1, "edge_program_lean_bwd_bf16": 1},
@@ -1484,7 +1604,7 @@ def run_sampled(dev, paths: dict) -> None:
     model_do = runs["sampled-train"]["model"]
     model_lean = runs["sampled-train-lean"]["model"]
     model_do16 = runs["sampled-train-bf16"]["model"]
-    routes = {"half-fused": (model_do, batches[False]), "lean": (model_lean, batches[False]),
+    routes = {"lean-keep": (model_do, batches[False]), "lean": (model_lean, batches[False]),
               "ell": (model_do, batches[True]),
               "half-fused-bf16": (model_do16, batches[False]),
               "lean-bf16": (runs["sampled-train-lean-bf16"]["model"], batches[False]),
@@ -1885,7 +2005,7 @@ def bf16_kernel_entries(dev, big, x_big, big_model, classes, mw0, train16, label
         err = compare(got, fused_mma.segment_sum_reference(data, rp, index), 1e-5,
                       f"segment_sum_csr bf16 {what} vs plain")
         data32 = data.float()
-        ms, f32_ms = bf16_turns(lambda: fused_mma.segment_sum_csr(data32, rp, index),
+        ms, f32_ms = device_turns(lambda: fused_mma.segment_sum_csr(data32, rp, index),
                                 lambda: fused_mma.segment_sum_csr(data, rp, index))
         plain_ms = device_ms(lambda: fused_mma.segment_sum_reference(data, rp, index), iters=10)
         # Bytes: the bf16 rows (the node table when indexed, the edge rows
@@ -1931,7 +2051,7 @@ def bf16_kernel_entries(dev, big, x_big, big_model, classes, mw0, train16, label
         raise AssertionError("edge_program_lean_fwd bf16 differs run to run")
     err = compare(got, fused_mma.edge_program_lean_reference(*fwd_args), 1e-5,
                   "edge_program_lean_fwd bf16 vs plain")
-    ms, f32_ms = bf16_turns(lambda: fused_mma.edge_program_lean(c, w_bot, h32, pat, src, rp, cp,
+    ms, f32_ms = device_turns(lambda: fused_mma.edge_program_lean(c, w_bot, h32, pat, src, rp, cp,
                                                                dst_csc),
                             lambda: fused_mma.edge_program_lean(*fwd_args, cp, dst_csc))
     plain_ms = device_ms(lambda: fused_mma.edge_program_lean_reference(*fwd_args), iters=5)
@@ -1949,9 +2069,9 @@ def bf16_kernel_entries(dev, big, x_big, big_model, classes, mw0, train16, label
     d_tab = fused_mma._lean_node_pass(h, w_bot)
     if not torch.equal(d_tab, fused_mma._node_product(h, w_bot)):
         raise AssertionError("edge_program_lean_fwd bf16 node pass differs from the plain D")
-    k2["node_pass_ms"], k2["f32_node_pass_ms"] = bf16_turns(
+    k2["node_pass_ms"], k2["f32_node_pass_ms"] = device_turns(
         lambda: fused_mma._lean_node_pass(h32, w_bot), lambda: fused_mma._lean_node_pass(h, w_bot))
-    k2["edge_pass_ms"], k2["f32_edge_pass_ms"] = bf16_turns(
+    k2["edge_pass_ms"], k2["f32_edge_pass_ms"] = device_turns(
         lambda: fused_mma._lean_edge_pass(c, pat, d_tab, h32, src, rp),
         lambda: fused_mma._lean_edge_pass(c, pat, d_tab, h, src, rp))
     print(f"edge_program_lean_fwd bf16: ms {ms:.4f} (f32 {f32_ms:.4f}, in turns) plain_ms "
@@ -1969,7 +2089,7 @@ def bf16_kernel_entries(dev, big, x_big, big_model, classes, mw0, train16, label
                                   ("dc", "dW_bot", "dh"))]
     del got
     bwd32 = (c, w_bot, h32) + bwd_args[3:]
-    ms, f32_ms = bf16_turns(lambda: fused_mma.edge_program_lean_bwd(*bwd32),
+    ms, f32_ms = device_turns(lambda: fused_mma.edge_program_lean_bwd(*bwd32),
                             lambda: fused_mma.edge_program_lean_bwd(*bwd_args), iters=15)
     plain_ms = device_ms(lambda: fused_mma.edge_program_lean_bwd_reference(*bwd_args), iters=5)
     # Bytes: as the f32 kernel's (c, ct, dc; W_bot in and dW_bot out; the
@@ -1995,7 +2115,7 @@ def bf16_kernel_entries(dev, big, x_big, big_model, classes, mw0, train16, label
              lambda: fused_mma._lean_bwd_src_pass(c, ct3, pat, d_tab, h, dst_csc, cp)),
             ("node_pass", lambda: fused_mma._lean_bwd_node_pass(ddg, h32, w_bot),
              lambda: fused_mma._lean_bwd_node_pass(ddg, h, w_bot))):
-        k3[f"{part}_ms"], k3[f"f32_{part}_ms"] = bf16_turns(run32, run16, iters=15)
+        k3[f"{part}_ms"], k3[f"f32_{part}_ms"] = device_turns(run32, run16, iters=15)
     print(f"edge_program_lean_bwd bf16: ms {ms:.4f} (f32 {f32_ms:.4f}, in turns) plain_ms "
           f"{plain_ms:.4f} bound_ms {k3['bound_ms']:.4f} ({k3['bound_by']}); parts: dst pass "
           f"{k3['dst_pass_ms']:.4f} (f32 {k3['f32_dst_pass_ms']:.4f}), src pass "
@@ -2041,7 +2161,7 @@ def wide_bf16_kernel_entries(dev, big, wide_run, masked16_in, pat) -> dict:
         want = plain()
         want = want if isinstance(want, tuple) else (want,)
         errs = [compare(g_, w_, 1e-5, f"{name} {o} vs plain") for g_, w_, o in zip(got, want, outs)]
-        ms, f32_ms = bf16_turns(run32, run16, iters=iters)
+        ms, f32_ms = device_turns(run32, run16, iters=iters)
         plain_ms = device_ms(plain, iters=5)
         e = out[name] = {
             "name": name, "route": "cuda", "source": SOURCE,
@@ -2074,7 +2194,7 @@ def wide_bf16_kernel_entries(dev, big, wide_run, masked16_in, pat) -> dict:
           small + 4 * 3 * n * kf + payload_bytes, 8 * e_cov * kf, 2 * e_cov * (kf + f), shape,
           iters=15)
     k10 = out["edge_program_bwd_bf16"]
-    k10["ms_without_payload"], k10["f32_ms_without_payload"] = bf16_turns(
+    k10["ms_without_payload"], k10["f32_ms_without_payload"] = device_turns(
         lambda: fused_mma.edge_program_bwd(*fwd32, ct, emit_payload=False),
         lambda: fused_mma.edge_program_bwd(*fwd16, ct, emit_payload=False), iters=15)
     k10["bound_without_payload"] = bound(small + 4 * 3 * n * kf, 6 * e_cov * kf)
@@ -2119,7 +2239,7 @@ def wide_bf16_kernel_entries(dev, big, wide_run, masked16_in, pat) -> dict:
     top = int(torch.argmax(deg))
     one_row = row_ptr[top:top + 2].contiguous()
     k12 = out["masked_segment_sum_bf16"]
-    k12["heaviest_row_ms"], k12["f32_heaviest_row_ms"] = bf16_turns(
+    k12["heaviest_row_ms"], k12["f32_heaviest_row_ms"] = device_turns(
         lambda: fused_mma.masked_segment_sum(l32, h32s, pat, one_row),
         lambda: fused_mma.masked_segment_sum(logits, h_src, pat, one_row))
     print(f"masked_segment_sum_bf16: the heaviest row alone ({int(deg[top])} edges) "
@@ -2202,10 +2322,12 @@ def run_resume_and_serving(dev, paths: dict, ctx: dict) -> None:
           f"{resumed['acc_test']:.4f}); runs {', '.join(f'{k} {v[1]:.3f} s' for k, v in run_s.items())}"
           f"; {len(io_ms['save'])} saves, median {statistics.median(io_ms['save']):.3f} ms; "
           f"{len(io_ms['restore'])} restore, {io_ms['restore'][0]:.3f} ms (host clock)")
-    # 400 epochs over 3 runs, as cora-train counts them (kernel 1 ten times
-    # and kernel 2 once an epoch, one more eval forward a run).
-    expect_launches(paths, "cora-train-resume", segment_sum=400 * 10 + 3 * 2,
-                    edge_program_lean=400 + 3)
+    # 400 epochs over 3 runs, as cora-train counts them (kernel 1 six times,
+    # kernel 2 once and kernels 2-3 with the keep once an epoch, one more
+    # eval forward a run).
+    expect_launches(paths, "cora-train-resume", segment_sum=400 * 6 + 3 * 2,
+                    edge_program_lean=400 + 3, edge_program_lean_keep=400,
+                    edge_program_lean_keep_bwd=400)
     del run_s, straight, first, resumed
 
     # ------------------------------------------ main path: zinc-train-resume
@@ -3298,42 +3420,57 @@ def main() -> int:
           + f"; mean {mean_acc:.4f} (must be >= {CORA_MIN_MEAN_ACC}); median epoch "
           f"{statistics.median(epoch_s) * 1e3:.3f} ms (host clock, train step + eval "
           f"forward + metrics, epochs 2-{cfg0.epochs})")
-    # Per epoch: the train forward runs kernel 1 three times (2 binary_spmm,
-    # the half-fused segment sum) and its backward five times (2
-    # binary_spmm, the gathers of c by dst and of d and h by src); the eval
-    # forward runs kernel 1 twice and kernel 2 once. Each run ends with one
-    # more eval forward. Kernel 3 belongs to the fused route only.
+    # Per epoch: the train forward runs kernel 1 twice (2 binary_spmm) and
+    # kernel 2 with the keep once, its backward kernel 1 twice (2
+    # binary_spmm) and kernel 3 with the keep once; the eval forward runs
+    # kernel 1 twice and kernel 2 once. Each run ends with one more eval
+    # forward. Kernel 3 without a keep belongs to dropout-free training only.
     runs = len(CORA_SEEDS)
     epochs = cfg0.epochs
-    print(f"cora-train: per epoch kernel 1 x10, kernel 2 x1, kernel 3 x0; "
+    print(f"cora-train: per epoch kernel 1 x6, kernel 2 x1, kernels 2 and 3 with the keep x1; "
           f"{runs} runs x {epochs} epochs + {runs} test forwards")
-    expect_launches(paths, "cora-train", segment_sum=runs * (epochs * 10 + 2),
-                    edge_program_lean=runs * (epochs + 1))
+    expect_launches(paths, "cora-train", segment_sum=runs * (epochs * 6 + 2),
+                    edge_program_lean=runs * (epochs + 1),
+                    edge_program_lean_keep=runs * epochs,
+                    edge_program_lean_keep_bwd=runs * epochs)
     if not mean_acc >= CORA_MIN_MEAN_ACC:
         raise AssertionError(f"cora-train: mean test accuracy {mean_acc:.4f} < {CORA_MIN_MEAN_ACC}")
 
-    # One more cora-train step from seed 0's trained state, with the kernels
-    # and then with every kernel plain: a fresh generator of one seed gives
-    # both the same dropout draws, which do not depend on the kernels.
-    steps = []
-    for plain in (False, True):
+    # One more cora-train step from seed 0's trained state on each float32
+    # route of mask dropout, then with every kernel plain: kernels 2-3 with
+    # the keep (the graph's CSC), the half-fused route (the same graph
+    # without its CSC view, kernel 1 x3 forward and x5 backward; the SpMMs
+    # derive the CSC order on the device) and the all-plain step. A fresh
+    # generator of one seed gives all three the same dropout draws, which
+    # depend neither on the kernels nor on the route.
+    cora_routes = {
+        "lean-keep": (cora.graph, {"segment_sum": 4, "edge_program_lean_keep": 1,
+                                   "edge_program_lean_keep_bwd": 1}),
+        "half-fused": (dataclasses.replace(cora.graph, src_perm=None), {"segment_sum": 8}),
+        "plain": (cora.graph, {}),
+    }
+    steps = {}
+    for route, (graph, expected) in cora_routes.items():
         model = copy.deepcopy(results[CORA_SEEDS[0]]["model"])
         opt = make_optimizer(model.parameters(), cfg0.lr, cfg0.weight_decay)
-        before = dict(fused_mma.LAUNCHES)
-        with plain_kernels() if plain else contextlib.nullcontext():
-            loss, _ = node_train_step(model, opt, cora.features, cora.graph,
+        before = launches()
+        with plain_kernels() if route == "plain" else contextlib.nullcontext():
+            loss, _ = node_train_step(model, opt, cora.features, graph,
                                       cora.labels.long(), cora.idx_train.long(),
                                       torch.Generator(device=dev).manual_seed(SEED))
         torch.cuda.synchronize()
-        launched = fused_mma.LAUNCHES["segment_sum"] - before["segment_sum"]
-        if launched != (0 if plain else 8):
-            raise AssertionError(f"cora-train step (plain={plain}): {launched} kernel-1 launches")
-        steps.append((float(loss), {n_: p.grad for n_, p in model.named_parameters()}))
-    (loss_k, grads_k), (loss_p, grads_p) = steps
-    compare(torch.tensor([loss_k]), torch.tensor([loss_p]), 1e-5,
-            "cora-train step loss vs plain on the card")
-    for name, g in grads_k.items():
-        compare(g, grads_p[name], 1e-5, f"cora-train step grad {name} vs plain")
+        launched = {k: v - before[k] for k, v in launches().items() if v != before[k]}
+        if launched != expected:
+            raise AssertionError(f"cora-train step ({route}): launches {launched} != {expected}")
+        steps[route] = (float(loss), {n_: p.grad for n_, p in model.named_parameters()})
+    loss_p, grads_p = steps.pop("plain")
+    for route, (loss_k, grads_k) in steps.items():
+        compare(torch.tensor([loss_k]), torch.tensor([loss_p]), 1e-5,
+                f"cora-train step ({route}) loss vs plain on the card")
+        for name, g in grads_k.items():
+            compare(g, grads_p[name], 1e-5, f"cora-train step ({route}) grad {name} vs plain")
+    print("cora-train step: the keep-aware and the half-fused route each against the all-plain "
+          f"step, launches {', '.join(f'{r} {e}' for r, (_, e) in cora_routes.items())}")
     del steps, grads_k, grads_p
 
     # ------------------------------------------------ main path: large-train
@@ -3959,6 +4096,7 @@ def main() -> int:
             compare(g, w, 1e-5, f"edge_program_lean_bwd Cora {name} vs plain")
         k3["cora_ms"] = device_ms(lambda: fused_mma.edge_program_lean_bwd(*cora_bwd))
         print(f"edge_program_lean_bwd Cora: ms {k3['cora_ms']:.4f}")
+        kernels.update(keep_kernel_entries(dev, big, x_big, train_model, labels, idx_train))
 
         # Kernels 9-11 and kernel 1 at the payload's width on the large-wide
         # path's own tensors: the arguments of its edge program and the

@@ -387,7 +387,11 @@ __device__ __forceinline__ void zero_empty_rows(const int32_t* __restrict__ row_
 //                       once per row (no_slot() past the row's end);
 //   Edge load(r, cv, slot): the loads of data row r, issued for several
 //                       edges before any of them is added (none(): no edge);
-//   add(acc, edge, slot): the edge's message added into acc[0 .. kSums);
+//   kKeyed: whether the message also reads an operand of the edge itself
+//                       (mask dropout's keep). If so, chunk_pass calls
+//                       load(r, e, cv, slot) with the edge's position e;
+//   add(acc, edge, slot): the edge's message added into acc[0 .. kSums)
+//                       (static, or a member that reads the message);
 //   kEmits: whether the message also writes a row per edge. If so,
 //                       chunk_pass calls emit(acc, edges, slots, e, ...) in
 //                       place of add for each edge it loads, with the edge's
@@ -402,7 +406,8 @@ __device__ __forceinline__ void zero_empty_rows(const int32_t* __restrict__ row_
 // and in_flight<TILES>(), the edges whose loads a lane issues before it
 // adds them. RowsOf is kernel 1's (the data row itself); LeanMessage,
 // kernels 2 and 9's, LeanDcMessage, kernels 3 and 10's, LeanSrcMessage,
-// kernel 3's, LeanDcPayloadMessage, kernel 10's with its per-edge
+// kernel 3's, the three Lean*KeepMessage, kernels 2 and 3's with mask
+// dropout's keep, LeanDcPayloadMessage, kernel 10's with its per-edge
 // payload, LeanSrcFoldMessage, kernel 11's, and MaskedMessage, kernel
 // 12's, are below with those kernels.
 template <int VEC_, typename E = float>
@@ -411,6 +416,7 @@ struct RowsOf {
   static constexpr int kSums = 1;
   static constexpr bool kEmits = false;
   static constexpr bool kFolds = false;
+  static constexpr bool kKeyed = false;
   // About 32 floats in flight a lane.
   template <int TILES>
   __host__ __device__ static constexpr int in_flight() {
@@ -443,6 +449,17 @@ __host__ __device__ __forceinline__ int out_slots(const Msg& msg, int n_vec) {
     return n_vec + msg.f_vec;
   } else {
     return Msg::kSums * n_vec;
+  }
+}
+
+// The loads of edge position e, which reads data row r, for a lane's slot cv.
+template <class Msg>
+__device__ __forceinline__ typename Msg::Edge load_edge(const Msg& msg, int64_t r, int64_t e,
+                                                        int cv, const typename Msg::Slot& s) {
+  if constexpr (Msg::kKeyed) {
+    return msg.load(r, e, cv, s);
+  } else {
+    return msg.load(r, cv, s);
   }
 }
 
@@ -559,7 +576,8 @@ __device__ __forceinline__ void chunk_pass(const Msg& msg, const int32_t* __rest
 #pragma unroll
             for (int t = 0; t < TILES; ++t) {
               const int cv = (t0 + t) * lpe + li;
-              v[u][t] = src[u] >= 0 && cv < n_vec ? msg.load(src[u], cv, sl[t]) : Msg::none();
+              v[u][t] = src[u] >= 0 && cv < n_vec ? load_edge(msg, src[u], rs + j + u, cv, sl[t])
+                                                  : Msg::none();
             }
           }
 #pragma unroll
@@ -571,7 +589,7 @@ __device__ __forceinline__ void chunk_pass(const Msg& msg, const int32_t* __rest
               msg.template emit<TILES>(acc, v[u], sl, pos, t0, lpe, li);
             } else {
 #pragma unroll
-              for (int t = 0; t < TILES; ++t) Msg::add(acc[t], v[u][t], sl[t]);
+              for (int t = 0; t < TILES; ++t) msg.add(acc[t], v[u][t], sl[t]);
             }
           }
         }
@@ -633,7 +651,9 @@ __device__ __forceinline__ void chunk_pass(const Msg& msg, const int32_t* __rest
 #pragma unroll
             for (int t = 0; t < TILES; ++t) {
               const int cv = (t0 + t) * lpe + li;
-              v[u][t] = src[u] >= 0 && cv < n_vec ? msg.load(src[u], cv, sl[t]) : Msg::none();
+              v[u][t] = src[u] >= 0 && cv < n_vec
+                            ? load_edge(msg, src[u], e0 + u * groups + g, cv, sl[t])
+                            : Msg::none();
             }
           }
 #pragma unroll
@@ -643,7 +663,7 @@ __device__ __forceinline__ void chunk_pass(const Msg& msg, const int32_t* __rest
               msg.template emit<TILES>(acc, v[u], sl, u < uu && ee < re ? ee : -1, t0, lpe, li);
             } else {
 #pragma unroll
-              for (int t = 0; t < TILES; ++t) Msg::add(acc[t], v[u][t], sl[t]);
+              for (int t = 0; t < TILES; ++t) msg.add(acc[t], v[u][t], sl[t]);
             }
           }
         }
@@ -799,6 +819,14 @@ cudaError_t launch_segment_sum(const void* data, const void* row_ptr, const void
 // from device memory, staged by the node pass and gathered by the edge pass
 // 8 bytes a slot; D, c and S stay f32. Of the 768 B a gathered edge row is
 // only h's 256 B halve (640 B), and h in the bound's bytes 33.6 -> 16.8 MB.
+//
+// Mask dropout (LeanKeepMessage, f32 only): the caller's keep rows (E, K*F)
+// bool are an operand, read at each edge's CSR position as one 32-bit word
+// a slot, in the order the chunks walk the edges; a dropped lane adds
+// nothing, a kept one its mask times 1 / (1 - rate). The keep adds E x K*F
+// bytes (268 MB at synthetic-large, 0.08 ms) to the gathers' 1.61 GB, so
+// the gathers still set the time. The draw is the caller's (torch.rand):
+// no kernel draws.
 // ---------------------------------------------------------------------------
 
 constexpr int kLaneTile = 128;  // output lanes per block (32 lanes x 4)
@@ -938,6 +966,7 @@ struct LeanMessage {
   static constexpr int kSums = 1;
   static constexpr bool kEmits = false;
   static constexpr bool kFolds = false;
+  static constexpr bool kKeyed = false;
   // Two edges' d and h slots in flight (see lean_edge_kernel).
   template <int TILES>
   __host__ __device__ static constexpr int in_flight() {
@@ -982,6 +1011,64 @@ struct LeanMessage {
     acc[0].y = term(acc[0].y, s.c.y, s.p.y, d.y, h.y);
     acc[0].z = term(acc[0].z, s.c.z, s.p.z, d.z, h.z);
     acc[0].w = term(acc[0].w, s.c.w, s.p.w, d.w, h.w);
+  }
+};
+
+// Mask dropout's keep (N2), an operand of kernels 2 and 3: the caller's
+// (E, K*F) bool rows of torch.rand(...) >= rate, one byte a lane (0 or 1),
+// row e for the edge at CSR position e. No kernel draws. A slot's 4 lanes
+// are one aligned 32-bit word, so a lane group reads an edge's K*F bytes
+// in one coalesced pass (128 B at K*F = 128, a quarter of its D row). The
+// forward and the dst pass read row e at the CSR position they walk; the
+// src pass walks the CSC and reads row perm[j] (Graph.src_perm, the CSR
+// edge of CSC position j), a dependent load beside its c and ct gathers. A
+// kept lane's factor is scale = 1 / (1 - rate) (as torch's f32 division by
+// a scalar computes it on the card), a dropped lane's 0.
+struct KeepRows {
+  const uint32_t* words;  // row e's slot cv: words[e * n_vec + cv]
+  const int32_t* perm;    // the row of position e: perm[e], or e when null
+  float scale;
+
+  __device__ uint32_t load(int64_t e, int cv, int n_vec) const {
+    const int64_t row = perm != nullptr ? static_cast<int64_t>(__ldg(perm + e)) : e;
+    return __ldg(words + row * n_vec + cv);
+  }
+  // Lane b (0-3) of a slot's word: scale if kept, 0 if dropped.
+  __device__ float factor(uint32_t w, int b) const {
+    return (w >> (8 * b)) & 0xffu ? scale : 0.f;
+  }
+};
+
+// Kernel 2's edge pass with mask dropout: LeanMessage's loads and the edge's
+// keep word, and the message (keep ? act(c[row] + d[r]) * scale : 0) *
+// h[r, l mod F]. float32 tables only (the bf16 forms keep their route).
+// Bound on this card as LeanMessage: the gathers of D and h rows set the
+// time; the keep adds E x K*F bytes read in CSR order (268 MB at the
+// synthetic-large graph, 0.08 ms at 3.35 TB/s) and one register an edge.
+struct LeanKeepMessage : LeanMessage<Form<float, float, false>> {
+  using Base = LeanMessage<Form<float, float, false>>;
+  static constexpr bool kKeyed = true;
+  struct Edge {
+    Base::Edge tables;
+    uint32_t keep;
+  };
+  KeepRows keep;
+
+  __device__ Edge load(int64_t r, int64_t e, int cv, const Slot& s) const {
+    return {Base::load(r, cv, s), keep.load(e, cv, n_vec)};
+  }
+  __device__ static Edge none() { return {Base::none(), 0u}; }
+  __device__ static float term(float acc, float c, float p, float d, float h, float k) {
+    const float x = c + d;
+    return k != 0.f ? fmaf((p != 0.f ? sigmoidf(x) : x) * k, h, acc) : acc;
+  }
+  __device__ void add(float4 (&acc)[1], const Edge& e, const Slot& s) const {
+    const float4 d = e.tables.d;
+    const float4 h = e.tables.h;
+    acc[0].x = term(acc[0].x, s.c.x, s.p.x, d.x, h.x, keep.factor(e.keep, 0));
+    acc[0].y = term(acc[0].y, s.c.y, s.p.y, d.y, h.y, keep.factor(e.keep, 1));
+    acc[0].z = term(acc[0].z, s.c.z, s.p.z, d.z, h.z, keep.factor(e.keep, 2));
+    acc[0].w = term(acc[0].w, s.c.w, s.p.w, d.w, h.w, keep.factor(e.keep, 3));
   }
 };
 
@@ -1080,6 +1167,15 @@ cudaError_t launch_lean_edges(const Msg& msg, const void* row_ptr, const void* s
 // kernel's one-pass contractions); lean_dh_kernel and sum_slabs_kernel
 // read only f32. dD = sum of the rounded dlog_e, so dW_bot = h^T dD and dD @
 // W_bot^T equal the JAX kernel's per-edge sums of the same rounded values.
+// With mask dropout (f32 only) the dst and src passes take the keep as an
+// operand (LeanDcKeepMessage, LeanSrcKeepMessage): dlog_e and gm_e carry a
+// kept lane's factor 1 / (1 - rate) and a dropped lane's 0. The dst pass
+// reads the keep at the CSR position it walks; the src pass walks the CSC
+// and reads the keep of CSC position j at row src_perm[j], one 128-byte
+// row an edge at K*F = 128, a load that waits on src_perm[j] beside the c
+// and ct gathers. Two keep reads, 537 MB at synthetic-large, beside the
+// passes' 3.76 GB of gathered rows; D, the node pass and the partitions
+// are unchanged, and the backward stores no per-edge tensor.
 // ---------------------------------------------------------------------------
 
 // The dst pass's message: dlog_e on slots of 4 lanes of a K*F row of dc, in
@@ -1092,6 +1188,7 @@ struct LeanDcMessage {
   static constexpr int kSums = 1;
   static constexpr bool kEmits = false;
   static constexpr bool kFolds = false;
+  static constexpr bool kKeyed = false;
   static constexpr int kMinBlocks = 4;  // blocks an SM: 64 registers
   template <int TILES>
   __host__ __device__ static constexpr int in_flight() {
@@ -1142,6 +1239,39 @@ struct LeanDcMessage {
     acc[0].y = term(acc[0].y, s.c.y, s.ct.y, s.p.y, d.y, h.y);
     acc[0].z = term(acc[0].z, s.c.z, s.ct.z, s.p.z, d.z, h.z);
     acc[0].w = term(acc[0].w, s.c.w, s.ct.w, s.p.w, d.w, h.w);
+  }
+};
+
+// Kernel 3's dst pass with mask dropout: LeanDcMessage's loads and the
+// edge's keep word (row e, the CSR position), and dlog_e = ct[i] * h[s] *
+// factor * dmask_e. float32 tables only. Bound as LeanDcMessage, plus the
+// keep's E x K*F bytes in CSR order.
+struct LeanDcKeepMessage : LeanDcMessage<Form<float, float, false>> {
+  using Base = LeanDcMessage<Form<float, float, false>>;
+  static constexpr bool kKeyed = true;
+  struct Edge {
+    Base::Edge tables;
+    uint32_t keep;
+  };
+  KeepRows keep;
+
+  __device__ Edge load(int64_t r, int64_t e, int cv, const Slot& s) const {
+    return {Base::load(r, cv, s), keep.load(e, cv, n_vec)};
+  }
+  __device__ static Edge none() { return {Base::none(), 0u}; }
+  __device__ static float term(float acc, float c, float ct, float p, float d, float h,
+                               float k) {
+    float m, dm;
+    mask_chain(c + d, p, m, dm);
+    return k != 0.f ? acc + ct * h * k * dm : acc;
+  }
+  __device__ void add(float4 (&acc)[1], const Edge& e, const Slot& s) const {
+    const float4 d = e.tables.d;
+    const float4 h = e.tables.h;
+    acc[0].x = term(acc[0].x, s.c.x, s.ct.x, s.p.x, d.x, h.x, keep.factor(e.keep, 0));
+    acc[0].y = term(acc[0].y, s.c.y, s.ct.y, s.p.y, d.y, h.y, keep.factor(e.keep, 1));
+    acc[0].z = term(acc[0].z, s.c.z, s.ct.z, s.p.z, d.z, h.z, keep.factor(e.keep, 2));
+    acc[0].w = term(acc[0].w, s.c.w, s.ct.w, s.p.w, d.w, h.w, keep.factor(e.keep, 3));
   }
 };
 
@@ -1280,6 +1410,7 @@ struct LeanSrcMessage {
   static constexpr int kSums = 2;
   static constexpr bool kEmits = false;
   static constexpr bool kFolds = false;
+  static constexpr bool kKeyed = false;
   static constexpr int kMinBlocks = 3;  // blocks an SM: 80 registers
   template <int TILES>
   __host__ __device__ static constexpr int in_flight() {
@@ -1326,6 +1457,42 @@ struct LeanSrcMessage {
     term(acc[0].y, acc[1].y, e.c.y, e.ct.y, s.p.y, s.d.y, s.h.y);
     term(acc[0].z, acc[1].z, e.c.z, e.ct.z, s.p.z, s.d.z, s.h.z);
     term(acc[0].w, acc[1].w, e.c.w, e.ct.w, s.p.w, s.d.w, s.h.w);
+  }
+};
+
+// Kernel 3's src pass with mask dropout: over the CSC, LeanSrcMessage's c
+// and ct gathers and the keep word of row perm[j] (the CSR edge of CSC
+// position j); dlog_e = ct[i] * h[s] * factor * dmask_e into dD and
+// ct[i] * (mask_e * factor) into G. float32 tables only. Bound as
+// LeanSrcMessage, plus the keep's E x K*F bytes, gathered a row an edge
+// through perm (each row one 128-byte line at K*F = 128).
+struct LeanSrcKeepMessage : LeanSrcMessage<Form<float, float, false>> {
+  using Base = LeanSrcMessage<Form<float, float, false>>;
+  static constexpr bool kKeyed = true;
+  struct Edge {
+    float4 c, ct;
+    uint32_t keep;
+  };
+  KeepRows keep;
+
+  __device__ Edge load(int64_t r, int64_t e, int cv, const Slot&) const {
+    return {__ldg(c + r * n_vec + cv), __ldg(ct + r * n_vec + cv), keep.load(e, cv, n_vec)};
+  }
+  __device__ static Edge none() { return {Vec<4>::zero(), Vec<4>::zero(), 0u}; }
+  __device__ static void term(float& dd, float& g, float c, float ct, float p, float d, float h,
+                              float k) {
+    float m, dm;
+    mask_chain(c + d, p, m, dm);
+    if (k != 0.f) {
+      dd += ct * h * k * dm;
+      g += ct * (m * k);
+    }
+  }
+  __device__ void add(float4 (&acc)[2], const Edge& e, const Slot& s) const {
+    term(acc[0].x, acc[1].x, e.c.x, e.ct.x, s.p.x, s.d.x, s.h.x, keep.factor(e.keep, 0));
+    term(acc[0].y, acc[1].y, e.c.y, e.ct.y, s.p.y, s.d.y, s.h.y, keep.factor(e.keep, 1));
+    term(acc[0].z, acc[1].z, e.c.z, e.ct.z, s.p.z, s.d.z, s.h.z, keep.factor(e.keep, 2));
+    term(acc[0].w, acc[1].w, e.c.w, e.ct.w, s.p.w, s.d.w, s.h.w, keep.factor(e.keep, 3));
   }
 };
 
@@ -1889,6 +2056,7 @@ struct MaskedMessage {
   static constexpr int kSums = 1;
   static constexpr bool kEmits = false;
   static constexpr bool kFolds = false;
+  static constexpr bool kKeyed = false;
   static constexpr int kMinBlocks = MMA_MASKED_MIN_BLOCKS;
   // The same for VEC = 4 at TILES and VEC = 1 at 4 TILES (see above).
   template <int TILES>
@@ -2046,13 +2214,16 @@ int mma_edge_program_lean_node(const void* h, const void* w_bot, void* d, int n_
 // = mma_segment_sum_n_chunks(n_edges). The form (by_form): h_bf16, d_bf16,
 // round = 0, 0, 0 (f32 tables), 1, 0, 1 (kernel 2's bf16 h: each message
 // rounded to bf16) or 1, 1, 0 (kernel 9's bf16 d and h: f32 messages).
-// Requires f % 4 == 0, kf % f == 0, 16-byte aligned c, pat and out, and d
-// and h aligned to 4 of their elements.
+// Unless keep is null, mask dropout (kernel 2's f32 form only): keep
+// (n_edges, kf) bool bytes, row e the keep of CSR position e, and a kept
+// lane's factor keep_scale. Requires f % 4 == 0, kf % f == 0, 16-byte
+// aligned c, pat and out, d and h aligned to 4 of their elements and keep
+// to 4 bytes.
 int mma_edge_program_lean_edges(const void* c, const void* pat, const void* d, const void* h,
                                 const void* src, const void* row_ptr,
                                 void* out, void* part, void* tail_row, int n_rows, int f,
                                 int kf, int n_edges, int h_bf16, int d_bf16, int round,
-                                void* stream) {
+                                const void* keep, float keep_scale, void* stream) {
   if (n_rows <= 0) return static_cast<int>(cudaSuccess);
   const int n_vec = kf / 4;
   const int lpe = lanes_per_edge(n_vec);
@@ -2060,15 +2231,26 @@ int mma_edge_program_lean_edges(const void* c, const void* pat, const void* d, c
   const int chunk = sum_chunk_edges(n_edges);
   const int n_chunks = sum_n_chunks(n_edges);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto launch = [&](auto form) {
-    using Msg = LeanMessage<decltype(form)>;
-    const Msg msg{static_cast<const float4*>(c), static_cast<const float4*>(pat),
-                  static_cast<const typename Msg::DS::Raw*>(d),
-                  static_cast<const typename Msg::HS::Raw*>(h), n_vec, f / 4};
+  auto by_tiles = [&](const auto& msg) {
+    using Msg = std::decay_t<decltype(msg)>;
     return tiles <= 1 ? launch_lean_edges<Msg, 1>(msg, row_ptr, src, out, part, tail_row, n_rows,
                                                   n_vec, lpe, tiles, chunk, n_chunks, s)
                       : launch_lean_edges<Msg, 2>(msg, row_ptr, src, out, part, tail_row, n_rows,
                                                   n_vec, lpe, tiles, chunk, n_chunks, s);
+  };
+  auto launch = [&](auto form) -> cudaError_t {
+    using Fm = decltype(form);
+    using Msg = LeanMessage<Fm>;
+    const Msg msg{static_cast<const float4*>(c), static_cast<const float4*>(pat),
+                  static_cast<const typename Msg::DS::Raw*>(d),
+                  static_cast<const typename Msg::HS::Raw*>(h), n_vec, f / 4};
+    if (keep == nullptr) return by_tiles(msg);
+    if constexpr (std::is_same<Msg, LeanKeepMessage::Base>::value) {
+      return by_tiles(LeanKeepMessage{
+          msg, KeepRows{static_cast<const uint32_t*>(keep), nullptr, keep_scale}});
+    } else {
+      return cudaErrorInvalidValue;  // the keep is kernel 2's f32 form's alone
+    }
   };
   return static_cast<int>(by_form(h_bf16, d_bf16, round, launch));
 }
@@ -2083,14 +2265,15 @@ int mma_edge_program_lean_edges(const void* c, const void* pat, const void* d, c
 // is [dlog_e || sum_k (ct[i] * mask_e)_k] for the positions the CSR covers
 // and 0 for the others. The form as mma_edge_program_lean_edges': 1, 0, 1
 // is kernel 3's bf16 h (ct and each dlog_e rounded to bf16; no payload), 1,
-// 1, 0 kernel 10's bf16 d and h. Requires f % 4 == 0, kf % f == 0, 16-byte
-// aligned c, ct, pat, dc and payload, and d and h aligned to 4 of their
-// elements.
+// 1, 0 kernel 10's bf16 d and h. Unless keep is null, mask dropout as
+// mma_edge_program_lean_edges takes it (kernel 3's f32 form, no payload).
+// Requires f % 4 == 0, kf % f == 0, 16-byte aligned c, ct, pat, dc and
+// payload, d and h aligned to 4 of their elements and keep to 4 bytes.
 int mma_edge_program_lean_bwd_dst(const void* c, const void* ct, const void* pat, const void* d,
                                   const void* h, const void* src, const void* row_ptr, void* dc,
                                   void* payload, void* part, void* tail_row, int n_rows, int f,
                                   int kf, int n_edges, int h_bf16, int d_bf16, int round,
-                                  void* stream) {
+                                  const void* keep, float keep_scale, void* stream) {
   if (n_rows <= 0 && payload == nullptr) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto launch = [&](auto form) -> cudaError_t {
@@ -2099,6 +2282,17 @@ int mma_edge_program_lean_bwd_dst(const void* c, const void* ct, const void* pat
     const Msg msg{static_cast<const float4*>(c),   static_cast<const float4*>(ct),
                   static_cast<const float4*>(pat), static_cast<const typename Msg::DS::Raw*>(d),
                   static_cast<const typename Msg::HS::Raw*>(h), kf / 4, f / 4};
+    if (keep != nullptr) {
+      if constexpr (std::is_same<Msg, LeanDcKeepMessage::Base>::value) {
+        if (payload != nullptr) return cudaErrorInvalidValue;
+        const LeanDcKeepMessage kmsg{
+            msg, KeepRows{static_cast<const uint32_t*>(keep), nullptr, keep_scale}};
+        return launch_lean_bwd_edges(kmsg, row_ptr, src, dc, part, tail_row, n_rows, kf,
+                                     n_edges, s);
+      } else {
+        return cudaErrorInvalidValue;  // the keep is kernel 3's f32 form's alone
+      }
+    }
     if (payload == nullptr) {
       return launch_lean_bwd_edges(msg, row_ptr, src, dc, part, tail_row, n_rows, kf, n_edges,
                                    s);
@@ -2120,21 +2314,36 @@ int mma_edge_program_lean_bwd_dst(const void* c, const void* ct, const void* pat
 // i32, R above every dst_csc; d (n_rows, kf), h (n_rows, f), pat (kf,);
 // col_ptr (n_rows+1,) i32 with col_ptr[n_rows] <= n_edges; scratch part
 // (n_chunks, 2, 2 kf) f32 and tail_row (n_chunks,) i32; h bf16 when h_bf16
-// != 0. Same width and alignment requirements as
-// mma_edge_program_lean_bwd_dst.
+// != 0. Unless keep is null, mask dropout (f32 h only): keep as
+// mma_edge_program_lean_edges takes it, in CSR rows, and keep_perm
+// (n_edges,) i32, the CSR row of each CSC position (Graph.src_perm). Same
+// width and alignment requirements as mma_edge_program_lean_bwd_dst.
 int mma_edge_program_lean_bwd_src(const void* c, const void* ct, const void* pat, const void* d,
                                   const void* h, const void* dst_csc, const void* col_ptr,
                                   void* out, void* part, void* tail_row, int n_rows, int f,
-                                  int kf, int n_edges, int h_bf16, void* stream) {
+                                  int kf, int n_edges, int h_bf16, const void* keep,
+                                  const void* keep_perm, float keep_scale, void* stream) {
   if (n_rows <= 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto launch = [&](auto form) {
     using Msg = LeanSrcMessage<decltype(form)>;
     const Msg msg{static_cast<const float4*>(c),   static_cast<const float4*>(ct),
                   static_cast<const float4*>(pat), static_cast<const float4*>(d),
                   static_cast<const typename Msg::HS::Raw*>(h), kf / 4, f / 4};
     return launch_lean_bwd_edges(msg, col_ptr, dst_csc, out, part, tail_row, n_rows, kf,
-                                 n_edges, static_cast<cudaStream_t>(stream));
+                                 n_edges, s);
   };
+  if (keep != nullptr) {
+    if (h_bf16 || keep_perm == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const LeanSrcKeepMessage msg{
+        {static_cast<const float4*>(c), static_cast<const float4*>(ct),
+         static_cast<const float4*>(pat), static_cast<const float4*>(d),
+         static_cast<const float4*>(h), kf / 4, f / 4},
+        KeepRows{static_cast<const uint32_t*>(keep), static_cast<const int32_t*>(keep_perm),
+                 keep_scale}};
+    return static_cast<int>(
+        launch_lean_bwd_edges(msg, col_ptr, dst_csc, out, part, tail_row, n_rows, kf, n_edges, s));
+  }
   // Kernel 3's forms: f32, or a bf16 h with ct and dlog_e rounded.
   return static_cast<int>(h_bf16 ? launch(Form<bf16, float, true>())
                                  : launch(Form<float, float, false>()));

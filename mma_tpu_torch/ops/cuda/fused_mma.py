@@ -17,6 +17,13 @@ its CSC twin:
   passes summing the messages from ``D`` and ``h``.
   ``LAUNCHES["edge_program_lean"]`` counts calls (``"..._bf16"`` those with
   a bf16 ``h``; the same for kernel 3's ``"edge_program_lean_bwd"``).
+  Mask dropout's keep is an operand of kernels 2 and 3 (float32 only):
+  ``(E, K·F)`` bool, read as it is, one 32-bit word for a slot's 4 lanes,
+  at the CSR position in kernel 2's edge pass and kernel 3's dst pass and
+  through ``src_perm`` in kernel 3's src pass; the gathers of node rows
+  still bound the passes on the card, the keep adding ``E·K·F`` bytes a
+  pass. Those calls count under ``"edge_program_lean_keep"`` and
+  ``"edge_program_lean_keep_bwd"``.
 - Its backward, :func:`edge_program_lean_bwd`, replaces
   ``_program_bwd_lean_kernel``: ``dc``, ``dW_bot`` and ``dh``. Eight
   kernels a call and no per-edge tensor: kernel 2's node pass ``D = h @
@@ -100,7 +107,8 @@ LAUNCHES = {"segment_sum": 0, "edge_program_lean": 0, "edge_program_lean_bwd": 0
             "edge_program_bwd_csc": 0, "masked_segment_sum": 0, "segment_sum_bf16": 0,
             "edge_program_lean_bf16": 0, "edge_program_lean_bwd_bf16": 0,
             "segment_sum_sq_bf16": 0, "edge_program_fwd_bf16": 0, "edge_program_bwd_bf16": 0,
-            "edge_program_bwd_csc_bf16": 0, "masked_segment_sum_bf16": 0}
+            "edge_program_bwd_csc_bf16": 0, "masked_segment_sum_bf16": 0,
+            "edge_program_lean_keep": 0, "edge_program_lean_keep_bwd": 0}
 
 # The wide program's src-keyed backward strategies, as the JAX package's
 # EDGE_BWD_MODE (mma_tpu/ops/pallas/fused_mma.py:47-58): "payload_permute"
@@ -119,6 +127,7 @@ MAX_KF = 512
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _configured = False
 
 
@@ -134,10 +143,10 @@ def _lib() -> ctypes.CDLL:
         lib.mma_segment_sum_csr.restype = _I
         lib.mma_edge_program_lean_node.argtypes = [_P, _P, _P] + [_I] * 4 + [_P]
         lib.mma_edge_program_lean_node.restype = _I
-        lib.mma_edge_program_lean_edges.argtypes = [_P] * 9 + [_I] * 7 + [_P]
+        lib.mma_edge_program_lean_edges.argtypes = [_P] * 9 + [_I] * 7 + [_P, _F, _P]
         lib.mma_edge_program_lean_edges.restype = _I
-        lib.mma_edge_program_lean_bwd_dst.argtypes = [_P] * 11 + [_I] * 7 + [_P]
-        lib.mma_edge_program_lean_bwd_src.argtypes = [_P] * 10 + [_I] * 5 + [_P]
+        lib.mma_edge_program_lean_bwd_dst.argtypes = [_P] * 11 + [_I] * 7 + [_P, _F, _P]
+        lib.mma_edge_program_lean_bwd_src.argtypes = [_P] * 10 + [_I] * 5 + [_P, _P, _F, _P]
         lib.mma_edge_program_lean_bwd_n_slabs.argtypes = [_I] * 3
         lib.mma_edge_program_lean_bwd_node.argtypes = [_P] * 6 + [_I] * 4 + [_P]
         lib.mma_segment_sum_sq_csr.argtypes = [_P, _P, _P, _I, _I, _I, _P]
@@ -372,12 +381,14 @@ def _node_product(h, w_bot):
     return d
 
 
-def _lean_edges(c, w_bot, h, pattern, src, row_ptr):
+def _lean_edges(c, w_bot, h, pattern, src, row_ptr, keep=None, rate=0.0):
     """The per-edge values of kernels 2 and 3's plain versions, over the
     edges the CSR covers: ``(ids, h_src, mask, dmask)`` with each edge's row,
     its float32 source row and the activation and its derivative at ``c[ids]
     + h_src @ W_bot``. A bf16 ``h`` takes ``D`` per node
-    (:func:`_node_product`)."""
+    (:func:`_node_product`). With a ``keep`` (mask dropout, rows by CSR
+    position) both are the half-fused route's ``where(keep, · / (1 - rate),
+    0)``."""
     ids = _row_ids(row_ptr)
     lo, hi = int(row_ptr[0]), int(row_ptr[-1])
     s = src[lo:hi].long()
@@ -388,14 +399,25 @@ def _lean_edges(c, w_bot, h, pattern, src, row_ptr):
         h_src = h[s]  # (E, F)
         d_src = h_src @ w_bot
     mask, dmask = _mask_chain(c[ids] + d_src, pattern)  # (E, K·F)
+    if keep is not None:
+        kept = keep[lo:hi]
+        mask = torch.where(kept, mask / (1.0 - rate), 0.0)
+        dmask = torch.where(kept, dmask / (1.0 - rate), 0.0)
     return ids, h_src, mask, dmask
 
 
-def edge_program_lean_reference(c, w_bot, h, pattern, src, row_ptr):
+def _keep_scale(rate: float) -> float:
+    """A kept lane's factor on the card: ``1 / (1 - rate)`` in float32, the
+    reciprocal that torch's float32 division by a scalar multiplies by there."""
+    return float(torch.tensor(1.0 - rate, dtype=torch.float32).reciprocal())
+
+
+def edge_program_lean_reference(c, w_bot, h, pattern, src, row_ptr, keep=None, rate=0.0):
     """Plain version of :func:`edge_program_lean`: ``(N, K·F)`` float32. With
-    a bf16 ``h`` each message is rounded to bf16 before the float32 sum."""
+    a bf16 ``h`` each message is rounded to bf16 before the float32 sum; with
+    a ``keep`` each mask is dropped or scaled first."""
     f, kf = w_bot.shape
-    ids, h_src, mask, _ = _lean_edges(c, w_bot, h, pattern, src, row_ptr)
+    ids, h_src, mask, _ = _lean_edges(c, w_bot, h, pattern, src, row_ptr, keep, rate)
     msg = mask * h_src.repeat(1, kf // f)
     if h.dtype == torch.bfloat16:
         msg = _round_bf16(msg)
@@ -427,14 +449,16 @@ def _form(h: torch.Tensor, d: torch.Tensor) -> Tuple[int, int, int]:
     return h_bf16, d_bf16, int(h_bf16 and not d_bf16)
 
 
-def _lean_edge_pass(c, pattern, d, h, src, row_ptr):
+def _lean_edge_pass(c, pattern, d, h, src, row_ptr, keep=None, scale=0.0):
     """Kernel 2's edge pass, kernel 1's two launches with the lean message:
     ``S[i] = Σ_{e ∈ row i} act(c[i] + d[src_e]) ⊙ tile(h[src_e], K)`` over
     the CSR ``row_ptr`` (N+1,), with ``c`` (N, K·F) float32 and the node
     tables ``d`` (R, K·F) and ``h`` (R, F) in a form of :func:`_form` (both
     float32, a bf16 ``h`` with each message rounded to bf16, or both bf16),
     as :func:`_edge_program_lean_kernel` and :func:`_check_wide_inputs`
-    check them (``c`` may be a slice of rows of a checked one). The
+    check them (``c`` may be a slice of rows of a checked one). With a
+    ``keep`` (float32 tables only; :func:`_check_keep`) the keep-aware
+    message: a lane's mask times ``scale`` where kept, 0 where dropped. The
     partition, scratch and grid come from ``src.shape`` alone: no host
     sync."""
     n, kf, f = row_ptr.shape[0] - 1, c.shape[1], h.shape[1]
@@ -446,33 +470,60 @@ def _lean_edge_pass(c, pattern, d, h, src, row_ptr):
         err = lib.mma_edge_program_lean_edges(
             c.data_ptr(), pattern.data_ptr(), d.data_ptr(), h.data_ptr(), src.data_ptr(),
             row_ptr.data_ptr(), out.data_ptr(), part.data_ptr(), tail_row.data_ptr(), n, f, kf,
-            n_edges, *_form(h, d), _stream(),
+            n_edges, *_form(h, d), None if keep is None else keep.data_ptr(), scale, _stream(),
         )
     _check_launch(lib, err, "edge_program_lean_fwd edge pass")
     return out
 
 
-def _edge_program_lean_kernel(c, w_bot, h, pattern, src, row_ptr):
-    """Kernel 2 on the card: the node pass, then the edge pass."""
-    key = "edge_program_lean_bf16" if _bf16(h) else "edge_program_lean"
+def _check_keep(name, keep, src, h, kf, src_perm=None):
+    """Mask dropout's operands of kernels 2 and 3: ``keep`` (E, K·F) bool, row
+    ``e`` the keep of CSR position ``e`` (``E = src.shape[0]``), contiguous
+    on a 4-byte boundary (a slot's 4 lanes are one 32-bit word); a float32
+    ``h``; for the backward ``src_perm`` (E,) int32, the CSR position of
+    each CSC position."""
+    extra = {} if src_perm is None else {"src_perm": src_perm}
+    _check_cuda_inputs(name, keep=keep, h=h, **extra)
+    _check_dtype(name, "keep", keep, torch.bool)
+    _check_dtype(name, "h (with a keep)", h, torch.float32)
+    if src_perm is not None:
+        _check_dtype(name, "src_perm", src_perm, torch.int32)
+        if src_perm.shape != src.shape:
+            raise ValueError(f"{name}: src_perm{tuple(src_perm.shape)} != src{tuple(src.shape)}")
+    if keep.shape != (src.shape[0], kf):
+        raise ValueError(f"{name}: keep{tuple(keep.shape)} != {(src.shape[0], kf)}")
+    if keep.data_ptr() % 4:
+        raise ValueError(f"{name}: keep must be 4-byte aligned")
+
+
+def _edge_program_lean_kernel(c, w_bot, h, pattern, src, row_ptr, keep=None, rate=0.0):
+    """Kernel 2 on the card: the node pass, then the edge pass (with mask
+    dropout's ``keep`` the keep-aware one)."""
+    key = ("edge_program_lean_keep" if keep is not None
+           else "edge_program_lean_bf16" if _bf16(h) else "edge_program_lean")
     with trace(f"kernel.{key}"):
         name = "edge_program_lean_fwd"
         _check_program_inputs(name, c, w_bot, h, pattern, src, row_ptr)
         if h.data_ptr() % 16 or pattern.data_ptr() % 16:
             raise ValueError(f"{name}: h and pattern must be 16-byte aligned")
-        out = _lean_edge_pass(c, pattern, _lean_node_pass(h, w_bot), h, src, row_ptr)
+        if keep is not None:
+            _check_keep(name, keep, src, h, w_bot.shape[1])
+        scale = 0.0 if keep is None else _keep_scale(rate)
+        out = _lean_edge_pass(c, pattern, _lean_node_pass(h, w_bot), h, src, row_ptr, keep, scale)
         LAUNCHES[key] += 1
         return out
 
 
-def edge_program_lean_payload_reference(c, w_bot, h, pattern, src, row_ptr, ct):
+def edge_program_lean_payload_reference(c, w_bot, h, pattern, src, row_ptr, ct, keep=None,
+                                        rate=0.0):
     """The JAX kernel's own contract, with explicit per-edge tensors:
     ``(dc, dW_bot, payload)``, the payload ``(E, F)`` being each edge's
     ``Σ_k (ct[i] ⊙ mask_e)_k + dlog_e @ W_botᵀ`` (0 on edges the CSR skips).
-    With a bf16 ``h``, ``ct`` and each ``dlog_e`` are rounded to bf16."""
+    With a bf16 ``h``, ``ct`` and each ``dlog_e`` are rounded to bf16; with a
+    ``keep``, ``mask_e`` and ``dmask_e`` are dropped or scaled."""
     f, kf = w_bot.shape
     bf16 = h.dtype == torch.bfloat16
-    ids, h_src, mask, dmask = _lean_edges(c, w_bot, h, pattern, src, row_ptr)
+    ids, h_src, mask, dmask = _lean_edges(c, w_bot, h, pattern, src, row_ptr, keep, rate)
     lo, hi = int(row_ptr[0]), int(row_ptr[-1])
     ge = (_round_bf16(ct) if bf16 else ct)[ids]
     dlog = ge * h_src.repeat(1, kf // f) * dmask
@@ -486,12 +537,16 @@ def edge_program_lean_payload_reference(c, w_bot, h, pattern, src, row_ptr, ct):
     return dc, dw, payload
 
 
-def edge_program_lean_bwd_reference(c, w_bot, h, pattern, src, row_ptr, col_ptr, dst_csc, ct):
+def edge_program_lean_bwd_reference(c, w_bot, h, pattern, src, row_ptr, col_ptr, dst_csc, ct,
+                                    keep=None, rate=0.0, src_perm=None):
     """Plain version of :func:`edge_program_lean_bwd`: the per-edge form
     (:func:`edge_program_lean_payload_reference`), then its payload summed
-    by source. ``col_ptr`` and ``dst_csc`` are the kernels' (the CSC covers
-    the edges the CSR covers): ``(dc, dW_bot, dh)``."""
-    dc, dw, payload = edge_program_lean_payload_reference(c, w_bot, h, pattern, src, row_ptr, ct)
+    by source: ``(dc, dW_bot, dh)``. It takes the launcher's arguments, so
+    that it can stand in for it, and reads none of its CSC: ``col_ptr``,
+    ``dst_csc`` and ``src_perm`` (the CSC that covers the edges the CSR
+    covers) are the kernel's alone."""
+    dc, dw, payload = edge_program_lean_payload_reference(c, w_bot, h, pattern, src, row_ptr, ct,
+                                                          keep, rate)
     lo, hi = int(row_ptr[0]), int(row_ptr[-1])
     dh = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
     return dc, dw, dh.index_add_(0, src[lo:hi].long(), payload[lo:hi])
@@ -502,7 +557,8 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _lean_bwd_dst_pass(c, ct, pattern, d, h, src, row_ptr, emit_payload=False):
+def _lean_bwd_dst_pass(c, ct, pattern, d, h, src, row_ptr, emit_payload=False, keep=None,
+                       scale=0.0):
     """The dst pass of kernels 3 and 10, kernel 1's two launches with the
     ``dc`` message: ``dc[i] = Σ_{e ∈ row i} dlog_e``, ``dlog_e = ct[i] ⊙
     tile(h[src_e], K) ⊙ dmask(c[i] + d[src_e])``, over the CSR ``row_ptr``
@@ -512,7 +568,9 @@ def _lean_bwd_dst_pass(c, ct, pattern, d, h, src, row_ptr, emit_payload=False):
     ``emit_payload`` the same pass
     also writes kernel 10's payload (E, K·F+F), ``[dlog_e ‖ Σ_k (ct[i] ⊙
     mask_e)_k]`` at each covered edge's position and 0 elsewhere: ``(dc,
-    payload or None)``. No host sync."""
+    payload or None)``. With a ``keep`` (float32 tables, no payload) kernel
+    3's keep-aware message: ``dlog_e`` times ``scale`` where kept, 0 where
+    dropped. No host sync."""
     n, kf, f = row_ptr.shape[0] - 1, c.shape[1], h.shape[1]
     n_edges = src.shape[0]
     lib = _lib()
@@ -525,13 +583,15 @@ def _lean_bwd_dst_pass(c, ct, pattern, d, h, src, row_ptr, emit_payload=False):
             c.data_ptr(), ct.data_ptr(), pattern.data_ptr(), d.data_ptr(), h.data_ptr(),
             src.data_ptr(), row_ptr.data_ptr(), dc.data_ptr(),
             None if payload is None else payload.data_ptr(), part.data_ptr(),
-            tail_row.data_ptr(), n, f, kf, n_edges, *_form(h, d), _stream(),
+            tail_row.data_ptr(), n, f, kf, n_edges, *_form(h, d),
+            None if keep is None else keep.data_ptr(), scale, _stream(),
         )
     _check_launch(lib, err, "edge program dst pass")
     return dc, payload
 
 
-def _lean_bwd_src_pass(c, ct, pattern, d, h, dst_csc, col_ptr, fold=False):
+def _lean_bwd_src_pass(c, ct, pattern, d, h, dst_csc, col_ptr, fold=False, keep=None,
+                       src_perm=None, scale=0.0):
     """The src pass of kernels 3 and 11, kernel 1's two launches with the
     ``[dD ‖ G]`` message over the CSC ``col_ptr`` (N+1,), reading each
     edge's destination through ``dst_csc``: row ``s`` is ``[Σ dlog_e ‖ Σ
@@ -540,7 +600,10 @@ def _lean_bwd_src_pass(c, ct, pattern, d, h, dst_csc, col_ptr, fold=False):
     blocks added as it is stored, (N, K·F+F). ``c``, ``ct`` are float32 node
     tables (R, K·F), ``d`` (N, K·F), ``h`` (N, F): kernel 3's a float32
     ``d`` and a float32 or bf16 ``h``, kernel 11's ``d`` and ``h`` of one
-    dtype. No host sync."""
+    dtype. With a ``keep`` (kernel 3, float32 ``h``) the keep-aware
+    message, which reads CSC position ``j``'s keep at row ``src_perm[j]``:
+    ``dlog_e`` and ``mask_e`` times ``scale`` where kept, 0 where dropped.
+    No host sync."""
     n, kf, f = col_ptr.shape[0] - 1, d.shape[1], h.shape[1]
     width = kf + f if fold else 2 * kf
     lib = _lib()
@@ -553,7 +616,9 @@ def _lean_bwd_src_pass(c, ct, pattern, d, h, dst_csc, col_ptr, fold=False):
         if fold:  # kernel 11: d and h float32 or both bf16
             err = lib.mma_edge_program_bwd_csc(*args, _bf16(h), _stream())
         else:
-            err = lib.mma_edge_program_lean_bwd_src(*args, _bf16(h), _stream())
+            err = lib.mma_edge_program_lean_bwd_src(
+                *args, _bf16(h), None if keep is None else keep.data_ptr(),
+                None if src_perm is None else src_perm.data_ptr(), scale, _stream())
     _check_launch(lib, err, "edge program src pass")
     return out
 
@@ -579,12 +644,19 @@ def _lean_bwd_node_pass(ddg, h, w_bot):
     return dh, dw
 
 
-def _edge_program_lean_bwd_kernel(c, w_bot, h, pattern, src, row_ptr, col_ptr, dst_csc, ct):
-    """Kernel 3 on the card: ``D``, the dst pass, the src pass, the node pass."""
-    key = "edge_program_lean_bwd_bf16" if _bf16(h) else "edge_program_lean_bwd"
+def _edge_program_lean_bwd_kernel(c, w_bot, h, pattern, src, row_ptr, col_ptr, dst_csc, ct,
+                                  keep=None, rate=0.0, src_perm=None):
+    """Kernel 3 on the card: ``D``, the dst pass, the src pass, the node pass
+    (with mask dropout's ``keep`` both edge passes keep-aware)."""
+    key = ("edge_program_lean_keep_bwd" if keep is not None
+           else "edge_program_lean_bwd_bf16" if _bf16(h) else "edge_program_lean_bwd")
     with trace(f"kernel.{key}"):
         name = "edge_program_lean_bwd"
-        n, _, _ = _check_program_inputs(name, c, w_bot, h, pattern, src, row_ptr, ct)
+        n, _, kf = _check_program_inputs(name, c, w_bot, h, pattern, src, row_ptr, ct)
+        if keep is not None:
+            if src_perm is None:
+                raise ValueError(f"{name}: a keep takes the CSC's src_perm")
+            _check_keep(name, keep, src, h, kf, src_perm)
         _check_cuda_inputs(name, c=c, col_ptr=col_ptr, dst_csc=dst_csc)
         for arg, t in (("col_ptr", col_ptr), ("dst_csc", dst_csc)):
             _check_dtype(name, arg, t, torch.int32)
@@ -594,8 +666,10 @@ def _edge_program_lean_bwd_kernel(c, w_bot, h, pattern, src, row_ptr, col_ptr, d
         # The passes read h, the pattern and W_bot in 16-byte pieces.
         h, pattern, w_bot = _aligned(h), _aligned(pattern), _aligned(w_bot)
         d = _lean_node_pass(h, w_bot)
-        dc, _ = _lean_bwd_dst_pass(c, ct, pattern, d, h, src, row_ptr)
-        ddg = _lean_bwd_src_pass(c, ct, pattern, d, h, dst_csc, col_ptr)
+        scale = 0.0 if keep is None else _keep_scale(rate)
+        dc, _ = _lean_bwd_dst_pass(c, ct, pattern, d, h, src, row_ptr, keep=keep, scale=scale)
+        ddg = _lean_bwd_src_pass(c, ct, pattern, d, h, dst_csc, col_ptr, keep=keep,
+                                 src_perm=src_perm, scale=scale)
         dh, dw = _lean_bwd_node_pass(ddg, h, w_bot)
         LAUNCHES[key] += 1
         return dc, dw, dh
@@ -603,7 +677,9 @@ def _edge_program_lean_bwd_kernel(c, w_bot, h, pattern, src, row_ptr, col_ptr, d
 
 def edge_program_lean_bwd(c: torch.Tensor, w_bot: torch.Tensor, h: torch.Tensor,
                           pattern: torch.Tensor, src: torch.Tensor, row_ptr: torch.Tensor,
-                          col_ptr: torch.Tensor, dst_csc: torch.Tensor, ct: torch.Tensor
+                          col_ptr: torch.Tensor, dst_csc: torch.Tensor, ct: torch.Tensor,
+                          keep: Optional[torch.Tensor] = None, rate: float = 0.0,
+                          src_perm: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Backward of :func:`edge_program_lean` for the cotangent ``ct`` (N, K·F).
 
@@ -626,11 +702,17 @@ def edge_program_lean_bwd(c: torch.Tensor, w_bot: torch.Tensor, h: torch.Tensor,
     per-edge tensor is stored: the src-keyed sums come from a pass over the
     CSC and the products from node-level passes. Deterministic: no
     atomics, every partition fixed by E and N.
+
+    Mask dropout, as :func:`edge_program_lean` takes it: ``keep`` (E, K·F)
+    bool and ``rate``, with ``src_perm`` (E,) int32 (``Graph.src_perm``), the
+    CSR position of each CSC position, through which the src pass reads
+    each edge's keep. ``mask_e`` and ``dmask_e`` above are then ``keep_e ?
+    · / (1 - rate) : 0``; ``h`` is float32.
     """
     tensors = (c, w_bot, h, pattern, src, row_ptr, col_ptr, dst_csc, ct)
-    if _on_cpu(*tensors):
-        return edge_program_lean_bwd_reference(*tensors)
-    return _edge_program_lean_bwd_kernel(*tensors)
+    if _on_cpu(*tensors, keep, src_perm):
+        return edge_program_lean_bwd_reference(*tensors, keep, rate, src_perm)
+    return _edge_program_lean_bwd_kernel(*tensors, keep, rate, src_perm)
 
 
 def _edge_program_lean(c, w_bot, h, pattern, src, row_ptr):
@@ -665,9 +747,32 @@ class _EdgeProgramLean(torch.autograd.Function):
                 None, None, None, None, None)
 
 
+class _EdgeProgramLeanKeep(torch.autograd.Function):
+    """Kernels 2-3 with mask dropout's keep: autograd saves the bool keep
+    (E, K·F), and no per-edge float tensor is formed."""
+
+    @staticmethod
+    def forward(ctx, c, w_bot, h, pattern, src, row_ptr, col_ptr, dst_csc, keep, rate, src_perm):
+        ctx.save_for_backward(c, w_bot, h, pattern, src, row_ptr, col_ptr, dst_csc, keep,
+                              src_perm)
+        ctx.rate = rate
+        if _on_cpu(c, w_bot, h, pattern, src, row_ptr, keep):
+            return edge_program_lean_reference(c, w_bot, h, pattern, src, row_ptr, keep, rate)
+        return _edge_program_lean_kernel(c, w_bot, h, pattern, src, row_ptr, keep, rate)
+
+    @staticmethod
+    def backward(ctx, ct):
+        *tensors, keep, src_perm = ctx.saved_tensors
+        dc, dw, dh = edge_program_lean_bwd(*tensors, ct.contiguous(), keep=keep, rate=ctx.rate,
+                                           src_perm=src_perm)
+        return (dc, dw, dh) + (None,) * 8
+
+
 def edge_program_lean(c: torch.Tensor, w_bot: torch.Tensor, h: torch.Tensor,
                       pattern: torch.Tensor, src: torch.Tensor, row_ptr: torch.Tensor,
-                      col_ptr: torch.Tensor, dst_csc: torch.Tensor) -> torch.Tensor:
+                      col_ptr: torch.Tensor, dst_csc: torch.Tensor,
+                      keep: Optional[torch.Tensor] = None, rate: float = 0.0,
+                      src_perm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Lean MMA edge program over the dst-sorted CSR.
 
     ``S[i] = Σ_{e ∈ row i} act(c[i] + h[src_e] @ W_bot) ⊙ tile(h[src_e], K)``
@@ -692,8 +797,24 @@ def edge_program_lean(c: torch.Tensor, w_bot: torch.Tensor, h: torch.Tensor,
     ``dst_csc`` (E,) int32, the destination of each edge in CSC order: the
     CSC that covers the same edges as ``row_ptr`` (``Graph.real_col_ptr``
     and ``Graph.dst_csc`` beside ``Graph.real_row_ptr``).
+
+    Mask dropout (N2) is an operand: ``keep`` (E, K·F) bool, row ``e`` the
+    keep of the edge at CSR position ``e`` (``E = src.shape[0]``; the
+    half-fused route's draw ``torch.rand((E, K·F)) >= rate``), makes each
+    mask ``keep ? act(·) / (1 - rate) : 0``, and the backward reads it
+    through ``src_perm`` (E,) int32 (``Graph.src_perm``) in CSC order. Then
+    ``h`` is float32, and on the card kernels 2-3 read the keep as it is,
+    one 32-bit word for a slot's 4 lanes (counted under
+    ``"edge_program_lean_keep"`` and ``"..._keep_bwd"``); autograd saves
+    the keep in place of per-edge masks and messages. Nothing is drawn here.
     """
-    return _EdgeProgramLean.apply(c, w_bot, h, pattern, src, row_ptr, col_ptr, dst_csc)
+    if keep is None:
+        return _EdgeProgramLean.apply(c, w_bot, h, pattern, src, row_ptr, col_ptr, dst_csc)
+    if src_perm is None or not 0.0 <= rate < 1.0:
+        raise ValueError(f"edge_program_lean: a keep takes src_perm and a rate in [0, 1), "
+                         f"got rate={rate}")
+    return _EdgeProgramLeanKeep.apply(c, w_bot, h, pattern, src, row_ptr, col_ptr, dst_csc,
+                                      keep, rate, src_perm)
 
 
 # ---------------------------------------------------------------- kernel 8

@@ -12,16 +12,24 @@ chooses (``mma_tpu/ops/masked_aggregate.py:236-294``):
   (``mma_tpu_torch.ops.cuda.fused_mma.edge_program_lean``) does the
   per-edge work (``h[src] @ W_bot``, the activation, the product with
   ``tile(h[src], K)`` and the sum over each destination's edges) without
-  storing per-edge tensors, forward and backward.
+  storing per-edge tensors, forward and backward. Mask dropout (N2) is an
+  operand of the same program (**lean, keep-aware**): the keep is drawn as
+  the half-fused route draws it, ``torch.rand((E, K·F), generator) >=
+  rate``, and the kernels read it, so autograd saves one bool (E, K·F)
+  tensor in place of the logits, masks and messages. float32 on one device
+  only: a bf16 ``compute_dtype`` with mask dropout keeps the half-fused
+  route, whose bf16 logits, masks and messages are the JAX package's bf16
+  function, and so does mask dropout on an edge shard (``axis_name``).
 - **Fused wide** (an explicit ``pallas_bwd_mode``): both projections ``c,
   d`` are per-node matmuls, and the wide edge program
   (``mma_tpu_torch.ops.cuda.fused_mma.edge_program``) gathers ``d[src]``
   and ``h[src]`` per edge; ``pallas_bwd_mode`` chooses its src-keyed
   backward (``"payload_permute"`` or ``"csc_gather"``).
-- **Half-fused**: mask dropout (N2) and the ``std``/``moment_3`` combines
-  need the per-edge masks and messages, so they materialise ``(E, K·F)``
-  logits ``c[dst] + d[src]``, mask and messages, and reduce them with
-  kernel 1 over the CSR.
+- **Half-fused**: the ``std``/``moment_3`` combines need the per-edge
+  messages, so they materialise ``(E, K·F)`` logits ``c[dst] + d[src]``,
+  mask and messages, and reduce them with kernel 1 over the CSR; so does
+  mask dropout where the lean program does not run (a bf16 pipeline, an
+  edge shard, an explicit ``pallas_bwd_mode``, a graph without its CSC).
 - **ELL** (graphs with ``Graph.ell_hint``: the sampler's hopped layout,
   every row's in-degree bounded by its bucket's width): one gather of the
   ``[d ‖ h]`` node table per neighbour slot, then masked slot sums in
@@ -34,6 +42,9 @@ chooses (``mma_tpu/ops/masked_aggregate.py:236-294``):
   layout (``Graph.ell_exact``) is ``MultiMaskConv``'s and raises here.
 
 Every route reduces over the real edges only (``Graph.real_row_ptr``).
+Each call counts its route on the innermost open span of the port's
+tracing (``mma.route.<lean|lean_keep|wide|half_fused|ell>``), so a traced
+step shows which program ran.
 
 ``axis_name`` (a mesh axis's process group; ``mma_tpu_torch.parallel``)
 runs the aggregation on an edge shard, as the JAX package does under
@@ -43,7 +54,9 @@ runs the aggregation on an edge shard, as the JAX package does under
 The ELL route is off under an axis (``:243``). The lean and wide routes need
 the graph's CSC view and stay on for a shard that carries one
 (``src_perm``, ``:236-237``); a graph without one takes the half-fused
-route, whose src-keyed backward derives the CSC order on the device.
+route, whose src-keyed backward derives the CSC order on the device. Mask
+dropout on a shard takes the half-fused route too, as the JAX package's
+does (``:237``).
 
 ``compute_dtype=torch.bfloat16`` runs the edge pipeline on bf16 operands,
 as the JAX package's Pallas path does (``mma_tpu/ops/masked_aggregate.py:
@@ -76,7 +89,7 @@ from mma_tpu_torch.ops.cuda.fused_mma import (
 from mma_tpu_torch.ops.ell import EllSpec, ell_gather_nodes_by_src, ell_valid, pad_rows
 from mma_tpu_torch.ops.gather import gather_by_dst, gather_by_src
 from mma_tpu_torch.parallel.collectives import AxisName, psum
-from mma_tpu_torch.utils.profiling import trace
+from mma_tpu_torch.utils.profiling import count, trace
 
 _EPS = 1e-5
 
@@ -222,7 +235,8 @@ def masked_multi_aggregate(
     ``S_k[i] = Σ_{e: dst(e)=i} act_k(logits_k[e]) ⊙ h[src(e)]``, then the
     spec's center combine. Rows of padding nodes are unspecified.
     ``generator`` with a positive ``mask_dropout_rate`` turns on mask
-    dropout, drawn from that generator (it must live on ``h``'s device).
+    dropout, drawn from that generator (it must live on ``h``'s device):
+    one ``(E, K·F)`` draw a call, whichever route runs it.
     ``pallas_bwd_mode`` (``"payload_permute"`` or ``"csc_gather"``) takes
     the wide edge program with that backward where the lean one would run
     (no mask dropout, no ``std``/``moment_3``, no ELL layout); None keeps
@@ -252,30 +266,47 @@ def masked_multi_aggregate(
     # The edge pipeline's operands; the combines below use the float32 h.
     h_c, mw = h.to(compute_dtype), mask_weights.to(compute_dtype)
 
+    # The lean program's calls: a CSC, no moments, no explicit wide backward;
+    # with mask dropout also a float32 pipeline on one device (an edge
+    # shard's dropout keeps the half-fused route).
+    lean = not need_moments and graph.src_perm is not None and pallas_bwd_mode is None
+    keep_ok = compute_dtype == torch.float32 and axis_name is None
     msgs = ell_ctx = None
     if graph.ell_hint is not None and axis_name is None:
+        route = "ell"
         s, s2_ell, cent3 = _ell_masked_aggregate(
             h_c, mw, pat, graph, EllSpec.from_hint(graph.ell_hint),
             generator if dropout_on else None, mask_dropout_rate,
             need_s2=any(sp.combine == "std" for sp in specs))
         ell_ctx = (s2_ell, cent3)
+    elif lean and (not dropout_on or keep_ok):
+        # c = h_c @ W_top is a product in the pipeline's dtype; kernels 2-3
+        # take it and W_bot as float32 copies, and read h_c as it is.
+        w_top = _flat_lanes(mw[:, :f, :])
+        w_bot = _flat_lanes(mw[:, f:, :]).contiguous()
+        c = (h_c @ w_top).float()
+        keep = None
+        if dropout_on:
+            # The half-fused route's draw, shape and place in the order.
+            keep = torch.rand((graph.n_edge, k * f), generator=generator,
+                              device=h.device) >= mask_dropout_rate
+        route = "lean" if keep is None else "lean_keep"
+        s = edge_program_lean(c, w_bot.float(), h_c.contiguous(), pat, graph.src, row_ptr,
+                              graph.real_col_ptr, graph.dst_csc, keep=keep,
+                              rate=mask_dropout_rate, src_perm=graph.src_perm)
     elif dropout_on or need_moments or graph.src_perm is None:
+        route = "half_fused"
         msgs = _edge_messages(h_c, graph, mw, pat, mask_dropout_rate,
                               generator if dropout_on else None)
         s = segment_sum_csr(msgs, row_ptr)
-    elif pallas_bwd_mode is not None:
+    else:
+        route = "wide"
         # c and d are products in the pipeline's dtype; kernels 9-11 take c
         # as float32 and read d and h_c as they are.
         c, d = mma_mask_projections(h_c, mw)
         s = edge_program(c, d, h_c.contiguous(), pat, graph.src, row_ptr, graph.real_col_ptr,
                          graph.src_perm, graph.dst_csc, pallas_bwd_mode)
-    else:
-        # c = h_c @ W_top is a product in the pipeline's dtype; kernels 2-3
-        # take it and W_bot as float32 copies, and read h_c as it is.
-        w_top = _flat_lanes(mw[:, :f, :])
-        w_bot = _flat_lanes(mw[:, f:, :]).contiguous()
-        s = edge_program_lean((h_c @ w_top).float(), w_bot.float(), h_c.contiguous(), pat,
-                              graph.src, row_ptr, graph.real_col_ptr, graph.dst_csc)
+    count(f"mma.route.{route}")
     s = psum(s, axis_name).reshape(n, k, f)
 
     deg = torch.clamp(graph.deg, min=1.0)[:, None]  # (N, 1)

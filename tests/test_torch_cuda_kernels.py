@@ -462,6 +462,195 @@ def test_edge_program_lean_bwd_replays_in_a_cuda_graph(cuda, chunk_graph):
     assert all(torch.equal(a, b) for a, b in zip(captured, eager))
 
 
+# ---------------------------------------- kernels 2-3 with mask dropout's keep
+
+def _csc_perm_of(ptr_np, index_np, n_edges):
+    """``_csc_of`` and the CSR position of each CSC position (``src_perm``),
+    padded to ``n_edges`` positions."""
+    cp, dst_csc = _csc_of(ptr_np, index_np, n_edges)
+    n = len(ptr_np) - 1
+    lo, hi = int(ptr_np[0]), int(ptr_np[-1])
+    rows = np.repeat(np.arange(n), np.diff(ptr_np))
+    perm = np.zeros(n_edges, np.int32)
+    perm[:hi - lo] = lo + np.lexsort((rows, index_np[lo:hi]))
+    return cp, dst_csc, perm
+
+
+def _keep_of(cuda, n_edges, kf, rate, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.rand((n_edges, kf), generator=gen, device=cuda) >= rate
+
+
+def _lean_keep_f64(c, w_bot, h, pattern, src, row_ptr, ct, keep, rate):
+    """Kernels 2-3's formulas with a keep in float64: ``(S, dc, dW_bot, dh)``."""
+    f, kf = w_bot.shape
+    ids = fused_mma._row_ids(row_ptr)
+    lo, hi = int(row_ptr[0]), int(row_ptr[-1])
+    s = src[lo:hi].long()
+    h_src, w = h.double()[s], w_bot.double()
+    mask, dmask = fused_mma._mask_chain(c.double()[ids] + h_src @ w, pattern)
+    factor = torch.where(keep[lo:hi], 1.0 / (1.0 - rate), 0.0).double()
+    mask, dmask = mask * factor, dmask * factor
+    ge = ct.double()[ids]
+    dlog = ge * h_src.repeat(1, kf // f) * dmask
+    zeros = lambda *shape: torch.zeros(shape, dtype=torch.float64, device=c.device)  # noqa: E731
+    dh_e = (ge * mask).reshape(-1, kf // f, f).sum(dim=1) + dlog @ w.t()
+    return (zeros(c.shape[0], kf).index_add_(0, ids, mask * h_src.repeat(1, kf // f)),
+            zeros(c.shape[0], kf).index_add_(0, ids, dlog), h_src.t() @ dlog,
+            zeros(*h.shape).index_add_(0, s, dh_e))
+
+
+@pytest.mark.parametrize("f,kf", [(16, 32), (64, 128), (64, 384), (128, 512)])
+def test_edge_program_lean_keep_chunks_match_plain(cuda, chunk_graph, f, kf):
+    """Kernels 2-3 with a keep against their formulas in float64 within 1e-5
+    over kernel 1's chunk cases (rows split over chunks, on chunk
+    boundaries, empty rows, a slice, nothing covered), the keep read by
+    CSR position in the forward and the dst pass and through ``src_perm``
+    in the src pass; counted under their own keys, bitwise equal run to
+    run."""
+    rs = np.random.RandomState(f + kf + 1)
+    for what, (ptr_np, n_edges) in chunk_graph.items():
+        n = len(ptr_np) - 1
+        src_np = rs.randint(0, n, n_edges).astype(np.int32)
+        cp_np, dst_np, perm_np = _csc_perm_of(ptr_np, src_np, n_edges)
+        rp, src, cp, dst_csc, perm = (torch.from_numpy(a).to(cuda)
+                                      for a in (ptr_np, src_np, cp_np, dst_np, perm_np))
+        c, w_bot, h, pat, _ = _lean_inputs(cuda, rs, n, 1, f, kf)
+        ct = torch.from_numpy(rs.randn(n, kf).astype(np.float32)).to(cuda)
+        keep = _keep_of(cuda, n_edges, kf, 0.75, f + kf)
+        args = (c, w_bot, h, pat, src, rp, cp, dst_csc)
+        kw = dict(keep=keep, rate=0.75, src_perm=perm)
+        before = dict(fused_mma.LAUNCHES)
+        got = (fused_mma.edge_program_lean(*args, **kw),
+               *fused_mma.edge_program_lean_bwd(*args, ct, **kw))
+        torch.cuda.synchronize()
+        for key in ("edge_program_lean_keep", "edge_program_lean_keep_bwd"):
+            assert fused_mma.LAUNCHES[key] == before[key] + 1, what
+        assert fused_mma.LAUNCHES["edge_program_lean"] == before["edge_program_lean"], what
+        want = _lean_keep_f64(c, w_bot, h, pat, src, rp, ct, keep, 0.75)
+        for name, g, w in zip(("S", "dc", "dW_bot", "dh"), got, want):
+            torch.testing.assert_close(g.double(), w, rtol=1e-5,
+                                       atol=1e-5 * w.abs().max().item(), msg=f"{what} {name}")
+        again = (fused_mma.edge_program_lean(*args, **kw),
+                 *fused_mma.edge_program_lean_bwd(*args, ct, **kw))
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), what
+
+
+@pytest.fixture(scope="module")
+def cell_graph(cuda):
+    """The node benchmark's graph shape: synthetic-large, 131,072 nodes
+    (131,080 with padding), 2,097,138 edges (E_pad = 2,097,152)."""
+    from mma_tpu_torch.data.synthetic import synthetic_powerlaw
+
+    g = synthetic_powerlaw(device=cuda)
+    assert g.n_edge == 2_097_152
+    return g
+
+
+@pytest.mark.parametrize("rate", [None, 0.5, 0.75])
+def test_edge_program_lean_keep_matches_plain_at_the_cell_shape(cuda, cell_graph, rate):
+    """At E_pad = 2,097,152, F = 64, K = 2: kernels 2 and 3 with a keep
+    (``rate``), and without one (None, the lean program as before), against
+    their plain versions on the card, forward, ``dc``, ``dW_bot`` and ``dh``
+    within 1e-5 of each one's largest magnitude; bitwise equal run to run."""
+    g = cell_graph
+    f, kf = 64, 128
+    rs = np.random.RandomState(21)
+    c, w_bot, h, pat, _ = _lean_inputs(cuda, rs, g.n_node, 1, f, kf)
+    ct = torch.from_numpy(rs.randn(g.n_node, kf).astype(np.float32)).to(cuda)
+    args = (c, w_bot, h, pat, g.src, g.real_row_ptr, g.real_col_ptr, g.dst_csc)
+    keep = None if rate is None else _keep_of(cuda, g.n_edge, kf, rate, 3)
+    kw = {} if rate is None else dict(keep=keep, rate=rate, src_perm=g.src_perm)
+    key = "edge_program_lean" if rate is None else "edge_program_lean_keep"
+    before = dict(fused_mma.LAUNCHES)
+    got = (fused_mma.edge_program_lean(*args, **kw),
+           *fused_mma.edge_program_lean_bwd(*args, ct, **kw))
+    torch.cuda.synchronize()
+    assert fused_mma.LAUNCHES[key] == before[key] + 1
+    assert fused_mma.LAUNCHES[key + "_bwd"] == before[key + "_bwd"] + 1
+    plain_kw = {} if rate is None else dict(keep=keep, rate=rate)
+    want = (fused_mma.edge_program_lean_reference(*args[:6], **plain_kw),
+            *fused_mma.edge_program_lean_bwd_reference(*args, ct, **plain_kw))
+    for g_, w_ in zip(got, want):
+        _close(g_, w_)
+    again = (fused_mma.edge_program_lean(*args, **kw),
+             *fused_mma.edge_program_lean_bwd(*args, ct, **kw))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_edge_program_lean_keep_replays_in_a_cuda_graph(cuda, chunk_graph):
+    """Kernels 2 and 3 with a keep captured in a CUDA graph and replayed
+    give the eager results: no host sync in either."""
+    rp_np, n_edges = chunk_graph["hub"]
+    rs = np.random.RandomState(14)
+    n = len(rp_np) - 1
+    src_np = rs.randint(0, n, n_edges).astype(np.int32)
+    cp_np, dst_np, perm_np = _csc_perm_of(rp_np, src_np, n_edges)
+    c, w_bot, h, pat, _ = _lean_inputs(cuda, rs, n, 1, 64, 128)
+    ct = torch.from_numpy(rs.randn(n, 128).astype(np.float32)).to(cuda)
+    src, rp, cp, dst_csc, perm = (torch.from_numpy(a).to(cuda)
+                                  for a in (src_np, rp_np, cp_np, dst_np, perm_np))
+    args = (c, w_bot, h, pat, src, rp, cp, dst_csc)
+    kw = dict(keep=_keep_of(cuda, n_edges, 128, 0.5, 9), rate=0.5, src_perm=perm)
+
+    def both():
+        return (fused_mma.edge_program_lean(*args, **kw),
+                *fused_mma.edge_program_lean_bwd(*args, ct, **kw))
+
+    eager = both()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = both()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(captured, eager))
+
+
+def test_node_train_steps_through_lean_keep_match_half_fused_on_card(cuda):
+    """Three ``node_train_step``s at mask dropout 0.75 through kernels 2-3
+    with the keep against the same steps through the half-fused route (the
+    graph without its CSC view, which the spmm derives on the device in the
+    same order), on the same draws: each leaf's parameter change, element
+    by element, within 1e-5 of that leaf's largest change."""
+    import dataclasses
+
+    from mma_tpu_torch import NodeClassifier
+    from mma_tpu_torch.data.synthetic import synthetic_powerlaw
+    from mma_tpu_torch.train.loops import node_train_step
+    from mma_tpu_torch.train.optim import make_optimizer
+
+    g = synthetic_powerlaw(16384, 16, seed=2, device=cuda)
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(g.n_node, 64).astype(np.float32)).to(cuda)
+    labels = torch.from_numpy(rs.randint(0, 7, g.n_node)).to(cuda)
+    idx = torch.arange(8192, device=cuda)
+
+    def changes(graph):
+        model = NodeClassifier(64, 64, 7, ("mean", "mean2"), dropout_rate=0.75, device=cuda,
+                               generator=torch.Generator().manual_seed(0))
+        start = {k: v.clone() for k, v in model.state_dict().items()}
+        opt = make_optimizer(model.parameters(), 1e-3, 3e-4)
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        before = fused_mma.LAUNCHES["edge_program_lean_keep"]
+        for _ in range(3):
+            node_train_step(model, opt, x, graph, labels, idx, gen)
+        torch.cuda.synchronize()
+        return ({k: v - start[k] for k, v in model.state_dict().items()},
+                fused_mma.LAUNCHES["edge_program_lean_keep"] - before)
+
+    got, keep_calls = changes(g)
+    want, half_fused_keep_calls = changes(dataclasses.replace(g, src_perm=None))
+    assert keep_calls == 3 and half_fused_keep_calls == 0
+    for name, w in want.items():
+        worst = (got[name] - w).abs().max().item()
+        assert worst <= 1e-5 * w.abs().max().item(), (name, worst, w.abs().max().item())
+
+
 # ------------------------------------------------------- bf16 variants (1-3)
 
 def _sum_f64(data, row_ptr, index=None):
@@ -675,10 +864,10 @@ def test_autograd_functions_on_card_match_cpu(cuda, graph):
 
 def test_train_step_on_card_matches_cpu(cuda, graph, monkeypatch):
     """One ``node_train_step`` (dropout 0: fused route, kernel 3) on the card
-    against the CPU; a step with mask dropout (half-fused route) launches no
-    kernel 3 and gives the gradients of the same step with every kernel
-    replaced by its plain version on the card (one seed, so the same
-    dropout draws)."""
+    against the CPU; a step with mask dropout (kernels 2-3 with the keep)
+    launches the keep-aware kernels and no plain kernel 3, and gives the
+    gradients of the same step with every kernel replaced by its plain
+    version on the card (one seed, so the same dropout draws)."""
     from mma_tpu_torch import NodeClassifier
     from mma_tpu_torch.train import make_optimizer
     from mma_tpu_torch.train.loops import node_train_step
@@ -711,9 +900,13 @@ def test_train_step_on_card_matches_cpu(cuda, graph, monkeypatch):
     got = dropout_step()
     torch.cuda.synchronize()
     assert fused_mma.LAUNCHES["edge_program_lean_bwd"] == before["edge_program_lean_bwd"]
-    assert fused_mma.LAUNCHES["segment_sum"] == before["segment_sum"] + 8
+    for key in ("edge_program_lean_keep", "edge_program_lean_keep_bwd"):
+        assert fused_mma.LAUNCHES[key] == before[key] + 1
+    assert fused_mma.LAUNCHES["segment_sum"] == before["segment_sum"] + 4  # the two SpMMs
     for name, plain in (("_segment_sum_kernel", fused_mma.segment_sum_reference),
-                        ("_edge_program_lean_kernel", fused_mma.edge_program_lean_reference)):
+                        ("_edge_program_lean_kernel", fused_mma.edge_program_lean_reference),
+                        ("_edge_program_lean_bwd_kernel",
+                         fused_mma.edge_program_lean_bwd_reference)):
         monkeypatch.setattr(fused_mma, name, plain)
     for g, w in zip(got, dropout_step()):
         _close(g, w)

@@ -215,10 +215,13 @@ def test_node_train_step_spans():
         forward = _check_step(root, ["gcn.layer", "mma.layer"])[0]
         mma = _children(forward)[1]
         assert "sync.lane_pattern" in [s.name for s in _children(mma)]
+        # The layer's aggregation counts its route: mask dropout on the lean program.
+        assert mma.counts == {"mma.route.lean_keep": 1}
         assert all(s.root == root.id for s in P.RECORD.spans if s.start_ns >= root.start_ns
                    and s.end_ns <= root.end_ns)
-    # The CPU counts no syncs.
-    assert not any(s.counts for s in P.RECORD.spans)
+    # The CPU counts no syncs, and nothing but the two routes.
+    assert not any("sync" in s.counts for s in P.RECORD.spans)
+    assert [s.name for s in P.RECORD.spans if s.counts] == ["mma.layer", "mma.layer"]
 
 
 def test_zinc_train_step_spans():
