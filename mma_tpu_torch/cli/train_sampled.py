@@ -27,7 +27,13 @@ r``. Rank 0 prints and returns; a world of one computes exactly the
 one-device run.
 
 With ``--features/--labels/--edges`` (npy/npz arrays) it trains on host
-data instead of the synthetic stand-in.
+data instead of the synthetic stand-in. Without ``--features`` the feature
+table is the command line's default stand-in: ``min(n, 65536)`` random
+rows, read by node id modulo the row count (a hashed table, so its gathers
+stay in the card's L2 cache). The benchmark's sampled cell
+(``h100_bench/configs/mma-sampled-products.py``) holds the whole table
+instead, a row for each of ogbn-products' 2,449,029 nodes, and draws its
+batches on the card, as ``--sample-on-card`` does.
 
 ``--compute-dtype`` defaults to ``auto``, as the JAX package's does, and
 ``auto`` resolves to float32 off a TPU (``mma_tpu_torch.autotune``);
@@ -53,6 +59,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from mma_tpu_torch.data.device_sampling import DeviceSampler
 from mma_tpu_torch.data.sampling import NeighborSampler
 from mma_tpu_torch.autotune import resolve_compute_dtype
 from mma_tpu_torch.device import resolve_device
@@ -100,6 +107,10 @@ def build_parser():
                    help="ship whole host-built graphs instead of the default "
                         "minimal-transfer pipeline (src/dst/ids + CSC perm, "
                         "structure derived on the device)")
+    p.add_argument("--sample-on-card", action="store_true",
+                   help="draw the batches on the device (DeviceSampler: the same "
+                        "subgraphs), padded to the structural bounds; not with "
+                        "--use-ell or --host-built")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a GPU) or cpu")
     p.add_argument("--data-parallel", action="store_true",
@@ -185,6 +196,13 @@ def _run(args, dev, rank: int, n_dev: int, mesh):
     n_class = int(labels.max()) + 1
 
     hop_pads, n_node_pad, n_edge_pad = calibrate_pads(sampler, rs, n, args.batch_size)
+    source = sampler
+    if args.sample_on_card:
+        if args.use_ell or args.host_built:
+            raise ValueError("--sample-on-card takes neither --use-ell nor --host-built")
+        source = DeviceSampler(sampler, dev)
+        n_node_pad = -(-sampler._structural_node_bound(args.batch_size) // 4096) * 4096
+        n_edge_pad = -(-sampler._structural_edge_bound(args.batch_size) // 4096) * 4096
     pads = {"hop_node_pads": list(hop_pads), "n_node_pad": n_node_pad, "n_edge_pad": n_edge_pad}
     say(f"calibrated pads: hops {list(hop_pads)}, nodes {n_node_pad}, edges {n_edge_pad}")
     if rank:
@@ -217,7 +235,7 @@ def _run(args, dev, rank: int, n_dev: int, mesh):
     losses, records = [], []
     t0 = t_prev = time.perf_counter()
     for i, (x, g, y, sm) in enumerate(sampled_batch_producer(
-        sampler, seed_batches, assembler, n_node_pad=n_node_pad, n_edge_pad=n_edge_pad,
+        source, seed_batches, assembler, n_node_pad=n_node_pad, n_edge_pad=n_edge_pad,
         hop_node_pads=hop_pads if args.use_ell else None,
         device_finish=not args.host_built,
         deg_table=torch.from_numpy(sampler.true_deg).to(dev), rank=rank,

@@ -12,8 +12,11 @@
 // framework fully functional without the build.
 //
 // The port's own copy of the JAX package's native/graphops.cpp, with the
-// same code: mma_tpu_torch/graph/native.py compiles it with the host g++
-// at first use into mma_tpu_torch/_build/ and binds it.
+// same results, the sampler's per-node draw in a function of its own
+// (sample_node), and one more entry point, mma_sample_picks: the host
+// version of the card's sampler kernel (csrc/sampler.cu).
+// mma_tpu_torch/graph/native.py compiles it with the host g++ at first use
+// into mma_tpu_torch/_build/ and binds it.
 
 #include <algorithm>
 #include <cstdint>
@@ -222,6 +225,42 @@ struct Rng {
   }
 };
 
+// The picks of node u at one hop: up to fanout of its in-edges (all of them
+// when deg <= fanout, else an O(deg) reservoir over the edge positions,
+// deterministic per (rng_seed, node, hop) and thread-count independent),
+// resolved to sources, sorted, with within-node duplicates (multi-edges)
+// dropped, into out; returns how many.
+inline int32_t sample_node(const int64_t* row_ptr, const int32_t* src_sorted,
+                           int32_t u, int32_t fanout, int32_t hop,
+                           uint64_t rng_seed, int32_t* out) {
+  const int64_t lo_e = row_ptr[u], deg = row_ptr[u + 1] - lo_e;
+  int64_t pick[64];  // fanout <= 64 enforced at the wrapper
+  int32_t k;
+  if (deg <= fanout) {
+    k = static_cast<int32_t>(deg);
+    for (int32_t j = 0; j < k; ++j) pick[j] = lo_e + j;
+  } else {
+    Rng rng(rng_seed ^ (static_cast<uint64_t>(u) << 20) ^ hop);
+    k = fanout;
+    for (int32_t j = 0; j < fanout; ++j) pick[j] = lo_e + j;
+    for (int64_t j = fanout; j < deg; ++j) {
+      const uint64_t r = rng.below(static_cast<uint64_t>(j + 1));
+      if (r < static_cast<uint64_t>(fanout))
+        pick[r] = lo_e + j;
+    }
+  }
+  int32_t vals[64];
+  for (int32_t j = 0; j < k; ++j)
+    vals[j] = src_sorted[pick[j]];
+  std::sort(vals, vals + k);
+  int32_t m = 0;
+  for (int32_t j = 0; j < k; ++j) {
+    if (j > 0 && vals[j] == vals[j - 1]) continue;
+    out[m++] = vals[j];
+  }
+  return m;
+}
+
 }  // namespace
 
 extern "C" {
@@ -271,34 +310,12 @@ int64_t mma_sample_layered(
       auto& bd = buf_dst[t];
       bs.reserve(static_cast<size_t>((hi - lo) * fanout));
       bd.reserve(static_cast<size_t>((hi - lo) * fanout));
-      std::vector<int64_t> pick(fanout);
+      int32_t vals[64];  // fanout <= 64 enforced at the wrapper
       for (int64_t i = lo; i < hi; ++i) {
         const int32_t u = frontier[i];
-        const int64_t lo_e = row_ptr[u], deg = row_ptr[u + 1] - lo_e;
         const int32_t du = local_of[u];
-        int32_t k;
-        if (deg <= fanout) {
-          k = static_cast<int32_t>(deg);
-          for (int32_t j = 0; j < k; ++j) pick[j] = lo_e + j;
-        } else {
-          // Reservoir over the node's edge positions: deterministic per
-          // (rng_seed, node, hop), thread-count independent.
-          Rng rng(rng_seed ^ (static_cast<uint64_t>(u) << 20) ^ hop);
-          k = fanout;
-          for (int32_t j = 0; j < fanout; ++j) pick[j] = lo_e + j;
-          for (int64_t j = fanout; j < deg; ++j) {
-            const uint64_t r = rng.below(static_cast<uint64_t>(j + 1));
-            if (r < static_cast<uint64_t>(fanout))
-              pick[r] = lo_e + j;
-          }
-        }
-        // Resolve to sources; drop within-node duplicates (multi-edges).
-        int32_t vals[64];  // fanout <= 64 enforced at the wrapper
-        for (int32_t j = 0; j < k; ++j)
-          vals[j] = src_sorted[pick[j]];
-        std::sort(vals, vals + k);
-        for (int32_t j = 0; j < k; ++j) {
-          if (j > 0 && vals[j] == vals[j - 1]) continue;
+        const int32_t m = sample_node(row_ptr, src_sorted, u, fanout, hop, rng_seed, vals);
+        for (int32_t j = 0; j < m; ++j) {
           bs.push_back(vals[j]);
           bd.push_back(du);
         }
@@ -343,6 +360,24 @@ int64_t mma_sample_layered(
     }
   }
   return n_edges;
+}
+
+// One hop's picks for a frontier, as mma_tpu_torch/csrc/sampler.cu gives
+// them on the card: picks (n_slots, fanout) the sorted distinct sources of
+// each of the first n_frontier slots (sample_node), -1 after them; count
+// (n_slots,).
+void mma_sample_picks(const int64_t* row_ptr, const int32_t* src_sorted,
+                      const int32_t* frontier, int64_t n_frontier, int64_t n_slots,
+                      int32_t fanout, int32_t hop, uint64_t rng_seed,
+                      int32_t* picks, int32_t* count) {
+  for (int64_t i = 0; i < n_slots; ++i) {
+    int32_t* out = picks + i * fanout;
+    const int32_t m = i < n_frontier ? sample_node(row_ptr, src_sorted, frontier[i], fanout,
+                                                   hop, rng_seed, out)
+                                     : 0;
+    count[i] = m;
+    std::fill(out + m, out + fanout, -1);
+  }
 }
 
 }  // extern "C"

@@ -116,6 +116,31 @@ class NeighborSampler:
         self.true_deg = np.diff(self.row_ptr).astype(np.float32)
         return self
 
+    @classmethod
+    def from_csr(cls, row_ptr: np.ndarray, src_sorted: np.ndarray, fanouts: Sequence[int],
+                 seed: int = 0, use_native: bool = True, n_threads: Optional[int] = None, *,
+                 device: DeviceLike = None) -> "NeighborSampler":
+        """Build from a graph already in the sampler's own form, with no sort:
+        ``row_ptr`` ``(N + 1,)`` the CSR offsets by destination and
+        ``src_sorted`` ``(E,)`` the sources in that order, source ascending
+        within a destination (what :meth:`from_host_arrays` leaves after its
+        sort, so that both give the same sampler). For a graph stored sorted:
+        that sort of 122M edges took 15-23 s of one core of an H100 host."""
+        self = cls.__new__(cls)
+        self._common(fanouts, seed, use_native, n_threads, device)
+        self.row_ptr = np.ascontiguousarray(row_ptr, np.int64)
+        self.src_sorted = np.ascontiguousarray(src_sorted, np.int32)
+        self.num_nodes = len(self.row_ptr) - 1
+        counts = np.diff(self.row_ptr)
+        if self.row_ptr[0] != 0 or self.row_ptr[-1] != len(self.src_sorted) or counts.min(
+                initial=0) < 0:
+            raise ValueError("row_ptr must rise from 0 to len(src_sorted)")
+        native._check_ids("from_csr", self.num_nodes, self.src_sorted)
+        self.src = self.src_sorted
+        self.dst = np.repeat(np.arange(self.num_nodes, dtype=np.int32), counts)
+        self.true_deg = counts.astype(np.float32)
+        return self
+
     @staticmethod
     def _concat_ranges(starts: np.ndarray, lengths: np.ndarray) -> np.ndarray:
         """Vectorised ``concat([arange(s, s+l) for s, l in zip(...)])``."""

@@ -89,6 +89,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             i32p, i64p, i32p, i32p,         # out_nodes, hop_counts, src, dst
             c_i64, c_i64,                   # node_cap, edge_cap
         ], c_i64),
+        "mma_sample_picks": ([
+            i64p, i32p, i32p, c_i64, c_i64,  # row_ptr, src_sorted, frontier, n_frontier, n_slots
+            c_i32, c_i32, ctypes.c_uint64,   # fanout, hop, rng_seed
+            i32p, i32p,                      # picks, count
+        ], None),
     }
     for name, (argtypes, restype) in sigs.items():
         fn = getattr(lib, name)
@@ -224,6 +229,31 @@ def sample_layered(row_ptr: np.ndarray, src_sorted: np.ndarray, seeds: np.ndarra
         raise ValueError(f"sample overflowed edge_cap={edge_cap}")
     n_nodes = int(hop_counts.sum())
     return out_nodes[:n_nodes], hop_counts, out_src[:n_edges], out_dst[:n_edges]
+
+
+def sample_picks(row_ptr: np.ndarray, src_sorted: np.ndarray, frontier: np.ndarray,
+                 n_frontier: int, fanout: int, hop: int, rng_seed: int):
+    """One hop of :func:`sample_layered`'s draw (``mma_sample_picks``):
+    ``(picks, count)``, ``picks`` ``(len(frontier), fanout)`` int32 the
+    sorted distinct sources the sampler picks for each of the first
+    ``n_frontier`` nodes, -1 after them, and ``count`` their number; the
+    host version of the card's kernel (``csrc/sampler.cu``). None without
+    the library."""
+    lib = _load()
+    if lib is None:
+        return None
+    if not 1 <= fanout <= MAX_FANOUT:
+        raise ValueError(f"fanout must lie in [1, {MAX_FANOUT}], got {fanout}")
+    row_ptr = np.ascontiguousarray(row_ptr, np.int64)
+    src_sorted = np.ascontiguousarray(src_sorted, np.int32)
+    frontier = np.ascontiguousarray(frontier, np.int32)
+    n_frontier = min(int(n_frontier), len(frontier))
+    _check_ids("sample_picks", len(row_ptr) - 1, frontier[:n_frontier])
+    picks = np.empty((len(frontier), fanout), np.int32)
+    count = np.empty(len(frontier), np.int32)
+    lib.mma_sample_picks(row_ptr, src_sorted, frontier, n_frontier, len(frontier), fanout, hop,
+                         ctypes.c_uint64(rng_seed & (2**64 - 1)), picks, count)
+    return picks, count
 
 
 def partition_ldg(row_ptr: np.ndarray, src_sorted: np.ndarray,

@@ -9,7 +9,9 @@ subgraph.
 
 - :func:`train_sampled`: one device, epochs over the training nodes.
 - :func:`sampled_batch_producer`: the production pipeline. A producer
-  thread samples on the host and copies to the card while the step runs;
+  thread samples on the host and copies to the card while the step runs
+  (or enqueues the same draw on the card:
+  :mod:`mma_tpu_torch.data.device_sampling`);
   feature and label rows are gathered on the card from device-resident
   tables (:class:`DeviceTableAssembler`). It takes ``(n_dev, batch)`` seed
   batches, and rank ``r`` of a data-parallel world consumes row ``r``.
@@ -19,6 +21,18 @@ subgraph.
   pieces, where the JAX package stacks them along a leading device axis.
   Each subgraph is whole and keeps its structure, so the lean, half-fused
   and ELL routes run unsharded on every rank.
+
+While a ``torch.profiler`` records (``mma_tpu_torch.utils.profiling``), a
+step is the span ``step`` with ``step.forward``, ``step.loss``,
+``step.backward`` and ``step.optimizer`` inside, as in
+``train/loops.py::node_train_step``. The producer thread's batch is the
+thread root ``sampled.produce``, with ``sampled.sample`` (counters
+``sampled.edges`` and ``sampled.nodes``: the batch's real edges and nodes;
+for a device sampler its launches, the counts filled in once they land)
+and ``sampled.ship`` (none for a device sampler) inside; the consumer's
+``sampled.wait`` (blocked on the queue), ``sampled.finish`` (the graph's
+structure) and ``sampled.assemble`` (the feature and label gathers) come
+before the step's span.
 
 Randomness: the weights come from a CPU generator seeded with
 ``cfg.seed`` and dropout from one generator on the run's device; the
@@ -32,12 +46,14 @@ import dataclasses
 import queue
 import threading
 import time
-from typing import Iterable, List, Optional, Sequence
+from contextlib import nullcontext
+from typing import Iterable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from mma_tpu_torch.convert import node_classifier_to_numpy
+from mma_tpu_torch.data.device_sampling import DeviceSampler
 from mma_tpu_torch.data.sampling import NeighborSampler
 from mma_tpu_torch.device import DeviceLike, resolve_device
 from mma_tpu_torch.graph.container import Graph
@@ -47,6 +63,7 @@ from mma_tpu_torch.parallel.collectives import psum_grads, psum_no_grad
 from mma_tpu_torch.train.logger import JsonlLogger
 from mma_tpu_torch.train.metrics import accuracy
 from mma_tpu_torch.train.optim import make_optimizer
+from mma_tpu_torch.utils.profiling import count, open_span, trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,12 +95,17 @@ def sampled_train_step(model: NodeClassifier, optimizer: torch.optim.Optimizer,
     """One step on one sampled subgraph: the train-mode forward, the seed
     NLL, the backward and one optimizer update. Returns ``(loss, logp)``,
     detached; ``y`` is int64."""
-    optimizer.zero_grad(set_to_none=True)
-    logp = model(x, graph, training=True, generator=generator)
-    loss = seed_nll(logp, y, seed_mask)
-    loss.backward()
-    optimizer.step()
-    return loss.detach(), logp.detach()
+    with trace("step"):
+        optimizer.zero_grad(set_to_none=True)
+        with trace("step.forward"):
+            logp = model(x, graph, training=True, generator=generator)
+        with trace("step.loss"):
+            loss = seed_nll(logp, y, seed_mask)
+        with trace("step.backward"):
+            loss.backward()
+        with trace("step.optimizer"):
+            optimizer.step()
+        return loss.detach(), logp.detach()
 
 
 def prepare_sampled_arrays(batch, features: np.ndarray, labels: np.ndarray):
@@ -147,13 +169,13 @@ class DeviceTableAssembler:
     whose id is -1 (padding, holes) get zeros. Ids index the tables modulo
     their row count (``max(id, 0) % rows``), as in the JAX package: a
     feature table smaller than the graph (the CLI's hashed ``min(n, 65536)``
-    rows) is read that way."""
+    rows) is read that way. The tables are NumPy arrays or tensors; a
+    tensor already on the device in the table's dtype is held as it is."""
 
-    def __init__(self, features: np.ndarray, labels: np.ndarray, *,
-                 device: DeviceLike = None):
+    def __init__(self, features, labels, *, device: DeviceLike = None):
         dev = resolve_device(device)
-        self.feat_tab = torch.from_numpy(np.ascontiguousarray(features, np.float32)).to(dev)
-        self.lab_tab = torch.from_numpy(np.asarray(labels).astype(np.int64)).to(dev)
+        self.feat_tab = _table(features, torch.float32, dev)
+        self.lab_tab = _table(labels, torch.int64, dev)
 
     def assemble(self, ids: torch.Tensor, num_seeds: int):
         """``(x, y, seed_mask)`` on the tables' device from ``ids`` (N_pad,)
@@ -169,6 +191,12 @@ class DeviceTableAssembler:
         """``(x, y, seed_mask)`` of a :class:`SampledBatch` or :class:`SampledArrays`."""
         ids = torch.from_numpy(np.asarray(batch.node_ids, np.int32)).to(self.feat_tab.device)
         return self.assemble(ids, batch.num_seeds)
+
+
+def _table(a, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.ascontiguousarray(a))
+    return a.to(device=dev, dtype=dtype)
 
 
 def _rank_seeds(seeds_nd, rank: int) -> np.ndarray:
@@ -199,6 +227,19 @@ class _Shipper:
             done.record(self.stream)
         return moved, done
 
+    def side(self):
+        """The copy stream as the current stream (nothing off the card)."""
+        return torch.cuda.stream(self.stream) if self.stream is not None else nullcontext()
+
+    def mark(self):
+        """An event on the copy stream after the work enqueued so far (None
+        off the card)."""
+        if self.stream is None:
+            return None
+        done = torch.cuda.Event()
+        done.record(self.stream)
+        return done
+
     def receive(self, moved: dict, done) -> dict:
         if done is not None:
             cur = torch.cuda.current_stream(self.dev)
@@ -208,7 +249,8 @@ class _Shipper:
         return moved
 
 
-def sampled_batch_producer(sampler: NeighborSampler, seed_batches: Iterable,
+def sampled_batch_producer(sampler: Union[NeighborSampler, DeviceSampler],
+                           seed_batches: Iterable,
                            assembler: DeviceTableAssembler, *, n_node_pad: int,
                            n_edge_pad: int, hop_node_pads: Optional[Sequence[int]] = None,
                            queue_depth: int = 2, device_finish: bool = False,
@@ -236,28 +278,68 @@ def sampled_batch_producer(sampler: NeighborSampler, seed_batches: Iterable,
     ``use_pallas`` has no counterpart: the device chooses the kernels, and
     every subgraph keeps its structure.
 
+    ``sampler`` a :class:`~mma_tpu_torch.data.device_sampling.DeviceSampler`
+    (with ``device_finish=True`` and no ``hop_node_pads``) samples on the
+    card instead: the producer thread enqueues the same draw on the copy
+    stream, nothing is copied but the seeds, and the device derives the
+    CSC view (a stable sort). The host then holds the card back by the
+    launches alone.
+
     An exception in the producer is raised again here, after the batches
     before it; closing the generator early stops the producer.
     """
     dev = assembler.feat_tab.device
     if device_finish and deg_table is None:
         raise ValueError("device_finish needs deg_table")
+    on_device = isinstance(sampler, DeviceSampler)
+    if on_device and (not device_finish or hop_node_pads is not None):
+        raise ValueError("a DeviceSampler needs device_finish=True and no hop_node_pads")
     shipper = _Shipper(dev)
     pads = dict(n_node_pad=n_node_pad, n_edge_pad=n_edge_pad, hop_node_pads=hop_node_pads)
+    # A traced device draw's counts come back without a wait: (its span, the
+    # counts' host copy, the copy's event), filled in once the copy lands.
+    counting = []
+
+    def settle(wait: bool = False):
+        while counting and (wait or counting[0][2] is None or counting[0][2].query()):
+            span, n, ready = counting.pop(0)
+            if ready is not None:
+                ready.synchronize()
+            span.counts["sampled.edges"], span.counts["sampled.nodes"] = int(n[0]), int(n[1])
 
     def make_inputs(seeds_nd):
         seeds = _rank_seeds(seeds_nd, rank)
+        if on_device:
+            with trace("sampled.sample"), shipper.side():
+                ar = sampler.sample_arrays(seeds, n_node_pad=n_node_pad, n_edge_pad=n_edge_pad)
+                done = shipper.mark()
+                span = open_span()
+                if span is not None:  # only while a profiler records
+                    n = torch.stack([ar.num_edges, ar.num_nodes]).to("cpu", non_blocking=True)
+                    counting.append((span, n, shipper.mark()))
+            # Made on the copy stream: the consumer's stream records them all.
+            moved = {"src": ar.src, "dst": ar.dst, "node_ids": ar.node_ids,
+                     "num_edges": ar.num_edges, "num_nodes": ar.num_nodes}
+            return moved, done, (None, ar.num_seeds, None)
         if device_finish:
-            ar = sampler.sample_arrays(seeds, **pads)
-            host = {"src": ar.src, "dst": ar.dst, "node_ids": ar.node_ids,
-                    "src_perm": ar.src_perm}
-            moved, done = shipper.ship({k: torch.from_numpy(v) for k, v in host.items()})
+            with trace("sampled.sample"):
+                ar = sampler.sample_arrays(seeds, **pads)
+                count("sampled.edges", ar.num_edges)
+                count("sampled.nodes", ar.num_nodes)
+            with trace("sampled.ship"):
+                host = {"src": ar.src, "dst": ar.dst, "node_ids": ar.node_ids,
+                        "src_perm": ar.src_perm}
+                moved, done = shipper.ship({k: torch.from_numpy(v) for k, v in host.items()})
             return moved, done, (ar.num_edges, ar.num_seeds, ar.ell_hint)
-        bt = sampler.sample(seeds, device="cpu", **pads)
-        host = {f.name: getattr(bt.graph, f.name) for f in dataclasses.fields(bt.graph)
-                if isinstance(getattr(bt.graph, f.name), torch.Tensor)}
-        host["node_ids"] = torch.from_numpy(bt.node_ids.astype(np.int32))
-        moved, done = shipper.ship(host)
+        with trace("sampled.sample"):
+            bt = sampler.sample(seeds, device="cpu", **pads)
+            count("sampled.edges", int(bt.graph.edge_mask.sum()))
+            count("sampled.nodes", bt.num_nodes)
+        with trace("sampled.ship"):
+            host = {f.name: getattr(bt.graph, f.name) for f in dataclasses.fields(bt.graph)
+                    if isinstance(getattr(bt.graph, f.name), torch.Tensor)}
+            host["node_ids"] = torch.from_numpy(bt.node_ids.astype(np.int32))
+            moved, done = shipper.ship(host)
         return moved, done, (bt.graph, bt.num_seeds)
 
     q: queue.Queue = queue.Queue(maxsize=queue_depth)
@@ -276,31 +358,41 @@ def sampled_batch_producer(sampler: NeighborSampler, seed_batches: Iterable,
     def producer():
         try:
             for seeds_nd in seed_batches:
-                if not put(make_inputs(seeds_nd)):
+                settle()
+                with trace("sampled.produce", thread_root=True):
+                    item = make_inputs(seeds_nd)
+                if not put(item):
                     return
         except Exception as e:  # raised again by the consumer
             err.append(e)
         finally:
-            put(None)
+            try:
+                settle(wait=True)
+            finally:
+                put(None)
 
     th = threading.Thread(target=producer, name="sampled-batch-producer", daemon=True)
     th.start()
     try:
         while True:
-            item = q.get()
+            with trace("sampled.wait"):
+                item = q.get()
             if item is None:
                 break
             moved, done, meta = item
-            t = shipper.receive(moved, done)
-            if device_finish:
-                num_edges, num_seeds, ell_hint = meta
-                graph = finish_graph_on_device(t["src"], t["dst"], t["node_ids"], num_edges,
-                                               deg_table, t["src_perm"], ell_hint=ell_hint)
-            else:
-                host_graph, num_seeds = meta
-                graph = dataclasses.replace(
-                    host_graph, **{k: v for k, v in t.items() if k != "node_ids"})
-            x, y, sm = assembler.assemble(t["node_ids"], num_seeds)
+            with trace("sampled.finish"):
+                t = shipper.receive(moved, done)
+                if device_finish:
+                    num_edges, num_seeds, ell_hint = meta
+                    graph = finish_graph_on_device(
+                        t["src"], t["dst"], t["node_ids"], t.get("num_edges", num_edges),
+                        deg_table, t.get("src_perm"), ell_hint=ell_hint)
+                else:
+                    host_graph, num_seeds = meta
+                    graph = dataclasses.replace(
+                        host_graph, **{k: v for k, v in t.items() if k != "node_ids"})
+            with trace("sampled.assemble"):
+                x, y, sm = assembler.assemble(t["node_ids"], num_seeds)
             yield x, graph, y, sm
     finally:
         stop.set()

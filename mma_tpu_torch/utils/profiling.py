@@ -13,6 +13,13 @@ reference has only wall-clock prints):
   span opened on a thread with no open span of its own (the autograd
   engine's device thread during ``backward``) takes the innermost open
   span of the thread that opened the outermost one as its parent.
+- ``trace(name, thread_root=True)``: an outermost span of its own thread,
+  for work that runs beside the step on a plain thread (the sampled
+  pipeline's producer). A plain thread does not take the profiler's state
+  along, so such a span records while any profiler of the process records
+  (``torch.autograd.profiler._is_profiler_enabled``), and the spans opened
+  inside it on its thread record with it. It joins no other thread's tree
+  and leaves the sync counter alone.
 - ``count(name, n)``: adds ``n`` to counter ``name`` of the innermost open
   span (nothing without one).
 - The sync counter: while an outermost span records on a process that has
@@ -30,8 +37,11 @@ reference has only wall-clock prints):
 Span names are ``<layer>.<part>``: ``step`` (``step.forward``,
 ``step.loss``, ``step.backward``, ``step.optimizer``), ``gcn.layer``,
 ``mma.layer``, ``serve.call`` (``serve.check``, ``serve.inputs``,
-``serve.graph``), ``kernel.<LAUNCHES key>`` and ``sync.<what>`` around each
-call on a step's or a request's path that waits for the card.
+``serve.graph``), ``sampled.produce`` (``sampled.sample``, ``sampled.ship``)
+on the sampled pipeline's producer thread and ``sampled.wait``,
+``sampled.finish``, ``sampled.assemble`` on its consumer,
+``kernel.<LAUNCHES key>`` and ``sync.<what>`` around each call on a step's
+or a request's path that waits for the card.
 """
 
 from __future__ import annotations
@@ -129,6 +139,12 @@ def count(name: str, n: int = 1) -> None:
         span.counts[name] = span.counts.get(name, 0) + n
 
 
+def open_span() -> Optional[SpanRecord]:
+    """The record of the span :func:`count` would count on (None unless one
+    records here): for counts known only after the span has closed."""
+    return _innermost()
+
+
 class _SyncCounter:
     """Counts torch's sync debug warnings on the innermost open span while
     an outermost span is open (see the module docstring)."""
@@ -161,11 +177,12 @@ class _SyncCounter:
 
 
 class _Span:
-    __slots__ = ("name", "rec", "rf", "sync")
+    __slots__ = ("name", "rec", "rf", "sync", "thread_root")
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, thread_root: bool = False):
         self.name = name
         self.sync = None
+        self.thread_root = thread_root
 
     # A span's interval holds its own bookkeeping, so that spans opened one
     # after another cover their parent's interval between them.
@@ -173,11 +190,11 @@ class _Span:
         global _root_stack
         start = time.perf_counter_ns()
         stack = _stack()
-        parent = _innermost()
+        parent = None if self.thread_root else _innermost()
         sid = next(_ids)
         self.rec = SpanRecord(sid, self.name, parent.id if parent else None,
                               parent.root if parent else sid, threading.get_ident(), start)
-        if parent is None:
+        if parent is None and not self.thread_root:
             _root_stack = stack
             self.sync = _SyncCounter()
             self.sync.__enter__()
@@ -197,10 +214,17 @@ class _Span:
         RECORD.add(self.rec)
 
 
-def trace(name: str):
+def trace(name: str, *, thread_root: bool = False):
     """A span named ``name`` (see the module docstring); a context manager
-    that does nothing unless a ``torch.profiler`` is recording."""
-    if not torch.autograd._profiler_enabled():
+    that does nothing unless a ``torch.profiler`` is recording.
+    ``thread_root``: an outermost span of this thread alone, recorded while
+    any profiler of the process records (module docstring)."""
+    if thread_root:
+        if not getattr(torch.autograd.profiler, "_is_profiler_enabled", False):
+            return _OFF
+        return _Span(name, thread_root=True)
+    # A span inside an open thread root records on that root's thread too.
+    if not torch.autograd._profiler_enabled() and not getattr(_local, "stack", None):
         return _OFF
     return _Span(name)
 

@@ -616,8 +616,8 @@ TINY = ["--device", "cpu", "--nodes", "2000", "--avg-deg", "8", "--batch-size", 
         "--steps", "3"]
 
 
-@pytest.mark.parametrize("flags", [[], ["--host-built"], ["--use-ell"]],
-                         ids=["device_finish", "host_built", "use_ell"])
+@pytest.mark.parametrize("flags", [[], ["--host-built"], ["--use-ell"], ["--sample-on-card"]],
+                         ids=["device_finish", "host_built", "use_ell", "sample_on_card"])
 def test_cli_runs_on_the_cpu(flags):
     """``main`` at a tiny size: finite losses, one timing record per step,
     the calibrated pads, and the same sampled edges in every mode (the

@@ -277,7 +277,7 @@ def test_the_readers_on_a_tiny_traced_cpu_run(cell, monkeypatch):
     from h100_bench import core
 
     spec = {m["name"]: m for m in core.benchmark_spec()["per_layer"]}
-    assert all(spec[name]["workloads"] == [cell] for name in READERS[cell])
+    assert all(cell in spec[name]["workloads"] for name in READERS[cell])
     torch.manual_seed(0)
     result, outcome = core.run_cell(cell, 2**31 + 7, 0.1, True, "cpu", overrides=TINY[cell])
     assert result["correct"]
